@@ -1,0 +1,68 @@
+"""Resources: the device and workspace budget every entry point runs with
+(counterpart of ``raft_tpu.core.resources``).
+
+``Resources(device=...)`` defaults to ``"cuda"``.  Reading ``.device``
+on a machine without a CUDA device raises unless the caller asked for the
+CPU, so no entry point quietly falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+
+class Resources:
+    """Device + workspace byte budget used by tiled algorithms to size
+    their tiles (the role of raft's workspace memory resource)."""
+
+    def __init__(
+        self,
+        device: Union[str, torch.device] = "cuda",
+        workspace_limit_bytes: int = 256 * 1024 * 1024,
+    ):
+        self._device = torch.device(device)
+        self.workspace_limit_bytes = int(workspace_limit_bytes)
+
+    @property
+    def device(self) -> torch.device:
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "raft_tpu_torch runs on CUDA by default and no CUDA device "
+                "is available; pass Resources(device='cpu') to run on the CPU"
+            )
+        return self._device
+
+    def workspace_rows(self, row_bytes: int, cap: int = 1 << 16) -> int:
+        """How many rows of ``row_bytes`` fit in the workspace budget."""
+        n = max(1, self.workspace_limit_bytes // max(1, row_bytes))
+        return int(min(n, cap))
+
+
+_default: Optional[Resources] = None
+_default_lock = threading.Lock()
+
+
+def default_resources() -> Resources:
+    """Process-wide default Resources (``cuda``), created on first use."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = Resources()
+        return _default
+
+
+def ensure(res: Optional[Resources]) -> Resources:
+    """Resolve an optional resources argument."""
+    return res if res is not None else default_resources()
+
+
+def as_f32(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as an f32 tensor on ``device`` (no copy when
+    it already is one)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return torch.as_tensor(x).to(device=device, dtype=torch.float32)

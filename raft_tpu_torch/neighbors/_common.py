@@ -1,0 +1,275 @@
+"""Shared helpers of the IVF indexes (counterpart of
+``raft_tpu.neighbors._common``; this slice ports the IVF-Flat subset).
+
+List layout is host numpy metadata, as in raft_tpu; everything that
+touches rows or queries is torch on the index's device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.kernels.toolkit import round_up
+from raft_tpu_torch.ops.matrix import select_k
+
+
+def merge_split_lists(centers: np.ndarray, labels: np.ndarray):
+    """Collapse split shards (bit-identical duplicated centroids) back to
+    their parent list before a re-pack.  Returns (unique_idx — first
+    occurrence of each distinct centroid in original order, new_labels)."""
+    centers = np.asarray(centers)
+    _, first_idx, inverse = np.unique(
+        centers, axis=0, return_index=True, return_inverse=True
+    )
+    order = np.argsort(first_idx)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    unique_idx = first_idx[order]
+    new_labels = rank[np.asarray(inverse).reshape(-1)[np.asarray(labels, np.int64)]]
+    return unique_idx, new_labels.astype(np.int64)
+
+
+def default_max_cap(n_rows: int, n_lists: int) -> int:
+    """Per-list capacity bound: 2x the mean occupancy (1.25x at 5e7+ rows),
+    rounded to 8."""
+    mean = max(1, -(-n_rows // max(1, n_lists)))
+    slack_num, slack_den = (5, 4) if n_rows >= 50_000_000 else (2, 1)
+    return max(32, round_up(slack_num * mean // slack_den, 8))
+
+
+def split_oversized_lists(
+    labels: np.ndarray, n_lists: int, max_cap: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Relabel members of lists larger than ``max_cap`` into sublists
+    appended after the original lists.  Returns (new_labels, center_map)
+    where ``center_map[l]`` is the original list whose centroid list ``l``
+    shares."""
+    labels = np.asarray(labels, np.int64).copy()
+    sizes = np.bincount(labels, minlength=n_lists)
+    center_map = list(range(n_lists))
+    next_id = n_lists
+    for l in np.nonzero(sizes > max_cap)[0]:
+        members = np.nonzero(labels == l)[0]
+        n_parts = -(-len(members) // max_cap)
+        for p in range(1, n_parts):
+            labels[members[p * max_cap:(p + 1) * max_cap]] = next_id
+            center_map.append(int(l))
+            next_id += 1
+    return labels, np.asarray(center_map, np.int64)
+
+
+def subsample_trainset(dataset, n_train: int, seed: int):
+    """No-replacement row subsample drawn with numpy's generator, so the
+    rows are the ones raft_tpu draws for the same seed."""
+    n = dataset.shape[0]
+    idx = np.sort(np.random.default_rng(seed).choice(n, size=n_train, replace=False))
+    if isinstance(dataset, np.ndarray):
+        return dataset[idx]
+    return dataset[torch.from_numpy(idx).to(dataset.device)]
+
+
+def compute_list_layout(
+    labels: np.ndarray,
+    n_lists: int,
+    max_cap: Optional[int] = None,
+    headroom: bool = False,
+):
+    """Per-row (list, slot) placement for the padded list layout.  Returns
+    (lst [n], slot [n], sizes [n_lists'], center_map [n_lists'], cap); cap
+    is the largest list rounded up to 8, plus ~12.5% when ``headroom``,
+    never above ``round_up(max_cap, 8)`` (oversized lists are split)."""
+
+    def with_headroom(base: int) -> int:
+        cap = base + max(8, base // 8) if headroom else base
+        cap = max(8, round_up(cap, 8))
+        if max_cap is not None:
+            cap = min(cap, round_up(max_cap, 8))
+        return max(cap, round_up(max(base, 1), 8))
+
+    labels = np.asarray(labels, np.int64)
+    n = labels.shape[0]
+    if max_cap is not None:
+        labels, center_map = split_oversized_lists(labels, n_lists, max_cap)
+        n_lists = len(center_map)
+    else:
+        center_map = np.arange(n_lists, dtype=np.int64)
+    sizes = np.bincount(labels, minlength=n_lists)
+    cap = with_headroom(int(sizes.max()) if n else 8)
+    order = np.argsort(labels, kind="stable")
+    starts = np.zeros(n_lists + 1, np.int64)
+    np.cumsum(sizes, out=starts[1:])
+    slot = np.empty(n, np.int64)
+    slot[order] = np.arange(n) - starts[labels[order]]
+    return labels, slot, sizes.astype(np.int32), center_map, cap
+
+
+def unpack_lists(list_payload: torch.Tensor, list_index: torch.Tensor):
+    """Inverse of the padded packing → (payload, ids, labels), on the
+    lists' device."""
+    valid = list_index >= 0
+    labels = torch.repeat_interleave(
+        torch.arange(list_index.shape[0], device=list_index.device), valid.sum(1)
+    )
+    return list_payload[valid], list_index[valid], labels
+
+
+def centroid_group_inverse(centers) -> np.ndarray:
+    """Group id per list; split shards of one list share a group."""
+    _, inverse = np.unique(np.asarray(centers), axis=0, return_inverse=True)
+    return np.asarray(inverse).reshape(-1)
+
+
+def allocate_append_slots(centers, list_sizes, cap, labels, group_inverse=None):
+    """(list, slot) for each new row of an in-place append, or None when a
+    centroid group is out of spare capacity (the caller repacks).  Rows
+    whose shard is full overflow into a sibling shard with space.
+    Returns (lists [n], slots [n], counts_new [L]) numpy, or None."""
+    sizes = np.asarray(list_sizes).copy()
+    labels = np.asarray(labels, np.int64)
+    L = np.asarray(centers).shape[0]
+    if labels.size and labels.max() >= L:
+        return None
+    inverse = group_inverse if group_inverse is not None else centroid_group_inverse(centers)
+    group_members: dict = {}
+    for lst, g in enumerate(inverse):
+        group_members.setdefault(int(g), []).append(lst)
+    out_list = np.empty_like(labels)
+    out_slot = np.empty_like(labels)
+    for g in np.unique(inverse[labels]):
+        rows = np.nonzero(inverse[labels] == g)[0]
+        members = group_members[int(g)]
+        if sum(cap - sizes[m] for m in members) < len(rows):
+            return None
+        i = 0
+        for m in members:
+            take = min(cap - sizes[m], len(rows) - i)
+            if take <= 0:
+                continue
+            sel = rows[i:i + take]
+            out_list[sel] = m
+            out_slot[sel] = sizes[m] + np.arange(take)
+            sizes[m] += take
+            i += take
+            if i == len(rows):
+                break
+    return out_list, out_slot, sizes - np.asarray(list_sizes)
+
+
+def coarse_scores(queries: torch.Tensor, centers: torch.Tensor, metric: str) -> torch.Tensor:
+    """[q, n_lists] probe ranking scores (smaller is closer): one
+    ``torch.matmul``, plain XLA in raft_tpu too."""
+    if metric == "cosine":
+        qn = queries / torch.clamp(torch.linalg.vector_norm(queries, dim=1, keepdim=True), min=1e-12)
+        cn = centers / torch.clamp(torch.linalg.vector_norm(centers, dim=1, keepdim=True), min=1e-12)
+        return -torch.matmul(qn, cn.T)
+    if metric == "inner_product":
+        return -torch.matmul(queries, centers.T)
+    cnorm = (centers * centers).sum(dim=1)
+    return cnorm[None, :] - 2.0 * torch.matmul(queries, centers.T)
+
+
+def coarse_select(queries: torch.Tensor, centers: torch.Tensor, metric: str,
+                  n_probes: int) -> torch.Tensor:
+    """Top-``n_probes`` list ids per query [q, n_probes] int32."""
+    _, probes = select_k(coarse_scores(queries, centers, metric), n_probes, select_min=True)
+    return probes
+
+
+def invalid_mask(ids: torch.Tensor, filter_words=None) -> torch.Tensor:
+    """Candidate mask of padding slots (the unfiltered form)."""
+    if filter_words is not None:
+        raise NotImplementedError("filtered IVF search arrives with the filters slice")
+    return ids < 0
+
+
+def invert_probes(probes: torch.Tensor, n_lists: int, bucket: int):
+    """Invert the (query, probe) relation into per-list query buckets.
+    Returns (bucket_list [B] int32, bucket_query [B, G] int32 (-1 padded),
+    bucket_pair [B, G] int32 — each slot's query-major pair index, B) with
+    B = q·p // G + n_lists, raft_tpu's static bound."""
+    q, p = probes.shape
+    G = bucket
+    P = q * p
+    dev = probes.device
+    pair_list = probes.reshape(P).long()
+    pair_query = torch.arange(q, device=dev).repeat_interleave(p)
+    order = torch.argsort(pair_list, stable=True)
+    sl = pair_list[order]
+    sq = pair_query[order]
+    first = torch.searchsorted(sl, sl, side="left")
+    pos = torch.arange(P, device=dev) - first
+    counts = torch.bincount(sl, minlength=n_lists)
+    nb = (counts + G - 1) // G
+    bucket_off = torch.cumsum(nb, 0) - nb
+    pair_bucket = bucket_off[sl] + pos // G
+    slot = pos % G
+    B = P // G + n_lists
+    bucket_list = torch.zeros(B, dtype=torch.int32, device=dev)
+    bucket_list[pair_bucket] = sl.to(torch.int32)
+    bucket_query = torch.full((B, G), -1, dtype=torch.int32, device=dev)
+    bucket_query[pair_bucket, slot] = sq.to(torch.int32)
+    bucket_pair = torch.full((B, G), -1, dtype=torch.int32, device=dev)
+    bucket_pair[pair_bucket, slot] = order.to(torch.int32)
+    return bucket_list, bucket_query, bucket_pair, B
+
+
+def select_scan_strategy(strategy: str, q: int, n_probes: int, n_lists: int,
+                         list_cap: int, row_dim: int, workspace_bytes: int,
+                         k: int = 10):
+    """Resolve the scan schedule + probe-major sizing, as raft_tpu does:
+    probe-major when ``q >= 256`` and ``q·n_probes >= 4·n_lists``.
+    Returns (strategy, bucket, bb, q_tile); bucket/bb/q_tile are None for
+    query_major."""
+    if strategy == "auto":
+        strategy = (
+            "probe_major" if q >= 256 and q * n_probes >= 4 * n_lists
+            else "query_major"
+        )
+    if strategy != "probe_major":
+        return strategy, None, None, None
+    per_q = max(1, n_probes * max(k, 1) * 24)
+    q_tile = int(np.clip(4 * workspace_bytes // per_q, 256, max(q, 256)))
+    reuse = max(1.0, (min(q, q_tile) * n_probes) / max(n_lists, 1))
+    bucket = int(np.clip(1 << int(np.ceil(np.log2(reuse))), 16, 512))
+    per_b = list_cap * (row_dim * 4 + bucket * 8) + bucket * row_dim * 4
+    bb = int(np.clip(workspace_bytes // max(per_b, 1), 1, 64))
+    return strategy, bucket, bb, q_tile
+
+
+def scatter_pair_partials(vs, is_, bucket_pair, q, n_probes, kk):
+    """Per-pair top-kk partials [B·G, kk] back in (query, probe) order:
+    ([q, n_probes·kk] values, ids).  Padding slots carry bucket_pair -1 and
+    are dropped."""
+    P = q * n_probes
+    flat_pair = bucket_pair.reshape(-1).long()
+    dest = torch.where(flat_pair >= 0, flat_pair, torch.full_like(flat_pair, P))
+    pair_v = torch.full((P + 1, kk), float("inf"), dtype=torch.float32, device=vs.device)
+    pair_i = torch.full((P + 1, kk), -1, dtype=torch.int32, device=vs.device)
+    pair_v[dest] = vs
+    pair_i[dest] = is_
+    return pair_v[:P].reshape(q, n_probes * kk), pair_i[:P].reshape(q, n_probes * kk)
+
+
+def merge_probe_major_partials(vs, is_, bucket_pair, q, n_probes, kk, k):
+    """Merge probe-major partials per query: select_k over [q,
+    n_probes·kk] in (query, probe) pair order."""
+    pair_v, pair_i = scatter_pair_partials(vs, is_, bucket_pair, q, n_probes, kk)
+    return select_k(pair_v, k, select_min=True, input_indices=pair_i)
+
+
+def run_query_tiled(run_fn, queries: torch.Tensor, q_tile: int):
+    """Run ``run_fn(query_block) → (v, i)`` over blocks of ``q_tile``
+    queries and concatenate (the tail block is simply shorter: eager
+    PyTorch has no compiled shape to keep)."""
+    n_q = queries.shape[0]
+    if q_tile >= n_q:
+        return run_fn(queries)
+    vs, is_ = [], []
+    for s in range(0, n_q, q_tile):
+        v, i = run_fn(queries[s:s + q_tile])
+        vs.append(v)
+        is_.append(i)
+    return torch.cat(vs), torch.cat(is_)

@@ -1,0 +1,76 @@
+"""Port parity: the fused brute-force kNN plain version and
+``brute_force.knn`` of ``raft_tpu_torch`` against raft_tpu's Pallas kernel
+(interpret mode) and its routed ``brute_force.knn``."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from raft_tpu.kernels.fused_knn import fused_l2_topk as j_fused
+from raft_tpu.neighbors import brute_force as jbf
+from raft_tpu_torch import kernels
+from raft_tpu_torch.core.resources import Resources
+from raft_tpu_torch.kernels.fused_knn import fused_l2_topk, fused_l2_topk_torch
+from raft_tpu_torch.neighbors import brute_force as tbf
+
+from _torch_parity import assert_topk_match
+
+CPU = Resources(device="cpu")
+
+
+def _data(n, d, n_q, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            rng.standard_normal((n_q, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,d,n_q,k", [(1500, 32, 40, 10), (700, 17, 9, 64)])
+@pytest.mark.parametrize("mode", ["l2", "ip"])
+def test_plain_matches_pallas_interpret(n, d, n_q, k, mode):
+    x, q = _data(n, d, n_q, n + d)
+    xx = (x * x).sum(1) if mode == "l2" else np.zeros(n, np.float32)
+    v_ref, i_ref = j_fused(jnp.asarray(q), jnp.asarray(x), jnp.asarray(xx), k,
+                           mode=mode, tile_q=64, tile_n=256, interpret=True)
+    v, i = fused_l2_topk_torch(torch.from_numpy(q), torch.from_numpy(x),
+                               torch.from_numpy(xx), k, mode=mode)
+    assert v.dtype == torch.float32 and i.dtype == torch.int32
+    assert_topk_match(v, i, v_ref, i_ref)
+    # the wrapper takes the plain version for CPU tensors
+    v2, i2 = fused_l2_topk(torch.from_numpy(q), torch.from_numpy(x),
+                           torch.from_numpy(xx), k, mode=mode)
+    assert torch.equal(v, v2) and torch.equal(i, i2)
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "inner_product"])
+def test_knn_matches_raft_routed(metric, monkeypatch):
+    monkeypatch.setenv("RAFT_TPU_PALLAS", "1")
+    x, q = _data(2000, 24, 33, 7)
+    v_ref, i_ref = jbf.knn(x, q, 10, metric=metric)
+    v, i = tbf.knn(x, q, 10, metric=metric, res=CPU)
+    assert kernels.consume_kernel_path() == "torch"
+    assert_topk_match(v, i, v_ref, i_ref, rtol=1e-5, atol=1e-4)
+
+
+def test_knn_exact_self_neighbors_and_deep_k():
+    x, _ = _data(600, 8, 1, 3)
+    v, i = tbf.knn(torch.from_numpy(x), torch.from_numpy(x[:20]), 5, res=CPU)
+    assert (i[:, 0].numpy() == np.arange(20)).all()
+    # k past the kernel envelope takes the plain version
+    v2, i2 = tbf.knn(x, x[:20], 200, res=CPU)
+    assert i2.shape == (20, 200)
+    assert torch.equal(i2[:, :5], i)
+
+
+def test_knn_rejects_out_of_slice_inputs():
+    x, q = _data(100, 4, 2, 5)
+    with pytest.raises(NotImplementedError):
+        tbf.knn(x, q, 3, metric="l1", res=CPU)
+    with pytest.raises(NotImplementedError):
+        tbf.knn(x, q, 3, sample_filter=object(), res=CPU)
+    with pytest.raises(ValueError):
+        tbf.knn(x, q, 101, res=CPU)
+    idx = tbf.build(x, metric="inner_product", res=CPU)
+    v, i = tbf.search(idx, q, 3, res=CPU)
+    assert (np.diff(v.numpy(), axis=1) <= 0).all()  # largest products first

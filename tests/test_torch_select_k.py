@@ -1,0 +1,139 @@
+"""Port parity: the select_k plain versions of ``raft_tpu_torch`` against
+raft_tpu's Pallas kernel (interpret mode) and its XLA paths, bitwise."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from raft_tpu.kernels.select_k import select_k_pallas
+from raft_tpu.ops import matrix as jmatrix
+from raft_tpu_torch.kernels import select_k as tsk
+from raft_tpu_torch.ops import matrix as tmatrix
+
+
+def _np(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _assert_same(a, b):
+    np.testing.assert_array_equal(_np(a[0]), _np(b[0]))
+    np.testing.assert_array_equal(_np(a[1]), _np(b[1]))
+
+
+@pytest.mark.parametrize("rows,n,k", [(5, 37, 7), (8, 128, 16), (3, 1000, 32), (1, 8, 8)])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_positional_heavy_ties_vs_pallas(rows, n, k, select_min):
+    rng = np.random.default_rng(rows * n + k)
+    s = np.round(rng.standard_normal((rows, n)) * 3).astype(np.float32)
+    ref = select_k_pallas(jnp.asarray(s), k, select_min=select_min, interpret=True)
+    got = tsk.select_k_torch(torch.from_numpy(s), k, select_min=select_min)
+    _assert_same(got, ref)
+    # the routed entry point (CPU tensors take the plain version)
+    _assert_same(tmatrix.select_k(torch.from_numpy(s), k, select_min=select_min), ref)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+def test_input_indices_and_inf_pads_vs_pallas(select_min):
+    rng = np.random.default_rng(1)
+    rows, n, k = 4, 96, 24
+    s = np.round(rng.standard_normal((rows, n)) * 2).astype(np.float32)
+    s[:, 70:] = np.inf if select_min else -np.inf
+    ids = rng.integers(0, 10_000, size=(rows, n)).astype(np.int32)
+    ids[:, 70:] = -1
+    ref = select_k_pallas(jnp.asarray(s), k, select_min=select_min,
+                          input_indices=jnp.asarray(ids), interpret=True)
+    got = tsk.select_k_torch(torch.from_numpy(s), k, select_min=select_min,
+                             input_indices=torch.from_numpy(ids))
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+def test_stable_negative_ids_vs_pallas_and_xla(select_min):
+    rng = np.random.default_rng(2)
+    rows, n, k = 7, 256, 32
+    s = np.asarray(rng.integers(0, 4, size=(rows, n)), np.float32)
+    s[:, 200:] = np.inf
+    ids = rng.integers(-1, 50, size=(rows, n)).astype(np.int32)
+    ref = select_k_pallas(jnp.asarray(s), k, select_min=select_min, stable=True,
+                          input_indices=jnp.asarray(ids), interpret=True)
+    got = tmatrix.select_k_stable(torch.from_numpy(s), k, select_min=select_min,
+                                  input_indices=torch.from_numpy(ids))
+    _assert_same(got, ref)
+    xla = jmatrix.select_k_stable(jnp.asarray(s), k, select_min=select_min,
+                                  input_indices=jnp.asarray(ids))
+    _assert_same(got, xla)
+
+
+def test_stable_past_the_kernel_envelope_matches_xla():
+    # k > 128: the plain two-key sort, not the kernel's plain version
+    rng = np.random.default_rng(3)
+    s = np.asarray(rng.integers(0, 6, size=(3, 400)), np.float32)
+    ids = rng.integers(-1, 300, size=(3, 400)).astype(np.int32)
+    got = tmatrix.select_k_stable(torch.from_numpy(s), 150, input_indices=torch.from_numpy(ids))
+    ref = jmatrix.select_k_stable(jnp.asarray(s), 150, input_indices=jnp.asarray(ids))
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("n,k", [(10_000, 4), (20_000, 100), (9000, 2000)])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_chunked_path_vs_xla(n, k, select_min):
+    rng = np.random.default_rng(n + k)
+    s = np.round(rng.standard_normal((2, n)) * 50).astype(np.float32)
+    ref = jmatrix.select_k(jnp.asarray(s), k, select_min=select_min)
+    got = tmatrix.select_k(torch.from_numpy(s), k, select_min=select_min)
+    _assert_same(got, ref)
+    ids = rng.permutation(n).astype(np.int32)
+    ref = jmatrix.select_k(jnp.asarray(s), k, select_min=select_min,
+                           algo="chunked", input_indices=jnp.asarray(ids))
+    got = tmatrix.select_k(torch.from_numpy(s), k, select_min=select_min,
+                           algo="chunked", input_indices=torch.from_numpy(ids))
+    _assert_same(got, ref)
+
+
+def test_topk_and_integer_paths_vs_xla():
+    rng = np.random.default_rng(4)
+    s = np.round(rng.standard_normal((3, 300)) * 2).astype(np.float32)
+    for select_min in (True, False):
+        _assert_same(
+            tmatrix.select_k(torch.from_numpy(s), 12, select_min=select_min, algo="topk"),
+            jmatrix.select_k(jnp.asarray(s), 12, select_min=select_min, algo="topk"),
+        )
+    si = rng.integers(0, 5, size=(3, 300)).astype(np.int32)
+    for select_min in (True, False):
+        _assert_same(
+            tmatrix.select_k(torch.from_numpy(si), 9, select_min=select_min),
+            jmatrix.select_k(jnp.asarray(si), 9, select_min=select_min),
+        )
+    v, i = tmatrix.select_k(torch.from_numpy(s[0]), 5)
+    assert v.shape == (5,) and i.shape == (5,) and i.dtype == torch.int32
+
+
+def test_supported_envelope_matches_raft():
+    from raft_tpu.kernels.select_k import select_k_supported as jsup
+
+    for n, k, dt, jdt in [(512, 32, torch.float32, jnp.float32),
+                          (8192, 128, torch.bfloat16, jnp.bfloat16),
+                          (8193, 32, torch.float32, jnp.float32),
+                          (512, 129, torch.float32, jnp.float32),
+                          (16, 32, torch.float32, jnp.float32),
+                          (512, 32, torch.int32, jnp.int32)]:
+        assert tsk.select_k_supported(n, k, dt) == jsup(n, k, jdt)
+    with pytest.raises(ValueError):
+        tsk.select_k_kernel(torch.zeros((2, 16), dtype=torch.int32), 4)
+
+
+def test_fold_topk_matches_raft():
+    from raft_tpu.kernels.toolkit import fold_topk as j_fold
+    from raft_tpu_torch.kernels.toolkit import fold_topk as t_fold
+
+    rng = np.random.default_rng(9)
+    run_v = np.sort(np.round(rng.standard_normal((6, 8)) * 2), axis=1).astype(np.float32)
+    run_i = rng.integers(0, 100, size=(6, 8)).astype(np.int32)
+    cand_v = np.round(rng.standard_normal((6, 40)) * 2).astype(np.float32)
+    cand_i = rng.integers(100, 200, size=(6, 40)).astype(np.int32)
+    ref = j_fold(jnp.asarray(run_v), jnp.asarray(run_i), jnp.asarray(cand_v),
+                 jnp.asarray(cand_i), 8)
+    got = t_fold(*(torch.from_numpy(a) for a in (run_v, run_i, cand_v, cand_i)), 8)
+    _assert_same(got, ref)
