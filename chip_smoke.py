@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``raft_tpu_torch/csrc`` with nvcc (sm_90a),
-then drives the port's main path at the scale of sift-128-euclidean
+then drives the port's main paths at the scale of sift-128-euclidean
 (1,000,000 x 128 f32 clustered rows, 10,000 queries, seed 0, synthetic):
 
 1. IVF-Flat build (n_lists=1024, 20 k-means iterations, half the rows as
@@ -14,19 +14,28 @@ then drives the port's main path at the scale of sift-128-euclidean
 2. the brute-force oracle (fused_knn kernel) for k=10;
 3. IVF-Flat search, n_probes=20, k=10: all 10,000 queries at once
    (probe-major scan + select_k), then 20 batches of 64 queries
-   (query-major scan + select_k); recall@10 of each against the oracle,
-   and of the same searches with every kernel replaced by its plain
-   PyTorch version (also at n_probes=2, where recall is below 1);
-4. each kernel against its plain version on the inputs the main path gave
-   it: select_k bitwise, the others within rtol 1e-5 / atol 1e-4 with ids
-   equal on >= 99.9% of slots; times of kernel, plain version and (as a
-   yardstick only) one PyTorch library call; the bound of each from the
-   work its inputs need (``raft_tpu_torch.ops.cost``);
-5. where the time of each search schedule goes: warm wall per search and,
+   (query-major scan + select_k);
+4. IVF-PQ build at raft_tpu's ladder config 4 (n_lists=1024, pq_dim=64,
+   pq_bits=8, per-subspace codebooks; the "auto" scan cache, bf16), and an
+   int8 scan cache decoded from the same codes; IVF-PQ search, n_probes=20,
+   k=10, both schedules, on the bf16 cache with f32 and bf16 products and
+   on the int8 cache; a k=40 search refined exactly to k=10;
+5. reproducibility: two k-means fits of the builds' trainset with one seed
+   give bitwise-equal centers, and two predicts equal labels;
+6. recall@10 of every search against the oracle, and of the same searches
+   with every kernel replaced by its plain PyTorch version (also at
+   n_probes=2, where recall is below 1);
+7. each kernel against its plain version on the inputs the main path gave
+   it: select_k and the bf16 / int8 scan legs bitwise, the others within
+   rtol 1e-5 / atol 1e-4 with ids equal on >= 99.9% of slots; times of
+   kernel, plain version and (as a yardstick only) one PyTorch library
+   call; the bound of each from the work its inputs need
+   (``raft_tpu_torch.ops.cost``);
+8. where the time of each search schedule goes: warm wall per search and,
    under ``torch.profiler``, device time by kernel and the device's busy
    share.
 
-Launch counts are set to 0 before each phase of the main path and read
+Launch counts are set to 0 before each phase of the main paths and read
 after it.  Prints the card, a JSON line of profiles, a JSON line of
 per-kernel results, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -36,6 +45,7 @@ when there is no card or any check fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,6 +61,13 @@ FUSED_SUBSET = 256
 RTOL, ATOL = 1e-5, 1e-4
 ID_AGREE = 0.999
 PROFILE_REPS = 5
+#: raft_tpu's ladder config 4 (raft_tpu/bench/ladder.py): pq_dim = d / 2
+PQ_DIM, PQ_BITS = 64, 8
+REFINE_RATIO = 4
+#: the IVF-PQ legs of the main path: (scan cache, lut_dtype)
+PQ_LEGS = (("bfloat16", "float32"), ("bfloat16", "bfloat16"), ("int8", "float32"))
+#: the leg refined and profiled (config 4 searches with bf16 products)
+PQ_MAIN = ("bfloat16", "bfloat16")
 
 
 def main() -> int:
@@ -63,11 +80,13 @@ def main() -> int:
     import numpy as np
 
     from raft_tpu_torch import datasets, kernels
-    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.core.resources import Resources, as_f32
     from raft_tpu_torch.kernels import fused_knn as fk
     from raft_tpu_torch.kernels import ivf_scan as scan
     from raft_tpu_torch.kernels import select_k as sk
-    from raft_tpu_torch.neighbors import _common, brute_force, ivf_flat
+    from raft_tpu_torch.neighbors import _common, brute_force, ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
     from raft_tpu_torch.ops import cost
     from raft_tpu_torch.stats.metrics import recall_at_k
 
@@ -93,7 +112,7 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / reps
 
-    # -- 1. the card and the kernels ----------------------------------------
+    # -- the card and the kernels -------------------------------------------
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -109,7 +128,7 @@ def main() -> int:
     dev = torch.device("cuda")
     res = Resources(device="cuda")
 
-    # -- 2. data --------------------------------------------------------------
+    # -- data -----------------------------------------------------------------
     t = time.perf_counter()
     ds = datasets.synthetic("sift-128-euclidean", seed=SEED)
     x = torch.from_numpy(ds.base).to(dev)
@@ -129,9 +148,23 @@ def main() -> int:
         sync()
         phase_launches[name] = kernels.launch_counts()
         print(f"{name}: {time.perf_counter() - t0:.3f} s, launches "
-              f"{phase_launches[name]}", flush=True)
+              f"{ {n: c for n, c in phase_launches[name].items() if c} }", flush=True)
 
-    # -- 3. main path -------------------------------------------------------
+    def batches(search_fn, k):
+        """``search_fn(query_block, k)`` over the QM_BATCHES serving batches:
+        (values, ids, wall ms per batch)."""
+        outs, walls = [], []
+        for b in range(QM_BATCHES):
+            t0 = time.perf_counter()
+            outs.append(search_fn(q[b * QM_BATCH:(b + 1) * QM_BATCH], k))
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), walls
+
+    n_qm = QM_BATCH * QM_BATCHES
+    outputs = {}   # name -> (values, ids) of each main-path search
+
+    # -- main path: IVF-Flat + the oracle -----------------------------------
     params = ivf_flat.IndexParams(n_lists=1024, kmeans_n_iters=20,
                                   kmeans_trainset_fraction=0.5, seed=SEED)
     with phase("build"):
@@ -145,48 +178,92 @@ def main() -> int:
 
     sp = ivf_flat.SearchParams(n_probes=N_PROBES)
     with phase("search_probe_major"):
-        v_pm, i_pm = ivf_flat.search(sp, index, q, K, res=res)
+        outputs["ivf_flat probe-major"] = ivf_flat.search(sp, index, q, K, res=res)
     check(kernels.consume_kernel_path() == "cuda", "probe-major search routed to cuda")
     check(phase_launches["search_probe_major"]["ivf_scan_probe_major"] > 0,
           "probe-major search launched ivf_scan_probe_major")
     check(phase_launches["search_probe_major"]["select_k"] > 0,
           "probe-major search launched select_k")
 
-    qm_ms = []
-    qm_out = []
     with phase("search_query_major"):
-        for b in range(QM_BATCHES):
-            qb = q[b * QM_BATCH:(b + 1) * QM_BATCH]
-            t0 = time.perf_counter()
-            qm_out.append(ivf_flat.search(sp, index, qb, K, res=res))
-            sync()
-            qm_ms.append((time.perf_counter() - t0) * 1e3)
+        v_qm, i_qm, qm_ms = batches(lambda qb, k: ivf_flat.search(sp, index, qb, k, res=res), K)
+    outputs["ivf_flat query-major"] = (v_qm, i_qm)
     check(kernels.consume_kernel_path() == "cuda", "query-major search routed to cuda")
     check(phase_launches["search_query_major"]["ivf_scan_query_major"] > 0,
           "query-major search launched ivf_scan_query_major")
     check(phase_launches["search_query_major"]["select_k"] > 0,
           "query-major search launched select_k")
-    v_qm = torch.cat([o[0] for o in qm_out])
-    i_qm = torch.cat([o[1] for o in qm_out])
-    n_qm = QM_BATCH * QM_BATCHES
+    print(f"ivf_flat query-major per batch ms median {float(np.median(qm_ms)):.3f} "
+          f"min {min(qm_ms):.3f} max {max(qm_ms):.3f}", flush=True)
+
+    # -- main path: IVF-PQ + refine -----------------------------------------
+    pq_params = ivf_pq.IndexParams(n_lists=1024, pq_dim=PQ_DIM, pq_bits=PQ_BITS,
+                                   kmeans_n_iters=20, kmeans_trainset_fraction=0.5,
+                                   seed=SEED)
+    with phase("pq_build"):
+        pq_index = ivf_pq.build(pq_params, x, res=res)
+    print(f"ivf_pq index: n_lists={pq_index.n_lists} cap={pq_index.list_cap} "
+          f"size={pq_index.size} rot_dim={pq_index.rot_dim} pq_dim={pq_index.pq_dim} "
+          f"decoded_dtype={pq_index.decoded_dtype}", flush=True)
+    check(pq_index.decoded_dtype == "bfloat16", "ivf_pq 'auto' scan cache resolved to bfloat16")
+    t = time.perf_counter()
+    pq_indexes = {"bfloat16": pq_index,
+                  "int8": ivf_pq.with_decoded_dtype(pq_index, "int8")}
+    sync()
+    print(f"int8 scan cache decoded from the codes in {time.perf_counter() - t:.3f} s, "
+          f"scan_scale {pq_indexes['int8'].scan_scale!r}", flush=True)
+
+    def pq_search(cache, lut, n_probes=N_PROBES, strategy="auto"):
+        """``(queries, k) -> (values, ids)`` on the ``cache`` index with
+        ``lut`` products."""
+        sp_pq = ivf_pq.SearchParams(n_probes=n_probes, lut_dtype=lut, strategy=strategy)
+        return lambda qb, k: ivf_pq.search(sp_pq, pq_indexes[cache], qb, k, res=res)
+
+    for cache, lut in PQ_LEGS:
+        tag = f"{cache} cache, {lut} products"
+        leg = scan.kernel_name("probe_major", pq_indexes[cache].list_data)
+        with phase(f"pq_search_probe_major[{tag}]"):
+            outputs[f"ivf_pq probe-major [{tag}]"] = pq_search(cache, lut)(q, K)
+        check(kernels.consume_kernel_path() == "cuda", f"ivf_pq probe-major [{tag}] routed to cuda")
+        check(phase_launches[f"pq_search_probe_major[{tag}]"][leg] > 0,
+              f"ivf_pq probe-major [{tag}] launched {leg}")
+        leg = scan.kernel_name("query_major", pq_indexes[cache].list_data)
+        with phase(f"pq_search_query_major[{tag}]"):
+            v_b, i_b, walls = batches(pq_search(cache, lut), K)
+        outputs[f"ivf_pq query-major [{tag}]"] = (v_b, i_b)
+        check(kernels.consume_kernel_path() == "cuda", f"ivf_pq query-major [{tag}] routed to cuda")
+        check(phase_launches[f"pq_search_query_major[{tag}]"][leg] > 0,
+              f"ivf_pq query-major [{tag}] launched {leg}")
+        print(f"ivf_pq query-major [{tag}] per batch ms median {float(np.median(walls)):.3f} "
+              f"min {min(walls):.3f} max {max(walls):.3f}", flush=True)
+
+    def refined(n_probes=N_PROBES):
+        """k * REFINE_RATIO candidates from the PQ_MAIN leg, refined to k
+        against the dataset: (candidate ids, (values, ids))."""
+        _, cand = pq_search(*PQ_MAIN, n_probes)(q, K * REFINE_RATIO)
+        return cand, refine(x, q, cand, K, res=res)
+
+    with phase("pq_refine"):
+        cand, outputs["ivf_pq probe-major + refine"] = refined()
     main_launches = {
         name: sum(p[name] for p in phase_launches.values()) for name in kernels.KERNELS
     }
 
     # -- outputs: shapes, finiteness, recall --------------------------------
-    for name, v, i, rows in (("oracle", gt_v, gt_i, q.shape[0]),
-                             ("probe-major", v_pm, i_pm, q.shape[0]),
-                             ("query-major", v_qm, i_qm, n_qm)):
-        check(tuple(v.shape) == (rows, K) and tuple(i.shape) == (rows, K)
-              and bool(torch.isfinite(v).all()) and bool((i >= 0).all()),
-              f"{name} output [{rows}, {K}] finite with real ids")
-    rec_pm = recall_at_k(i_pm, gt_i, K)
-    rec_qm = recall_at_k(i_qm, gt_i[:n_qm], K)
-    print(f"recall@{K} probe-major (10000 queries) {rec_pm:.5f}", flush=True)
-    print(f"recall@{K} query-major ({QM_BATCHES} x {QM_BATCH}) {rec_qm:.5f}; "
-          f"per batch ms median {float(np.median(qm_ms)):.3f} "
-          f"min {min(qm_ms):.3f} max {max(qm_ms):.3f}", flush=True)
-    check(rec_pm >= 0.8 and rec_qm >= 0.8, "recall@10 of both searches >= 0.8")
+    for name, (v, i) in [("oracle", (gt_v, gt_i))] + list(outputs.items()):
+        rows = v.shape[0]
+        check(rows in (q.shape[0], n_qm) and tuple(v.shape) == (rows, K)
+              and tuple(i.shape) == (rows, K) and bool(torch.isfinite(v).all())
+              and bool((i >= 0).all()), f"{name} output [{rows}, {K}] finite with real ids")
+    recall = {name: recall_at_k(i, gt_i[:i.shape[0]], K) for name, (_, i) in outputs.items()}
+    for name, r in recall.items():
+        print(f"recall@{K} {name}: {r:.5f}", flush=True)
+    check(all(r >= 0.8 for name, r in recall.items() if name.startswith("ivf_flat")),
+          "recall@10 of both IVF-Flat searches >= 0.8")
+    main_pq = f"ivf_pq probe-major [{PQ_MAIN[0]} cache, {PQ_MAIN[1]} products]"
+    r_ref = recall["ivf_pq probe-major + refine"]
+    check(r_ref >= 0.9 and r_ref >= recall[main_pq],
+          f"refined recall@10 {r_ref:.5f} >= 0.9 and >= the unrefined {recall[main_pq]:.5f}")
 
     # oracle against an exact float64 numpy reference on a small input
     xs, qs = ds.base[:20000], ds.queries[:64]
@@ -197,8 +274,30 @@ def main() -> int:
     check(recall_at_k(si, ref_i, K) >= 0.99, "brute force matches float64 numpy on 64 x 20000")
     check(np.allclose(sv.cpu().numpy(), np.take_along_axis(ref_d, ref_i, 1),
                       rtol=1e-3, atol=1e-2), "brute-force distances match float64 numpy")
+    # refine's distances against float64 numpy on its first 64 queries
+    rv, ri = outputs["ivf_pq probe-major + refine"]
+    exact = ((ds.queries[:64, None, :].astype(np.float64)
+              - ds.base[ri[:64].cpu().numpy()]) ** 2).sum(-1)
+    check(np.allclose(rv[:64].cpu().numpy(), exact, rtol=1e-4, atol=1e-2),
+          "refined distances match float64 numpy on 64 queries")
 
-    # the same searches with every kernel replaced by its plain version
+    # -- reproducibility of the build ---------------------------------------
+    n_train = min(x.shape[0], max(2 * params.n_lists,
+                                  int(x.shape[0] * params.kmeans_trainset_fraction)))
+    trainset = as_f32(_common.subsample_trainset(x, n_train, SEED), dev)
+    kb = kmeans_balanced.KMeansBalancedParams(n_iters=params.kmeans_n_iters, seed=SEED)
+    t = time.perf_counter()
+    fits = [kmeans_balanced.fit(kb, trainset, params.n_lists, res=res) for _ in range(2)]
+    labels = [kmeans_balanced.predict(fits[0], x, res=res) for _ in range(2)]
+    sync()
+    print(f"two fits on {n_train} rows and two predicts over {x.shape[0]} in "
+          f"{time.perf_counter() - t:.1f} s; lists after the split: ivf_flat "
+          f"{index.n_lists}, ivf_pq {pq_index.n_lists}", flush=True)
+    check(torch.equal(fits[0], fits[1]), "two k-means fits, one seed: centers bitwise equal")
+    check(torch.equal(labels[0], labels[1]), "two predicts: labels equal")
+    del trainset, fits, labels
+
+    # -- the same searches with every kernel replaced by its plain version --
     @contextlib.contextmanager
     def plain_versions():
         saved = (sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major)
@@ -211,33 +310,45 @@ def main() -> int:
             sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major = saved
 
     def recalls(n_probes):
-        """recall@K of both schedules at ``n_probes``: (probe-major over
-        all queries, query-major over the 64-query batches)."""
+        """recall@K of every main-path search at ``n_probes``, by name."""
         sp_n = ivf_flat.SearchParams(n_probes=n_probes)
-        _, i_all = ivf_flat.search(sp_n, index, q, K, res=res)
-        i_b = torch.cat([
-            ivf_flat.search(sp_n, index, q[b * QM_BATCH:(b + 1) * QM_BATCH], K, res=res)[1]
-            for b in range(QM_BATCHES)
-        ])
-        return recall_at_k(i_all, gt_i, K), recall_at_k(i_b, gt_i[:n_qm], K)
+        searches = {
+            "ivf_flat probe-major": lambda: ivf_flat.search(sp_n, index, q, K, res=res),
+            "ivf_flat query-major": lambda: batches(
+                lambda qb, k: ivf_flat.search(sp_n, index, qb, k, res=res), K)[:2],
+        }
+        for cache, lut in PQ_LEGS:
+            tag = f"{cache} cache, {lut} products"
+            fn = pq_search(cache, lut, n_probes)
+            searches[f"ivf_pq probe-major [{tag}]"] = lambda fn=fn: fn(q, K)
+            searches[f"ivf_pq query-major [{tag}]"] = lambda fn=fn: batches(fn, K)[:2]
+        searches["ivf_pq probe-major + refine"] = lambda: refined(n_probes)[1]
+        out = {}
+        for name, fn in searches.items():
+            i = fn()[1]
+            out[name] = recall_at_k(i, gt_i[:i.shape[0]], K)
+        return out
 
-    # at 20 probes this data gives recall 1.0 on any path; LOW_PROBES makes
-    # the kernel-vs-plain recall comparison able to fail
+    # at 20 probes the IVF-Flat searches give recall 1.0 on any path;
+    # LOW_PROBES makes the kernel-vs-plain recall comparison able to fail
     kernel_low = recalls(LOW_PROBES)
     kernels.reset_launch_counts()
     with plain_versions():
         plain_main = recalls(N_PROBES)
         plain_low = recalls(LOW_PROBES)
     check(sum(kernels.launch_counts().values()) == 0, "plain path launched no kernel")
-    for n_probes, kern, plain in ((N_PROBES, (rec_pm, rec_qm), plain_main),
+    recall_table = {}
+    for n_probes, kern, plain in ((N_PROBES, recall, plain_main),
                                   (LOW_PROBES, kernel_low, plain_low)):
-        print(f"recall@{K} n_probes={n_probes}: kernel path probe-major {kern[0]:.5f} "
-              f"query-major {kern[1]:.5f}; plain path {plain[0]:.5f} {plain[1]:.5f}",
-              flush=True)
-        check(abs(kern[0] - plain[0]) <= 0.005 and abs(kern[1] - plain[1]) <= 0.005,
-              f"n_probes={n_probes}: kernel-path recall within 0.005 of the plain path")
+        for name in kern:
+            recall_table[f"{name} n_probes={n_probes}"] = [kern[name], plain[name]]
+            print(f"recall@{K} n_probes={n_probes} {name}: kernel path {kern[name]:.5f}, "
+                  f"plain path {plain[name]:.5f}", flush=True)
+            check(abs(kern[name] - plain[name]) <= 0.005,
+                  f"n_probes={n_probes} {name}: kernel-path recall within 0.005 of the plain path")
+    print(json.dumps({"recall_kernel_vs_plain": recall_table}), flush=True)
 
-    # -- 4. kernels against their plain versions ----------------------------
+    # -- kernels against their plain versions -------------------------------
     results = []
 
     def max_err(kv, pv):
@@ -253,7 +364,13 @@ def main() -> int:
         check(agree >= ID_AGREE, f"{name} ids agree on {agree:.5f} of slots")
         return err
 
-    def record(name, source, replaces, err, ms, plain_ms, work, raft_cost, library_ms, shape):
+    def bitwise(name, kv, ki, pv, pi):
+        check(torch.equal(kv, pv) and torch.equal(ki, pi),
+              f"{name} values and ids bitwise equal to the plain version")
+        return max_err(kv, pv)
+
+    def record(name, source, replaces, err, ms, plain_ms, work, raft_cost, library_ms, shape,
+               **extra):
         """``work``: what the call needs at this run's inputs (the bound);
         ``raft_cost``: raft_tpu's schedule formula, for comparison."""
         bound, by = cost.bound_ms(work)
@@ -262,7 +379,7 @@ def main() -> int:
             "launches": main_launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms, "shape": shape,
-            "raft_formula_bound_ms": cost.bound_ms(raft_cost)[0],
+            "raft_formula_bound_ms": cost.bound_ms(raft_cost)[0], **extra,
         })
 
     metric = "sqeuclidean"
@@ -318,43 +435,76 @@ def main() -> int:
            cost.fused_knn_cost(FUSED_SUBSET, x.shape[0], x.shape[1], K),
            lib_ms, f"q [{FUSED_SUBSET}, 128] x [1000000, 128] k={K}")
 
-    # the scans' bound counts the real rows of the lists each query probes
-    list_rows = (index.list_index >= 0).sum(dim=1)
+    def scan_leg(schedule, name, idx, arg_sets, compare, legs):
+        """Kernel vs plain for one C entry of ``schedule`` on the main
+        path's inputs ``arg_sets`` (the 10,000-query probe-major block, or
+        the 20 serving batches), timed on the first.  ``legs``: (scan_kw,
+        compute) pairs of the entry; the first is recorded, the others
+        measured beside it."""
+        kernel = getattr(scan, f"ivf_scan_{schedule}")
+        plain = getattr(scan, f"ivf_scan_{schedule}_torch")
+        args = arg_sets[0]
+        kk, width = args[-1], args[1].shape[-1]
+        itemsize = idx.list_data.element_size()
+        list_rows = (idx.list_index >= 0).sum(dim=1)
+        if schedule == "probe_major":
+            B, G = args[1].shape[:2]
+            live = int(torch.isfinite(args[2]).any(dim=1).sum())
+            probes = _common.coarse_select(q, idx.centers, metric, N_PROBES)
+            out_rows, raft_blocks, reps = probes.numel(), (live, G), (5, 1)
+            replaces, shape = "raft_tpu/kernels/ivf_scan.py:375", f"B={B} ({live} non-empty) G={G}"
+        else:
+            probes = args[0]
+            out_rows, raft_blocks, reps = probes.shape[0], (probes.numel(), 1), (10, 2)
+            replaces, shape = "raft_tpu/kernels/ivf_scan.py:649", f"Q={out_rows} P={N_PROBES}"
+        measured = []
+        for kw, comp in legs:
+            scan_dtype = kw.get("scan_dtype", "highest")
+            outs = [(kernel(*a, metric=metric, **kw), plain(*a, metric=metric, **kw))
+                    for a in arg_sets]
+            err_ = compare(f"{name} {scan_dtype} products",
+                           *(torch.cat([o[s][j] for o in outs]) for s in (0, 1) for j in (0, 1)))
+            work = cost.scan_work(probes, list_rows, width, out_rows, kk, itemsize=itemsize,
+                                  compute=comp)
+            raft = dataclasses.replace(cost.ivf_scan_cost(
+                *raft_blocks, idx.list_cap, width, kk, itemsize=itemsize), compute=comp)
+            measured.append((scan_dtype, err_,
+                             cuda_ms(lambda: kernel(*args, metric=metric, **kw), reps[0]),
+                             cuda_ms(lambda: plain(*args, metric=metric, **kw), reps[1]),
+                             work, raft))
+        (scan_dtype, err_, ms_, plain_, work, raft), *others = measured
+        also = [dict(zip(("scan_dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
+                         (o[0], o[1], o[2], o[3], *cost.bound_ms(o[4])))) for o in others]
+        record(name, "raft_tpu_torch/csrc/ivf_scan.cu", replaces, err_, ms_, plain_, work, raft,
+               None, f"{shape} cap={idx.list_cap} d={width} kk={kk} rows {idx.list_data.dtype}",
+               scan_dtype=scan_dtype, **({"also": also} if also else {}))
 
-    # probe-major scan: the inputs of the 10,000-query search
-    ppv, ppi = scan.ivf_scan_probe_major_torch(*pm_args, metric=metric)
-    err = close("ivf_scan_probe_major", pm_v, pm_i, ppv, ppi)
-    ms = cuda_ms(lambda: scan.ivf_scan_probe_major(*pm_args, metric=metric), 5)
-    plain_ms = cuda_ms(lambda: scan.ivf_scan_probe_major_torch(*pm_args, metric=metric), 1)
-    B, G = pm_args[1].shape[:2]
-    live = int(torch.isfinite(pm_args[2]).any(dim=1).sum())
-    probes = _common.coarse_select(q, index.centers, metric, N_PROBES)
-    record("ivf_scan_probe_major", "raft_tpu_torch/csrc/ivf_scan.cu",
-           "raft_tpu/kernels/ivf_scan.py:375", err, ms, plain_ms,
-           cost.scan_work(probes, list_rows, index.dim, probes.numel(), kk),
-           cost.ivf_scan_cost(live, G, index.list_cap, index.dim, kk), None,
-           f"B={B} ({live} non-empty) G={G} cap={index.list_cap} d={index.dim} kk={kk}")
+    def serving_batches(inputs_fn):
+        return [inputs_fn(q[b * QM_BATCH:(b + 1) * QM_BATCH]) for b in range(QM_BATCHES)]
 
-    # query-major scan: the inputs of the 20 serving batches
-    kvs, kis, pvs, pis = [], [], [], []
-    for b in range(QM_BATCHES):
-        args = ivf_flat.query_major_scan_inputs(
-            index, q[b * QM_BATCH:(b + 1) * QM_BATCH], N_PROBES, K)
-        v1, i1 = scan.ivf_scan_query_major(*args, metric=metric)
-        v2, i2 = scan.ivf_scan_query_major_torch(*args, metric=metric)
-        kvs.append(v1), kis.append(i1), pvs.append(v2), pis.append(i2)
-    err = close("ivf_scan_query_major", torch.cat(kvs), torch.cat(kis),
-                torch.cat(pvs), torch.cat(pis))
-    qm_args = ivf_flat.query_major_scan_inputs(index, q[:QM_BATCH], N_PROBES, K)
-    ms = cuda_ms(lambda: scan.ivf_scan_query_major(*qm_args, metric=metric), 10)
-    plain_ms = cuda_ms(lambda: scan.ivf_scan_query_major_torch(*qm_args, metric=metric), 2)
-    record("ivf_scan_query_major", "raft_tpu_torch/csrc/ivf_scan.cu",
-           "raft_tpu/kernels/ivf_scan.py:649", err, ms, plain_ms,
-           cost.scan_work(qm_args[0], list_rows, index.dim, QM_BATCH, K),
-           cost.ivf_scan_cost(QM_BATCH * N_PROBES, 1, index.list_cap, index.dim, K), None,
-           f"Q={QM_BATCH} P={N_PROBES} cap={index.list_cap} d={index.dim} kk={K}")
+    # the f32 legs (IVF-Flat's inputs)
+    scan_leg("probe_major", "ivf_scan_probe_major", index, [pm_args], close, [({}, "float32")])
+    scan_leg("query_major", "ivf_scan_query_major", index, serving_batches(
+        lambda qb: ivf_flat.query_major_scan_inputs(index, qb, N_PROBES, K)),
+        close, [({}, "float32")])
 
-    # -- 5. where the time of a search goes ---------------------------------
+    # the bf16 and int8 legs (IVF-PQ's inputs): bitwise, as the summation
+    # order matches the plain version's and every product is exact
+    bf16, i8 = pq_indexes["bfloat16"], pq_indexes["int8"]
+    _, pq_bucket, _, _ = _common.select_scan_strategy(
+        "auto", q.shape[0], N_PROBES, bf16.n_lists, bf16.list_cap, bf16.rot_dim,
+        res.workspace_limit_bytes, k=K)
+    for name, idx, legs in (
+        ("bf16", bf16, [(ivf_pq.scan_kwargs(bf16, "bfloat16"), "bfloat16"),
+                        (ivf_pq.scan_kwargs(bf16, "float32"), "float32")]),
+        ("int8", i8, [(ivf_pq.scan_kwargs(i8), "int8")]),
+    ):
+        args, _ = ivf_pq.probe_major_scan_inputs(idx, q, N_PROBES, K, pq_bucket)
+        scan_leg("probe_major", f"ivf_scan_probe_major_{name}", idx, [args], bitwise, legs)
+        scan_leg("query_major", f"ivf_scan_query_major_{name}", idx, serving_batches(
+            lambda qb: ivf_pq.query_major_scan_inputs(idx, qb, N_PROBES, K)), bitwise, legs)
+
+    # -- where the time of a search goes ------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
     def profile_search(fn):
@@ -391,10 +541,13 @@ def main() -> int:
             "top_device_ms": [[name[:80], ms] for name, ms in top],
         }
 
+    pq_main = pq_search(*PQ_MAIN)
     profiles = {
         "probe_major_10000q": profile_search(lambda: ivf_flat.search(sp, index, q, K, res=res)),
         f"query_major_{QM_BATCH}q": profile_search(
             lambda: ivf_flat.search(sp, index, q[:QM_BATCH], K, res=res)),
+        "pq_probe_major_10000q": profile_search(lambda: pq_main(q, K)),
+        f"pq_query_major_{QM_BATCH}q": profile_search(lambda: pq_main(q[:QM_BATCH], K)),
     }
     for name, prof_out in profiles.items():
         check(prof_out["device_busy_ms"] > 0, f"profile of {name} saw device time")

@@ -2,9 +2,11 @@
 builds (counterpart of ``raft_tpu.cluster.kmeans_balanced``).
 
 Assignment is ``distance.pairwise.tiled_argmin`` (a ``torch.matmul`` tile
-+ argmin, as raft_tpu leaves it to XLA); the update is an ``index_add_``
-of rows and weights; starved clusters (count < average / 8) teleport to a
-uniformly drawn positive-weight row, as raft_tpu's ``adjust_centers``.
++ argmin, as raft_tpu leaves it to XLA); the update sums rows and weights
+by ``ops.matrix.segment_sum``, in a fixed order, so one seed gives one set
+of centers on the card run after run; starved clusters (count < average /
+8) teleport to a uniformly drawn positive-weight row, as raft_tpu's
+``adjust_centers``.
 
 Random draws come from a ``torch.Generator`` seeded from ``params.seed``
 and are drawn on the host, so a seed gives the same draws on any device.
@@ -26,6 +28,7 @@ import torch
 
 from raft_tpu_torch.core.resources import Resources, ensure
 from raft_tpu_torch.distance.pairwise import argmin_tile_rows, tiled_argmin
+from raft_tpu_torch.ops.matrix import segment_sum
 
 
 @dataclass
@@ -61,9 +64,9 @@ def predict(centers, x, *, metric: str = "sqeuclidean",
 
 
 def _update(x, weights, labels, centers, n_clusters, spherical):
-    sums = torch.zeros_like(centers).index_add_(0, labels, x * weights[:, None])
-    counts = torch.zeros(n_clusters, dtype=torch.float32, device=x.device)
-    counts.index_add_(0, labels, weights)
+    sc = segment_sum(torch.cat([x * weights[:, None], weights[:, None]], dim=1),
+                     labels, n_clusters)
+    sums, counts = sc[:, :-1], sc[:, -1]
     centers = torch.where(
         counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30), centers
     )
@@ -105,13 +108,40 @@ def _balanced_iterations(
     return centers, labels
 
 
+#: host elements of one Gumbel top-k draw block
+_DRAW_BLOCK = 1 << 22
+
+
+def draw_rows(gen: torch.Generator, weights: torch.Tensor, k: int) -> torch.Tensor:
+    """``k`` row indices [S, k] for each of S problems, drawn ∝ ``weights``
+    [S, n] (≥ 0) on the host: without replacement by Gumbel top-k (the k
+    largest ``log w - log(-log u)``) when ``n >= k``, with replacement
+    otherwise.  Unlike ``torch.multinomial``, which refuses more than 2**24
+    categories, the draw takes any n: rows go in blocks of bounded size and
+    each block's top-k merges into the running one."""
+    w = weights.detach().to("cpu", torch.float64)
+    S, n = w.shape
+    if n < k:
+        return torch.multinomial(w, k, replacement=True, generator=gen)
+    step = max(k, _DRAW_BLOCK // max(S, 1))
+    best_v = best_i = None
+    for s in range(0, n, step):
+        ws = w[:, s:s + step]
+        u = torch.rand(ws.shape, generator=gen, dtype=torch.float64)
+        v, i = torch.topk(torch.log(ws) - torch.log(-torch.log(u)), min(k, ws.shape[1]), dim=1)
+        i = i + s
+        if best_v is not None:
+            v, j = torch.topk(torch.cat([best_v, v], dim=1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], dim=1), 1, j)
+        best_v, best_i = v, i
+    return best_i
+
+
 def _fit_flat(gen, x, n_clusters: int, n_iters: int, weights, metric: str,
               tile_rows: int) -> torch.Tensor:
     """Seeds drawn ∝ weight without replacement (with replacement only
     when there are fewer rows than clusters), then balancing iterations."""
-    n = x.shape[0]
-    p = weights.detach().to("cpu", torch.float64)
-    idx = torch.multinomial(p, n_clusters, replacement=n < n_clusters, generator=gen)
+    idx = draw_rows(gen, weights[None, :], n_clusters)[0]
     centers, _ = _balanced_iterations(
         gen, x, x[idx.to(x.device)], weights, n_iters, n_clusters, metric, tile_rows
     )

@@ -52,7 +52,11 @@ def consume_kernel_path(default: str = "unknown") -> str:
 # ---------------------------------------------------------------------------
 # launch counts
 
-KERNELS = ("select_k", "fused_knn", "ivf_scan_probe_major", "ivf_scan_query_major")
+KERNELS = (
+    "select_k", "fused_knn", "ivf_scan_probe_major", "ivf_scan_query_major",
+    "ivf_scan_probe_major_bf16", "ivf_scan_probe_major_int8",
+    "ivf_scan_query_major_bf16", "ivf_scan_query_major_int8",
+)
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
 
@@ -150,11 +154,20 @@ def build(verbose: bool = False) -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
+_F = ctypes.c_float
 _SIGNATURES = {
     "rt_select_k": [_P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P],
     "rt_fused_knn": [_P, _P, _P] + [_I] * 6 + [_P] * 5,
-    "rt_ivf_scan_probe_major": [_P] * 6 + [_I] * 6 + [_P, _P, _P],
-    "rt_ivf_scan_query_major": [_P] * 6 + [_I] * 7 + [_P] * 5,
+    # probe-major: 6 arrays, (B, G, cap, d, kk, metric), then bf16_compute
+    # (float legs) or scan_scale (int8), then outputs and stream
+    "rt_ivf_scan_probe_major": [_P] * 6 + [_I] * 7 + [_P] * 3,
+    "rt_ivf_scan_probe_major_bf16": [_P] * 6 + [_I] * 7 + [_P] * 3,
+    "rt_ivf_scan_probe_major_int8": [_P] * 6 + [_I] * 6 + [_F] + [_P] * 3,
+    # query-major: 6 arrays, (Q, P, cap, d, kk, metric, splits), then
+    # bf16_compute or scan_scale, then parts, outputs and stream
+    "rt_ivf_scan_query_major": [_P] * 6 + [_I] * 8 + [_P] * 5,
+    "rt_ivf_scan_query_major_bf16": [_P] * 6 + [_I] * 8 + [_P] * 5,
+    "rt_ivf_scan_query_major_int8": [_P] * 6 + [_I] * 7 + [_F] + [_P] * 5,
 }
 
 

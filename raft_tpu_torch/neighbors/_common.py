@@ -1,5 +1,6 @@
 """Shared helpers of the IVF indexes (counterpart of
-``raft_tpu.neighbors._common``; this slice ports the IVF-Flat subset).
+``raft_tpu.neighbors._common``; the unfiltered subset), and the search
+pipeline IVF-Flat and IVF-PQ share (:func:`scan_search`).
 
 List layout is host numpy metadata, as in raft_tpu; everything that
 touches rows or queries is torch on the index's device.
@@ -258,6 +259,90 @@ def merge_probe_major_partials(vs, is_, bucket_pair, q, n_probes, kk, k):
     n_probes·kk] in (query, probe) pair order."""
     pair_v, pair_i = scatter_pair_partials(vs, is_, bucket_pair, q, n_probes, kk)
     return select_k(pair_v, k, select_min=True, input_indices=pair_i)
+
+
+def probe_major_scan_inputs(queries, q_scan, centers, lists, metric: str,
+                            n_probes: int, k: int, bucket: int):
+    """Coarse select on the raw ``queries``, probe inversion, and the
+    [B, G, d] gather of the scanned query rows ``q_scan`` (the queries
+    themselves for IVF-Flat, rotated for IVF-PQ).  ``lists`` is
+    (list_data, list_y2, list_index).  Returns (the positional arguments
+    of ``ivf_scan_probe_major``, bucket_pair)."""
+    probes = coarse_select(queries, centers, metric, n_probes)
+    q2 = (q_scan * q_scan).sum(dim=1)
+    bucket_list, bucket_query, bucket_pair, _ = invert_probes(probes, centers.shape[0], bucket)
+    bq = bucket_query.long().clamp(min=0)
+    q2g = torch.where(bucket_query >= 0, q2[bq], torch.full_like(q2[bq], float("inf")))
+    kk = min(int(k), lists[0].shape[1])
+    return (bucket_list, q_scan[bq], q2g, *lists, kk), bucket_pair
+
+
+def query_major_scan_inputs(queries, q_scan, centers, lists, metric: str,
+                            n_probes: int, k: int):
+    """Coarse select on the raw ``queries``: the positional arguments of
+    ``ivf_scan_query_major`` for the scanned rows ``q_scan``."""
+    probes = coarse_select(queries, centers, metric, n_probes)
+    return (probes, q_scan, (q_scan * q_scan).sum(dim=1), *lists, int(k))
+
+
+def qm_query_tile(n_probes: int) -> int:
+    """Query block of the query-major search (raft_tpu's rule: bounded
+    q_tile·n_probes, a multiple of 8)."""
+    return max(8, min(4096, (32_768 // max(1, n_probes)) // 8 * 8))
+
+
+def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
+                metric: str, q_scan_fn, scan_kw: dict, workspace_bytes: int):
+    """Coarse select → list scan → merge, the search both IVF indexes run,
+    on the schedule raft_tpu's rule picks (:func:`select_scan_strategy`):
+    probe-major for large batches, query-major for serving-sized ones.
+    ``lists`` is (list_data, list_y2, list_index); ``q_scan_fn`` maps a
+    block of raw queries to the rows the lists are scored against;
+    ``scan_kw`` carries the scan's storage-leg arguments.  Lists on the card
+    go to the scan kernels, which raise outside their envelope (``kk`` up
+    to ``ivf_scan.MAX_KK``); lists on the CPU go to the plain versions, at
+    any ``kk``.  The call stamps ``kernel_path`` "cuda" or "torch".  Returns
+    raw scores (the caller postprocesses) and ids."""
+    from raft_tpu_torch.kernels import ivf_scan as scan_mod
+    from raft_tpu_torch.kernels import stamp_kernel_path
+
+    data = lists[0]
+    strategy, bucket, _, q_tile = select_scan_strategy(
+        strategy, queries.shape[0], n_probes, centers.shape[0], data.shape[1],
+        data.shape[2], workspace_bytes, k=k,
+    )
+    kk = min(k, data.shape[1]) if strategy == "probe_major" else k
+    on_card = data.device.type == "cuda"
+    stamp_kernel_path("cuda" if on_card else "torch")
+    if strategy == "probe_major":
+        scan = scan_mod.ivf_scan_probe_major if on_card else scan_mod.ivf_scan_probe_major_torch
+
+        def run_pm(qt):
+            args, bucket_pair = probe_major_scan_inputs(
+                qt, q_scan_fn(qt), centers, lists, metric, n_probes, k, bucket)
+            vals, ids = scan(*args, metric=metric, **scan_kw)
+            return merge_probe_major_partials(
+                vals.reshape(-1, kk), ids.reshape(-1, kk), bucket_pair,
+                qt.shape[0], n_probes, kk, k,
+            )
+
+        return run_query_tiled(run_pm, queries, q_tile)
+    scan = scan_mod.ivf_scan_query_major if on_card else scan_mod.ivf_scan_query_major_torch
+
+    def run_qm(qt):
+        args = query_major_scan_inputs(qt, q_scan_fn(qt), centers, lists, metric, n_probes, k)
+        return scan(*args, metric=metric, **scan_kw)
+
+    return run_query_tiled(run_qm, queries, qm_query_tile(n_probes))
+
+
+def postprocess(v: torch.Tensor, metric: str) -> torch.Tensor:
+    """Scan scores → distances: L2 scores already include |q|^2."""
+    if metric == "inner_product":
+        return -v
+    if metric == "euclidean":
+        return torch.sqrt(torch.clamp(v, min=0.0))
+    return v
 
 
 def run_query_tiled(run_fn, queries: torch.Tensor, q_tile: int):

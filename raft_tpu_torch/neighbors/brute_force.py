@@ -3,10 +3,10 @@
 sqeuclidean, euclidean and inner_product, unfiltered).
 
 Routing, as raft_tpu's fused path (``brute_force.py:197-222``) with no
-switch: ``k <= 128`` goes through ``kernels.fused_knn.fused_l2_topk`` (the
-CUDA kernel for CUDA tensors, its plain version for CPU tensors); deeper k
-takes the plain version.  The kernel returns partial scores; |q|^2 is
-added here and clamped at 0, and euclidean takes the root.
+switch: CUDA tensors go through ``kernels.fused_knn.fused_l2_topk``, which
+serves ``k <= 128`` and raises past it; CPU tensors take its plain version
+at any k.  The kernel returns partial scores; |q|^2 is added here and
+clamped at 0, and euclidean takes the root.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from raft_tpu_torch.core import validation
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.kernels import stamp_kernel_path
-from raft_tpu_torch.kernels.fused_knn import MAX_K, fused_l2_topk, fused_l2_topk_torch
+from raft_tpu_torch.kernels.fused_knn import fused_l2_topk, fused_l2_topk_torch
 
 _SUPPORTED = ("sqeuclidean", "euclidean", "inner_product")
 
@@ -63,9 +63,9 @@ def knn(
         xx = torch.zeros(dataset.shape[0], dtype=torch.float32, device=device)
     else:
         xx = (dataset * dataset).sum(dim=1)
-    on_kernel = k <= MAX_K
-    stamp_kernel_path("cuda" if on_kernel and device.type == "cuda" else "torch")
-    topk = fused_l2_topk if on_kernel else fused_l2_topk_torch
+    on_card = device.type == "cuda"
+    stamp_kernel_path("cuda" if on_card else "torch")
+    topk = fused_l2_topk if on_card else fused_l2_topk_torch
     vals, idx = topk(queries, dataset, xx, int(k), mode=mode)
     if mode == "ip":
         return -vals, idx

@@ -6,11 +6,11 @@ dim]``, ``list_index [n_lists, cap]`` (-1 past each list's size),
 ``list_norms [n_lists, cap]`` (+inf past the size).  An index saved by
 ``raft_tpu.neighbors.ivf_flat.save`` loads here unchanged.
 
-Search = coarse select (``torch.matmul`` + select_k) → list scan → merge.
-The scan schedule is raft_tpu's rule (``_common.select_scan_strategy``):
-probe-major for large batches, query-major for serving-sized ones.  Both
-scans reach the CUDA kernels of ``kernels.ivf_scan`` for CUDA tensors and
-their plain versions for CPU tensors; every branch stamps
+Search is ``_common.scan_search``: coarse select (``torch.matmul`` +
+select_k) → list scan → merge, on raft_tpu's schedule rule.  Both scans
+reach the f32 legs of the CUDA kernels of ``kernels.ivf_scan`` for CUDA
+tensors (k up to 128 there; deeper k raises) and their plain versions for
+CPU tensors; every call stamps
 ``kernel_path`` "cuda" or "torch".
 """
 
@@ -27,19 +27,13 @@ from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import validation
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
-from raft_tpu_torch.kernels import ivf_scan as _scan
-from raft_tpu_torch.kernels import stamp_kernel_path
+from raft_tpu_torch.neighbors import _common
 from raft_tpu_torch.neighbors._common import (
     allocate_append_slots,
     centroid_group_inverse,
-    coarse_select,
     compute_list_layout,
     default_max_cap,
-    invert_probes,
-    merge_probe_major_partials,
     merge_split_lists,
-    run_query_tiled,
-    select_scan_strategy,
     subsample_trainset,
     unpack_lists,
 )
@@ -225,50 +219,26 @@ def extend(index: Index, new_vectors, new_indices=None, *,
                  list_norms, headroom=index.headroom)
 
 
-def _postprocess(v: torch.Tensor, metric: str) -> torch.Tensor:
-    """Scan scores → distances: L2 scores already include |q|^2."""
-    if metric == "inner_product":
-        return -v
-    if metric == "euclidean":
-        return torch.sqrt(torch.clamp(v, min=0.0))
-    return v
+def _lists(index: Index):
+    return index.list_data, index.scan_norms, index.list_index
 
 
 def probe_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
                             k: int, bucket: int):
     """Coarse select + probe inversion for one probe-major block: returns
     (the positional arguments of ``ivf_scan_probe_major``, bucket_pair)."""
-    metric = DISTANCE_TYPES[index.metric]
-    probes = coarse_select(queries, index.centers, metric, n_probes)
-    q2 = (queries * queries).sum(dim=1)
-    bucket_list, bucket_query, bucket_pair, _ = invert_probes(probes, index.n_lists, bucket)
-    bq = bucket_query.long().clamp(min=0)
-    qg = queries[bq]
-    q2g = torch.where(bucket_query >= 0, q2[bq], torch.full_like(q2[bq], float("inf")))
-    kk = min(k, index.list_cap)
-    args = (bucket_list, qg, q2g, index.list_data, index.scan_norms,
-            index.list_index, kk)
-    return args, bucket_pair
+    return _common.probe_major_scan_inputs(
+        queries, queries, index.centers, _lists(index), DISTANCE_TYPES[index.metric],
+        n_probes, k, bucket)
 
 
 def query_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
                             k: int):
     """Coarse select for one query-major block: the positional arguments
     of ``ivf_scan_query_major``."""
-    metric = DISTANCE_TYPES[index.metric]
-    probes = coarse_select(queries, index.centers, metric, n_probes)
-    q2 = (queries * queries).sum(dim=1)
-    return (probes, queries, q2, index.list_data, index.scan_norms,
-            index.list_index, int(k))
-
-
-def _scan_fn(kind: str, kk: int):
-    """The scan wrapper (the CUDA kernel, or its plain version for CPU
-    tensors) inside the kernel's ``kk`` envelope, the plain version past
-    it."""
-    if kind == "probe_major":
-        return _scan.ivf_scan_probe_major if kk <= _scan.MAX_KK else _scan.ivf_scan_probe_major_torch
-    return _scan.ivf_scan_query_major if kk <= _scan.MAX_KK else _scan.ivf_scan_query_major_torch
+    return _common.query_major_scan_inputs(
+        queries, queries, index.centers, _lists(index), DISTANCE_TYPES[index.metric],
+        n_probes, k)
 
 
 def search(
@@ -300,37 +270,11 @@ def search(
         )
     validation.check_in(params.strategy, ("auto", "query_major", "probe_major"), "strategy")
     metric = DISTANCE_TYPES[index.metric]
-    strategy, bucket, _, q_tile = select_scan_strategy(
-        params.strategy, queries.shape[0], n_probes, index.n_lists,
-        index.list_cap, index.dim, ensure(res).workspace_limit_bytes, k=int(k),
+    v, i = _common.scan_search(
+        queries, int(k), n_probes, params.strategy, index.centers, _lists(index), metric,
+        lambda qt: qt, {}, ensure(res).workspace_limit_bytes,
     )
-    kk = min(int(k), index.list_cap) if strategy == "probe_major" else int(k)
-    scan = _scan_fn(strategy, kk)
-    stamp_kernel_path("cuda" if dev.type == "cuda" and kk <= _scan.MAX_KK else "torch")
-    if strategy == "probe_major":
-
-        def run_pm(qt):
-            args, bucket_pair = probe_major_scan_inputs(index, qt, n_probes, int(k), bucket)
-            vals, ids = scan(*args, metric=metric)
-            v, i = merge_probe_major_partials(
-                vals.reshape(-1, kk), ids.reshape(-1, kk), bucket_pair,
-                qt.shape[0], n_probes, kk, int(k),
-            )
-            return _postprocess(v, metric), i
-
-        return run_query_tiled(run_pm, queries, q_tile)
-
-    def run_qm(qt):
-        v, i = scan(*query_major_scan_inputs(index, qt, n_probes, int(k)), metric=metric)
-        return _postprocess(v, metric), i
-
-    return run_query_tiled(run_qm, queries, qm_query_tile(n_probes))
-
-
-def qm_query_tile(n_probes: int) -> int:
-    """Query block of the query-major search (raft_tpu's rule: bounded
-    q_tile·n_probes, a multiple of 8)."""
-    return max(8, min(4096, (32_768 // max(1, n_probes)) // 8 * 8))
+    return _common.postprocess(v, metric), i
 
 
 def save(filename: str, index: Index) -> None:

@@ -13,8 +13,11 @@ Two families:
   buckets) and so over-count the work; kept for comparison.
 
 :func:`bound_ms` turns either into the larger of bytes over the memory rate
-and operations over the f32 rate (no tensor cores: the kernels compute in
-f32 FMA), from NVIDIA's H100 SXM data sheet.
+and operations over the card's peak rate for the arithmetic the work needs
+(``KernelCost.compute``): f32 FMA for f32 compute on any storage, the
+dense bf16 tensor-core rate for bf16 products, the int8 rate for int8
+products — whatever instructions a kernel happens to use.  Rates from
+NVIDIA's H100 SXM data sheet.
 """
 
 from __future__ import annotations
@@ -23,15 +26,18 @@ from dataclasses import dataclass
 
 import torch
 
-#: H100 SXM: HBM3 rate and dense f32 rate outside the tensor cores
+#: H100 SXM: HBM3 rate, and dense peak operations per second by arithmetic
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_PEAK_OPS = {"float32": H100_F32_FLOPS, "bfloat16": 989e12, "int8": 1979e12}
 
 
 @dataclass(frozen=True)
 class KernelCost:
     flops: int
     bytes_accessed: int
+    #: the arithmetic the operations need: "float32", "bfloat16" or "int8"
+    compute: str = "float32"
 
 
 def select_k_cost(rows: int, n: int, k: int, *, itemsize: int = 4) -> KernelCost:
@@ -82,24 +88,26 @@ def fused_knn_work(n_q: int, n: int, d: int, k: int) -> KernelCost:
 
 
 def scan_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int,
-              out_rows: int, kk: int) -> KernelCost:
+              out_rows: int, kk: int, *, itemsize: int = 4,
+              compute: str = "float32") -> KernelCost:
     """IVF list scan over the (query, probe) pairs of ``probes`` [q, p]:
-    2·d flops per (pair, real row of the probed list); the real rows (d
-    f32, norm, id) of each distinct probed list read once, each query (d
+    2·d operations per (pair, real row of the probed list) in ``compute``
+    arithmetic; the real rows (d values of ``itemsize`` bytes, an f32 norm
+    and an int32 id) of each distinct probed list read once, each query (d
     f32 and its norm) and probe id read once, ``out_rows`` x ``kk`` values
     and ids written.  ``list_rows`` [n_lists] counts each list's real
     rows."""
     probes = probes.long()
     rows = list_rows.long().to(probes.device)
     pair_rows = int(rows[probes].sum())
-    list_bytes = int(rows[torch.unique(probes)].sum()) * (d * 4 + 8)
+    list_bytes = int(rows[torch.unique(probes)].sum()) * (d * itemsize + 8)
     q, p = probes.shape
     bytes_accessed = list_bytes + q * (d + 1) * 4 + q * p * 4 + out_rows * kk * 8
-    return KernelCost(int(pair_rows * 2 * d), int(bytes_accessed))
+    return KernelCost(int(pair_rows * 2 * d), int(bytes_accessed), compute)
 
 
 def bound_ms(cost: KernelCost) -> tuple:
     """(least milliseconds on an H100, "bytes" or "operations")."""
     t_bytes = cost.bytes_accessed / H100_BYTES_PER_S * 1e3
-    t_ops = cost.flops / H100_F32_FLOPS * 1e3
+    t_ops = cost.flops / H100_PEAK_OPS[cost.compute] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

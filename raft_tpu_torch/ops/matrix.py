@@ -128,6 +128,27 @@ def select_k(
     return vals, idx
 
 
+def segment_sum(values: torch.Tensor, labels: torch.Tensor, n_segments: int, *,
+                block_bytes: int = 1 << 28) -> torch.Tensor:
+    """Sums of the rows of ``values`` [..., n, c] by ``labels`` [..., n]
+    (int, in [0, n_segments)) → [..., n_segments, c]: raft_tpu's
+    ``jax.ops.segment_sum``.  Summed in a fixed order — a one-hot matrix
+    product per block of rows, the blocks added in turn — so one input
+    gives one result on every run.  (``index_add_`` adds by atomics on
+    CUDA, in an order that changes from run to run.)  ``block_bytes``
+    bounds the f32 one-hot block."""
+    batch = values.shape[:-2]
+    n, c = values.shape[-2:]
+    per_row = 4 * n_segments * max(1, int(torch.Size(batch).numel()))
+    block = max(1, block_bytes // per_row)
+    seg = torch.arange(n_segments, device=values.device)[:, None]
+    out = torch.zeros(batch + (n_segments, c), dtype=values.dtype, device=values.device)
+    for s in range(0, n, block):
+        onehot = (labels[..., None, s:s + block] == seg).to(values.dtype)   # [..., K, b]
+        out += torch.matmul(onehot, values[..., s:s + block, :])
+    return out
+
+
 def select_k_stable(
     scores: torch.Tensor,
     k: int,

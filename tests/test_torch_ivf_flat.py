@@ -132,6 +132,21 @@ def test_one_balancing_step_matches_on_injected_centers():
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5, atol=1e-5)
 
 
+def test_draw_rows_past_the_multinomial_limit():
+    """Seed rows are drawn without replacement ∝ weight over any row count
+    (``torch.multinomial`` refuses more than 2**24 categories)."""
+    n = (1 << 24) + 3
+    w = torch.ones((1, n))
+    w[0, : n // 2] = 0.0
+    a = tkb.draw_rows(torch.Generator().manual_seed(0), w, 16)
+    b = tkb.draw_rows(torch.Generator().manual_seed(0), w, 16)
+    assert a.shape == (1, 16) and torch.equal(a, b)
+    assert len(set(a[0].tolist())) == 16
+    assert bool(((a >= n // 2) & (a < n)).all())       # weight 0 is never drawn
+    few = tkb.draw_rows(torch.Generator().manual_seed(1), torch.ones((3, 5)), 8)
+    assert few.shape == (3, 8) and bool(((few >= 0) & (few < 5)).all())  # with replacement
+
+
 def test_hierarchical_fit_is_balanced():
     x, _ = _blobs(4000, 16, 1, 7, n_centers=64)
     params = tkb.KMeansBalancedParams(n_iters=5)
