@@ -20,20 +20,27 @@ then drives the port's main paths at the scale of sift-128-euclidean
    int8 scan cache decoded from the same codes; IVF-PQ search, n_probes=20,
    k=10, both schedules, on the bf16 cache with f32 and bf16 products and
    on the int8 cache; a k=40 search refined exactly to k=10;
-5. reproducibility: two k-means fits of the builds' trainset with one seed
+5. CAGRA with raft's defaults (``cagra.IndexParams()``: intermediate
+   degree 128, graph degree 64, "auto" = the IVF-PQ graph build at 1M rows:
+   1,000 lists, 32 probes, 258 candidates per row refined to 129), timed by
+   stage, with the graph's invariants (no -1, no self edge, no repeated
+   edge in a row); CAGRA search (``SearchParams()``: itopk 64, width 1, 16
+   entry centres), k=10, on all 10,000 queries and on 20 batches of 64,
+   one hop kernel launch per hop of every query tile;
+6. reproducibility: two k-means fits of the builds' trainset with one seed
    give bitwise-equal centers, and two predicts equal labels;
-6. recall@10 of every search against the oracle, and of the same searches
+7. recall@10 of every search against the oracle, and of the same searches
    with every kernel replaced by its plain PyTorch version (also at
-   n_probes=2, where recall is below 1);
-7. each kernel against its plain version on the inputs the main path gave
-   it: select_k and the bf16 / int8 scan legs bitwise, the others within
-   rtol 1e-5 / atol 1e-4 with ids equal on >= 99.9% of slots; times of
-   kernel, plain version and (as a yardstick only) one PyTorch library
-   call; the bound of each from the work its inputs need
-   (``raft_tpu_torch.ops.cost``);
-8. where the time of each search schedule goes: warm wall per search and,
-   under ``torch.profiler``, device time by kernel and the device's busy
-   share.
+   n_probes=2, and for CAGRA at itopk 16 / 4 hops, where recall is below 1);
+8. each kernel against its plain version on the inputs the main path gave
+   it: select_k, the bf16 / int8 scan legs and the CAGRA hop (f32 and bf16
+   rows) bitwise, the others within rtol 1e-5 / atol 1e-4 with ids equal
+   on >= 99.9% of slots, also at the widened k the CAGRA build needs (k=129
+   for select_k and fused_knn, kk=258 for probe-major); times of kernel,
+   plain version and (as a yardstick only) one PyTorch library call; the
+   bound of each from the work its inputs need (``raft_tpu_torch.ops.cost``);
+9. where the time of each search goes: warm wall per search and, under
+   ``torch.profiler``, device time by kernel and the device's busy share.
 
 Launch counts are set to 0 before each phase of the main paths and read
 after it.  Prints the card, a JSON line of profiles, a JSON line of
@@ -64,6 +71,14 @@ PROFILE_REPS = 5
 #: raft_tpu's ladder config 4 (raft_tpu/bench/ladder.py): pq_dim = d / 2
 PQ_DIM, PQ_BITS = 64, 8
 REFINE_RATIO = 4
+#: CAGRA: recall floor at SearchParams(), the queries of the kernel-vs-plain
+#: recall comparison, the low-effort setting, and the captured hop
+CAGRA_RECALL = 0.9
+CAGRA_SUBSET = 1000
+CAGRA_LOW = dict(itopk_size=16, max_iterations=4)
+CAPTURE_HOP = 3
+#: the k the CAGRA build asks of select_k (refine) and of the scans
+WIDE_K, WIDE_KK = 129, 258
 #: the IVF-PQ legs of the main path: (scan cache, lut_dtype)
 PQ_LEGS = (("bfloat16", "float32"), ("bfloat16", "bfloat16"), ("int8", "float32"))
 #: the leg refined and profiled (config 4 searches with bf16 products)
@@ -71,6 +86,7 @@ PQ_MAIN = ("bfloat16", "bfloat16")
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -82,12 +98,14 @@ def main() -> int:
     from raft_tpu_torch import datasets, kernels
     from raft_tpu_torch.cluster import kmeans_balanced
     from raft_tpu_torch.core.resources import Resources, as_f32
+    from raft_tpu_torch.kernels import cagra_traverse as ct
     from raft_tpu_torch.kernels import fused_knn as fk
     from raft_tpu_torch.kernels import ivf_scan as scan
     from raft_tpu_torch.kernels import select_k as sk
-    from raft_tpu_torch.neighbors import _common, brute_force, ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors import _common, brute_force, cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors import refine as refine_mod
     from raft_tpu_torch.neighbors.refine import refine
-    from raft_tpu_torch.ops import cost
+    from raft_tpu_torch.ops import cost, matrix
     from raft_tpu_torch.stats.metrics import recall_at_k
 
     failures = []
@@ -111,6 +129,22 @@ def main() -> int:
         end.record()
         sync()
         return start.elapsed_time(end) / reps
+
+    def device_ms(fn, kernel_name, reps=50):
+        """Device time of one launch of ``kernel_name`` per call of ``fn``, from
+        ``torch.profiler``: for a kernel shorter than its wrapper's host
+        work, CUDA events around back-to-back calls time the host."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        us = [e.device_time_total for e in prof.events()
+              if e.device_type.name == "CUDA" and kernel_name in e.name]
+        return sum(us) / 1e3 / reps if len(us) == reps else float("nan")
 
     # -- the card and the kernels -------------------------------------------
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
@@ -245,6 +279,104 @@ def main() -> int:
 
     with phase("pq_refine"):
         cand, outputs["ivf_pq probe-major + refine"] = refined()
+
+    # -- main path: CAGRA ---------------------------------------------------
+    @contextlib.contextmanager
+    def spied():
+        """Record the k of every scan and select_k launch, and time the
+        build's stages (synchronised), while the block runs."""
+        seen, stage_s = {"scan": set(), "select_k": set()}, {}
+        saved = {}
+
+        def spy(mod, attr, key):
+            fn = getattr(mod, attr)
+            saved[(mod, attr)] = fn
+
+            def wrapper(*a, **kw):
+                seen[key].add(a[6] if key == "scan" else a[1])
+                return fn(*a, **kw)
+            setattr(mod, attr, wrapper)
+
+        def timed(mod, attr):
+            fn = getattr(mod, attr)
+            saved[(mod, attr)] = fn
+
+            def wrapper(*a, **kw):
+                sync()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sync()
+                stage_s[attr] = stage_s.get(attr, 0.0) + time.perf_counter() - t0
+                return out
+            setattr(mod, attr, wrapper)
+
+        spy(scan, "ivf_scan_probe_major", "scan")
+        spy(scan, "ivf_scan_query_major", "scan")
+        spy(sk, "select_k_kernel", "select_k")
+        for mod, attr in ((ivf_pq, "build"), (ivf_pq, "search"), (cagra, "refine"),
+                          (cagra, "optimize"), (cagra, "_build_entry_points")):
+            timed(mod, attr)
+        try:
+            yield seen, stage_s
+        finally:
+            for (mod, attr), fn in saved.items():
+                setattr(mod, attr, fn)
+
+    cagra_params = cagra.IndexParams()
+    with phase("cagra_build"):
+        cg = cagra.build(cagra_params, x, res=res)
+    # a second build, off the main path and not its time: the stage times
+    # (each stage synchronised) and the k of each launch; one seed must give
+    # one graph
+    with spied() as (seen, stage_s):
+        again = cagra.build(cagra_params, x, res=res).graph
+    print(f"cagra build stages (s, second build, synchronised): {json.dumps(stage_s)}; "
+          f"scan kk {sorted(seen['scan'])}, select_k k {sorted(seen['select_k'])}", flush=True)
+    check(torch.equal(again, cg.graph), "two CAGRA builds, one seed: graphs equal")
+    del again
+    build_launches = phase_launches["cagra_build"]
+    check(WIDE_KK in seen["scan"] and build_launches["ivf_scan_probe_major_bf16"] > 0,
+          f"cagra build scanned at kk={WIDE_KK} (ivf_scan_probe_major_bf16 launches "
+          f"{build_launches['ivf_scan_probe_major_bf16']})")
+    check(WIDE_K in seen["select_k"] and build_launches["select_k"] > 0,
+          f"cagra build's refine ran select_k at k={WIDE_K}")
+    check(build_launches["fused_knn"] > 0, "cagra build's entry points launched fused_knn")
+    g = cg.graph
+    g_sorted = torch.sort(g, dim=1).values
+    check(tuple(g.shape) == (x.shape[0], cagra_params.graph_degree) and g.dtype == torch.int32,
+          f"cagra graph {tuple(g.shape)} int32")
+    check(bool((g >= 0).all()) and bool((g < x.shape[0]).all()), "cagra graph: no -1, ids < n")
+    check(bool((g != torch.arange(x.shape[0], device=dev)[:, None]).all()),
+          "cagra graph: no self edge")
+    check(bool((g_sorted[:, 1:] != g_sorted[:, :-1]).all()), "cagra graph: no repeated edge in a row")
+    del g_sorted
+    print(f"cagra index: graph {tuple(g.shape)}, entry points {tuple(cg.entry_centers.shape)}",
+          flush=True)
+
+    cagra_sp = cagra.SearchParams()
+
+    def cagra_search(sp=cagra_sp, index=cg):
+        return lambda qb, k: cagra.search(sp, index, qb, k, res=res)
+
+    def expected_hops(n_q, sp=cagra_sp):
+        _, max_iter, tile = cagra.search_plan(sp, cg, n_q, K, res)
+        return -(-n_q // tile) * max_iter
+
+    with phase("cagra_search"):
+        outputs["cagra"] = cagra_search()(q, K)
+    check(kernels.consume_kernel_path() == "cuda", "cagra search routed to cuda")
+    hops = phase_launches["cagra_search"]["cagra_fused_hop"]
+    check(hops == expected_hops(q.shape[0]),
+          f"cagra search: {hops} hop launches = tiles x max_iter {expected_hops(q.shape[0])}")
+    with phase("cagra_search_batches"):
+        v_b, i_b, walls = batches(cagra_search(), K)
+    outputs["cagra batches"] = (v_b, i_b)
+    check(kernels.consume_kernel_path() == "cuda", "cagra batches routed to cuda")
+    hops = phase_launches["cagra_search_batches"]["cagra_fused_hop"]
+    check(hops == QM_BATCHES * expected_hops(QM_BATCH),
+          f"cagra batches: {hops} hop launches = {QM_BATCHES} x tiles x max_iter")
+    print(f"cagra per batch ms median {float(np.median(walls)):.3f} "
+          f"min {min(walls):.3f} max {max(walls):.3f}", flush=True)
     main_launches = {
         name: sum(p[name] for p in phase_launches.values()) for name in kernels.KERNELS
     }
@@ -264,6 +396,8 @@ def main() -> int:
     r_ref = recall["ivf_pq probe-major + refine"]
     check(r_ref >= 0.9 and r_ref >= recall[main_pq],
           f"refined recall@10 {r_ref:.5f} >= 0.9 and >= the unrefined {recall[main_pq]:.5f}")
+    check(all(r >= CAGRA_RECALL for name, r in recall.items() if name.startswith("cagra")),
+          f"recall@10 of both CAGRA searches >= {CAGRA_RECALL}")
 
     # oracle against an exact float64 numpy reference on a small input
     xs, qs = ds.base[:20000], ds.queries[:64]
@@ -300,14 +434,17 @@ def main() -> int:
     # -- the same searches with every kernel replaced by its plain version --
     @contextlib.contextmanager
     def plain_versions():
-        saved = (sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major)
+        saved = (sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major,
+                 cagra.cagra_fused_hop)
         sk.select_k_kernel = lambda *a, **kw: sk.select_k_torch(*a, **kw)
         scan.ivf_scan_probe_major = scan.ivf_scan_probe_major_torch
         scan.ivf_scan_query_major = scan.ivf_scan_query_major_torch
+        cagra.cagra_fused_hop = ct.cagra_fused_hop_torch
         try:
             yield
         finally:
-            sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major = saved
+            (sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major,
+             cagra.cagra_fused_hop) = saved
 
     def recalls(n_probes):
         """recall@K of every main-path search at ``n_probes``, by name."""
@@ -331,21 +468,38 @@ def main() -> int:
 
     # at 20 probes the IVF-Flat searches give recall 1.0 on any path;
     # LOW_PROBES makes the kernel-vs-plain recall comparison able to fail
+    def cagra_recalls():
+        """CAGRA recall@K on the first CAGRA_SUBSET queries at SearchParams()
+        and at the low-effort setting."""
+        qs = q[:CAGRA_SUBSET]
+        out = {}
+        for tag, sp in (("itopk 64", cagra_sp), ("itopk 16, 4 hops",
+                                                 cagra.SearchParams(**CAGRA_LOW))):
+            i = cagra_search(sp)(qs, K)[1]
+            out[f"cagra {tag}"] = recall_at_k(i, gt_i[:CAGRA_SUBSET], K)
+        return out
+
     kernel_low = recalls(LOW_PROBES)
+    kernel_cagra = cagra_recalls()
     kernels.reset_launch_counts()
     with plain_versions():
         plain_main = recalls(N_PROBES)
         plain_low = recalls(LOW_PROBES)
+        plain_cagra = cagra_recalls()
     check(sum(kernels.launch_counts().values()) == 0, "plain path launched no kernel")
     recall_table = {}
     for n_probes, kern, plain in ((N_PROBES, recall, plain_main),
-                                  (LOW_PROBES, kernel_low, plain_low)):
-        for name in kern:
-            recall_table[f"{name} n_probes={n_probes}"] = [kern[name], plain[name]]
-            print(f"recall@{K} n_probes={n_probes} {name}: kernel path {kern[name]:.5f}, "
+                                  (LOW_PROBES, kernel_low, plain_low),
+                                  (None, kernel_cagra, plain_cagra)):
+        for name in plain:
+            tag = f"{name} n_probes={n_probes}" if n_probes else f"{name}, {CAGRA_SUBSET} queries"
+            recall_table[tag] = [kern[name], plain[name]]
+            print(f"recall@{K} {tag}: kernel path {kern[name]:.5f}, "
                   f"plain path {plain[name]:.5f}", flush=True)
             check(abs(kern[name] - plain[name]) <= 0.005,
-                  f"n_probes={n_probes} {name}: kernel-path recall within 0.005 of the plain path")
+                  f"{tag}: kernel-path recall within 0.005 of the plain path")
+    check(kernel_cagra["cagra itopk 16, 4 hops"] < 0.95,
+          "cagra low-effort recall is below 0.95 (the comparison can fail)")
     print(json.dumps({"recall_kernel_vs_plain": recall_table}), flush=True)
 
     # -- kernels against their plain versions -------------------------------
@@ -382,6 +536,15 @@ def main() -> int:
             "raft_formula_bound_ms": cost.bound_ms(raft_cost)[0], **extra,
         })
 
+    def wide_entry(shape, err, kernel_fn, plain_fn, work, library_fn=None, reps=(10, 2)):
+        """One measurement of a kernel at another shape than its recorded
+        one (a widened k): times of kernel, plain version and library call,
+        and the bound of its work."""
+        bound, by = cost.bound_ms(work)
+        return {"shape": shape, "max_abs_err": err, "ms": cuda_ms(kernel_fn, reps[0]),
+                "plain_ms": cuda_ms(plain_fn, reps[1]), "bound_ms": bound, "bound_by": by,
+                "library_ms": cuda_ms(library_fn, reps[0]) if library_fn else None}
+
     metric = "sqeuclidean"
     # select_k: the coarse selection of the probe-major search
     cs = _common.coarse_scores(q, index.centers, metric)
@@ -411,10 +574,44 @@ def main() -> int:
     merge_bound, _ = cost.bound_ms(cost.select_k_work(*pair_v.shape, K, with_ids=True))
     print(f"select_k merge {tuple(pair_v.shape)} k={K}: {merge_ms:.4f} ms, "
           f"bound {merge_bound:.4f} ms (bytes)", flush=True)
+    # select_k at CAGRA's refine shape: k=129 of 258 exact distances per row
+    _, cand_w = pq_search(*PQ_MAIN)(q, WIDE_KK)
+    dist_w = refine_mod._distances(q, x[cand_w.long()], metric)
+    kv, ki = sk.select_k_kernel(dist_w, WIDE_K, input_indices=cand_w)
+    pv, pi = sk.select_k_torch(dist_w, WIDE_K, input_indices=cand_w)
+    wide = [wide_entry(
+        f"[{dist_w.shape[0]}, {dist_w.shape[1]}] k={WIDE_K} with ids (refine)",
+        bitwise(f"select_k {tuple(dist_w.shape)} k={WIDE_K}", kv, ki, pv, pi),
+        lambda: sk.select_k_kernel(dist_w, WIDE_K, input_indices=cand_w),
+        lambda: sk.select_k_torch(dist_w, WIDE_K, input_indices=cand_w),
+        cost.select_k_work(*dist_w.shape, WIDE_K, with_ids=True),
+        lambda: torch.topk(dist_w, WIDE_K, dim=1, largest=False))]
+    # the graph build's probe-major merge, [rows, 32 probes x 258] k=258: past
+    # the kernel's 8192-wide rows, matrix.select_k takes the chunked path
+    ip_b, sp_b, top_b = cagra._graph_build_ivf_pq_params(cagra_params, *x.shape)
+    qt_b = cagra._graph_build_qtile(res, *x.shape)
+    _, bucket_b, _, _ = _common.select_scan_strategy(
+        "auto", qt_b, sp_b.n_probes, pq_index.n_lists, pq_index.list_cap, pq_index.rot_dim,
+        res.workspace_limit_bytes, k=top_b)
+    args_b, pair_b = ivf_pq.probe_major_scan_inputs(pq_index, x[:qt_b], sp_b.n_probes, top_b,
+                                                    bucket_b)
+    kk_b = args_b[-1]
+    vb, ib = scan.ivf_scan_probe_major(*args_b, metric=metric, **ivf_pq.scan_kwargs(pq_index))
+    pv_b, pi_b = _common.scatter_pair_partials(vb.reshape(-1, kk_b), ib.reshape(-1, kk_b),
+                                               pair_b, qt_b, sp_b.n_probes, kk_b)
+    k_b = min(top_b, pv_b.shape[1])
+    chunked_ms = cuda_ms(lambda: matrix.select_k(pv_b, k_b, input_indices=pi_b), 5)
+    chunked_bound = cost.bound_ms(cost.select_k_work(*pv_b.shape, k_b, with_ids=True))
+    wide.append({"shape": f"[{pv_b.shape[0]}, {pv_b.shape[1]}] k={k_b} (build merge)",
+                 "path": "matrix.select_k chunked (torch.sort), no kernel", "ms": chunked_ms,
+                 "bound_ms": chunked_bound[0], "bound_by": chunked_bound[1]})
+    print(f"build merge {tuple(pv_b.shape)} k={k_b}: chunked path {chunked_ms:.3f} ms",
+          flush=True)
+    del args_b, vb, ib, pv_b, pi_b, pair_b
     record("select_k", "raft_tpu_torch/csrc/select_k.cu", "raft_tpu/kernels/select_k.py:168",
            err, ms, plain_ms, cost.select_k_work(cs.shape[0], cs.shape[1], N_PROBES),
            cost.select_k_cost(cs.shape[0], cs.shape[1], N_PROBES),
-           lib_ms, f"[{cs.shape[0]}, {cs.shape[1]}] k={N_PROBES}")
+           lib_ms, f"[{cs.shape[0]}, {cs.shape[1]}] k={N_PROBES}", wide=wide)
 
     # fused_knn: a subset of the oracle's queries (the plain [n_q, n] matrix
     # of all 10,000 would be 40 GB)
@@ -430,10 +627,20 @@ def main() -> int:
     full_bound, full_by = cost.bound_ms(cost.fused_knn_work(q.shape[0], x.shape[0], x.shape[1], K))
     print(f"fused_knn full oracle [10000 x 1000000 x 128] k={K}: {full_ms:.3f} ms, "
           f"bound {full_bound:.3f} ms ({full_by})", flush=True)
+    # k=129: CAGRA's exact graph build (build_algo="brute_force")
+    kv, ki = fk.fused_l2_topk(qs_t, x, xx, WIDE_K)
+    pv, pi = fk.fused_l2_topk_torch(qs_t, x, xx, WIDE_K)
+    wide = [wide_entry(
+        f"q [{FUSED_SUBSET}, 128] x [1000000, 128] k={WIDE_K}",
+        close(f"fused_knn k={WIDE_K}", kv, ki, pv, pi),
+        lambda: fk.fused_l2_topk(qs_t, x, xx, WIDE_K),
+        lambda: fk.fused_l2_topk_torch(qs_t, x, xx, WIDE_K),
+        cost.fused_knn_work(FUSED_SUBSET, x.shape[0], x.shape[1], WIDE_K),
+        lambda: torch.topk(torch.cdist(qs_t, x), WIDE_K, dim=1, largest=False), reps=(5, 1))]
     record("fused_knn", "raft_tpu_torch/csrc/fused_knn.cu", "raft_tpu/kernels/fused_knn.py:121",
            err, ms, plain_ms, cost.fused_knn_work(FUSED_SUBSET, x.shape[0], x.shape[1], K),
            cost.fused_knn_cost(FUSED_SUBSET, x.shape[0], x.shape[1], K),
-           lib_ms, f"q [{FUSED_SUBSET}, 128] x [1000000, 128] k={K}")
+           lib_ms, f"q [{FUSED_SUBSET}, 128] x [1000000, 128] k={K}", wide=wide)
 
     def scan_leg(schedule, name, idx, arg_sets, compare, legs):
         """Kernel vs plain for one C entry of ``schedule`` on the main
@@ -504,6 +711,82 @@ def main() -> int:
         scan_leg("query_major", f"ivf_scan_query_major_{name}", idx, serving_batches(
             lambda qb: ivf_pq.query_major_scan_inputs(idx, qb, N_PROBES, K)), bitwise, legs)
 
+    # probe-major at kk=258 (the CAGRA build's scan), on the kk=10 row's
+    # queries and buckets: f32 rows (IVF-Flat) and bf16 rows with f32
+    # products (the build's leg)
+    def wide_scan(name, idx, args, compare, kw):
+        kernel = lambda: scan.ivf_scan_probe_major(*args, metric=metric, **kw)
+        plain = lambda: scan.ivf_scan_probe_major_torch(*args, metric=metric, **kw)
+        kv, ki = kernel()
+        pv, pi = plain()
+        probes = _common.coarse_select(q, idx.centers, metric, N_PROBES)
+        work = cost.scan_work(probes, (idx.list_index >= 0).sum(dim=1), args[1].shape[-1],
+                              probes.numel(), WIDE_KK, itemsize=idx.list_data.element_size())
+        entry = wide_entry(f"B={args[1].shape[0]} G={args[1].shape[1]} kk={WIDE_KK}",
+                           compare(f"{name} kk={WIDE_KK}", kv, ki, pv, pi), kernel, plain,
+                           work, reps=(5, 1))
+        next(r for r in results if r["name"] == name).setdefault("wide", []).append(entry)
+
+    wide_scan("ivf_scan_probe_major", index,
+              ivf_flat.probe_major_scan_inputs(index, q, N_PROBES, WIDE_KK, bucket)[0], close, {})
+    wide_scan("ivf_scan_probe_major_bf16", bf16,
+              ivf_pq.probe_major_scan_inputs(bf16, q, N_PROBES, WIDE_KK, pq_bucket)[0], bitwise,
+              ivf_pq.scan_kwargs(bf16, "float32"))
+
+    # the CAGRA hop: the inputs of hop CAPTURE_HOP of the first query tile
+    # (f32 rows, and a bf16 copy of the dataset), and of a 64-query batch
+    def capture_hop(index, n_q):
+        itopk, _, tile = cagra.search_plan(cagra_sp, index, n_q, K, res)
+        qs = q[:min(n_q, tile)]
+        seeds = cagra.make_seed_ids(cagra_sp, index, qs, K, itopk=itopk)
+        buf = cagra.traverse_init(index.dataset, qs, seeds, itopk, metric)
+        buf_d, buf_i, explored = cagra.traverse_steps(
+            index.dataset, index.graph, qs, *buf, steps=CAPTURE_HOP - 1,
+            width=cagra_sp.search_width, metric=metric)
+        parents, explored = cagra.pick_parents(buf_d, buf_i, explored, cagra_sp.search_width)
+        return (index.dataset, index.graph, qs, parents, buf_d, buf_i, explored)
+
+    def hop_check(tag, args):
+        got = ct.cagra_fused_hop(*args, metric=metric)
+        want = ct.cagra_fused_hop_torch(*args, metric=metric)
+        ok = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(ok, f"cagra hop {tag}: values, ids and flags bitwise equal to the plain version")
+        check(not torch.equal(got[1], args[5]), f"cagra hop {tag} changed the buffer")
+        return max_err(got[0], want[0])
+
+    def hop_work(args):
+        return cost.cagra_traverse_work(args[3], args[1].shape[1], args[0].shape[1],
+                                         args[4].shape[1], itemsize=args[0].element_size())
+
+    hop_args = capture_hop(cg, q.shape[0])
+    err = hop_check(f"tile {hop_args[2].shape[0]} f32", hop_args)
+    cg_bf16 = cagra.Index(cg.metric, cg.dataset.to(torch.bfloat16), cg.graph, cg.entry_centers,
+                          cg.entry_ids)
+    hop_bf = capture_hop(cg_bf16, q.shape[0])
+    err = max(err, hop_check(f"tile {hop_bf[2].shape[0]} bf16 rows", hop_bf))
+    hop_small = capture_hop(cg, QM_BATCH)
+    err = max(err, hop_check(f"tile {QM_BATCH} f32", hop_small))
+    hop_ms = device_ms(lambda: ct.cagra_fused_hop(*hop_args, metric=metric), "cagra_hop_kernel")
+    hop_plain = cuda_ms(lambda: ct.cagra_fused_hop_torch(*hop_args, metric=metric), 3)
+    tile, itopk = hop_args[4].shape
+    also = [wide_entry(f"tile {t}, itopk {a[4].shape[1]}, {tag}", err,
+                       lambda a=a: ct.cagra_fused_hop(*a, metric=metric),
+                       lambda a=a: ct.cagra_fused_hop_torch(*a, metric=metric), hop_work(a),
+                       reps=(50, 3))
+            for tag, t, a in (("bf16 rows", hop_bf[2].shape[0], hop_bf),
+                              ("f32 rows", QM_BATCH, hop_small))]
+    for entry, a in zip(also, (hop_bf, hop_small)):
+        entry.pop("library_ms")
+        entry["wall_ms"] = entry["ms"]
+        entry["ms"] = device_ms(lambda: ct.cagra_fused_hop(*a, metric=metric), "cagra_hop_kernel")
+    record("cagra_fused_hop", "raft_tpu_torch/csrc/cagra_hop.cu",
+           "raft_tpu/kernels/cagra_traverse.py:278", err, hop_ms, hop_plain, hop_work(hop_args),
+           cost.cagra_traverse_cost(tile, cagra_sp.search_width, cg.graph_degree, cg.dim, itopk),
+           None, f"tile {tile}, width {cagra_sp.search_width}, deg {cg.graph_degree}, "
+           f"d {cg.dim}, itopk {itopk}, f32 rows (hop {CAPTURE_HOP})", also=also,
+           wall_ms=cuda_ms(lambda: ct.cagra_fused_hop(*hop_args, metric=metric), 50))
+    del hop_args, hop_bf, hop_small, cg_bf16
+
     # -- where the time of a search goes ------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -548,6 +831,8 @@ def main() -> int:
             lambda: ivf_flat.search(sp, index, q[:QM_BATCH], K, res=res)),
         "pq_probe_major_10000q": profile_search(lambda: pq_main(q, K)),
         f"pq_query_major_{QM_BATCH}q": profile_search(lambda: pq_main(q[:QM_BATCH], K)),
+        "cagra_10000q": profile_search(lambda: cagra_search()(q, K)),
+        f"cagra_{QM_BATCH}q": profile_search(lambda: cagra_search()(q[:QM_BATCH], K)),
     }
     for name, prof_out in profiles.items():
         check(prof_out["device_busy_ms"] > 0, f"profile of {name} saw device time")
@@ -557,6 +842,7 @@ def main() -> int:
         check(main_launches[name] > 0, f"{name} launched {main_launches[name]} times on the main path")
     print(f"phase launches: {json.dumps(phase_launches)}", flush=True)
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
         return 1

@@ -13,8 +13,9 @@
 // register-tiled product per step (tile_gemm.cuh, 16 FMAs per thread per
 // dimension) whose scores go to shared memory, where each warp folds eight
 // queries' 64 candidates into their lists with one compare per candidate
-// (topk.cuh).  One block owns 64 queries and streams one contiguous part
-// of the dataset; a batch too small to fill the card cuts the dataset into
+// (topk.cuh).  One block owns 64 queries (fewer past k = 349, where 64
+// lists outgrow shared memory) and streams one contiguous part of the
+// dataset; a batch too small to fill the card cuts the dataset into
 // more parts and merges their lists (topk.cuh merge_parts).
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -24,14 +25,15 @@
 
 namespace {
 
+template <bool kWide>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
                  const float* __restrict__ xx, int n_q, int n, int d, int k,
-                 int ip_mode, int c_chunk, float* __restrict__ out_v,
+                 int ip_mode, int c_chunk, int qpb, float* __restrict__ out_v,
                  int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);          // [kBM][k]
-  int* li = reinterpret_cast<int*>(lv + rt::kBM * k);      // [kBM][k]
+  float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][k]
+  int* li = reinterpret_cast<int*>(lv + qpb * k);          // [qpb][k]
   __shared__ rt::GemmSmem gsm;
   __shared__ float s[rt::kBM][rt::kBN + 1];
 
@@ -40,8 +42,8 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int warp = tid / 32;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int q0 = blockIdx.x * rt::kBM;
-  const int q_rows = min(rt::kBM, n_q - q0);
+  const int q0 = blockIdx.x * qpb;
+  const int q_rows = min(qpb, n_q - q0);
   const float* qa = q + (size_t)q0 * d;
   // this block's part of the dataset, and where its lists go: row
   // (q0 + m) of [n_q, gridDim.y * k], part blockIdx.y
@@ -50,7 +52,7 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const size_t out_stride = (size_t)gridDim.y * k;
   const size_t out_off = (size_t)blockIdx.y * k;
 
-  for (int m = warp; m < rt::kBM; m += rt::kGemmThreads / 32)
+  for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32)
     rt::list_init(lv + m * k, li + m * k, k, lane);
 
   float acc[4][4];
@@ -80,7 +82,7 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
       int* mi = li + m * k;
       for (int cc = 0; cc < rt::kBN; cc += 32) {
         const int c = cc + lane;
-        rt::list_offer32(s[m][c], c0 + c, mv, mi, k, lane);
+        rt::list_offer32<kWide>(s[m][c], c0 + c, mv, mi, k, lane);
       }
     }
   }
@@ -105,17 +107,18 @@ extern "C" int rt_fused_knn(const float* q, const float* x, const float* xx,
   if (k < 1 || k > rt::kMaxK || k > n || d < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
   if (n_q == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)rt::kBM * k * (sizeof(float) + sizeof(int));
+  const int qpb = rt::lists_per_block(k, rt::kBM);
+  const size_t smem = (size_t)qpb * k * (sizeof(float) + sizeof(int));
+  auto kernel = rt::pick_wide(k, [](auto w) { return fused_knn_kernel<decltype(w)::value>; });
   cudaError_t err = cudaFuncSetAttribute(
-      fused_knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)((size_t)rt::kBM * rt::kMaxK * (sizeof(float) + sizeof(int))));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int c_chunk = ((n + splits - 1) / splits + rt::kBN - 1) / rt::kBN * rt::kBN;
   splits = (n + c_chunk - 1) / c_chunk;
-  dim3 grid((n_q + rt::kBM - 1) / rt::kBM, splits);
+  dim3 grid((n_q + qpb - 1) / qpb, splits);
   const bool merge = splits > 1;
-  fused_knn_kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
-      q, x, xx, n_q, n, d, k, ip_mode, c_chunk, merge ? part_v : out_v,
+  kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
+      q, x, xx, n_q, n, d, k, ip_mode, c_chunk, qpb, merge ? part_v : out_v,
       merge ? part_i : out_i);
   err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return (int)err;

@@ -116,20 +116,22 @@ __device__ __forceinline__ float quantize_row(const float* qrow, int d, int* wor
 
 // -- probe-major ----------------------------------------------------------
 
-// Walk bucket blockIdx.x's list in kBN-slot tiles for the block's kBM
-// queries (blockIdx.y): score, mask and fold each tile into the queries'
-// lists lv / li ([kBM][kk], shared), then write the lists out.  A block
+// Walk bucket blockIdx.x's list in kBN-slot tiles for the block's qpb <=
+// kBM queries (blockIdx.y): score, mask and fold each tile into the
+// queries' lists lv / li ([qpb][kk], shared), then write the lists out.
+// qpb is kBM up to kk = 349; a wider kk gives a block fewer queries of the
+// bucket, so that their lists fit in shared memory.  A block
 // whose queries are all padding skips the walk, and a tile whose slots are
 // all padding is skipped.  The leg's own parts: `prologue()` runs once
 // before the walk of a live block; `tile_ip(l, c0, c_rows, ip)` sets
 // ip[i][j] to the dot product of the block's query ty + 16 i with slot
 // c0 + tx + 16 j of list l.  Every thread calls both.
-template <typename Prologue, typename TileIp>
+template <bool kWide, typename Prologue, typename TileIp>
 __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
                                         const float* __restrict__ q2g,
                                         const float* __restrict__ y2,
                                         const int* __restrict__ ids, int G, int cap, int kk,
-                                        int metric, float* lv, int* li,
+                                        int qpb, int metric, float* lv, int* li,
                                         float* __restrict__ out_v, int* __restrict__ out_i,
                                         Prologue&& prologue, TileIp&& tile_ip) {
   __shared__ float s[rt::kBM][rt::kBN + 1];
@@ -143,8 +145,8 @@ __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
   const int ty = tid / 16;
   const int tx = tid % 16;
   const int b = blockIdx.x;
-  const int g0 = blockIdx.y * rt::kBM;
-  const int q_rows = min(rt::kBM, G - g0);
+  const int g0 = blockIdx.y * qpb;
+  const int q_rows = min(qpb, G - g0);
   const size_t out_base = ((size_t)b * G + g0) * kk;
 
   bool live = false;
@@ -153,7 +155,7 @@ __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
     sq2[tid] = v;
     live = !isinf(v);
   }
-  for (int m = warp; m < rt::kBM; m += rt::kGemmThreads / 32)
+  for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32)
     rt::list_init(lv + m * kk, li + m * kk, kk, lane);
   if (__syncthreads_or(live)) {
     prologue();
@@ -185,7 +187,7 @@ __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
       for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32) {
         for (int cc = 0; cc < rt::kBN; cc += 32) {
           const int c = cc + lane;
-          rt::list_offer32(s[m][c], sid[c], lv + m * kk, li + m * kk, kk, lane);
+          rt::list_offer32<kWide>(s[m][c], sid[c], lv + m * kk, li + m * kk, kk, lane);
         }
       }
       __syncthreads();
@@ -199,23 +201,24 @@ __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
   }
 }
 
-// Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16.
-template <typename T, bool kBf16>
+// Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16;
+// kWide = kk > rt::kRegK (topk.cuh).
+template <typename T, bool kBf16, bool kWide>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                    const float* __restrict__ q2g, const T* __restrict__ data,
                    const float* __restrict__ y2, const int* __restrict__ ids,
-                   int G, int cap, int d, int kk, int metric,
+                   int G, int cap, int d, int kk, int qpb, int metric,
                    float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);          // [kBM][kk]
-  int* li = reinterpret_cast<int*>(lv + rt::kBM * kk);     // [kBM][kk]
+  float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][kk]
+  int* li = reinterpret_cast<int*>(lv + qpb * kk);         // [qpb][kk]
   __shared__ rt::GemmSmem gsm;
 
-  const int g0 = blockIdx.y * rt::kBM;
-  const int q_rows = min(rt::kBM, G - g0);
+  const int g0 = blockIdx.y * qpb;
+  const int q_rows = min(qpb, G - g0);
   const float* qa = qg + ((size_t)blockIdx.x * G + g0) * d;
-  pm_walk(bucket_list, q2g, y2, ids, G, cap, kk, metric, lv, li, out_v, out_i, [] {},
+  pm_walk<kWide>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, lv, li, out_v, out_i, [] {},
           [&](int l, int c0, int c_rows, float (&ip)[4][4]) {
             const T* rows = data + ((size_t)l * cap + c0) * d;
             rt::tile_gemm<T, kBf16>(qa, q_rows, d, rows, c_rows, d, d, gsm, ip);
@@ -226,16 +229,17 @@ constexpr int kWords = rt::kBK / 4;   // int8 words (4 dimensions) per chunk
 
 // int8 leg: the block's queries are quantised once into shared memory as a
 // transposed [d4][kBM + 1] word array; rows stage kWords words at a time.
+template <bool kWide>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                       const float* __restrict__ q2g, const int8_t* __restrict__ data,
                       const float* __restrict__ y2, const int* __restrict__ ids,
-                      int G, int cap, int d, int kk, int metric, float scan_scale,
+                      int G, int cap, int d, int kk, int qpb, int metric, float scan_scale,
                       float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);          // [kBM][kk]
-  int* li = reinterpret_cast<int*>(lv + rt::kBM * kk);     // [kBM][kk]
-  int* qw = li + rt::kBM * kk;                              // [d4][kBM + 1]
+  float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][kk]
+  int* li = reinterpret_cast<int*>(lv + qpb * kk);         // [qpb][kk]
+  int* qw = li + qpb * kk;                                  // [d4][kBM + 1]
   __shared__ int sb[kWords][rt::kBN + 1];
   __shared__ float srescale[rt::kBM];
 
@@ -244,12 +248,12 @@ probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restri
   const int warp = tid / 32;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int g0 = blockIdx.y * rt::kBM;
-  const int q_rows = min(rt::kBM, G - g0);
+  const int g0 = blockIdx.y * qpb;
+  const int q_rows = min(qpb, G - g0);
   const int d4 = (d + 3) / 4;
   constexpr int kStride = rt::kBM + 1;
 
-  pm_walk(bucket_list, q2g, y2, ids, G, cap, kk, metric, lv, li, out_v, out_i,
+  pm_walk<kWide>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, lv, li, out_v, out_i,
           [&] {
             for (int m = warp; m < rt::kBM; m += rt::kGemmThreads / 32) {
               const float* qrow =
@@ -312,7 +316,7 @@ template <> struct QmTile<__nv_bfloat16> { __nv_bfloat16 x[kQmRows][kQmBK + 2]; 
 // 256-row tiles: score, mask and fold each tile.  `tile_ip(l, c0, c_rows)`
 // is the leg's own part: it stages the tile's rows of list l and returns
 // this thread's dot product with row c0 + tid.  Every thread calls it.
-template <typename ScoreTile>
+template <bool kWide, typename ScoreTile>
 __device__ __forceinline__ void qm_walk(const int* __restrict__ probes, const float* __restrict__ y2,
                                         const int* __restrict__ ids, int qi, int P, int cap,
                                         int p_begin, int p_end, float q2, int metric, int kk,
@@ -331,7 +335,7 @@ __device__ __forceinline__ void qm_walk(const int* __restrict__ probes, const fl
       sv[tid] = id < 0 ? CUDART_INF_F : score(metric, ip, q2, y);
       sid[tid] = id;
       __syncthreads();
-      if (tid < 32) rt::list_offer_row(sv, sid, c_rows, lv, li, kk, lane);
+      if (tid < 32) rt::list_offer_row<kWide>(sv, sid, c_rows, lv, li, kk, lane);
     }
   }
 }
@@ -347,7 +351,7 @@ __device__ __forceinline__ void qm_write(const float* lv, const int* li, int qi,
 }
 
 // Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16.
-template <typename T, bool kBf16>
+template <typename T, bool kBf16, bool kWide>
 __global__ void __launch_bounds__(kQmRows)
 query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                    const float* __restrict__ q2v, const T* __restrict__ data,
@@ -376,8 +380,8 @@ query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
   const int p_begin = blockIdx.y * p_chunk;
   const int p_end = min(P, p_begin + p_chunk);
   if (!isinf(q2)) {
-    qm_walk(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, lv, li, sv, sid,
-            [&](int l, int c0, int c_rows) {
+    qm_walk<kWide>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, lv, li, sv,
+                   sid, [&](int l, int c0, int c_rows) {
               const T* rows = data + ((size_t)l * cap + c0) * d;
               float acc = 0.0f;
               for (int k0 = 0; k0 < d; k0 += kQmBK) {
@@ -405,6 +409,7 @@ query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
 
 // int8 leg: the query is quantised once into shared memory words; rows
 // stage as words, kQmWords per row per chunk.
+template <bool kWide>
 __global__ void __launch_bounds__(kQmRows)
 query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                       const float* __restrict__ q2v, const int8_t* __restrict__ data,
@@ -436,8 +441,8 @@ query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ 
   const int p_begin = blockIdx.y * p_chunk;
   const int p_end = min(P, p_begin + p_chunk);
   if (!isinf(q2)) {
-    qm_walk(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, lv, li, sv, sid,
-            [&](int l, int c0, int c_rows) {
+    qm_walk<kWide>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, lv, li, sv,
+                   sid, [&](int l, int c0, int c_rows) {
               const int8_t* rows = data + ((size_t)l * cap + c0) * d;
               int acc = 0;
               for (int w0 = 0; w0 < d4; w0 += kQmWords) {
@@ -461,10 +466,6 @@ query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ 
 
 // -- launchers ------------------------------------------------------------
 
-// dynamic shared memory a launch may ask for: the 227 KB a block can hold,
-// less room for the kernels' static tiles
-constexpr size_t kMaxDynamicSmem = 179 * 1024;
-
 // A block may hold more than 48 KB of shared memory in all (static tiles
 // plus the dynamic lists) only once its kernel opts in to the dynamic part.
 template <typename Kernel>
@@ -482,12 +483,15 @@ int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T
                        int kk, int metric, float* out_v, int* out_i, cudaStream_t stream) {
   if (bad_shape(kk, d, cap, G)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)rt::kBM * kk * (sizeof(float) + sizeof(int));
-  cudaError_t err = allow_smem(probe_major_kernel<T, kBf16>, smem);
+  const int qpb = rt::lists_per_block(kk, rt::kBM);
+  const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int));
+  auto kernel = rt::pick_wide(
+      kk, [](auto w) { return probe_major_kernel<T, kBf16, decltype(w)::value>; });
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, (G + rt::kBM - 1) / rt::kBM);
-  probe_major_kernel<T, kBf16><<<grid, rt::kGemmThreads, smem, stream>>>(
-      bl, qg, q2g, data, y2, ids, G, cap, d, kk, metric, out_v, out_i);
+  dim3 grid(B, (G + qpb - 1) / qpb);
+  kernel<<<grid, rt::kGemmThreads, smem, stream>>>(
+      bl, qg, q2g, data, y2, ids, G, cap, d, kk, qpb, metric, out_v, out_i);
   return (int)cudaGetLastError();
 }
 
@@ -503,7 +507,7 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
                        cudaStream_t stream, Extra... extra) {
   if (bad_shape(kk, d, cap, P) || splits < 1) return (int)cudaErrorInvalidValue;
   if (Q == 0) return (int)cudaSuccess;
-  if (smem > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
+  if (smem > rt::kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int p_chunk = (P + splits - 1) / splits;
@@ -515,6 +519,12 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
   err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return (int)err;
   return (int)rt::merge_parts(part_v, part_i, Q, splits * kk, kk, out_v, out_i, stream);
+}
+
+// The query-major kernel of a float leg for lists of kk entries.
+template <typename T, bool kBf16>
+auto qm_float_kernel(int kk) {
+  return rt::pick_wide(kk, [](auto w) { return query_major_kernel<T, kBf16, decltype(w)::value>; });
 }
 
 }  // namespace
@@ -557,14 +567,16 @@ extern "C" int rt_ivf_scan_probe_major_int8(const int* bucket_list, const float*
                                             void* stream) {
   if (bad_shape(kk, d, cap, G)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)rt::kBM * kk * (sizeof(float) + sizeof(int)) +
-                      (size_t)((d + 3) / 4) * (rt::kBM + 1) * sizeof(int);
-  if (smem > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(probe_major_i8_kernel, smem);
+  const size_t words = (size_t)((d + 3) / 4) * (rt::kBM + 1) * sizeof(int);
+  const int qpb = rt::lists_per_block(kk, rt::kBM, words);
+  if (qpb < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + words;
+  auto kernel = rt::pick_wide(kk, [](auto w) { return probe_major_i8_kernel<decltype(w)::value>; });
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, (G + rt::kBM - 1) / rt::kBM);
-  probe_major_i8_kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
-      bucket_list, qg, q2g, static_cast<const int8_t*>(data), y2, ids, G, cap, d, kk,
+  dim3 grid(B, (G + qpb - 1) / qpb);
+  kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
+      bucket_list, qg, q2g, static_cast<const int8_t*>(data), y2, ids, G, cap, d, kk, qpb,
       metric, scan_scale, out_v, out_i);
   return (int)cudaGetLastError();
 }
@@ -579,10 +591,10 @@ extern "C" int rt_ivf_scan_query_major(const int* probes, const float* q, const 
   const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) + (size_t)d * sizeof(float);
   auto s = (cudaStream_t)stream;
   return bf16_compute
-      ? launch_query_major(query_major_kernel<float, true>, smem, probes, q, q2, data, y2,
+      ? launch_query_major(qm_float_kernel<float, true>(kk), smem, probes, q, q2, data, y2,
                            ids, Q, P, cap, d, kk, metric, splits, part_v, part_i, out_v,
                            out_i, s)
-      : launch_query_major(query_major_kernel<float, false>, smem, probes, q, q2, data, y2,
+      : launch_query_major(qm_float_kernel<float, false>(kk), smem, probes, q, q2, data, y2,
                            ids, Q, P, cap, d, kk, metric, splits, part_v, part_i, out_v,
                            out_i, s);
 }
@@ -597,10 +609,10 @@ extern "C" int rt_ivf_scan_query_major_bf16(const int* probes, const float* q,
   auto s = (cudaStream_t)stream;
   auto rows = static_cast<const __nv_bfloat16*>(data);
   return bf16_compute
-      ? launch_query_major(query_major_kernel<__nv_bfloat16, true>, smem, probes, q, q2,
+      ? launch_query_major(qm_float_kernel<__nv_bfloat16, true>(kk), smem, probes, q, q2,
                            rows, y2, ids, Q, P, cap, d, kk, metric, splits, part_v, part_i,
                            out_v, out_i, s)
-      : launch_query_major(query_major_kernel<__nv_bfloat16, false>, smem, probes, q, q2,
+      : launch_query_major(qm_float_kernel<__nv_bfloat16, false>(kk), smem, probes, q, q2,
                            rows, y2, ids, Q, P, cap, d, kk, metric, splits, part_v, part_i,
                            out_v, out_i, s);
 }
@@ -613,7 +625,8 @@ extern "C" int rt_ivf_scan_query_major_int8(const int* probes, const float* q,
                                             float* out_v, int* out_i, void* stream) {
   const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) +
                       (size_t)((d + 3) / 4) * sizeof(int);
-  return launch_query_major(query_major_i8_kernel, smem, probes, q, q2,
+  auto kernel = rt::pick_wide(kk, [](auto w) { return query_major_i8_kernel<decltype(w)::value>; });
+  return launch_query_major(kernel, smem, probes, q, q2,
                             static_cast<const int8_t*>(data), y2, ids, Q, P, cap, d, kk,
                             metric, splits, part_v, part_i, out_v, out_i,
                             (cudaStream_t)stream, scan_scale);

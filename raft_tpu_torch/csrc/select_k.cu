@@ -1,11 +1,12 @@
-// Per-row k-selection for rows of up to 8192 floats, k <= 128.
+// Per-row k-selection for rows of up to 8192 floats, k <= 512.
 //
 // Replaces raft_tpu/kernels/select_k.py select_k_pallas / _select_kernel
 // (k rounds of masked min-extraction with a removal mask).
 //
 // What bounds it on the H100: one read of each row and a k-wide write are
-// tiny next to the k block-wide reductions, so for k ~ 10-20 it is bound by
-// latency (shuffles and barriers), not by bytes or flops.  The design keeps
+// tiny next to the k block-wide reductions, so it is bound by latency
+// (shuffles and barriers), not by bytes or flops, and its time grows with
+// k: k = 129 over 258-wide rows (CAGRA's refine) is 129 rounds.  The design keeps
 // the whole row in shared memory and each thread's best remaining entry in
 // registers: a round is one block-wide argmin of 256 cached keys, and only
 // the thread that owned the winner rescans its (at most 32) entries.  The
@@ -23,6 +24,7 @@
 namespace {
 
 constexpr int kMaxN = 8192;
+constexpr int kMaxK = 512;
 constexpr int kThreads = 256;
 
 struct Key {
@@ -134,7 +136,7 @@ __global__ void select_k_kernel(const float* __restrict__ scores,
 extern "C" int rt_select_k(const float* scores, const int* ids, long ids_row_stride,
                            int rows, int n, int k, int select_min, int stable,
                            float* out_v, int* out_i, void* stream) {
-  if (n > kMaxN || k > 128 || k > n || n < 1) return (int)cudaErrorInvalidValue;
+  if (n > kMaxN || k > kMaxK || k > n || n < 1 || k < 1) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   int threads = ((n + 31) / 32) * 32;
   threads = threads < 32 ? 32 : (threads > kThreads ? kThreads : threads);

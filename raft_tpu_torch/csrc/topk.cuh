@@ -1,5 +1,5 @@
-// Device-side running top-k shared by the four kernels of the IVF-Flat /
-// brute-force slice (counterpart of raft_tpu/kernels/toolkit.py fold_topk).
+// Device-side running top-k shared by the port's kernels (counterpart of
+// raft_tpu/kernels/toolkit.py fold_topk).
 //
 // Semantics, identical to fold_topk: keep the k smallest candidates by the
 // lexicographic key (value, position).  Residents were offered earlier than
@@ -13,15 +13,35 @@
 // candidates against the k-th value, then inserts the survivors one by one
 // in position order.  After the first few tiles almost every candidate
 // fails the threshold test, so the fold costs one compare per candidate.
+//
+// k runs up to kMaxK = 512 (CAGRA's widest internal buffer).  A list of at
+// most kRegK = 128 entries shifts through 4 registers a lane in one step,
+// as it always has.  A longer list (kWide, a template flag of every list
+// function and of every kernel that folds lists, set by the launcher when
+// k > kRegK, through pick_wide) shifts 32 entries at a time, from its tail
+// down to the insertion point, through one register a lane.  The k <= 128
+// kernels are separate instantiations, so they keep their register counts
+// (one kernel holding both paths spilled).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <type_traits>
+
 namespace rt {
 
-constexpr int kMaxK = 128;      // deepest k any kernel of the slice serves
+constexpr int kMaxK = 512;      // deepest k any kernel of the port serves
+constexpr int kRegK = 128;      // deepest k shifted through registers at once
 constexpr unsigned kFull = 0xffffffffu;
+
+// The instantiation of a list-folding kernel for lists of k entries:
+// `pick(w)` returns the kernel for kWide = decltype(w)::value, and
+// pick_wide calls it with kWide = k > kRegK.
+template <typename Pick>
+static inline auto pick_wide(int k, Pick pick) {
+  return k > kRegK ? pick(std::true_type{}) : pick(std::false_type{});
+}
 
 __device__ __forceinline__ void list_init(float* lv, int* li, int kk, int lane) {
   for (int p = lane; p < kk; p += 32) {
@@ -33,19 +53,48 @@ __device__ __forceinline__ void list_init(float* lv, int* li, int kk, int lane) 
 
 // Insert (v, id) into the warp's sorted list.  Every lane of the warp calls
 // it with the same (v, id).  The caller has checked v < lv[kk - 1].
+template <bool kWide>
 __device__ __forceinline__ void list_insert(float v, int id, float* lv, int* li,
                                             int kk, int lane) {
+  if constexpr (kWide) {
+    int cnt = 0;
+    for (int p = lane; p < kk; p += 32) cnt += (lv[p] <= v) ? 1 : 0;
+    const int pos = __reduce_add_sync(kFull, cnt);
+    // chunks [32 c, 32 c + 32), last first: chunk c reads slots 32 c - 1 ..
+    // 32 c + 30 before it writes 32 c .. 32 c + 31, and no lower chunk
+    // reads what a higher one wrote
+    for (int c = (kk - 1) / 32; c >= pos / 32; --c) {
+      const int p = 32 * c + lane;
+      const bool shift = p > pos && p < kk;
+      float tv = 0.0f;
+      int ti = 0;
+      if (shift) {
+        tv = lv[p - 1];
+        ti = li[p - 1];
+      }
+      __syncwarp();
+      if (shift) {
+        lv[p] = tv;
+        li[p] = ti;
+      } else if (p == pos) {
+        lv[p] = v;
+        li[p] = id;
+      }
+      __syncwarp();
+    }
+    return;
+  }
   int cnt = 0;
 #pragma unroll
-  for (int s = 0; s < kMaxK / 32; ++s) {
+  for (int s = 0; s < kRegK / 32; ++s) {
     int p = lane + 32 * s;
     if (p < kk) cnt += (lv[p] <= v) ? 1 : 0;
   }
   const int pos = __reduce_add_sync(kFull, cnt);
-  float tv[kMaxK / 32];
-  int ti[kMaxK / 32];
+  float tv[kRegK / 32];
+  int ti[kRegK / 32];
 #pragma unroll
-  for (int s = 0; s < kMaxK / 32; ++s) {
+  for (int s = 0; s < kRegK / 32; ++s) {
     int p = lane + 32 * s;
     if (p > pos && p < kk) {
       tv[s] = lv[p - 1];
@@ -54,7 +103,7 @@ __device__ __forceinline__ void list_insert(float v, int id, float* lv, int* li,
   }
   __syncwarp();
 #pragma unroll
-  for (int s = 0; s < kMaxK / 32; ++s) {
+  for (int s = 0; s < kRegK / 32; ++s) {
     int p = lane + 32 * s;
     if (p > pos && p < kk) {
       lv[p] = tv[s];
@@ -68,6 +117,7 @@ __device__ __forceinline__ void list_insert(float v, int id, float* lv, int* li,
 }
 
 // Offer 32 candidates, one per lane, in lane order (lane = position order).
+template <bool kWide>
 __device__ __forceinline__ void list_offer32(float v, int id, float* lv, int* li,
                                              int kk, int lane) {
   unsigned mask = __ballot_sync(kFull, v < lv[kk - 1]);
@@ -76,12 +126,13 @@ __device__ __forceinline__ void list_offer32(float v, int id, float* lv, int* li
     mask &= mask - 1;
     const float cv = __shfl_sync(kFull, v, src);
     const int ci = __shfl_sync(kFull, id, src);
-    if (cv < lv[kk - 1]) list_insert(cv, ci, lv, li, kk, lane);
+    if (cv < lv[kk - 1]) list_insert<kWide>(cv, ci, lv, li, kk, lane);
   }
 }
 
 // Offer a row of n candidates held in shared memory, in index order.
 // Slots whose value is +inf never enter (they could not beat the list).
+template <bool kWide>
 __device__ __forceinline__ void list_offer_row(const float* cv, const int* cid,
                                                int n, float* lv, int* li,
                                                int kk, int lane) {
@@ -89,8 +140,23 @@ __device__ __forceinline__ void list_offer_row(const float* cv, const int* cid,
     const int c = c0 + lane;
     const float v = c < n ? cv[c] : CUDART_INF_F;
     const int id = c < n ? cid[c] : -1;
-    list_offer32(v, id, lv, li, kk, lane);
+    list_offer32<kWide>(v, id, lv, li, kk, lane);
   }
+}
+
+// Dynamic shared memory a launch may ask for: the 227 KB a block can hold,
+// less room for the kernels' static tiles.
+constexpr size_t kMaxDynamicSmem = 179 * 1024;
+
+// How many of a block's kBM-row tile of queries get a list of k entries
+// (8 k bytes each) when `fixed` bytes of dynamic shared memory are taken:
+// all kBM of them up to k = 349, fewer past it, so that a wide list costs
+// parallelism rather than refusing the launch.  0 when not even one fits.
+static inline int lists_per_block(int k, int max_rows, size_t fixed = 0) {
+  if (fixed >= kMaxDynamicSmem) return 0;
+  const size_t per = (size_t)k * (sizeof(float) + sizeof(int));
+  const size_t fit = (kMaxDynamicSmem - fixed) / per;
+  return (int)(fit < (size_t)max_rows ? fit : (size_t)max_rows);
 }
 
 // Second pass of a kernel that split one row's candidate pool over several
@@ -101,6 +167,7 @@ __device__ __forceinline__ void list_offer_row(const float* cv, const int* cid,
 // (value, position).  One warp per row; rows of n_cand candidates.
 constexpr int kMergeWarps = 4;
 
+template <bool kWide>
 static __global__ void __launch_bounds__(32 * kMergeWarps)
 merge_parts_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
                    int rows, int n_cand, int k, float* __restrict__ out_v,
@@ -113,7 +180,7 @@ merge_parts_kernel(const float* __restrict__ part_v, const int* __restrict__ par
   const int row = blockIdx.x * kMergeWarps + warp;
   if (row >= rows) return;
   list_init(lv, li, k, lane);
-  list_offer_row(part_v + (size_t)row * n_cand, part_i + (size_t)row * n_cand, n_cand,
+  list_offer_row<kWide>(part_v + (size_t)row * n_cand, part_i + (size_t)row * n_cand, n_cand,
                  lv, li, k, lane);
   for (int p = lane; p < k; p += 32) {
     out_v[(size_t)row * k + p] = lv[p];
@@ -126,7 +193,8 @@ static inline cudaError_t merge_parts(const float* part_v, const int* part_i, in
                                       cudaStream_t stream) {
   const int blocks = (rows + kMergeWarps - 1) / kMergeWarps;
   const size_t smem = (size_t)kMergeWarps * k * (sizeof(float) + sizeof(int));
-  merge_parts_kernel<<<blocks, 32 * kMergeWarps, smem, stream>>>(
+  auto kernel = pick_wide(k, [](auto w) { return merge_parts_kernel<decltype(w)::value>; });
+  kernel<<<blocks, 32 * kMergeWarps, smem, stream>>>(
       part_v, part_i, rows, n_cand, k, out_v, out_i);
   return cudaGetLastError();
 }

@@ -55,7 +55,7 @@ def consume_kernel_path(default: str = "unknown") -> str:
 KERNELS = (
     "select_k", "fused_knn", "ivf_scan_probe_major", "ivf_scan_query_major",
     "ivf_scan_probe_major_bf16", "ivf_scan_probe_major_int8",
-    "ivf_scan_query_major_bf16", "ivf_scan_query_major_int8",
+    "ivf_scan_query_major_bf16", "ivf_scan_query_major_int8", "cagra_fused_hop",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
@@ -168,6 +168,9 @@ _SIGNATURES = {
     "rt_ivf_scan_query_major": [_P] * 6 + [_I] * 8 + [_P] * 5,
     "rt_ivf_scan_query_major_bf16": [_P] * 6 + [_I] * 8 + [_P] * 5,
     "rt_ivf_scan_query_major_int8": [_P] * 6 + [_I] * 7 + [_F] + [_P] * 5,
+    # dataset, bf16 flag, graph, queries, parents, buf_d, buf_i, explored,
+    # (tile, d, deg, width, itopk, ip_mode), outputs and stream
+    "rt_cagra_hop": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P] * 4,
 }
 
 

@@ -1,0 +1,152 @@
+"""One CAGRA beam-search hop: ``csrc/cagra_hop.cu`` and its plain version
+(counterpart of ``raft_tpu.kernels.cagra_traverse``, the dense leg).
+
+A hop takes each query's ``width`` parents (−1: none) and folds their
+neighbour lists into the query's candidate buffer ``(buf_d, buf_i,
+explored)`` [tile, itopk], sorted ascending with id −1 at every +inf slot.
+Per parent, in order: score the neighbour rows (squared L2 or −q·v, every
+dot product one f32 sum in dimension order, ``toolkit.sequential_dot``);
+score +inf a negative id, a missing parent, an id already in the live
+merged buffer, and a repeat of an earlier slot of the same list; fold into
+the buffer by (value, position), residents first (``toolkit.fold_topk``);
+set the id of every +inf slot to −1.  A slot of the result is explored when
+its id was explored in the input buffer, or when its value is +inf.
+
+raft_tpu's Pallas hop computes the same function; its |v|^2 goes through a
+ones-contraction, so the two differ only in summation order.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from raft_tpu_torch import kernels as _k
+from raft_tpu_torch.kernels.toolkit import fold_topk, sequential_dot
+
+#: widest candidate buffer the hop kernel serves (raft_tpu's MAX_ITOPK)
+MAX_ITOPK = 512
+_METRICS = ("sqeuclidean", "euclidean", "inner_product")
+_DATASET_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def traverse_supported(dataset, itopk: int) -> bool:
+    """Routing gate of the hop kernel: a dense f32 or bf16 dataset and
+    ``0 < itopk <= 512``."""
+    return (
+        isinstance(dataset, torch.Tensor)
+        and dataset.dtype in _DATASET_DTYPES
+        and 0 < itopk <= MAX_ITOPK
+    )
+
+
+def _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric):
+    if metric not in _METRICS:
+        raise ValueError(f"cagra hop metric must be one of {_METRICS}, got {metric!r}")
+    if not isinstance(dataset, torch.Tensor) or dataset.dtype not in _DATASET_DTYPES:
+        raise ValueError(f"cagra hop serves dense f32/bf16 datasets, got "
+                         f"{getattr(dataset, 'dtype', type(dataset))}")
+    tile, itopk = buf_d.shape
+    n, d = dataset.shape
+    if graph.ndim != 2 or graph.shape[0] != n:
+        raise ValueError(f"graph {tuple(graph.shape)} vs dataset {tuple(dataset.shape)}")
+    if queries.shape != (tile, d) or parents.ndim != 2 or parents.shape[0] != tile:
+        raise ValueError(
+            f"queries {tuple(queries.shape)} / parents {tuple(parents.shape)} vs "
+            f"buffer [{tile}, {itopk}] and d={d}")
+    if buf_i.shape != (tile, itopk) or explored.shape != (tile, itopk):
+        raise ValueError("buf_d, buf_i and explored must share one [tile, itopk] shape")
+
+
+def _sqnorm(rows: torch.Tensor) -> torch.Tensor:
+    """|v|^2 of rows [..., d], one f32 sum in dimension order."""
+    return sequential_dot(rows[..., None, :], rows[..., None, :])[..., 0, 0]
+
+
+def cagra_fused_hop_torch(
+    dataset: torch.Tensor,    # [n, d] f32 / bf16
+    graph: torch.Tensor,      # [n, deg] int32
+    queries: torch.Tensor,    # [tile, d] f32
+    parents: torch.Tensor,    # [tile, width] int32, -1 = no parent
+    buf_d: torch.Tensor,      # [tile, itopk] f32, ascending, +inf empty slots
+    buf_i: torch.Tensor,      # [tile, itopk] int32, -1 at +inf slots
+    explored: torch.Tensor,   # [tile, itopk] bool, parents already marked
+    *,
+    metric: str,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version: the kernel's per-parent fold in tensor operations
+    (any itopk)."""
+    _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
+    tile, itopk = buf_d.shape
+    n, deg = graph.shape
+    q = queries.to(torch.float32)
+    q2 = _sqnorm(q)[:, None]
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=q.device)
+    earlier = torch.triu(torch.ones((deg, deg), dtype=torch.bool, device=q.device), 1)
+    md, mi = buf_d.to(torch.float32), buf_i.to(torch.int32)
+    for w in range(parents.shape[1]):
+        pid = parents[:, w:w + 1].to(torch.int64)
+        cand = graph[pid[:, 0].clamp(0, n - 1)].to(torch.int32)               # [t, deg]
+        cand = torch.where(pid < 0, torch.full_like(cand, -1), cand)
+        rows = dataset[cand.long().clamp(0, n - 1)].to(torch.float32)          # [t, deg, d]
+        ip = sequential_dot(q[:, None, :], rows)[:, 0, :]
+        if metric == "inner_product":
+            cd = -ip
+        else:
+            cd = torch.clamp((q2 + _sqnorm(rows)) - 2.0 * ip, min=0.0)
+        in_buf = (cand[:, :, None] == mi[:, None, :]).any(dim=2)
+        dup = ((cand[:, :, None] == cand[:, None, :]) & earlier).any(dim=1)
+        bad = (cand < 0) | (pid < 0) | in_buf | dup
+        cd = torch.where(bad, inf, cd)
+        md, mi = fold_topk(md, mi, cd, torch.where(bad, torch.full_like(cand, -1), cand), itopk)
+        mi = torch.where(torch.isfinite(md), mi, torch.full_like(mi, -1))
+    hit = ((mi[:, :, None] == buf_i[:, None, :]) & explored[:, None, :]).any(dim=2)
+    return md, mi, hit | ~torch.isfinite(md)
+
+
+def cagra_fused_hop(
+    dataset: torch.Tensor,
+    graph: torch.Tensor,
+    queries: torch.Tensor,
+    parents: torch.Tensor,
+    buf_d: torch.Tensor,
+    buf_i: torch.Tensor,
+    explored: torch.Tensor,
+    *,
+    metric: str,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One hop (arguments as :func:`cagra_fused_hop_torch`); returns the
+    merged ``(buf_d, buf_i, explored)``.  CUDA tensors go through
+    ``csrc/cagra_hop.cu``, CPU tensors take the plain version; the call
+    stamps ``kernel_path`` "cuda" or "torch".  Raises outside
+    :func:`traverse_supported` on the card."""
+    _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
+    if dataset.device.type == "cpu":
+        _k.stamp_kernel_path("torch")
+        return cagra_fused_hop_torch(dataset, graph, queries, parents, buf_d, buf_i,
+                                     explored, metric=metric)
+    tile, itopk = buf_d.shape
+    if not traverse_supported(dataset, itopk):
+        raise ValueError(f"cagra hop kernel serves itopk<={MAX_ITOPK}, got {itopk}")
+    n, d = dataset.shape
+    x = dataset.contiguous()
+    tensors = [x] + [t.contiguous() for t in (
+        graph.to(torch.int32), queries.to(torch.float32), parents.to(torch.int32),
+        buf_d.to(torch.float32), buf_i.to(torch.int32), explored.to(torch.bool))]
+    _k.require_cuda("cagra_fused_hop", *tensors)
+    g, qf, par, bd, bi, be = tensors[1:]
+    out_d = torch.empty_like(bd)
+    out_i = torch.empty_like(bi)
+    out_e = torch.empty_like(be)
+    lib = _k.library()
+    _k.stamp_kernel_path("cuda")
+    _k.count_launch("cagra_fused_hop")
+    code = lib.rt_cagra_hop(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), qf.data_ptr(),
+        par.data_ptr(), bd.data_ptr(), bi.data_ptr(), be.data_ptr(), tile, d, g.shape[1],
+        par.shape[1], itopk, int(metric == "inner_product"), out_d.data_ptr(),
+        out_i.data_ptr(), out_e.data_ptr(), _k.stream_of(x),
+    )
+    _k.check("cagra_fused_hop", code)
+    return out_d, out_i, out_e

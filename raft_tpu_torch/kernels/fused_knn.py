@@ -15,7 +15,8 @@ import torch
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.kernels.toolkit import cdiv, sequential_dot, topk_by_position
 
-MAX_K = 128
+#: deepest k (shared memory holds fewer queries' lists per block past 349)
+MAX_K = 512
 #: queries per block of the kernel (csrc/tile_gemm.cuh kBM)
 _TILE_Q = 64
 #: fewest dataset rows one block's part may hold when a small batch is
@@ -69,7 +70,7 @@ def fused_l2_topk(
     :func:`fused_l2_topk_torch`."""
     _check(queries, dataset, dataset_sqnorms, k, mode)
     if k > MAX_K:
-        raise ValueError(f"fused_l2_topk serves k<=128, got {k}")
+        raise ValueError(f"fused_l2_topk serves k<={MAX_K}, got {k}")
     if queries.device.type == "cpu":
         return fused_l2_topk_torch(queries, dataset, dataset_sqnorms, k, mode=mode)
     q = queries.to(torch.float32).contiguous()

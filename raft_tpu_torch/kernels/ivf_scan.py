@@ -25,7 +25,8 @@ C entry and a launch count of its own (``ivf_scan_<schedule>``, ``_bf16``,
 Scores: L2 (y2 - 2 ip) + q2, inner product -ip, cosine
 1 - ip * rsqrt(max(q2, 1e-24)) * rsqrt(max(y2, 1e-24)).  Invalid slots
 (id < 0) and padding queries (q2 = +inf) score +inf; a +inf score comes out
-with id -1.  Unlike the TPU kernel, query-major needs no multiple-of-8
+with id -1.  A kk past the rows scanned (cap, or P * cap) gives +inf / -1
+tails, as raft_tpu's scans do.  Unlike the TPU kernel, query-major needs no multiple-of-8
 query count and takes any (P, cap): it streams lists and holds no
 per-query score scratch.
 """
@@ -39,7 +40,8 @@ import torch
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.kernels.toolkit import int8_scored_ip, sequential_dot, topk_by_position
 
-MAX_KK = 128
+#: deepest kk (probe-major gives a block fewer queries past kk = 349)
+MAX_KK = 512
 _METRICS = {"sqeuclidean": 0, "euclidean": 0, "inner_product": 1, "cosine": 2}
 #: storage dtype → suffix of its kernel's name
 _LEGS = {torch.float32: "", torch.bfloat16: "_bf16", torch.int8: "_int8"}
@@ -51,7 +53,7 @@ _PLAIN_CHUNK_ELEMS = 1 << 26
 
 def scan_supported(metric: str, list_data: torch.Tensor, kk: int) -> bool:
     """Routing gate of both scan kernels: f32, bf16 or int8 storage, L2 /
-    inner product / cosine, ``kk <= 128`` (unfiltered is the caller's
+    inner product / cosine, ``kk <= 512`` (unfiltered is the caller's
     condition)."""
     return list_data.dtype in _LEGS and metric in _METRICS and 0 < kk <= MAX_KK
 
@@ -93,6 +95,17 @@ def _finish(vals, ids):
     return vals, torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
 
 
+def _topk(sc, kk):
+    """topk_by_position of the scores [..., N], padded with +inf to kk
+    columns where N < kk (``_finish`` gives the pads id -1)."""
+    v, pos = topk_by_position(sc, kk)
+    short = kk - v.shape[-1]
+    if short > 0:
+        v = torch.nn.functional.pad(v, (0, short), value=float("inf"))
+        pos = torch.nn.functional.pad(pos, (0, short))
+    return v, pos
+
+
 def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
                                list_y2, list_index, kk: int, *,
                                metric: str = "sqeuclidean", scan_dtype: str = "highest",
@@ -109,7 +122,7 @@ def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
         ids = list_index[bl][:, None, :]                           # [b, 1, cap]
         sc = _scores(ip, q2_gathered[s:s + step][:, :, None],
                      list_y2[bl][:, None, :], ids, metric)
-        v, pos = topk_by_position(sc, kk)
+        v, pos = _topk(sc, kk)
         vs.append(v)
         is_.append(torch.gather(ids.expand_as(sc), -1, pos))
     return _finish(torch.cat(vs), torch.cat(is_).to(torch.int32))
@@ -131,7 +144,7 @@ def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
         ids = list_index[pr].reshape(b, 1, P * cap)
         sc = _scores(ip, q2[s:s + step, None, None],
                      list_y2[pr].reshape(b, 1, P * cap), ids, metric)
-        v, pos = topk_by_position(sc, kk)
+        v, pos = _topk(sc, kk)
         vs.append(v[:, 0])
         is_.append(torch.gather(ids, -1, pos)[:, 0])
     return _finish(torch.cat(vs), torch.cat(is_).to(torch.int32))
@@ -157,7 +170,7 @@ def _launch(name, tensors, args, out_shape, kk):
 def _check(metric, list_data, list_y2, list_index, kk, scan_dtype):
     if not scan_supported(metric, list_data, kk):
         raise ValueError(
-            f"ivf scan kernel serves {sorted(map(str, _LEGS))} storage, kk<=128 and "
+            f"ivf scan kernel serves {sorted(map(str, _LEGS))} storage, kk<={MAX_KK} and "
             f"metrics {sorted(_METRICS)}; got {list_data.dtype}, kk={kk}, {metric!r}"
         )
     if scan_dtype not in SCAN_DTYPES:

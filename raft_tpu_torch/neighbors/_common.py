@@ -1,4 +1,4 @@
-"""Shared helpers of the IVF indexes (counterpart of
+"""Shared helpers of the indexes (counterpart of
 ``raft_tpu.neighbors._common``; the unfiltered subset), and the search
 pipeline IVF-Flat and IVF-PQ share (:func:`scan_search`).
 
@@ -334,6 +334,18 @@ def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
         return scan(*args, metric=metric, **scan_kw)
 
     return run_query_tiled(run_qm, queries, qm_query_tile(n_probes))
+
+
+def sorted_id_dedup(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable sort of each row by id plus an adjacent compare: (order — the
+    stable argsort, int64; dup — bool in *sorted* space, True at every
+    repeat after an id's first occurrence).  Callers gather their payloads
+    through ``order`` and demote the ``dup`` slots, so the first occurrence
+    in the original layout wins (raft_tpu's ``sorted_id_dedup``)."""
+    s, order = torch.sort(ids, dim=-1, stable=True)
+    dup = torch.zeros(s.shape, dtype=torch.bool, device=s.device)
+    dup[..., 1:] = s[..., 1:] == s[..., :-1]
+    return order, dup
 
 
 def postprocess(v: torch.Tensor, metric: str) -> torch.Tensor:

@@ -4,7 +4,7 @@ sqeuclidean, euclidean and inner_product, unfiltered).
 
 Routing, as raft_tpu's fused path (``brute_force.py:197-222``) with no
 switch: CUDA tensors go through ``kernels.fused_knn.fused_l2_topk``, which
-serves ``k <= 128`` and raises past it; CPU tensors take its plain version
+serves ``k <= 512`` and raises past it; CPU tensors take its plain version
 at any k.  The kernel returns partial scores; |q|^2 is added here and
 clamped at 0, and euclidean takes the root.
 """

@@ -1,0 +1,545 @@
+"""CAGRA: graph index, build + batched beam search (counterpart of
+``raft_tpu.neighbors.cagra``; dense f32 / bf16 datasets, unfiltered).
+
+Build: a kNN graph of ``intermediate_graph_degree`` neighbours per row —
+IVF-PQ search of every row for ``gpu_top_k = 2 (inter + 1)`` candidates,
+refined exactly to ``inter + 1`` (``build_algo="ivf_pq"``), or the exact
+graph (``"brute_force"``) — then ``optimize``: the detour-count prune to
+``graph_degree``, reverse edges, and the merge of the two; last a coarse
+entry-point table (a small balanced k-means and the dataset row nearest
+each centre).  ``"auto"`` takes the exact graph up to 131,072 rows on a
+CUDA device and 8,192 rows on the CPU (raft_tpu reads its accelerator's
+backend the same way), IVF-PQ above.
+
+Search: per query tile, a seed buffer from the entry points and random
+rows (:func:`make_seed_ids`, :func:`traverse_init`), then exactly
+``max_iter`` hops (:func:`traverse_steps`): each picks the ``search_width``
+best unexplored parents with ``select_k`` and runs one
+``kernels.cagra_traverse.cagra_fused_hop`` — the CUDA kernel on the card,
+its plain version for CPU tensors.  raft_tpu's loop stops early once no
+query of the tile has an unexplored finite slot; every further hop is a
+no-op, so the fixed trip count gives the same results with no host
+synchronisation inside the loop.
+
+Random seed ids come from a ``torch.Generator`` seeded with
+``rand_xor_mask & 0x7FFFFFFF``, not raft_tpu's threefry: compare searches
+of the two packages by passing ``seed_ids``.  ``save`` / ``load`` use
+raft_tpu's file format (kind "cagra", version 1).
+
+Not in this slice (``NotImplementedError``, ROADMAP Queue 2): filters
+(``sample_filter``, ``deleted_mask``), int8 / uint8 datasets, ``compress``
+and VPQ datasets, paged datasets, ``EffortSpec``, the NN-descent builds;
+hnsw export and the sharded graph mode are not ported either.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core import serialize as ser
+from raft_tpu_torch.core.resources import Resources, as_f32, ensure
+from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
+from raft_tpu_torch.kernels import stamp_kernel_path
+from raft_tpu_torch.kernels.cagra_traverse import cagra_fused_hop
+from raft_tpu_torch.neighbors import brute_force, ivf_pq, nn_descent
+from raft_tpu_torch.neighbors._common import postprocess, sorted_id_dedup, subsample_trainset
+from raft_tpu_torch.neighbors.refine import refine
+from raft_tpu_torch.ops.matrix import select_k
+
+_SERIALIZATION_VERSION = 1
+_METRICS = ("sqeuclidean", "euclidean", "inner_product")
+_ROADMAP = "ROADMAP Queue 2, CAGRA leftovers"
+#: names raft_tpu's cagra module has that the port does not serve yet
+_NOT_PORTED = {
+    "compress": "VPQ-compressed CAGRA datasets",
+    "EffortSpec": "CAGRA's EffortSpec (the serving layer's effort knobs)",
+}
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"cagra.{name}: {_NOT_PORTED[name]} are not ported yet "
+                                  f"({_ROADMAP})")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+@dataclass
+class IndexParams:
+    """raft's defaults.  ``entry_points``: size of the coarse entry-point
+    table, ``None`` → auto (about 4·√n, a power of two in [64, 4096]),
+    ``0`` → none (random seeds only).  ``nn_descent_niter`` is accepted
+    for raft_tpu compatibility and has no effect: the NN-descent builds
+    are not ported."""
+
+    metric: str = "sqeuclidean"
+    intermediate_graph_degree: int = 128
+    graph_degree: int = 64
+    #: auto | ivf_pq | brute_force (nn_descent, nn_descent_batch: not ported)
+    build_algo: str = "auto"
+    nn_descent_niter: int = 20
+    seed: int = 0
+    entry_points: Optional[int] = None
+
+
+@dataclass
+class SearchParams:
+    """``num_entry_centers``: coarse entry points seeding each query's
+    buffer (0: random seeds only); ``max_iterations`` 0 → auto (itopk /
+    width, at least 8, with entry points; twice that, at least 16,
+    without).  ``min_iterations`` is accepted for raft_tpu compatibility
+    and has no effect: the search runs exactly ``max_iterations`` hops, and
+    a hop past the frontier's end changes nothing."""
+
+    max_queries: int = 0          # 0 → auto query tile
+    itopk_size: int = 64
+    max_iterations: int = 0
+    search_width: int = 1
+    min_iterations: int = 0
+    rand_xor_mask: int = 0x128394
+    num_random_samplings: int = 1
+    num_entry_centers: int = 16
+
+
+class Index:
+    """Dataset [n, d] (f32 or bf16), graph [n, degree] int32, and the
+    optional entry-point table: centres [c, d] f32 and the id of the
+    dataset row nearest each."""
+
+    def __init__(self, metric: str, dataset: torch.Tensor, graph: torch.Tensor,
+                 entry_centers: Optional[torch.Tensor] = None,
+                 entry_ids: Optional[torch.Tensor] = None):
+        self.metric = metric
+        self.dataset = dataset
+        self.graph = graph
+        self.entry_centers = entry_centers
+        self.entry_ids = entry_ids
+
+    @property
+    def size(self) -> int:
+        return self.dataset.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.dataset.shape[1]
+
+    @property
+    def graph_degree(self) -> int:
+        return self.graph.shape[1]
+
+
+def _as_dataset(dataset, device: torch.device) -> torch.Tensor:
+    """The dataset as the index keeps it: bf16 stays bf16, f32 / f64 become
+    f32; int8 / uint8 and other types raise."""
+    t = torch.from_numpy(np.ascontiguousarray(dataset)) if isinstance(dataset, np.ndarray) \
+        else torch.as_tensor(dataset)
+    if t.dtype == torch.bfloat16:
+        return t.to(device)
+    if t.dtype in (torch.float32, torch.float64):
+        return t.to(device=device, dtype=torch.float32)
+    if t.dtype in (torch.int8, torch.uint8):
+        raise NotImplementedError(
+            f"int8 / uint8 CAGRA datasets are not ported yet ({_ROADMAP})")
+    raise NotImplementedError(f"CAGRA datasets of {t.dtype} are not ported ({_ROADMAP})")
+
+
+def _check_metric(metric: str) -> str:
+    canonical = DISTANCE_TYPES[metric]
+    if canonical not in _METRICS:
+        raise ValueError(f"cagra supports L2/IP metrics, got {metric}")
+    return canonical
+
+
+# ---------------------------------------------------------------------------
+# graph optimization
+
+
+def _prune_detourable(graph: torch.Tensor, out_degree: int, tile: int) -> torch.Tensor:
+    """Detour-count prune.  Edge u → v = g[u, j] is detourable through
+    w = g[u, i], i < j, when v is also in w's list; edges are ranked by
+    (detour count, original rank) and the best ``out_degree`` kept.  Tiles
+    of ``tile`` rows bound the [tile, K, K, K] membership tensor."""
+    n, K = graph.shape
+    earlier = torch.triu(torch.ones((K, K), dtype=torch.bool, device=graph.device), 1)
+    out = torch.empty((n, out_degree), dtype=torch.int32, device=graph.device)
+    for s in range(0, n, tile):
+        g = graph[s:s + tile]
+        hop2 = graph[g.long().clamp(0, n - 1)]                            # [t, K(i), K(l)]
+        match = (hop2[:, :, :, None] == g[:, None, None, :]).any(dim=2)   # [t, i, j]
+        detour = (match & earlier).sum(dim=1)                             # [t, j]
+        detour = torch.where(g < 0, torch.full_like(detour, K + 1), detour)
+        order = torch.sort(detour, dim=1, stable=True).indices[:, :out_degree]
+        out[s:s + tile] = torch.gather(g, 1, order)
+    return out
+
+
+def _reverse_graph(graph: torch.Tensor, rev_cap: int) -> torch.Tensor:
+    """Reverse-edge lists, up to ``rev_cap`` per row in source order, by one
+    stable sort of the edges by target."""
+    n, D = graph.shape
+    dev = graph.device
+    src = torch.arange(n, dtype=torch.int32, device=dev)[:, None].expand(n, D).reshape(-1)
+    tgt = graph.reshape(-1)
+    tgt_s, order = torch.sort(tgt, stable=True)
+    src_s = src[order]
+    first = torch.searchsorted(tgt_s, tgt_s, side="left")
+    pos = torch.arange(n * D, device=dev) - first
+    valid = (tgt_s >= 0) & (pos < rev_cap)
+    rev = torch.full((n, rev_cap), -1, dtype=torch.int32, device=dev)
+    rev[tgt_s[valid].long(), pos[valid]] = src_s[valid]
+    return rev
+
+
+def _merge_forward_reverse(forward: torch.Tensor, reverse: torch.Tensor) -> torch.Tensor:
+    """Final edge list: the best forward half first, then reverse edges,
+    then the weaker forward edges; repeats and -1 dropped keeping order;
+    rows left short are filled from the forward list."""
+    n, D = forward.shape
+    prot = (D + 1) // 2
+    cand = torch.cat([forward[:, :prot], reverse, forward[:, prot:]], dim=1)
+    m = cand.shape[1]
+    order, dup_s = sorted_id_dedup(cand)
+    dup = torch.zeros((n, m), dtype=torch.bool, device=cand.device).scatter(1, order, dup_s)
+    bad = dup | (cand < 0)
+    ar = torch.arange(m, device=cand.device)
+    prio = torch.where(bad, m + ar, ar)
+    keep = torch.sort(prio, dim=1, stable=True).indices[:, :D]
+    out = torch.gather(cand, 1, keep)
+    return torch.where(out < 0, forward, out)
+
+
+def optimize(knn_graph, out_degree: int, *, res: Optional[Resources] = None) -> torch.Tensor:
+    """Prune a kNN graph (rows sorted by distance) to a ``out_degree``
+    CAGRA search graph: the detour-count prune, reverse edges, merge."""
+    res = ensure(res)
+    g = torch.as_tensor(knn_graph).to(device=res.device, dtype=torch.int32)
+    n, K = g.shape
+    if out_degree > K:
+        raise ValueError(f"out_degree {out_degree} > input degree {K}")
+    tile = max(1, min(n, res.workspace_rows(K * K * K, cap=256)))
+    pruned = _prune_detourable(g, out_degree, tile)
+    return _merge_forward_reverse(pruned, _reverse_graph(pruned, out_degree))
+
+
+# ---------------------------------------------------------------------------
+# build
+
+
+def _build_entry_points(dataset: torch.Tensor, n_entries: int, metric: str, seed: int, res):
+    """Coarse entry-point table: a balanced k-means of a trainset subsample
+    and the dataset row nearest each centre (brute-force 1-NN)."""
+    n = dataset.shape[0]
+    kb_metric = "inner_product" if metric == "inner_product" else "sqeuclidean"
+    n_train = min(n, max(n_entries * 8, 8192))
+    train = subsample_trainset(dataset, n_train, seed) if n_train < n else dataset
+    kb = kmeans_balanced.KMeansBalancedParams(n_iters=10, metric=kb_metric, seed=seed)
+    centers = kmeans_balanced.fit(kb, train.to(torch.float32), n_entries, res=res)
+    _, ids = brute_force.knn(dataset, centers, 1, metric=metric, res=res)
+    return centers, ids[:, 0].to(torch.int32)
+
+
+def _auto_entry_points(n: int) -> int:
+    """≈ 4·√n rounded up to a power of two, clamped to [64, 4096]."""
+    raw = max(2.0, 4.0 * float(np.sqrt(max(n, 1))))
+    return int(np.clip(1 << int(np.ceil(np.log2(raw))), 64, 4096))
+
+
+def _graph_build_ivf_pq_params(params: IndexParams, n: int, d: int):
+    """The IVF-PQ configuration of the kNN-graph build (raft_tpu's): √n
+    lists (4 below 10,000 rows), up to 32 probes, and ``gpu_top_k = 2
+    (inter + 1)`` candidates per row for the exact refine."""
+    inter = min(params.intermediate_graph_degree, n - 1)
+    n_lists = 4 if n < 10_000 else max(32, int(n ** 0.5))
+    ip = ivf_pq.IndexParams(
+        n_lists=n_lists,
+        metric=params.metric,
+        kmeans_trainset_fraction=1.0 if n < 10_000 else max(0.1, min(1.0, 128.0 * n_lists / n)),
+        seed=params.seed,
+    )
+    sp = ivf_pq.SearchParams(n_probes=max(8, min(n_lists, 32)))
+    gpu_top_k = min(n, 2 * (inter + 1))
+    return ip, sp, gpu_top_k
+
+
+def _graph_build_qtile(res: Resources, n: int, d: int) -> int:
+    """Rows searched at once in the graph build's IVF-PQ stage."""
+    return max(1, res.workspace_rows(4 * n // 64 + 4 * d, cap=8192))
+
+
+def resolve_build_algo(build_algo: str, n: int, device: torch.device) -> str:
+    """``"auto"`` → the exact graph up to 131,072 rows on a CUDA device
+    (8,192 on the CPU), IVF-PQ above; any other name is returned as is."""
+    if build_algo != "auto":
+        return build_algo
+    brute_cap = 131_072 if device.type == "cuda" else 8192
+    return "brute_force" if n <= brute_cap else "ivf_pq"
+
+
+def build(params: IndexParams, dataset, *, res: Optional[Resources] = None) -> Index:
+    """kNN graph (IVF-PQ + refine, or exact) → :func:`finalize_index`."""
+    res = ensure(res)
+    dataset = _as_dataset(dataset, res.device)
+    n, d = dataset.shape
+    _check_metric(params.metric)
+    inter = min(params.intermediate_graph_degree, n - 1)
+    algo = resolve_build_algo(params.build_algo, n, res.device)
+    if algo == "brute_force":
+        knn_graph = nn_descent.build_exact(dataset, inter, metric=params.metric, res=res).graph
+    elif algo in ("nn_descent", "nn_descent_batch"):
+        raise NotImplementedError(
+            f"cagra build_algo={algo!r}: the NN-descent builds are not ported yet ({_ROADMAP})")
+    elif algo == "ivf_pq":
+        ip, sp, gpu_top_k = _graph_build_ivf_pq_params(params, n, d)
+        idx = ivf_pq.build(ip, dataset, res=res)
+        qtile = _graph_build_qtile(res, n, d)
+        cands = torch.cat([ivf_pq.search(sp, idx, dataset[s:s + qtile], gpu_top_k, res=res)[1]
+                           for s in range(0, n, qtile)])
+        del idx
+        _, knn_graph = refine(dataset, dataset, cands, inter + 1, metric=params.metric, res=res)
+        del cands
+        # drop the self column wherever it landed (the last one when absent)
+        self_col = knn_graph == torch.arange(n, dtype=knn_graph.dtype,
+                                             device=knn_graph.device)[:, None]
+        order = torch.sort(self_col.to(torch.uint8), dim=1, stable=True).indices
+        knn_graph = torch.gather(knn_graph, 1, order)[:, :inter]
+    else:
+        raise ValueError(f"unknown build_algo {params.build_algo}")
+    return finalize_index(params, dataset, knn_graph, res=res)
+
+
+def finalize_index(params: IndexParams, dataset, knn_graph, *,
+                   res: Optional[Resources] = None) -> Index:
+    """Optimize the kNN graph to the output degree and build the entry-point
+    table."""
+    res = ensure(res)
+    dataset = _as_dataset(dataset, res.device)
+    n = dataset.shape[0]
+    metric = _check_metric(params.metric)
+    inter = min(params.intermediate_graph_degree, n - 1)
+    graph = optimize(knn_graph, min(params.graph_degree, inter), res=res)
+    n_entries = _auto_entry_points(n) if params.entry_points is None else params.entry_points
+    n_entries = min(n_entries, n)
+    entry_centers = entry_ids = None
+    if n_entries:
+        entry_centers, entry_ids = _build_entry_points(dataset, n_entries, metric,
+                                                       params.seed, res)
+    return Index(params.metric, dataset, graph, entry_centers, entry_ids)
+
+
+def from_graph(metric: str, dataset, graph, entry_centers=None, entry_ids=None, *,
+               res: Optional[Resources] = None) -> Index:
+    """An index from a prebuilt graph (and optional entry-point table)."""
+    dev = ensure(res).device
+    _check_metric(metric)
+    return Index(
+        metric, _as_dataset(dataset, dev), torch.as_tensor(graph).to(dev, torch.int32),
+        None if entry_centers is None else as_f32(entry_centers, dev),
+        None if entry_ids is None else torch.as_tensor(entry_ids).to(dev, torch.int32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# search
+
+
+def _entry_seeds(queries: torch.Tensor, centers: torch.Tensor, entry_ids: torch.Tensor,
+                 s: int, metric: str) -> torch.Tensor:
+    """The ``s`` nearest entry points of each query: seed ids [q, s]."""
+    if metric == "inner_product":
+        sc = -torch.matmul(queries, centers.T)
+    else:
+        c2 = (centers * centers).sum(dim=1)
+        sc = c2[None, :] - 2.0 * torch.matmul(queries, centers.T)
+    _, top = select_k(sc, s, select_min=True)
+    return entry_ids[top.long()]
+
+
+def make_seed_ids(params: SearchParams, index: Index, queries: torch.Tensor, k: int,
+                  itopk: Optional[int] = None) -> torch.Tensor:
+    """Seed ids [q, s] of a query batch: the nearest entry points (when the
+    index has them) and a random top-up from a ``torch.Generator`` seeded
+    with ``rand_xor_mask & 0x7FFFFFFF`` on the index's device."""
+    if itopk is None:
+        itopk = min(max(params.itopk_size, k), index.size)
+    n = index.size
+    metric = DISTANCE_TYPES[index.metric]
+    dev = index.graph.device
+    samplings = max(1, params.num_random_samplings)
+    entry = None
+    if index.entry_centers is not None and params.num_entry_centers > 0:
+        s = int(min(params.num_entry_centers, index.entry_centers.shape[0]))
+        entry = _entry_seeds(as_f32(queries, dev), index.entry_centers.to(torch.float32),
+                             index.entry_ids, s, metric)
+        n_rand = min(n, max(itopk, 32) * samplings)
+    else:
+        n_rand = min(n, max(2 * itopk, 128) * samplings)
+    gen = torch.Generator(device=dev).manual_seed(params.rand_xor_mask & 0x7FFFFFFF)
+    seed_ids = torch.randint(0, n, (queries.shape[0], n_rand), generator=gen, device=dev,
+                             dtype=torch.int32)
+    return seed_ids if entry is None else torch.cat([entry.to(torch.int32), seed_ids], dim=1)
+
+
+def _query_distance(qs: torch.Tensor, vecs: torch.Tensor, metric: str) -> torch.Tensor:
+    """dist(qs[i], vecs[i, j]) for qs [t, d] and vecs [t, c, d]."""
+    ip = torch.einsum("td,tcd->tc", qs, vecs)
+    if metric == "inner_product":
+        return -ip
+    v2 = (vecs * vecs).sum(dim=2)
+    q2 = (qs * qs).sum(dim=1)
+    return torch.clamp(q2[:, None] + v2 - 2.0 * ip, min=0.0)
+
+
+def traverse_init(dataset: torch.Tensor, queries: torch.Tensor, seed_ids: torch.Tensor,
+                  itopk: int, metric: str):
+    """The seed buffer ``(buf_d, buf_i, explored)`` [tile, itopk]: seed rows
+    scored, repeats dropped (the first occurrence kept), the best ``itopk``
+    kept, id -1 at every +inf slot, nothing explored."""
+    n = dataset.shape[0]
+    seed_ids = seed_ids.to(torch.int32)
+    vecs = dataset[seed_ids.long().clamp(0, n - 1)].to(torch.float32)
+    dists = _query_distance(queries, vecs, metric)
+    inf = torch.full((), float("inf"), device=dists.device)
+    dists = torch.where(seed_ids < 0, inf, dists)
+    order, dup = sorted_id_dedup(seed_ids)
+    s_ids = torch.gather(seed_ids, 1, order)
+    s_d = torch.where(dup, inf, torch.gather(dists, 1, order))
+    buf_d, buf_i = select_k(s_d, itopk, select_min=True, input_indices=s_ids)
+    buf_i = torch.where(torch.isfinite(buf_d), buf_i, torch.full_like(buf_i, -1))
+    return buf_d, buf_i, torch.zeros(buf_d.shape, dtype=torch.bool, device=buf_d.device)
+
+
+def traverse_steps(dataset: torch.Tensor, graph: torch.Tensor, queries: torch.Tensor,
+                   buf_d: torch.Tensor, buf_i: torch.Tensor, explored: torch.Tensor,
+                   steps: int, width: int, metric: str):
+    """``steps`` beam-search hops over ``(buf_d, buf_i, explored)``: each
+    picks parents (:func:`pick_parents`) and runs :func:`cagra_fused_hop`.  A hop whose frontier is exhausted changes
+    nothing, so any trip count past the frontier is safe.  Returns
+    ``(buf_d, buf_i, explored)``."""
+    for _ in range(steps):
+        parents, explored = pick_parents(buf_d, buf_i, explored, width)
+        buf_d, buf_i, explored = cagra_fused_hop(dataset, graph, queries, parents, buf_d,
+                                                 buf_i, explored, metric=metric)
+    return buf_d, buf_i, explored
+
+
+def pick_parents(buf_d: torch.Tensor, buf_i: torch.Tensor, explored: torch.Tensor,
+                 width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``width`` best unexplored finite slots of each buffer (``select_k``,
+    the lowest slot winning a tie), marked explored: (parents [tile, width]
+    int32, -1 where the frontier ran out; explored)."""
+    inf = torch.full((), float("inf"), device=buf_d.device)
+    front_d = torch.where(explored | ~torch.isfinite(buf_d), inf, buf_d)
+    _, ppos = select_k(front_d, width, select_min=True)
+    ppos = ppos.long()
+    parents = torch.gather(buf_i, 1, ppos)
+    parents = torch.where(torch.gather(front_d, 1, ppos) < inf, parents,
+                          torch.full_like(parents, -1))
+    return parents, explored.scatter(1, ppos, True)
+
+
+def search_plan(params: SearchParams, index: Index, n_queries: int, k: int,
+                res: Optional[Resources] = None) -> Tuple[int, int, int]:
+    """(itopk, max_iter, query tile) of a search: raft_tpu's rules."""
+    res = ensure(res)
+    itopk = min(max(params.itopk_size, k), index.size)
+    width = params.search_width
+    use_entries = index.entry_centers is not None and params.num_entry_centers > 0
+    if params.max_iterations:
+        max_iter = params.max_iterations
+    elif use_entries:
+        max_iter = max(8, -(-itopk // width))
+    else:
+        max_iter = max(16, -(-itopk // width) * 2)
+    per_q = 4 * (width * index.graph_degree) * (index.dim + 4) + 16 * itopk
+    tile = params.max_queries or max(1, min(max(n_queries, 1),
+                                            res.workspace_rows(per_q, cap=512)))
+    return itopk, max_iter, tile
+
+
+def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter=None,
+           deleted_mask=None, res: Optional[Resources] = None, seed_ids=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched beam search: (distances [q, k] f32, indices [q, k] int32).
+    ``seed_ids`` [q, s] replaces the generated seeds.  The call stamps
+    ``kernel_path`` "cuda" (the hop kernel) or "torch"."""
+    if sample_filter is not None or deleted_mask is not None:
+        raise NotImplementedError(
+            "filtered CAGRA search arrives with the filters slice of the port "
+            "(ROADMAP Queue 2, filters)")
+    if getattr(index, "paged", None) is not None:
+        raise NotImplementedError(f"paged CAGRA datasets are not ported yet ({_ROADMAP})")
+    res = ensure(res)
+    res.device  # raises without a card unless the caller asked for the CPU
+    dev = index.graph.device
+    queries = as_f32(queries, dev)
+    if queries.ndim != 2 or queries.shape[1] != index.dim:
+        raise ValueError(f"queries shape {tuple(queries.shape)} vs index dim {index.dim}")
+    metric = DISTANCE_TYPES[index.metric]
+    itopk, max_iter, tile = search_plan(params, index, queries.shape[0], k, res)
+    if seed_ids is None:
+        seed_ids = make_seed_ids(params, index, queries, k, itopk=itopk)
+    else:
+        seed_ids = torch.as_tensor(np.array(seed_ids) if isinstance(seed_ids, np.ndarray)
+                                   else seed_ids).to(dev, torch.int32)
+    vs, is_ = [], []
+    for s in range(0, queries.shape[0], tile):
+        qs = queries[s:s + tile]
+        buf = traverse_init(index.dataset, qs, seed_ids[s:s + tile], itopk, metric)
+        buf_d, buf_i, _ = traverse_steps(index.dataset, index.graph, qs, *buf,
+                                         steps=max_iter, width=params.search_width,
+                                         metric=metric)
+        v, i = select_k(buf_d, k, select_min=True, input_indices=buf_i)
+        vs.append(v)
+        is_.append(torch.where(torch.isfinite(v), i, torch.full_like(i, -1)))
+    stamp_kernel_path("cuda" if dev.type == "cuda" else "torch")
+    if not vs:
+        return (torch.zeros((0, k), dtype=torch.float32, device=dev),
+                torch.zeros((0, k), dtype=torch.int32, device=dev))
+    return postprocess(torch.cat(vs), metric), torch.cat(is_)
+
+
+# ---------------------------------------------------------------------------
+# serialization (raft_tpu's format)
+
+
+def save(filename: str, index: Index, *, include_dataset: bool = True) -> None:
+    arrays = {"graph": index.graph}
+    if index.entry_centers is not None:
+        arrays["entry_centers"] = index.entry_centers
+        arrays["entry_ids"] = index.entry_ids
+    kind = "none"
+    if include_dataset:
+        kind = "dense"
+        ds = index.dataset.detach().cpu()
+        # numpy has no bf16: its raw 2-byte words, as raft_tpu writes them
+        arrays["dataset"] = (ds.view(torch.int16).numpy().view("V2")
+                             if ds.dtype == torch.bfloat16 else ds)
+    ser.save_tree(
+        filename, "cagra", _SERIALIZATION_VERSION,
+        {"metric": index.metric, "dataset_kind": kind, "dim": int(index.dim),
+         "include_dataset": int(include_dataset)},
+        arrays,
+    )
+
+
+def load(filename: str, *, dataset=None, res: Optional[Resources] = None) -> Index:
+    """An index saved by either package; ``dataset`` supplies the rows of a
+    file saved without them."""
+    scalars, arrays = ser.load_tree(filename, "cagra", _SERIALIZATION_VERSION)
+    kind = scalars.get("dataset_kind", "dense" if scalars["include_dataset"] else "none")
+    if kind == "vpq":
+        raise NotImplementedError(f"VPQ-compressed CAGRA datasets are not ported yet ({_ROADMAP})")
+    if kind == "dense":
+        raw = arrays["dataset"]
+        ds = (torch.from_numpy(raw.view(np.int16).copy()).view(torch.bfloat16)
+              if raw.dtype == np.dtype("V2") else np.array(raw))
+    elif dataset is not None:
+        ds = dataset
+    else:
+        raise ValueError("index was saved without dataset; pass dataset=")
+    return from_graph(scalars["metric"], ds, np.array(arrays["graph"]),
+                      arrays.get("entry_centers"), arrays.get("entry_ids"), res=res)

@@ -9,7 +9,7 @@ dim]``, ``list_index [n_lists, cap]`` (-1 past each list's size),
 Search is ``_common.scan_search``: coarse select (``torch.matmul`` +
 select_k) → list scan → merge, on raft_tpu's schedule rule.  Both scans
 reach the f32 legs of the CUDA kernels of ``kernels.ivf_scan`` for CUDA
-tensors (k up to 128 there; deeper k raises) and their plain versions for
+tensors (k up to 512 there; deeper k raises) and their plain versions for
 CPU tensors; every call stamps
 ``kernel_path`` "cuda" or "torch".
 """

@@ -24,7 +24,7 @@ other; the scan cache is derived state, rebuilt from the codes on load.
 
 Not in this slice (they raise ``NotImplementedError``): ``sample_filter``
 / ``deleted_mask``, ``internal_distance_dtype="bfloat16"``.  On the card a
-search serves k up to 128 (the scan kernels' envelope) and raises past it.
+search serves k up to 512 (the scan kernels' envelope) and raises past it.
 Paged indexes, ``EffortSpec`` and the sharded build's unsplit layout are not
 ported.
 """

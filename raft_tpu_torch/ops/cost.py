@@ -60,6 +60,18 @@ def ivf_scan_cost(n_blocks: int, g: int, cap: int, rot: int, kk: int, *,
     return KernelCost(int(flops), int(bytes_accessed))
 
 
+def cagra_traverse_cost(tile: int, width: int, deg: int, d: int, itopk: int, *,
+                        itemsize: int = 4) -> KernelCost:
+    """One fused CAGRA hop, per (query, parent): scoring deg neighbour rows
+    (2·deg·d), the dedup membership (deg·itopk) and an itopk-round fold
+    over itopk + deg candidates; every parent slot counted live."""
+    per_parent = 2 * deg * d + deg * itopk + 6 * itopk * (itopk + deg)
+    flops = tile * width * per_parent
+    bytes_accessed = tile * width * (deg * d * itemsize + deg * 4) + tile * (
+        d * itemsize + 3 * itopk * 4 * 2)
+    return KernelCost(int(flops), int(bytes_accessed))
+
+
 def fused_knn_cost(n_q: int, n: int, d: int, k: int, *, itemsize: int = 4) -> KernelCost:
     """Tiled brute-force distance + running top-k."""
     flops = n_q * n * (2 * d + 6 * k)
@@ -104,6 +116,21 @@ def scan_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int,
     q, p = probes.shape
     bytes_accessed = list_bytes + q * (d + 1) * 4 + q * p * 4 + out_rows * kk * 8
     return KernelCost(int(pair_rows * 2 * d), int(bytes_accessed), compute)
+
+
+def cagra_traverse_work(parents: torch.Tensor, deg: int, d: int, itopk: int, *,
+                        itemsize: int = 4) -> KernelCost:
+    """One CAGRA hop over ``parents`` [tile, width] (-1: no parent), live
+    parents only: each live parent's graph row (deg int32) and its deg
+    neighbour rows at the dataset's stored width read once, 4·deg·d flops
+    (q·v and |v|^2); each query row (d f32) and parent slot read once, and
+    the [tile, itopk] buffer (f32 value, int32 id, one flag byte) read and
+    written once."""
+    tile, width = parents.shape
+    live = int((parents >= 0).sum())
+    bytes_accessed = (live * deg * (d * itemsize + 4) + tile * (d * 4 + width * 4)
+                      + 2 * tile * itopk * 9)
+    return KernelCost(int(live * 4 * deg * d), int(bytes_accessed))
 
 
 def bound_ms(cost: KernelCost) -> tuple:

@@ -43,12 +43,15 @@ def test_plain_matches_pallas_interpret(n, d, n_q, k, mode):
     assert torch.equal(v, v2) and torch.equal(i, i2)
 
 
+# k 129 is CAGRA's exact graph build (intermediate degree 128 + the row
+# itself); raft_tpu routes k > 128 past its Pallas kernel
+@pytest.mark.parametrize("k", [10, 129, 258])
 @pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "inner_product"])
-def test_knn_matches_raft_routed(metric, monkeypatch):
+def test_knn_matches_raft_routed(metric, k, monkeypatch):
     monkeypatch.setenv("RAFT_TPU_PALLAS", "1")
     x, q = _data(2000, 24, 33, 7)
-    v_ref, i_ref = jbf.knn(x, q, 10, metric=metric)
-    v, i = tbf.knn(x, q, 10, metric=metric, res=CPU)
+    v_ref, i_ref = jbf.knn(x, q, k, metric=metric)
+    v, i = tbf.knn(x, q, k, metric=metric, res=CPU)
     assert kernels.consume_kernel_path() == "torch"
     assert_topk_match(v, i, v_ref, i_ref, rtol=1e-5, atol=1e-4)
 
@@ -57,9 +60,9 @@ def test_knn_exact_self_neighbors_and_deep_k():
     x, _ = _data(600, 8, 1, 3)
     v, i = tbf.knn(torch.from_numpy(x), torch.from_numpy(x[:20]), 5, res=CPU)
     assert (i[:, 0].numpy() == np.arange(20)).all()
-    # k past the kernel envelope takes the plain version
-    v2, i2 = tbf.knn(x, x[:20], 200, res=CPU)
-    assert i2.shape == (20, 200)
+    # k past the kernel envelope (512) takes the plain version too
+    v2, i2 = tbf.knn(x, x[:20], 550, res=CPU)
+    assert i2.shape == (20, 550)
     assert torch.equal(i2[:, :5], i)
 
 

@@ -19,23 +19,27 @@ from _torch_parity import assert_topk_match
 L, CAP, D = 6, 40, 16
 
 
-def _lists(seed):
-    """Lists with padding slots: list l holds 40 - 5 l real rows (list 5
-    is empty past slot 15); padding rows are zeros with norm 0, id -1."""
+def _lists(seed, cap=CAP):
+    """Lists with padding slots: list l holds cap - 5 l real rows (at the
+    default cap, list 5 is empty past slot 15); padding rows are zeros with
+    norm 0, id -1."""
     rng = np.random.default_rng(seed)
-    data = rng.standard_normal((L, CAP, D)).astype(np.float32)
-    ids = np.arange(L * CAP, dtype=np.int32).reshape(L, CAP)
+    data = rng.standard_normal((L, cap, D)).astype(np.float32)
+    ids = np.arange(L * cap, dtype=np.int32).reshape(L, cap)
     for l in range(L):
-        ids[l, CAP - 5 * l:] = -1
+        ids[l, cap - 5 * l:] = -1
     data[ids < 0] = 0.0
     y2 = np.where(ids >= 0, (data * data).sum(-1), 0.0).astype(np.float32)
     return rng, data, y2, ids
 
 
+# kk 129 and 258: past the kernels' former 128 (CAGRA's graph build scans at
+# kk 258); the lists then hold fewer real rows than kk, so the tails are +inf
+@pytest.mark.parametrize("kk", [8, 129, 258])
 @pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product", "cosine"])
-def test_probe_major_matches_pallas(metric):
-    rng, data, y2, ids = _lists(1)
-    B, G, kk = 7, 16, 8
+def test_probe_major_matches_pallas(metric, kk):
+    rng, data, y2, ids = _lists(1, CAP if kk <= CAP else kk + 8)
+    B, G = 7, 16
     bl = rng.integers(0, L, B).astype(np.int32)
     qg = rng.standard_normal((B, G, D)).astype(np.float32)
     q2g = (qg * qg).sum(-1).astype(np.float32)
@@ -53,10 +57,11 @@ def test_probe_major_matches_pallas(metric):
     assert (got[1][3] == -1).all() and torch.isinf(got[0][3]).all()
 
 
+@pytest.mark.parametrize("kk", [10, 129, 258])
 @pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product", "cosine"])
-def test_query_major_matches_pallas(metric):
-    rng, data, y2, ids = _lists(2)
-    Q, P, kk = 13, 3, 10   # Q not a multiple of 8: the TPU kernel gets pad rows
+def test_query_major_matches_pallas(metric, kk):
+    rng, data, y2, ids = _lists(2, CAP if kk <= CAP else 96)
+    Q, P = 13, 3   # Q not a multiple of 8: the TPU kernel gets pad rows
     probes = np.stack([rng.permutation(L)[:P] for _ in range(Q)]).astype(np.int32)
     probes[0] = [5, 5, 4]  # a probe set with few real rows, repeats included
     q = rng.standard_normal((Q, D)).astype(np.float32)
@@ -74,6 +79,36 @@ def test_query_major_matches_pallas(metric):
         metric=metric)
     assert got[0].shape == (Q, kk)
     assert_topk_match(*got, np.asarray(ref[0])[:Q], np.asarray(ref[1])[:Q])
+
+
+@pytest.mark.parametrize("schedule", ["probe_major", "query_major"])
+def test_kk_past_the_rows_scanned_pads_like_pallas(schedule):
+    """kk 60 over lists of 40 slots (probe-major scans cap, query-major one
+    probe: P * cap): [.., kk] with +inf / -1 tails, as raft_tpu returns."""
+    rng, data, y2, ids = _lists(4)
+    kk = 60
+    lists = [jnp.asarray(data), jnp.asarray(y2), jnp.asarray(ids)]
+    t_lists = [torch.from_numpy(a) for a in (data, y2, ids)]
+    if schedule == "probe_major":
+        bl = rng.integers(0, L, 5).astype(np.int32)
+        qg = rng.standard_normal((5, 8, D)).astype(np.float32)
+        q2g = (qg * qg).sum(-1).astype(np.float32)
+        ref = j_probe_major(jnp.asarray(bl), jnp.asarray(qg), jnp.asarray(q2g), *lists, kk,
+                            interpret=True)
+        got = tscan.ivf_scan_probe_major(torch.from_numpy(bl), torch.from_numpy(qg),
+                                         torch.from_numpy(q2g), *t_lists, kk)
+        assert got[0].shape == (5, 8, kk)
+    else:
+        probes = rng.integers(0, L, (8, 1)).astype(np.int32)
+        q = rng.standard_normal((8, D)).astype(np.float32)
+        q2 = (q * q).sum(-1).astype(np.float32)
+        ref = j_query_major(jnp.asarray(probes), jnp.asarray(q), jnp.asarray(q2), *lists, kk,
+                            interpret=True)
+        got = tscan.ivf_scan_query_major(torch.from_numpy(probes), torch.from_numpy(q),
+                                         torch.from_numpy(q2), *t_lists, kk)
+        assert got[0].shape == (8, kk)
+    assert torch.isinf(got[0][..., CAP:]).all() and (got[1][..., CAP:] == -1).all()
+    assert_topk_match(*got, *ref)
 
 
 SCALE = 0.0173  # value of one int8 step of the int8 lists below
@@ -163,7 +198,8 @@ def test_quantize_queries_i8_bitwise_with_raft():
 def test_scan_envelope():
     data = torch.zeros((2, 8, 4))
     assert tscan.scan_supported("sqeuclidean", data, 10)
-    assert not tscan.scan_supported("sqeuclidean", data, 129)
+    assert tscan.scan_supported("sqeuclidean", data, 512)
+    assert not tscan.scan_supported("sqeuclidean", data, 513)
     assert tscan.scan_supported("sqeuclidean", data.to(torch.bfloat16), 10)
     assert tscan.scan_supported("sqeuclidean", data.to(torch.int8), 10)
     assert not tscan.scan_supported("sqeuclidean", data.to(torch.float16), 10)
@@ -173,7 +209,7 @@ def test_scan_envelope():
     args = (torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 4)), torch.zeros(1),
             data, torch.zeros((2, 8)), torch.zeros((2, 8), dtype=torch.int32))
     with pytest.raises(ValueError):
-        tscan.ivf_scan_query_major(*args, 200)
+        tscan.ivf_scan_query_major(*args, 600)
     with pytest.raises(ValueError):
         tscan.ivf_scan_query_major(*args, 4, scan_dtype="float16")
     wide = torch.zeros((2, 8, 1041), dtype=torch.int8)  # past the exact f32 sum

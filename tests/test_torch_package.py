@@ -17,8 +17,10 @@ import torch
 from raft_tpu_torch import kernels
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import Resources
-from raft_tpu_torch.kernels import fused_knn, ivf_scan, select_k
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
+from raft_tpu_torch.kernels import cagra_traverse, fused_knn, ivf_scan, select_k
+from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq, refine
+
+from _torch_parity import hop_inputs
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "raft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -94,23 +96,23 @@ def test_ivf_pq_and_refine_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_cpu_searches_serve_k_past_the_kernel_envelope():
-    """CPU tensors take the plain versions at any k, so k = 150 (past the
-    kernels' 128) searches on the CPU; exhaustive probes give the oracle's
+    """CPU tensors take the plain versions at any k, so k = 550 (past the
+    kernels' 512) searches on the CPU; exhaustive probes give the oracle's
     ids."""
     rng = np.random.default_rng(5)
     x = rng.standard_normal((600, 8)).astype(np.float32)
     q = rng.standard_normal((7, 8)).astype(np.float32)
     cpu = Resources(device="cpu")
-    bv, bi = brute_force.knn(x, q, 150, res=cpu)
+    bv, bi = brute_force.knn(x, q, 550, res=cpu)
     idx = ivf_flat.build(ivf_flat.IndexParams(n_lists=4, kmeans_n_iters=2), x, res=cpu)
     for strategy in ("query_major", "probe_major"):
         v, i = ivf_flat.search(ivf_flat.SearchParams(n_probes=4, strategy=strategy), idx, q,
-                               150, res=cpu)
+                               550, res=cpu)
         assert torch.equal(i, bi)
         torch.testing.assert_close(v, bv, rtol=1e-5, atol=1e-4)
     pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=4, pq_dim=4, kmeans_n_iters=2), x, res=cpu)
-    _, i = ivf_pq.search(ivf_pq.SearchParams(n_probes=4), pq, q, 150, res=cpu)
-    assert i.shape == (7, 150) and bool((i >= 0).all())
+    _, i = ivf_pq.search(ivf_pq.SearchParams(n_probes=4), pq, q, 550, res=cpu)
+    assert i.shape == (7, 550) and bool((i >= 0).all())
 
 
 def test_kernel_build_needs_nvcc():
@@ -144,7 +146,7 @@ def test_launch_counts_reset_and_read():
             assert name in kernels.KERNELS
             kernels.count_launch(name)
     counts = kernels.launch_counts()
-    assert len(kernels.KERNELS) == 8
+    assert len(kernels.KERNELS) == 9
     assert all(counts[n] == 1 for n in kernels.KERNELS if n.startswith("ivf_scan"))
     kernels.reset_launch_counts()
     assert sum(kernels.launch_counts().values()) == 0
@@ -156,6 +158,7 @@ def test_launch_counts_reset_and_read():
     ("select_k_cost", (10000, 1104, 20)),
     ("ivf_scan_cost", (1376, 256, 1960, 128, 10)),
     ("fused_knn_cost", (256, 1000000, 128, 10)),
+    ("cagra_traverse_cost", (512, 1, 64, 128, 64)),
 ])
 def test_raft_cost_formulas_match_raft_tpu(name, args):
     from raft_tpu.ops import cost as jcost
@@ -187,24 +190,26 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_select_k_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("k", [16, 129, 258, 512])
+def test_select_k_kernel_matches_plain(cuda, k):
     g = torch.Generator().manual_seed(0)
     s = torch.round(torch.randn(300, 1000, generator=g) * 3)
     ids = torch.randint(-1, 40, (300, 1000), generator=g, dtype=torch.int32)
     for stable in (False, True):
-        want = select_k.select_k_torch(s, 16, stable=stable, input_indices=ids)
-        got = select_k.select_k_kernel(s.to(cuda), 16, stable=stable,
+        want = select_k.select_k_torch(s, k, stable=stable, input_indices=ids)
+        got = select_k.select_k_kernel(s.to(cuda), k, stable=stable,
                                        input_indices=ids.to(cuda))
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.cuda
-def test_fused_knn_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("k", [10, 129, 258, 512])   # 512: fewer queries per block
+def test_fused_knn_kernel_matches_plain(cuda, k):
     g = torch.Generator().manual_seed(1)
     x, q = torch.randn(20000, 64, generator=g), torch.randn(70, 64, generator=g)
     xx = (x * x).sum(1)
-    want = fused_knn.fused_l2_topk_torch(q, x, xx, 10)
-    got = fused_knn.fused_l2_topk(q.to(cuda), x.to(cuda), xx.to(cuda), 10)
+    want = fused_knn.fused_l2_topk_torch(q, x, xx, k)
+    got = fused_knn.fused_l2_topk(q.to(cuda), x.to(cuda), xx.to(cuda), k)
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-4)
     assert (got[1].cpu() == want[1]).float().mean() >= 0.999
 
@@ -245,7 +250,11 @@ def test_query_major_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kk", [10, 40])   # 40: past 48 KB of shared memory in all
+# 40: past 48 KB of shared memory in all; 129 and 258: past the former
+# envelope (258 > the lists' 250 real rows: +inf tails); 512: probe-major
+# blocks then hold fewer queries (and the lists 600 slots, so that the
+# lists hold real rows; kk past cap: test_kk_past_the_rows_scanned_matches_plain)
+@pytest.mark.parametrize("kk", [10, 40, 129, 258, 512])
 @pytest.mark.parametrize("schedule", ["probe_major", "query_major"])
 @pytest.mark.parametrize("dtype,scan_dtype,d", [
     (torch.float32, "float32", 64),
@@ -259,13 +268,14 @@ def test_storage_legs_match_plain_bitwise(cuda, schedule, dtype, scan_dtype, d, 
     int8 sums) makes values and ids bitwise equal."""
     g = torch.Generator().manual_seed(3)
     scale = 0.0173 if dtype == torch.int8 else 1.0
+    cap = 300 if kk <= 300 else 600
     if dtype == torch.int8:
-        data = torch.randint(-127, 128, (12, 300, d), generator=g, dtype=torch.int8)
+        data = torch.randint(-127, 128, (12, cap, d), generator=g, dtype=torch.int8)
         vals = data.float() * torch.tensor(scale, dtype=torch.float32)
     else:
-        data = torch.randn(12, 300, d, generator=g).to(dtype)
+        data = torch.randn(12, cap, d, generator=g).to(dtype)
         vals = data.float()
-    ids = torch.arange(12 * 300, dtype=torch.int32).reshape(12, 300)
+    ids = torch.arange(12 * cap, dtype=torch.int32).reshape(12, cap)
     ids[:, 250:] = -1
     y2 = torch.where(ids >= 0, (vals * vals).sum(-1), torch.zeros(()))
     kw = dict(scan_dtype=scan_dtype, scan_scale=scale)
@@ -287,6 +297,31 @@ def test_storage_legs_match_plain_bitwise(cuda, schedule, dtype, scan_dtype, d, 
     got = kernel(*on_card, **kw)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[ivf_scan.kernel_name(schedule, data)] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["probe_major", "query_major"])
+def test_kk_past_the_rows_scanned_matches_plain(cuda, schedule):
+    """kk 512 over lists of 300 slots (query-major: one probe): the kernel's
+    +inf / -1 tails and the plain version's pads agree bitwise."""
+    g = torch.Generator().manual_seed(5)
+    data = torch.randn(6, 300, 64, generator=g)
+    ids = torch.arange(6 * 300, dtype=torch.int32).reshape(6, 300)
+    y2 = (data * data).sum(-1)
+    if schedule == "probe_major":
+        qg = torch.randn(4, 50, 64, generator=g)
+        args = (torch.randint(0, 6, (4,), generator=g, dtype=torch.int32), qg,
+                (qg * qg).sum(-1), data, y2, ids, 512)
+        plain, kernel = ivf_scan.ivf_scan_probe_major_torch, ivf_scan.ivf_scan_probe_major
+    else:
+        q = torch.randn(20, 64, generator=g)
+        args = (torch.randint(0, 6, (20, 1), generator=g, dtype=torch.int32), q,
+                (q * q).sum(1), data, y2, ids, 512)
+        plain, kernel = ivf_scan.ivf_scan_query_major_torch, ivf_scan.ivf_scan_query_major
+    on_card = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    want, got = plain(*on_card), kernel(*on_card)
+    assert got[0].shape[-1] == 512 and torch.isinf(got[0][..., 300:]).all()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -324,24 +359,100 @@ def test_ivf_pq_search_and_refine_on_the_card(cuda, decoded_dtype, lut_dtype):
 @pytest.mark.cuda
 def test_k_past_the_kernel_envelope_raises_on_the_card(cuda):
     """On the card every search goes to its kernels, which raise past
-    k = 128: no search falls back to a plain version there."""
+    k = 512: no search falls back to a plain version there."""
     rng = np.random.default_rng(6)
     x = rng.standard_normal((6000, 32)).astype(np.float32)
     q = rng.standard_normal((300, 32)).astype(np.float32)
     res = Resources(device="cuda")
-    flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=24, kmeans_n_iters=2), x, res=res)
-    pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=24, pq_dim=16, kmeans_n_iters=2), x, res=res)
-    assert flat.list_cap > 129 and pq.list_cap > 129
+    flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=8, kmeans_n_iters=2), x, res=res)
+    pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=8, pq_dim=16, kmeans_n_iters=2), x, res=res)
+    assert flat.list_cap > 513 and pq.list_cap > 513
     kernels.reset_launch_counts()
     for strategy in ("query_major", "probe_major"):
-        with pytest.raises(ValueError, match="kk<=128"):
-            ivf_flat.search(ivf_flat.SearchParams(n_probes=6, strategy=strategy), flat, q, 129)
-        with pytest.raises(ValueError, match="kk<=128"):
-            ivf_pq.search(ivf_pq.SearchParams(n_probes=6, strategy=strategy), pq, q, 129)
-    with pytest.raises(ValueError, match="k<=128"):
-        brute_force.knn(x, q, 129, res=res)
+        with pytest.raises(ValueError, match="kk<=512"):
+            ivf_flat.search(ivf_flat.SearchParams(n_probes=6, strategy=strategy), flat, q, 513)
+        with pytest.raises(ValueError, match="kk<=512"):
+            ivf_pq.search(ivf_pq.SearchParams(n_probes=6, strategy=strategy), pq, q, 513)
+    with pytest.raises(ValueError, match="k<=512"):
+        brute_force.knn(x, q, 513, res=res)
     assert all(n == 0 for name, n in kernels.launch_counts().items() if name != "select_k")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [129, 258])
+def test_searches_past_k_128_on_the_card_match_the_plain_versions(cuda, k):
+    """k 129 and 258 (CAGRA's graph build: refine to 129 of IVF-PQ's 258)
+    run on the card's kernels, both schedules, and agree with the CPU's
+    plain versions."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((6000, 32)).astype(np.float32)
+    q = rng.standard_normal((300, 32)).astype(np.float32)
+    res, cpu = Resources(device="cuda"), Resources(device="cpu")
+    flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=16, kmeans_n_iters=2), x, res=res)
+    host = ivf_flat.Index(*(t.cpu() if torch.is_tensor(t) else t for t in (
+        flat.metric, flat.centers, flat.list_data, flat.list_index, flat.list_sizes,
+        flat.list_norms)))
+    for strategy in ("query_major", "probe_major"):
+        sp = ivf_flat.SearchParams(n_probes=6, strategy=strategy)
+        kernels.reset_launch_counts()
+        v, i = ivf_flat.search(sp, flat, q, k, res=res)
+        assert kernels.launch_counts()[f"ivf_scan_{strategy}"] == 1
+        pv, pi = ivf_flat.search(sp, host, q, k, res=cpu)
+        torch.testing.assert_close(v.cpu(), pv, rtol=1e-5, atol=1e-4)
+        assert (i.cpu() == pi).float().mean() >= 0.999
+    bv, bi = brute_force.knn(x, q, k, res=res)
+    pv, pi = brute_force.knn(x, q, k, res=cpu)
+    torch.testing.assert_close(bv.cpu(), pv, rtol=1e-5, atol=1e-4)
+    assert (bi.cpu() == pi).float().mean() >= 0.999
 
 
 _PQ_FIELDS = ("metric", "codebook_kind", "pq_bits", "centers", "centers_rot", "rotation",
               "codebook", "list_codes", "list_index", "list_sizes", "list_data", "list_y2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,dtype,itopk,width", [
+    ("sqeuclidean", torch.float32, 64, 1), ("inner_product", torch.float32, 64, 2),
+    ("sqeuclidean", torch.bfloat16, 32, 2), ("sqeuclidean", torch.float32, 512, 1),
+])
+def test_cagra_hop_kernel_matches_plain_bitwise(cuda, metric, dtype, itopk, width):
+    """The hop kernel against its plain version on the card: values, ids and
+    explored flags bitwise equal (fmaf in dimension order on both sides)."""
+    x, *rest = hop_inputs(9, metric, n=4000, d=128, deg=64, tile=300, itopk=itopk, width=width)
+    on_card = [x.to(dtype).to(cuda)] + [a.to(cuda) for a in rest]
+    want = cagra_traverse.cagra_fused_hop_torch(*on_card, metric=metric)
+    kernels.reset_launch_counts()
+    got = cagra_traverse.cagra_fused_hop(*on_card, metric=metric)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["cagra_fused_hop"] == 1
+    assert kernels.consume_kernel_path() == "cuda"
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(got[1], on_card[5])
+
+
+@pytest.mark.cuda
+def test_cagra_search_on_the_card_matches_the_cpu(cuda):
+    """A CAGRA search on the card (hop and select_k kernels, one hop launch
+    per hop of every tile) agrees with the CPU's plain versions given one
+    set of seed ids: ids on >= 99% of slots."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = rng.standard_normal((100, 32)).astype(np.float32)
+    cpu = Resources(device="cpu")
+    idx = cagra.build(cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16,
+                                        build_algo="brute_force"), x,
+                      res=Resources(device="cuda"))
+    assert idx.graph.shape == (3000, 16) and bool((idx.graph >= 0).all())
+    host = cagra.from_graph(idx.metric, x, idx.graph.cpu(), idx.entry_centers.cpu(),
+                            idx.entry_ids.cpu(), res=cpu)
+    sp = cagra.SearchParams(itopk_size=32, max_queries=40)
+    seeds = cagra.make_seed_ids(sp, host, torch.from_numpy(q), 10)
+    kernels.reset_launch_counts()
+    v, i = cagra.search(sp, idx, q, 10, seed_ids=seeds)
+    assert kernels.consume_kernel_path() == "cuda"
+    _, max_iter, tile = cagra.search_plan(sp, idx, 100, 10)
+    assert tile == 40 and kernels.launch_counts()["cagra_fused_hop"] == 3 * max_iter
+    pv, pi = cagra.search(sp, host, q, 10, seed_ids=seeds, res=cpu)
+    assert (i.cpu() == pi).float().mean() >= 0.99
+    torch.testing.assert_close(v.cpu(), pv, rtol=1e-5, atol=1e-4)

@@ -22,16 +22,53 @@ def _assert_same(a, b):
     np.testing.assert_array_equal(_np(a[1]), _np(b[1]))
 
 
-@pytest.mark.parametrize("rows,n,k", [(5, 37, 7), (8, 128, 16), (3, 1000, 32), (1, 8, 8)])
+# k 129 over 258-wide rows is CAGRA's refine; raft_tpu's Pallas select_k
+# stops at k 128, so past it the reference is raft_tpu's routed select_k
+@pytest.mark.parametrize("rows,n,k", [(5, 37, 7), (8, 128, 16), (3, 1000, 32), (1, 8, 8),
+                                      (4, 258, 129), (2, 600, 258)])
 @pytest.mark.parametrize("select_min", [True, False])
 def test_positional_heavy_ties_vs_pallas(rows, n, k, select_min):
     rng = np.random.default_rng(rows * n + k)
     s = np.round(rng.standard_normal((rows, n)) * 3).astype(np.float32)
-    ref = select_k_pallas(jnp.asarray(s), k, select_min=select_min, interpret=True)
+    if k <= 128:
+        ref = select_k_pallas(jnp.asarray(s), k, select_min=select_min, interpret=True)
+    else:
+        # + 0 turns -0.0 into +0.0, the one tie on which XLA's order differs
+        # (test_signed_zero_ties_past_128_differ_from_xla)
+        s = s + np.float32(0)
+        ref = jmatrix.select_k(jnp.asarray(s), k, select_min=select_min)
     got = tsk.select_k_torch(torch.from_numpy(s), k, select_min=select_min)
     _assert_same(got, ref)
     # the routed entry point (CPU tensors take the plain version)
     _assert_same(tmatrix.select_k(torch.from_numpy(s), k, select_min=select_min), ref)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+def test_signed_zero_ties_past_128_differ_from_xla(select_min):
+    """Past k 128 raft_tpu's select_k is XLA's top_k, which ranks -0.0 before
+    +0.0 (after it, selecting the largest).  The port holds the two equal
+    and keeps position order, as raft_tpu's Pallas kernel does up to k 128;
+    with the zeros' signs dropped the two agree."""
+    rng = np.random.default_rng(7)
+    s = np.round(rng.standard_normal((2, 300)) * 3).astype(np.float32)
+    neg = np.signbit(s[s == 0])
+    assert neg.any() and not neg.all()
+    k = 200
+    key = s if select_min else -s
+    by_position = np.argsort(key, axis=1, kind="stable")[:, :k]
+    sign = np.signbit(s).astype(np.int8)
+    minus_zero_first = np.stack([
+        np.lexsort((np.arange(300), -sign[r] if select_min else sign[r], key[r]))[:k]
+        for r in range(2)])
+    got = tmatrix.select_k(torch.from_numpy(s), k, select_min=select_min)
+    ref = jmatrix.select_k(jnp.asarray(s), k, select_min=select_min)
+    np.testing.assert_array_equal(_np(got[1]), by_position)
+    np.testing.assert_array_equal(_np(ref[1]), minus_zero_first)
+    assert not np.array_equal(_np(got[1]), _np(ref[1]))
+    np.testing.assert_array_equal(_np(got[0]), _np(ref[0]))   # -0.0 == +0.0
+    s0 = s + np.float32(0)
+    _assert_same(tmatrix.select_k(torch.from_numpy(s0), k, select_min=select_min),
+                 jmatrix.select_k(jnp.asarray(s0), k, select_min=select_min))
 
 
 @pytest.mark.parametrize("select_min", [True, False])
@@ -66,13 +103,15 @@ def test_stable_negative_ids_vs_pallas_and_xla(select_min):
     _assert_same(got, xla)
 
 
-def test_stable_past_the_kernel_envelope_matches_xla():
-    # k > 128: the plain two-key sort, not the kernel's plain version
+@pytest.mark.parametrize("k", [150, 600])
+def test_stable_past_the_kernel_envelope_matches_xla(k):
+    # past raft_tpu's envelope (k 128) both: k 150 takes the port kernel's
+    # plain version, k 600 (past the port's 512) the plain two-key sort
     rng = np.random.default_rng(3)
-    s = np.asarray(rng.integers(0, 6, size=(3, 400)), np.float32)
-    ids = rng.integers(-1, 300, size=(3, 400)).astype(np.int32)
-    got = tmatrix.select_k_stable(torch.from_numpy(s), 150, input_indices=torch.from_numpy(ids))
-    ref = jmatrix.select_k_stable(jnp.asarray(s), 150, input_indices=jnp.asarray(ids))
+    s = np.asarray(rng.integers(0, 6, size=(3, 700)), np.float32)
+    ids = rng.integers(-1, 300, size=(3, 700)).astype(np.int32)
+    got = tmatrix.select_k_stable(torch.from_numpy(s), k, input_indices=torch.from_numpy(ids))
+    ref = jmatrix.select_k_stable(jnp.asarray(s), k, input_indices=jnp.asarray(ids))
     _assert_same(got, ref)
 
 
@@ -111,15 +150,21 @@ def test_topk_and_integer_paths_vs_xla():
 
 
 def test_supported_envelope_matches_raft():
+    """raft_tpu's gate, but k runs to 512 (raft_tpu's Pallas kernel: 128)."""
     from raft_tpu.kernels.select_k import select_k_supported as jsup
 
     for n, k, dt, jdt in [(512, 32, torch.float32, jnp.float32),
                           (8192, 128, torch.bfloat16, jnp.bfloat16),
                           (8193, 32, torch.float32, jnp.float32),
                           (512, 129, torch.float32, jnp.float32),
+                          (8192, 512, torch.float32, jnp.float32),
+                          (600, 513, torch.float32, jnp.float32),
                           (16, 32, torch.float32, jnp.float32),
                           (512, 32, torch.int32, jnp.int32)]:
-        assert tsk.select_k_supported(n, k, dt) == jsup(n, k, jdt)
+        widened = 128 < k <= tsk.MAX_K and jsup(n, 128, jdt)
+        assert tsk.select_k_supported(n, k, dt) == (jsup(n, k, jdt) or widened)
+    assert tsk.select_k_supported(258, 129, torch.float32)
+    assert not tsk.select_k_supported(600, 513, torch.float32)
     with pytest.raises(ValueError):
         tsk.select_k_kernel(torch.zeros((2, 16), dtype=torch.int32), 4)
 
