@@ -39,7 +39,21 @@ then drives the port's main paths at the scale of sift-128-euclidean
    for select_k and fused_knn, kk=258 for probe-major); times of kernel,
    plain version and (as a yardstick only) one PyTorch library call; the
    bound of each from the work its inputs need (``raft_tpu_torch.ops.cost``);
-9. where the time of each search goes: warm wall per search and, under
+9. filtered search (numpy filters from seed 0 over the 1M ids: ``pass50``
+   and ``pass10``, Bitsets passing 50 % / 10 %; ``tomb1``, 1 % tombstones;
+   ``table8``, 8 filters passing 10-90 % with each serving query's filter
+   drawn from them, through ``RowFilter.from_table``; ``rows64``, the same
+   rows by ``RowFilter.from_mask_rows``, no descriptor): the filtered
+   oracle (brute force), IVF-Flat (pass50 / pass10 / tomb1 probe-major on
+   10,000 queries, pass10 query-major and table8 / rows64 on the 20 x 64
+   serving queries), IVF-PQ on every leg (pass10 on both schedules, table8),
+   a refined pass10 search, and CAGRA (pass50 on 10,000 queries, pass10 on
+   1,000, table8 on 64); no returned id fails its filter or repeats, recall
+   against the filtered oracle, the same searches on the plain versions
+   (IVF-Flat also at n_probes=2, where recall is below 1), and each filter
+   leg of the scans against its plain version on the inputs the main path
+   gave it;
+10. where the time of each search goes: warm wall per search and, under
    ``torch.profiler``, device time by kernel and the device's busy share.
 
 Launch counts are set to 0 before each phase of the main paths and read
@@ -83,6 +97,11 @@ WIDE_K, WIDE_KK = 129, 258
 PQ_LEGS = (("bfloat16", "float32"), ("bfloat16", "bfloat16"), ("int8", "float32"))
 #: the leg refined and profiled (config 4 searches with bf16 products)
 PQ_MAIN = ("bfloat16", "bfloat16")
+#: filtered search: filters in the table, queries of the filtered CAGRA
+#: searches at 10 % and by table, and the recall floor at pass50 / pass10
+TABLE_ROWS = 8
+CAGRA_PASS10_QUERIES = 1000
+FILTER_RECALL = 0.8
 
 
 def main() -> int:
@@ -97,6 +116,7 @@ def main() -> int:
 
     from raft_tpu_torch import datasets, kernels
     from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.core.bitset import Bitset, RowFilter
     from raft_tpu_torch.core.resources import Resources, as_f32
     from raft_tpu_torch.kernels import cagra_traverse as ct
     from raft_tpu_torch.kernels import fused_knn as fk
@@ -184,13 +204,13 @@ def main() -> int:
         print(f"{name}: {time.perf_counter() - t0:.3f} s, launches "
               f"{ {n: c for n, c in phase_launches[name].items() if c} }", flush=True)
 
-    def batches(search_fn, k):
-        """``search_fn(query_block, k)`` over the QM_BATCHES serving batches:
-        (values, ids, wall ms per batch)."""
+    def batches(search_fn, k, kw_of=lambda b: {}):
+        """``search_fn(query_block, k, **kw_of(b))`` over the QM_BATCHES
+        serving batches: (values, ids, wall ms per batch)."""
         outs, walls = [], []
         for b in range(QM_BATCHES):
             t0 = time.perf_counter()
-            outs.append(search_fn(q[b * QM_BATCH:(b + 1) * QM_BATCH], k))
+            outs.append(search_fn(q[b * QM_BATCH:(b + 1) * QM_BATCH], k, **kw_of(b)))
             sync()
             walls.append((time.perf_counter() - t0) * 1e3)
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), walls
@@ -248,10 +268,10 @@ def main() -> int:
           f"scan_scale {pq_indexes['int8'].scan_scale!r}", flush=True)
 
     def pq_search(cache, lut, n_probes=N_PROBES, strategy="auto"):
-        """``(queries, k) -> (values, ids)`` on the ``cache`` index with
-        ``lut`` products."""
+        """``(queries, k, **filter) -> (values, ids)`` on the ``cache`` index
+        with ``lut`` products."""
         sp_pq = ivf_pq.SearchParams(n_probes=n_probes, lut_dtype=lut, strategy=strategy)
-        return lambda qb, k: ivf_pq.search(sp_pq, pq_indexes[cache], qb, k, res=res)
+        return lambda qb, k, **kw: ivf_pq.search(sp_pq, pq_indexes[cache], qb, k, res=res, **kw)
 
     for cache, lut in PQ_LEGS:
         tag = f"{cache} cache, {lut} products"
@@ -377,6 +397,108 @@ def main() -> int:
           f"cagra batches: {hops} hop launches = {QM_BATCHES} x tiles x max_iter")
     print(f"cagra per batch ms median {float(np.median(walls)):.3f} "
           f"min {min(walls):.3f} max {max(walls):.3f}", flush=True)
+
+    # -- main path: filtered search -------------------------------------------
+    n_rows = x.shape[0]
+    frng = np.random.default_rng(SEED)
+    pass_masks = {name: torch.from_numpy(frng.random(n_rows) < rate).to(dev)
+                  for name, rate in (("pass50", 0.5), ("pass10", 0.1), ("tomb1", 0.01))}
+    table8 = torch.from_numpy(frng.random((TABLE_ROWS, n_rows))
+                              < np.linspace(0.1, 0.9, TABLE_ROWS)[:, None]).to(dev)
+    fid = torch.from_numpy(frng.integers(0, TABLE_ROWS, n_qm)).to(dev)
+    table_words = RowFilter.from_mask_rows(table8).words
+    filters = {
+        "pass50": dict(sample_filter=Bitset.from_mask(pass_masks["pass50"])),
+        "pass10": dict(sample_filter=Bitset.from_mask(pass_masks["pass10"])),
+        "tomb1": dict(deleted_mask=Bitset.from_mask(pass_masks["tomb1"])),
+    }
+    passes = {"pass50": lambda i: pass_masks["pass50"][i],
+              "pass10": lambda i: pass_masks["pass10"][i],
+              "tomb1": lambda i: ~pass_masks["tomb1"][i],
+              "table8": lambda i: table8[fid[:i.shape[0]].long()[:, None], i]}
+
+    def table8_filter(s, e):
+        return dict(sample_filter=RowFilter.from_table(table_words, fid[s:e], n_rows))
+
+    table_batches = [table8_filter(b * QM_BATCH, (b + 1) * QM_BATCH) for b in range(QM_BATCHES)]
+    rows_batches = [dict(sample_filter=RowFilter.from_mask_rows(
+        table8[fid[b * QM_BATCH:(b + 1) * QM_BATCH].long()])) for b in range(QM_BATCHES)]
+    t_all = table8_filter(0, n_qm)
+    print(f"filters: pass rates {({k: float(m.float().mean()) for k, m in pass_masks.items()})}, "
+          f"table8 rows {[round(float(r), 4) for r in table8.float().mean(dim=1)]}", flush=True)
+
+    with phase("filt_oracle"):
+        filt_gt = {name: brute_force.knn(x, q, K, res=res, **kw)[1] for name, kw in filters.items()}
+        filt_gt["table8"] = brute_force.knn(x, q[:n_qm], K, res=res, **t_all)[1]
+    check(kernels.consume_kernel_path() == "cuda", "filtered oracle routed to cuda")
+    check(phase_launches["filt_oracle"]["select_k"] > 0 and
+          phase_launches["filt_oracle"]["fused_knn"] == 0,
+          "filtered oracle launched select_k and not the unfiltered fused_knn")
+
+    def flat_batches(kw_of):
+        return lambda: batches(lambda qb, k, **kw: ivf_flat.search(sp, index, qb, k, res=res, **kw),
+                               K, kw_of)[:2]
+
+    def pq_batches(cache, lut, kw_of):
+        return lambda: batches(pq_search(cache, lut), K, kw_of)[:2]
+
+    def refined_filtered(cache, lut, n_probes=N_PROBES):
+        _, cand_f = pq_search(cache, lut, n_probes)(q, K * REFINE_RATIO, **filters["pass10"])
+        return refine(x, q, cand_f, K, res=res)
+
+    def cagra_filtered(qs, kw):
+        return lambda: cagra.search(cagra_sp, cg, qs, K, res=res, **kw)
+
+    # (phase, search name, thunk -> (values, ids), filter name, the legs it launches)
+    filt_specs = []
+    for name in filters:
+        filt_specs.append(("filt_ivf_flat_probe_major", f"ivf_flat probe-major {name}",
+                           lambda name=name: ivf_flat.search(sp, index, q, K, res=res,
+                                                             **filters[name]), name,
+                           ["ivf_scan_probe_major_filt"]))
+    filt_specs += [
+        ("filt_ivf_flat_query_major", "ivf_flat query-major pass10",
+         flat_batches(lambda b: filters["pass10"]), "pass10", ["ivf_scan_query_major_filt"]),
+        ("filt_ivf_flat_fid", "ivf_flat query-major table8",
+         flat_batches(lambda b: table_batches[b]), "table8", ["ivf_scan_query_major_fid"]),
+        ("filt_ivf_flat_fid", "ivf_flat query-major rows64 (no descriptor)",
+         flat_batches(lambda b: rows_batches[b]), "table8", ["ivf_scan_query_major_fid"]),
+    ]
+    for cache, lut in PQ_LEGS:
+        tag = f"{cache} cache, {lut} products"
+        pm_leg = scan.kernel_name("probe_major", pq_indexes[cache].list_data)
+        qm_leg = scan.kernel_name("query_major", pq_indexes[cache].list_data)
+        filt_specs += [
+            (f"filt_pq[{tag}]", f"ivf_pq probe-major pass10 [{tag}]",
+             lambda c=cache, lt=lut: pq_search(c, lt)(q, K, **filters["pass10"]), "pass10",
+             [pm_leg + "_filt"]),
+            (f"filt_pq[{tag}]", f"ivf_pq query-major pass10 [{tag}]",
+             pq_batches(cache, lut, lambda b: filters["pass10"]), "pass10", [qm_leg + "_filt"]),
+            (f"filt_pq[{tag}]", f"ivf_pq query-major table8 [{tag}]",
+             pq_batches(cache, lut, lambda b: table_batches[b]), "table8", [qm_leg + "_fid"]),
+        ]
+    filt_specs += [
+        ("filt_pq_refine", "ivf_pq probe-major pass10 + refine", lambda: refined_filtered(*PQ_MAIN),
+         "pass10", [scan.kernel_name("probe_major", pq_indexes[PQ_MAIN[0]].list_data) + "_filt",
+                    "select_k"]),
+        ("filt_cagra", "cagra pass50", cagra_filtered(q, filters["pass50"]), "pass50",
+         ["select_k"]),
+        ("filt_cagra", "cagra pass10", cagra_filtered(q[:CAGRA_PASS10_QUERIES], filters["pass10"]),
+         "pass10", ["select_k"]),
+        ("filt_cagra", "cagra table8", cagra_filtered(q[:QM_BATCH], table_batches[0]), "table8",
+         ["select_k"]),
+    ]
+    filt_out = {}
+    for ph in dict.fromkeys(spec[0] for spec in filt_specs):
+        specs = [spec for spec in filt_specs if spec[0] == ph]
+        with phase(ph):
+            for _, name, fn, _, _ in specs:
+                filt_out[name] = fn()
+        check(kernels.consume_kernel_path() == "cuda", f"{ph} routed to cuda")
+        for leg in dict.fromkeys(leg for spec in specs for leg in spec[4]):
+            check(phase_launches[ph][leg] > 0, f"{ph} launched {leg}")
+    check(phase_launches["filt_cagra"]["cagra_fused_hop"] == 0,
+          "filtered CAGRA keeps the hop kernel off filtered traffic, as raft_tpu does")
     main_launches = {
         name: sum(p[name] for p in phase_launches.values()) for name in kernels.KERNELS
     }
@@ -398,6 +520,36 @@ def main() -> int:
           f"refined recall@10 {r_ref:.5f} >= 0.9 and >= the unrefined {recall[main_pq]:.5f}")
     check(all(r >= CAGRA_RECALL for name, r in recall.items() if name.startswith("cagra")),
           f"recall@10 of both CAGRA searches >= {CAGRA_RECALL}")
+
+    # filtered searches: no leak, filled, recall against the filtered oracle
+    def leak_free(ids, fname):
+        """No id fails its query's filter and no id repeats in a row."""
+        ok = passes[fname](ids.long().clamp(min=0)) | (ids < 0)
+        srt = torch.sort(ids, dim=1).values
+        return bool(ok.all()) and not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any())
+
+    for fname, gi in filt_gt.items():
+        check(leak_free(gi, fname) and bool((gi >= 0).all()),
+              f"filtered oracle {fname}: no leaked or repeated id, every slot filled")
+    filt_recall, filt_fill = {}, {}
+    spec_filter = {spec[1]: spec[3] for spec in filt_specs}
+    for name, (v, i) in filt_out.items():
+        fname = spec_filter[name]
+        rows = i.shape[0]
+        check(tuple(v.shape) == (rows, K) and bool(torch.isfinite(v[i >= 0]).all())
+              and leak_free(i, fname),
+              f"{name} [{rows}, {K}]: no leaked or repeated id, finite where filled")
+        filt_fill[name] = float((i >= 0).float().mean())
+        filt_recall[name] = recall_at_k(i, filt_gt[fname][:rows], K)
+        print(f"recall@{K} {name}: {filt_recall[name]:.5f} (filled {filt_fill[name]:.5f})",
+              flush=True)
+    check(min(filt_fill.values()) >= 0.99, "every filtered search fills >= 99 % of its slots")
+    floor_names = [name for name in filt_recall
+                   if (name.startswith(("ivf_flat", "cagra")) or name.endswith("+ refine"))
+                   and spec_filter[name] in ("pass50", "pass10")]
+    check(all(filt_recall[name] >= FILTER_RECALL for name in floor_names),
+          f"recall@10 >= {FILTER_RECALL} of {len(floor_names)} filtered IVF-Flat, refined IVF-PQ "
+          f"and CAGRA searches at pass50 / pass10")
 
     # oracle against an exact float64 numpy reference on a small input
     xs, qs = ds.base[:20000], ds.queries[:64]
@@ -479,20 +631,50 @@ def main() -> int:
             out[f"cagra {tag}"] = recall_at_k(i, gt_i[:CAGRA_SUBSET], K)
         return out
 
+    # at 20 probes the filtered IVF-Flat searches give recall ~1.0 on any
+    # path; at LOW_PROBES the kernel-vs-plain comparison of both filter legs
+    # can fail
+    sp_low = ivf_flat.SearchParams(n_probes=LOW_PROBES)
+
+    def low_filtered():
+        i_pm = ivf_flat.search(sp_low, index, q, K, res=res, **filters["pass10"])[1]
+        i_fid = batches(lambda qb, k, **kw: ivf_flat.search(sp_low, index, qb, k, res=res, **kw),
+                        K, lambda b: table_batches[b])[1]
+        return {f"ivf_flat probe-major pass10 n_probes={LOW_PROBES}":
+                recall_at_k(i_pm, filt_gt["pass10"], K),
+                f"ivf_flat query-major table8 n_probes={LOW_PROBES}":
+                recall_at_k(i_fid, filt_gt["table8"], K)}
+
     kernel_low = recalls(LOW_PROBES)
     kernel_cagra = cagra_recalls()
+    kernel_low_filt = low_filtered()
+    check(max(kernel_low_filt.values()) < 0.95,
+          f"filtered IVF-Flat recall at n_probes={LOW_PROBES} is below 0.95 (the comparison "
+          "can fail)")
     kernels.reset_launch_counts()
     with plain_versions():
         plain_main = recalls(N_PROBES)
         plain_low = recalls(LOW_PROBES)
         plain_cagra = cagra_recalls()
+        plain_filt = {f"filtered oracle {fname}": recall_at_k(
+            brute_force.knn(x, q[:gi.shape[0]], K, res=res,
+                            **(t_all if fname == "table8" else filters[fname]))[1], gi, K)
+            for fname, gi in filt_gt.items()}
+        for _, name, fn, fname, _ in filt_specs:
+            i = fn()[1]
+            plain_filt[name] = recall_at_k(i, filt_gt[fname][:i.shape[0]], K)
+        plain_filt.update(low_filtered())
     check(sum(kernels.launch_counts().values()) == 0, "plain path launched no kernel")
+    kernel_filt = dict(filt_recall, **kernel_low_filt,
+                       **{f"filtered oracle {fname}": 1.0 for fname in filt_gt})
     recall_table = {}
     for n_probes, kern, plain in ((N_PROBES, recall, plain_main),
                                   (LOW_PROBES, kernel_low, plain_low),
-                                  (None, kernel_cagra, plain_cagra)):
+                                  (None, kernel_cagra, plain_cagra),
+                                  ("filtered", kernel_filt, plain_filt)):
         for name in plain:
-            tag = f"{name} n_probes={n_probes}" if n_probes else f"{name}, {CAGRA_SUBSET} queries"
+            tag = (name if n_probes == "filtered" else f"{name} n_probes={n_probes}" if n_probes
+                   else f"{name}, {CAGRA_SUBSET} queries")
             recall_table[tag] = [kern[name], plain[name]]
             print(f"recall@{K} {tag}: kernel path {kern[name]:.5f}, "
                   f"plain path {plain[name]:.5f}", flush=True)
@@ -642,14 +824,17 @@ def main() -> int:
            cost.fused_knn_cost(FUSED_SUBSET, x.shape[0], x.shape[1], K),
            lib_ms, f"q [{FUSED_SUBSET}, 128] x [1000000, 128] k={K}", wide=wide)
 
-    def scan_leg(schedule, name, idx, arg_sets, compare, legs):
+    def scan_leg(schedule, name, idx, arg_sets, compare, legs, filt_of=None, filt_tag="",
+                 replaces=None):
         """Kernel vs plain for one C entry of ``schedule`` on the main
         path's inputs ``arg_sets`` (the 10,000-query probe-major block, or
         the 20 serving batches), timed on the first.  ``legs``: (scan_kw,
         compute) pairs of the entry; the first is recorded, the others
-        measured beside it."""
+        measured beside it.  ``filt_of(b)``: the filter arguments
+        (``list_filter``, ``query_fid``) of arg set b, for a filter leg."""
         kernel = getattr(scan, f"ivf_scan_{schedule}")
         plain = getattr(scan, f"ivf_scan_{schedule}_torch")
+        filt_of = filt_of or (lambda b: {})
         args = arg_sets[0]
         kk, width = args[-1], args[1].shape[-1]
         itemsize = idx.list_data.element_size()
@@ -659,31 +844,40 @@ def main() -> int:
             live = int(torch.isfinite(args[2]).any(dim=1).sum())
             probes = _common.coarse_select(q, idx.centers, metric, N_PROBES)
             out_rows, raft_blocks, reps = probes.numel(), (live, G), (5, 1)
-            replaces, shape = "raft_tpu/kernels/ivf_scan.py:375", f"B={B} ({live} non-empty) G={G}"
+            replaces = replaces or "raft_tpu/kernels/ivf_scan.py:375"
+            shape = f"B={B} ({live} non-empty) G={G}"
         else:
             probes = args[0]
             out_rows, raft_blocks, reps = probes.shape[0], (probes.numel(), 1), (10, 2)
-            replaces, shape = "raft_tpu/kernels/ivf_scan.py:649", f"Q={out_rows} P={N_PROBES}"
+            replaces = replaces or "raft_tpu/kernels/ivf_scan.py:649"
+            shape = f"Q={out_rows} P={N_PROBES}"
+        f0 = filt_of(0)
+        cap_w = -(-idx.list_cap // 32) if f0 else 0
+        if "query_fid" in f0:
+            replaces = replaces or "raft_tpu/kernels/ivf_scan.py:580"
         measured = []
         for kw, comp in legs:
             scan_dtype = kw.get("scan_dtype", "highest")
-            outs = [(kernel(*a, metric=metric, **kw), plain(*a, metric=metric, **kw))
-                    for a in arg_sets]
+            outs = [(kernel(*a, metric=metric, **kw, **filt_of(b)),
+                     plain(*a, metric=metric, **kw, **filt_of(b)))
+                    for b, a in enumerate(arg_sets)]
             err_ = compare(f"{name} {scan_dtype} products",
                            *(torch.cat([o[s][j] for o in outs]) for s in (0, 1) for j in (0, 1)))
             work = cost.scan_work(probes, list_rows, width, out_rows, kk, itemsize=itemsize,
-                                  compute=comp)
+                                  compute=comp, cap_w=cap_w, query_fid=f0.get("query_fid"))
             raft = dataclasses.replace(cost.ivf_scan_cost(
-                *raft_blocks, idx.list_cap, width, kk, itemsize=itemsize), compute=comp)
+                *raft_blocks, idx.list_cap, width, kk, itemsize=itemsize, cap_w=cap_w),
+                compute=comp)
             measured.append((scan_dtype, err_,
-                             cuda_ms(lambda: kernel(*args, metric=metric, **kw), reps[0]),
-                             cuda_ms(lambda: plain(*args, metric=metric, **kw), reps[1]),
+                             cuda_ms(lambda: kernel(*args, metric=metric, **kw, **f0), reps[0]),
+                             cuda_ms(lambda: plain(*args, metric=metric, **kw, **f0), reps[1]),
                              work, raft))
         (scan_dtype, err_, ms_, plain_, work, raft), *others = measured
         also = [dict(zip(("scan_dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
                          (o[0], o[1], o[2], o[3], *cost.bound_ms(o[4])))) for o in others]
         record(name, "raft_tpu_torch/csrc/ivf_scan.cu", replaces, err_, ms_, plain_, work, raft,
-               None, f"{shape} cap={idx.list_cap} d={width} kk={kk} rows {idx.list_data.dtype}",
+               None, f"{shape} cap={idx.list_cap} d={width} kk={kk} rows {idx.list_data.dtype}"
+               + (f", filter {filt_tag}" if filt_tag else ""),
                scan_dtype=scan_dtype, **({"also": also} if also else {}))
 
     def serving_batches(inputs_fn):
@@ -710,6 +904,44 @@ def main() -> int:
         scan_leg("probe_major", f"ivf_scan_probe_major_{name}", idx, [args], bitwise, legs)
         scan_leg("query_major", f"ivf_scan_query_major_{name}", idx, serving_batches(
             lambda qb: ivf_pq.query_major_scan_inputs(idx, qb, N_PROBES, K)), bitwise, legs)
+
+    # the filter legs, on the filtered main path's inputs: pass10 words on
+    # both schedules, the table8 planes with each serving query's fid
+    def filter_inputs(idx):
+        """(pass10 words [L, cap_w], table8 planes [8, L, cap_w]) of an
+        index's lists, packed as its searches pack them."""
+        return (scan.pack_list_filter(idx.list_index, filters["pass10"]["sample_filter"].words),
+                scan.pack_list_filter_table(idx.list_index, table_words))
+
+    def fid_of(planes):
+        return lambda b: dict(list_filter=planes,
+                              query_fid=fid[b * QM_BATCH:(b + 1) * QM_BATCH].to(torch.int32))
+
+    lf10, planes8 = filter_inputs(index)
+    scan_leg("probe_major", "ivf_scan_probe_major_filt", index, [pm_args], close,
+             [({}, "float32")], lambda b: dict(list_filter=lf10), "pass10")
+    flat_qm_sets = serving_batches(
+        lambda qb: ivf_flat.query_major_scan_inputs(index, qb, N_PROBES, K))
+    scan_leg("query_major", "ivf_scan_query_major_filt", index, flat_qm_sets, close,
+             [({}, "float32")], lambda b: dict(list_filter=lf10), "pass10")
+    scan_leg("query_major", "ivf_scan_query_major_fid", index, flat_qm_sets, close,
+             [({}, "float32")], fid_of(planes8), "table8, each query's plane")
+    for name, idx, legs in (
+        ("bf16", bf16, [(ivf_pq.scan_kwargs(bf16, "bfloat16"), "bfloat16"),
+                        (ivf_pq.scan_kwargs(bf16, "float32"), "float32")]),
+        ("int8", i8, [(ivf_pq.scan_kwargs(i8), "int8")]),
+    ):
+        lf_pq, planes_pq = filter_inputs(idx)
+        args, _ = ivf_pq.probe_major_scan_inputs(idx, q, N_PROBES, K, pq_bucket)
+        scan_leg("probe_major", f"ivf_scan_probe_major_{name}_filt", idx, [args], bitwise, legs,
+                 lambda b: dict(list_filter=lf_pq), "pass10")
+        pq_qm_sets = serving_batches(
+            lambda qb: ivf_pq.query_major_scan_inputs(idx, qb, N_PROBES, K))
+        scan_leg("query_major", f"ivf_scan_query_major_{name}_filt", idx, pq_qm_sets, bitwise,
+                 legs, lambda b: dict(list_filter=lf_pq), "pass10")
+        scan_leg("query_major", f"ivf_scan_query_major_{name}_fid", idx, pq_qm_sets, bitwise,
+                 legs, fid_of(planes_pq), "table8, each query's plane")
+    del lf10, planes8, flat_qm_sets, lf_pq, planes_pq, pq_qm_sets
 
     # probe-major at kk=258 (the CAGRA build's scan), on the kk=10 row's
     # queries and buckets: f32 rows (IVF-Flat) and bf16 rows with f32
@@ -833,6 +1065,12 @@ def main() -> int:
         f"pq_query_major_{QM_BATCH}q": profile_search(lambda: pq_main(q[:QM_BATCH], K)),
         "cagra_10000q": profile_search(lambda: cagra_search()(q, K)),
         f"cagra_{QM_BATCH}q": profile_search(lambda: cagra_search()(q[:QM_BATCH], K)),
+        "filt_pass10_probe_major_10000q": profile_search(
+            lambda: ivf_flat.search(sp, index, q, K, res=res, **filters["pass10"])),
+        f"filt_table8_query_major_{QM_BATCH}q": profile_search(
+            lambda: ivf_flat.search(sp, index, q[:QM_BATCH], K, res=res, **table_batches[0])),
+        f"filt_pass50_cagra_{QM_BATCH}q": profile_search(
+            cagra_filtered(q[:QM_BATCH], filters["pass50"])),
     }
     for name, prof_out in profiles.items():
         check(prof_out["device_busy_ms"] > 0, f"profile of {name} saw device time")

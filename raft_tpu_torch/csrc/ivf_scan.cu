@@ -1,12 +1,12 @@
-// IVF list scans, unfiltered: score stored rows against queries and keep
-// each query's top-kk by (score, position).
+// IVF list scans: score stored rows against queries and keep each query's
+// top-kk by (score, position).
 //
 // ivf_scan_probe_major replaces raft_tpu/kernels/ivf_scan.py
-// ivf_scan_probe_major / _scan_kernel (unfiltered legs).  One bucket is one
-// list and up to G queries that probe it; position = slot in the list.
-// ivf_scan_query_major replaces ivf_scan_query_major / _scan_qm_kernel
-// (unfiltered legs).  One query streams its P probed lists; position =
-// p * cap + slot, so the lists are walked in probe order.
+// ivf_scan_probe_major / _scan_kernel.  One bucket is one list and up to G
+// queries that probe it; position = slot in the list.
+// ivf_scan_query_major replaces ivf_scan_query_major / _scan_qm_kernel, and
+// its query_fid leg _scan_qm_kernel_fid.  One query streams its P probed
+// lists; position = p * cap + slot, so the lists are walked in probe order.
 //
 // Each schedule has one C entry per storage type (_score_against_list's
 // legs), each with its own launch count in the wrapper:
@@ -25,6 +25,18 @@
 // the unquantised query.  A slot whose id is negative, or a query whose q2
 // is +inf (padding), scores +inf; a +inf score never enters the list, so
 // its output id is -1.
+//
+// Filter legs (kFilt, every storage type, each with its own launch count in
+// the wrapper): the pass bits of each list's slots come packed per list,
+// [n_lists][cap_w] words (bit j of word w: slot 32 w + j; padding slots
+// pack as fail), the format raft_tpu packs for VMEM and also what a block
+// wants here: one list's words are one contiguous run of a few dozen ints.
+// A failing slot is treated as padding: its id is read as -1 where the ids
+// are loaded, so it scores +inf at the point where id < 0 does, and a tile
+// of failing slots is skipped like a tile of padding.  Probe-major stages
+// its bucket's list words in shared memory once.  Query-major reads one
+// word per slot from plane fid[q] of an [F][n_lists][cap_w] table (the
+// query_fid leg) or from the one plane; the word is shared by 32 threads.
 //
 // What bounds them on the H100.  Probe-major reuses each streamed list
 // across the bucket's queries (G ~ 256 at 10^4 queries), so it is bound by
@@ -50,6 +62,31 @@
 namespace {
 
 enum Metric { kL2 = 0, kIp = 1, kCosine = 2 };
+
+// The filter of a scan: pass words [planes][n_lists][cap_w] (nullptr:
+// unfiltered) and, on the query_fid leg, each query's plane (nullptr: 0).
+struct Filt {
+  const int* words;
+  const int* fid;
+  int n_lists;
+  int cap_w;
+};
+
+// Slot `slot`'s pass bit in a list's words; an arithmetic shift's sign
+// copies drop out at & 1.
+__device__ __forceinline__ bool passes(const int* list_words, int slot) {
+  return ((list_words[slot >> 5] >> (slot & 31)) & 1) != 0;
+}
+
+// The kernel of a leg for lists of kk entries, filtered or not:
+// `pick(w, f)` returns it for kWide = decltype(w)::value and kFilt =
+// decltype(f)::value.
+template <typename Pick>
+static inline auto pick_leg(int kk, bool filtered, Pick pick) {
+  return rt::pick_wide(kk, [&](auto w) {
+    return filtered ? pick(w, std::true_type{}) : pick(w, std::false_type{});
+  });
+}
 
 __device__ __forceinline__ float score(int metric, float ip, float q2, float y2) {
   // explicit _rn operations: no contraction into an fma, so each step
@@ -122,18 +159,21 @@ __device__ __forceinline__ float quantize_row(const float* qrow, int d, int* wor
 // qpb is kBM up to kk = 349; a wider kk gives a block fewer queries of the
 // bucket, so that their lists fit in shared memory.  A block
 // whose queries are all padding skips the walk, and a tile whose slots are
-// all padding is skipped.  The leg's own parts: `prologue()` runs once
-// before the walk of a live block; `tile_ip(l, c0, c_rows, ip)` sets
-// ip[i][j] to the dot product of the block's query ty + 16 i with slot
-// c0 + tx + 16 j of list l.  Every thread calls both.
-template <bool kWide, typename Prologue, typename TileIp>
+// all padding (or all fail the filter) is skipped.  The leg's own parts:
+// `prologue()` runs once before the walk of a live block; `tile_ip(l, c0,
+// c_rows, ip)` sets ip[i][j] to the dot product of the block's query
+// ty + 16 i with slot c0 + tx + 16 j of list l.  Every thread calls both.
+// kFilt: the list's words are staged into `sfilt` (cap_w ints of dynamic
+// shared memory) before the walk.
+template <bool kWide, bool kFilt, typename Prologue, typename TileIp>
 __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
                                         const float* __restrict__ q2g,
                                         const float* __restrict__ y2,
                                         const int* __restrict__ ids, int G, int cap, int kk,
-                                        int qpb, int metric, float* lv, int* li,
-                                        float* __restrict__ out_v, int* __restrict__ out_i,
-                                        Prologue&& prologue, TileIp&& tile_ip) {
+                                        int qpb, int metric, Filt filt, int* sfilt, float* lv,
+                                        int* li, float* __restrict__ out_v,
+                                        int* __restrict__ out_i, Prologue&& prologue,
+                                        TileIp&& tile_ip) {
   __shared__ float s[rt::kBM][rt::kBN + 1];
   __shared__ float sq2[rt::kBM];
   __shared__ float sy2[rt::kBN];
@@ -160,12 +200,20 @@ __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
   if (__syncthreads_or(live)) {
     prologue();
     const int l = bucket_list[b];
+    if constexpr (kFilt) {
+      for (int w = tid; w < filt.cap_w; w += rt::kGemmThreads)
+        sfilt[w] = filt.words[(size_t)l * filt.cap_w + w];
+      __syncthreads();
+    }
     float ip[4][4];
     for (int c0 = 0; c0 < cap; c0 += rt::kBN) {
       const int c_rows = min(rt::kBN, cap - c0);
       bool valid = false;
       if (tid < rt::kBN) {
-        const int id = tid < c_rows ? ids[(size_t)l * cap + c0 + tid] : -1;
+        int id = tid < c_rows ? ids[(size_t)l * cap + c0 + tid] : -1;
+        if constexpr (kFilt) {
+          if (id >= 0 && !passes(sfilt, c0 + tid)) id = -1;
+        }
         sid[tid] = id;
         sy2[tid] = tid < c_rows ? y2[(size_t)l * cap + c0 + tid] : 0.0f;
         valid = id >= 0;
@@ -202,23 +250,25 @@ __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
 }
 
 // Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16;
-// kWide = kk > rt::kRegK (topk.cuh).
-template <typename T, bool kBf16, bool kWide>
+// kWide = kk > rt::kRegK (topk.cuh); kFilt = filter words.
+template <typename T, bool kBf16, bool kWide, bool kFilt>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                    const float* __restrict__ q2g, const T* __restrict__ data,
                    const float* __restrict__ y2, const int* __restrict__ ids,
-                   int G, int cap, int d, int kk, int qpb, int metric,
+                   int G, int cap, int d, int kk, int qpb, int metric, Filt filt,
                    float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
   float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][kk]
   int* li = reinterpret_cast<int*>(lv + qpb * kk);         // [qpb][kk]
+  int* sfilt = li + qpb * kk;                               // [cap_w] (kFilt)
   __shared__ rt::GemmSmem gsm;
 
   const int g0 = blockIdx.y * qpb;
   const int q_rows = min(qpb, G - g0);
   const float* qa = qg + ((size_t)blockIdx.x * G + g0) * d;
-  pm_walk<kWide>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, lv, li, out_v, out_i, [] {},
+  pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, filt, sfilt, lv,
+                        li, out_v, out_i, [] {},
           [&](int l, int c0, int c_rows, float (&ip)[4][4]) {
             const T* rows = data + ((size_t)l * cap + c0) * d;
             rt::tile_gemm<T, kBf16>(qa, q_rows, d, rows, c_rows, d, d, gsm, ip);
@@ -229,17 +279,18 @@ constexpr int kWords = rt::kBK / 4;   // int8 words (4 dimensions) per chunk
 
 // int8 leg: the block's queries are quantised once into shared memory as a
 // transposed [d4][kBM + 1] word array; rows stage kWords words at a time.
-template <bool kWide>
+template <bool kWide, bool kFilt>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                       const float* __restrict__ q2g, const int8_t* __restrict__ data,
                       const float* __restrict__ y2, const int* __restrict__ ids,
                       int G, int cap, int d, int kk, int qpb, int metric, float scan_scale,
-                      float* __restrict__ out_v, int* __restrict__ out_i) {
+                      Filt filt, float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
   float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][kk]
   int* li = reinterpret_cast<int*>(lv + qpb * kk);         // [qpb][kk]
   int* qw = li + qpb * kk;                                  // [d4][kBM + 1]
+  int* sfilt = qw + ((d + 3) / 4) * (rt::kBM + 1);         // [cap_w] (kFilt)
   __shared__ int sb[kWords][rt::kBN + 1];
   __shared__ float srescale[rt::kBM];
 
@@ -253,8 +304,8 @@ probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restri
   const int d4 = (d + 3) / 4;
   constexpr int kStride = rt::kBM + 1;
 
-  pm_walk<kWide>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, lv, li, out_v, out_i,
-          [&] {
+  pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, filt, sfilt, lv,
+                        li, out_v, out_i, [&] {
             for (int m = warp; m < rt::kBM; m += rt::kGemmThreads / 32) {
               const float* qrow =
                   m < q_rows ? qg + ((size_t)blockIdx.x * G + g0 + m) * d : nullptr;
@@ -316,19 +367,27 @@ template <> struct QmTile<__nv_bfloat16> { __nv_bfloat16 x[kQmRows][kQmBK + 2]; 
 // 256-row tiles: score, mask and fold each tile.  `tile_ip(l, c0, c_rows)`
 // is the leg's own part: it stages the tile's rows of list l and returns
 // this thread's dot product with row c0 + tid.  Every thread calls it.
-template <bool kWide, typename ScoreTile>
+// kFilt: the query's plane of pass words (see the note at the top).
+template <bool kWide, bool kFilt, typename ScoreTile>
 __device__ __forceinline__ void qm_walk(const int* __restrict__ probes, const float* __restrict__ y2,
                                         const int* __restrict__ ids, int qi, int P, int cap,
                                         int p_begin, int p_end, float q2, int metric, int kk,
-                                        float* lv, int* li, float* sv, int* sid,
+                                        Filt filt, float* lv, int* li, float* sv, int* sid,
                                         ScoreTile&& tile_ip) {
   const int tid = threadIdx.x;
   const int lane = tid % 32;
+  const int* plane = nullptr;
+  if constexpr (kFilt)
+    plane = filt.words +
+            (size_t)(filt.fid != nullptr ? filt.fid[qi] : 0) * filt.n_lists * filt.cap_w;
   for (int p = p_begin; p < p_end; ++p) {
     const int l = probes[(size_t)qi * P + p];
     for (int c0 = 0; c0 < cap; c0 += kQmRows) {
       const int c_rows = min(kQmRows, cap - c0);
-      const int id = tid < c_rows ? ids[(size_t)l * cap + c0 + tid] : -1;
+      int id = tid < c_rows ? ids[(size_t)l * cap + c0 + tid] : -1;
+      if constexpr (kFilt) {
+        if (id >= 0 && !passes(plane + (size_t)l * filt.cap_w, c0 + tid)) id = -1;
+      }
       if (!__syncthreads_or(id >= 0)) continue;
       const float ip = tile_ip(l, c0, c_rows);
       const float y = tid < c_rows ? y2[(size_t)l * cap + c0 + tid] : 0.0f;
@@ -351,12 +410,12 @@ __device__ __forceinline__ void qm_write(const float* lv, const int* li, int qi,
 }
 
 // Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16.
-template <typename T, bool kBf16, bool kWide>
+template <typename T, bool kBf16, bool kWide, bool kFilt>
 __global__ void __launch_bounds__(kQmRows)
 query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                    const float* __restrict__ q2v, const T* __restrict__ data,
                    const float* __restrict__ y2, const int* __restrict__ ids,
-                   int P, int cap, int d, int kk, int metric, int p_chunk,
+                   int P, int cap, int d, int kk, int metric, int p_chunk, Filt filt,
                    float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
   float* lv = reinterpret_cast<float*>(smem_raw);   // [kk]
@@ -380,8 +439,8 @@ query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
   const int p_begin = blockIdx.y * p_chunk;
   const int p_end = min(P, p_begin + p_chunk);
   if (!isinf(q2)) {
-    qm_walk<kWide>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, lv, li, sv,
-                   sid, [&](int l, int c0, int c_rows) {
+    qm_walk<kWide, kFilt>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, filt, lv,
+                          li, sv, sid, [&](int l, int c0, int c_rows) {
               const T* rows = data + ((size_t)l * cap + c0) * d;
               float acc = 0.0f;
               for (int k0 = 0; k0 < d; k0 += kQmBK) {
@@ -409,12 +468,12 @@ query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
 
 // int8 leg: the query is quantised once into shared memory words; rows
 // stage as words, kQmWords per row per chunk.
-template <bool kWide>
+template <bool kWide, bool kFilt>
 __global__ void __launch_bounds__(kQmRows)
 query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                       const float* __restrict__ q2v, const int8_t* __restrict__ data,
                       const float* __restrict__ y2, const int* __restrict__ ids,
-                      int P, int cap, int d, int kk, int metric, int p_chunk,
+                      int P, int cap, int d, int kk, int metric, int p_chunk, Filt filt,
                       float scan_scale, float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
   float* lv = reinterpret_cast<float*>(smem_raw);   // [kk]
@@ -441,8 +500,8 @@ query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ 
   const int p_begin = blockIdx.y * p_chunk;
   const int p_end = min(P, p_begin + p_chunk);
   if (!isinf(q2)) {
-    qm_walk<kWide>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, lv, li, sv,
-                   sid, [&](int l, int c0, int c_rows) {
+    qm_walk<kWide, kFilt>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, filt, lv,
+                          li, sv, sid, [&](int l, int c0, int c_rows) {
               const int8_t* rows = data + ((size_t)l * cap + c0) * d;
               int acc = 0;
               for (int w0 = 0; w0 < d4; w0 += kQmWords) {
@@ -477,21 +536,33 @@ bool bad_shape(int kk, int d, int cap, int g) {
   return kk < 1 || kk > rt::kMaxK || d < 1 || cap < 1 || g < 1;
 }
 
+// The filter of a C entry: `words` null means unfiltered (cap_w ignored).
+Filt make_filt(const int* words, const int* fid, int n_lists, int cap_w) {
+  return Filt{words, fid, n_lists, words != nullptr ? cap_w : 0};
+}
+
+// Bytes of dynamic shared memory a probe-major block stages its list's
+// filter words in (0 unfiltered).
+size_t filt_smem(const Filt& f) { return (size_t)f.cap_w * sizeof(int); }
+
 template <typename T, bool kBf16>
 int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T* data,
                        const float* y2, const int* ids, int B, int G, int cap, int d,
-                       int kk, int metric, float* out_v, int* out_i, cudaStream_t stream) {
+                       int kk, int metric, Filt filt, float* out_v, int* out_i,
+                       cudaStream_t stream) {
   if (bad_shape(kk, d, cap, G)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const int qpb = rt::lists_per_block(kk, rt::kBM);
-  const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int));
-  auto kernel = rt::pick_wide(
-      kk, [](auto w) { return probe_major_kernel<T, kBf16, decltype(w)::value>; });
+  const int qpb = rt::lists_per_block(kk, rt::kBM, filt_smem(filt));
+  if (qpb < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + filt_smem(filt);
+  auto kernel = pick_leg(kk, filt.words != nullptr, [](auto w, auto f) {
+    return probe_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value>;
+  });
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, (G + qpb - 1) / qpb);
   kernel<<<grid, rt::kGemmThreads, smem, stream>>>(
-      bl, qg, q2g, data, y2, ids, G, cap, d, kk, qpb, metric, out_v, out_i);
+      bl, qg, q2g, data, y2, ids, G, cap, d, kk, qpb, metric, filt, out_v, out_i);
   return (int)cudaGetLastError();
 }
 
@@ -503,7 +574,7 @@ template <typename Kernel, typename Row, typename... Extra>
 int launch_query_major(Kernel kernel, size_t smem, const int* probes, const float* q,
                        const float* q2, const Row* data, const float* y2, const int* ids,
                        int Q, int P, int cap, int d, int kk, int metric, int splits,
-                       float* part_v, int* part_i, float* out_v, int* out_i,
+                       Filt filt, float* part_v, int* part_i, float* out_v, int* out_i,
                        cudaStream_t stream, Extra... extra) {
   if (bad_shape(kk, d, cap, P) || splits < 1) return (int)cudaErrorInvalidValue;
   if (Q == 0) return (int)cudaSuccess;
@@ -514,7 +585,7 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
   splits = (P + p_chunk - 1) / p_chunk;
   const bool merge = splits > 1;
   kernel<<<dim3(Q, splits), kQmRows, smem, stream>>>(
-      probes, q, q2, data, y2, ids, P, cap, d, kk, metric, p_chunk, extra...,
+      probes, q, q2, data, y2, ids, P, cap, d, kk, metric, p_chunk, filt, extra...,
       merge ? part_v : out_v, merge ? part_i : out_i);
   err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return (int)err;
@@ -523,111 +594,133 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
 
 // The query-major kernel of a float leg for lists of kk entries.
 template <typename T, bool kBf16>
-auto qm_float_kernel(int kk) {
-  return rt::pick_wide(kk, [](auto w) { return query_major_kernel<T, kBf16, decltype(w)::value>; });
+auto qm_float_kernel(int kk, const Filt& filt) {
+  return pick_leg(kk, filt.words != nullptr, [](auto w, auto f) {
+    return query_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value>;
+  });
+}
+
+template <typename T>
+int float_query_major(const int* probes, const float* q, const float* q2, const T* data,
+                      const float* y2, const int* ids, int Q, int P, int cap, int d, int kk,
+                      int metric, int splits, int bf16_compute, Filt filt, float* part_v,
+                      int* part_i, float* out_v, int* out_i, cudaStream_t s) {
+  const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) + (size_t)d * sizeof(float);
+  return bf16_compute
+      ? launch_query_major(qm_float_kernel<T, true>(kk, filt), smem, probes, q, q2, data, y2,
+                           ids, Q, P, cap, d, kk, metric, splits, filt, part_v, part_i, out_v,
+                           out_i, s)
+      : launch_query_major(qm_float_kernel<T, false>(kk, filt), smem, probes, q, q2, data, y2,
+                           ids, Q, P, cap, d, kk, metric, splits, filt, part_v, part_i, out_v,
+                           out_i, s);
 }
 
 }  // namespace
 
 // -- C entries: probe-major ----------------------------------------------
+// filt: [n_lists][cap_w] pass words, or null for the unfiltered leg.
 
 extern "C" int rt_ivf_scan_probe_major(const int* bucket_list, const float* qg,
                                        const float* q2g, const float* data,
                                        const float* y2, const int* ids, int B, int G,
                                        int cap, int d, int kk, int metric, int bf16_compute,
-                                       float* out_v, int* out_i, void* stream) {
+                                       const int* filt, int cap_w, float* out_v, int* out_i,
+                                       void* stream) {
   auto s = (cudaStream_t)stream;
+  const Filt f = make_filt(filt, nullptr, 0, cap_w);
   return bf16_compute
       ? launch_probe_major<float, true>(bucket_list, qg, q2g, data, y2, ids, B, G, cap, d,
-                                        kk, metric, out_v, out_i, s)
+                                        kk, metric, f, out_v, out_i, s)
       : launch_probe_major<float, false>(bucket_list, qg, q2g, data, y2, ids, B, G, cap, d,
-                                         kk, metric, out_v, out_i, s);
+                                         kk, metric, f, out_v, out_i, s);
 }
 
 extern "C" int rt_ivf_scan_probe_major_bf16(const int* bucket_list, const float* qg,
                                             const float* q2g, const void* data,
                                             const float* y2, const int* ids, int B, int G,
                                             int cap, int d, int kk, int metric,
-                                            int bf16_compute, float* out_v, int* out_i,
-                                            void* stream) {
+                                            int bf16_compute, const int* filt, int cap_w,
+                                            float* out_v, int* out_i, void* stream) {
   auto s = (cudaStream_t)stream;
   auto rows = static_cast<const __nv_bfloat16*>(data);
+  const Filt f = make_filt(filt, nullptr, 0, cap_w);
   return bf16_compute
       ? launch_probe_major<__nv_bfloat16, true>(bucket_list, qg, q2g, rows, y2, ids, B, G,
-                                                cap, d, kk, metric, out_v, out_i, s)
+                                                cap, d, kk, metric, f, out_v, out_i, s)
       : launch_probe_major<__nv_bfloat16, false>(bucket_list, qg, q2g, rows, y2, ids, B, G,
-                                                 cap, d, kk, metric, out_v, out_i, s);
+                                                 cap, d, kk, metric, f, out_v, out_i, s);
 }
 
 extern "C" int rt_ivf_scan_probe_major_int8(const int* bucket_list, const float* qg,
                                             const float* q2g, const void* data,
                                             const float* y2, const int* ids, int B, int G,
                                             int cap, int d, int kk, int metric,
-                                            float scan_scale, float* out_v, int* out_i,
-                                            void* stream) {
+                                            float scan_scale, const int* filt, int cap_w,
+                                            float* out_v, int* out_i, void* stream) {
   if (bad_shape(kk, d, cap, G)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const size_t words = (size_t)((d + 3) / 4) * (rt::kBM + 1) * sizeof(int);
+  const Filt f = make_filt(filt, nullptr, 0, cap_w);
+  const size_t words = (size_t)((d + 3) / 4) * (rt::kBM + 1) * sizeof(int) + filt_smem(f);
   const int qpb = rt::lists_per_block(kk, rt::kBM, words);
   if (qpb < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + words;
-  auto kernel = rt::pick_wide(kk, [](auto w) { return probe_major_i8_kernel<decltype(w)::value>; });
+  auto kernel = pick_leg(kk, f.words != nullptr, [](auto w, auto fl) {
+    return probe_major_i8_kernel<decltype(w)::value, decltype(fl)::value>;
+  });
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, (G + qpb - 1) / qpb);
   kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
       bucket_list, qg, q2g, static_cast<const int8_t*>(data), y2, ids, G, cap, d, kk, qpb,
-      metric, scan_scale, out_v, out_i);
+      metric, scan_scale, f, out_v, out_i);
   return (int)cudaGetLastError();
 }
 
 // -- C entries: query-major ----------------------------------------------
+// filt: pass words, [n_lists][cap_w], or [F][n_lists][cap_w] with fid [Q]
+// naming each query's plane (the query_fid leg); null filt: unfiltered.
 
 extern "C" int rt_ivf_scan_query_major(const int* probes, const float* q, const float* q2,
                                        const float* data, const float* y2, const int* ids,
                                        int Q, int P, int cap, int d, int kk, int metric,
-                                       int splits, int bf16_compute, float* part_v,
+                                       int splits, int bf16_compute, const int* filt,
+                                       const int* fid, int n_lists, int cap_w, float* part_v,
                                        int* part_i, float* out_v, int* out_i, void* stream) {
-  const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) + (size_t)d * sizeof(float);
-  auto s = (cudaStream_t)stream;
-  return bf16_compute
-      ? launch_query_major(qm_float_kernel<float, true>(kk), smem, probes, q, q2, data, y2,
-                           ids, Q, P, cap, d, kk, metric, splits, part_v, part_i, out_v,
-                           out_i, s)
-      : launch_query_major(qm_float_kernel<float, false>(kk), smem, probes, q, q2, data, y2,
-                           ids, Q, P, cap, d, kk, metric, splits, part_v, part_i, out_v,
-                           out_i, s);
+  return float_query_major(probes, q, q2, data, y2, ids, Q, P, cap, d, kk, metric, splits,
+                           bf16_compute, make_filt(filt, fid, n_lists, cap_w), part_v, part_i,
+                           out_v, out_i, (cudaStream_t)stream);
 }
 
 extern "C" int rt_ivf_scan_query_major_bf16(const int* probes, const float* q,
                                             const float* q2, const void* data,
                                             const float* y2, const int* ids, int Q, int P,
                                             int cap, int d, int kk, int metric, int splits,
-                                            int bf16_compute, float* part_v, int* part_i,
-                                            float* out_v, int* out_i, void* stream) {
-  const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) + (size_t)d * sizeof(float);
-  auto s = (cudaStream_t)stream;
-  auto rows = static_cast<const __nv_bfloat16*>(data);
-  return bf16_compute
-      ? launch_query_major(qm_float_kernel<__nv_bfloat16, true>(kk), smem, probes, q, q2,
-                           rows, y2, ids, Q, P, cap, d, kk, metric, splits, part_v, part_i,
-                           out_v, out_i, s)
-      : launch_query_major(qm_float_kernel<__nv_bfloat16, false>(kk), smem, probes, q, q2,
-                           rows, y2, ids, Q, P, cap, d, kk, metric, splits, part_v, part_i,
-                           out_v, out_i, s);
+                                            int bf16_compute, const int* filt, const int* fid,
+                                            int n_lists, int cap_w, float* part_v,
+                                            int* part_i, float* out_v, int* out_i,
+                                            void* stream) {
+  return float_query_major(probes, q, q2, static_cast<const __nv_bfloat16*>(data), y2, ids, Q,
+                           P, cap, d, kk, metric, splits, bf16_compute,
+                           make_filt(filt, fid, n_lists, cap_w), part_v, part_i, out_v, out_i,
+                           (cudaStream_t)stream);
 }
 
 extern "C" int rt_ivf_scan_query_major_int8(const int* probes, const float* q,
                                             const float* q2, const void* data,
                                             const float* y2, const int* ids, int Q, int P,
                                             int cap, int d, int kk, int metric, int splits,
-                                            float scan_scale, float* part_v, int* part_i,
-                                            float* out_v, int* out_i, void* stream) {
+                                            float scan_scale, const int* filt, const int* fid,
+                                            int n_lists, int cap_w, float* part_v,
+                                            int* part_i, float* out_v, int* out_i,
+                                            void* stream) {
   const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) +
                       (size_t)((d + 3) / 4) * sizeof(int);
-  auto kernel = rt::pick_wide(kk, [](auto w) { return query_major_i8_kernel<decltype(w)::value>; });
+  const Filt f = make_filt(filt, fid, n_lists, cap_w);
+  auto kernel = pick_leg(kk, f.words != nullptr, [](auto w, auto fl) {
+    return query_major_i8_kernel<decltype(w)::value, decltype(fl)::value>;
+  });
   return launch_query_major(kernel, smem, probes, q, q2,
                             static_cast<const int8_t*>(data), y2, ids, Q, P, cap, d, kk,
-                            metric, splits, part_v, part_i, out_v, out_i,
+                            metric, splits, f, part_v, part_i, out_v, out_i,
                             (cudaStream_t)stream, scan_scale);
 }

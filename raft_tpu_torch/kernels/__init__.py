@@ -56,6 +56,13 @@ KERNELS = (
     "select_k", "fused_knn", "ivf_scan_probe_major", "ivf_scan_query_major",
     "ivf_scan_probe_major_bf16", "ivf_scan_probe_major_int8",
     "ivf_scan_query_major_bf16", "ivf_scan_query_major_int8", "cagra_fused_hop",
+    # the filter legs of the scans: one plane of pass words (_filt), or each
+    # query's own plane of a table (_fid, query-major only)
+    "ivf_scan_probe_major_filt", "ivf_scan_probe_major_bf16_filt",
+    "ivf_scan_probe_major_int8_filt", "ivf_scan_query_major_filt",
+    "ivf_scan_query_major_bf16_filt", "ivf_scan_query_major_int8_filt",
+    "ivf_scan_query_major_fid", "ivf_scan_query_major_bf16_fid",
+    "ivf_scan_query_major_int8_fid",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
@@ -159,15 +166,17 @@ _SIGNATURES = {
     "rt_select_k": [_P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P],
     "rt_fused_knn": [_P, _P, _P] + [_I] * 6 + [_P] * 5,
     # probe-major: 6 arrays, (B, G, cap, d, kk, metric), then bf16_compute
-    # (float legs) or scan_scale (int8), then outputs and stream
-    "rt_ivf_scan_probe_major": [_P] * 6 + [_I] * 7 + [_P] * 3,
-    "rt_ivf_scan_probe_major_bf16": [_P] * 6 + [_I] * 7 + [_P] * 3,
-    "rt_ivf_scan_probe_major_int8": [_P] * 6 + [_I] * 6 + [_F] + [_P] * 3,
+    # (float legs) or scan_scale (int8), the filter words (null: unfiltered)
+    # and cap_w, then outputs and stream
+    "rt_ivf_scan_probe_major": [_P] * 6 + [_I] * 7 + [_P, _I] + [_P] * 3,
+    "rt_ivf_scan_probe_major_bf16": [_P] * 6 + [_I] * 7 + [_P, _I] + [_P] * 3,
+    "rt_ivf_scan_probe_major_int8": [_P] * 6 + [_I] * 6 + [_F] + [_P, _I] + [_P] * 3,
     # query-major: 6 arrays, (Q, P, cap, d, kk, metric, splits), then
-    # bf16_compute or scan_scale, then parts, outputs and stream
-    "rt_ivf_scan_query_major": [_P] * 6 + [_I] * 8 + [_P] * 5,
-    "rt_ivf_scan_query_major_bf16": [_P] * 6 + [_I] * 8 + [_P] * 5,
-    "rt_ivf_scan_query_major_int8": [_P] * 6 + [_I] * 7 + [_F] + [_P] * 5,
+    # bf16_compute or scan_scale, the filter words and query_fid (null: none),
+    # n_lists and cap_w, then parts, outputs and stream
+    "rt_ivf_scan_query_major": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I] + [_P] * 5,
+    "rt_ivf_scan_query_major_bf16": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I] + [_P] * 5,
+    "rt_ivf_scan_query_major_int8": [_P] * 6 + [_I] * 7 + [_F] + [_P, _P, _I, _I] + [_P] * 5,
     # dataset, bf16 flag, graph, queries, parents, buf_d, buf_i, explored,
     # (tile, d, deg, width, itopk, ip_mode), outputs and stream
     "rt_cagra_hop": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P] * 4,

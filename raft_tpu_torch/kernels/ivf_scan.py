@@ -1,5 +1,5 @@
-"""IVF list scans, unfiltered: ``csrc/ivf_scan.cu`` and the plain versions
-(counterpart of ``raft_tpu.kernels.ivf_scan``).
+"""IVF list scans: ``csrc/ivf_scan.cu`` and the plain versions (counterpart
+of ``raft_tpu.kernels.ivf_scan``).
 
 Payload-agnostic like raft_tpu's: ivf_flat feeds raw f32 rows and their
 squared norms, ivf_pq its decoded scan cache (f32, bf16 or int8) and the
@@ -22,22 +22,31 @@ C entry and a launch count of its own (``ivf_scan_<schedule>``, ``_bf16``,
   (``toolkit.quantize_queries_i8``), the int8 products summed exactly, and
   the sum rescaled by (query scale x ``scan_scale``).
 
+Filters (``_score_against_list``'s filtered leg): ``list_filter`` holds
+each list's pass bits packed per slot (:func:`pack_list_filter`, [L,
+cap_w] int32 words, cap_w = ceil(cap / 32)); on query-major it may instead
+be a table of planes [F, L, cap_w] (:func:`pack_list_filter_table`), with
+``query_fid`` [Q] naming each query's plane.  Each filtered leg has a
+launch count of its own: ``_filt`` (one plane) and ``_fid`` (per-query
+planes) after the storage suffix.
+
 Scores: L2 (y2 - 2 ip) + q2, inner product -ip, cosine
 1 - ip * rsqrt(max(q2, 1e-24)) * rsqrt(max(y2, 1e-24)).  Invalid slots
-(id < 0) and padding queries (q2 = +inf) score +inf; a +inf score comes out
-with id -1.  A kk past the rows scanned (cap, or P * cap) gives +inf / -1
-tails, as raft_tpu's scans do.  Unlike the TPU kernel, query-major needs no multiple-of-8
+(id < 0, or a pass bit of 0) and padding queries (q2 = +inf) score +inf; a
++inf score comes out with id -1.  A kk past the rows scanned (cap, or P *
+cap) gives +inf / -1 tails, as raft_tpu's scans do.  Unlike the TPU kernel, query-major needs no multiple-of-8
 query count and takes any (P, cap): it streams lists and holds no
 per-query score scratch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from raft_tpu_torch import kernels as _k
+from raft_tpu_torch.core.bitset import WORD_BITS, _n_words, pack_bits, unpack_words
 from raft_tpu_torch.kernels.toolkit import int8_scored_ip, sequential_dot, topk_by_position
 
 #: deepest kk (probe-major gives a block fewer queries past kk = 349)
@@ -53,15 +62,69 @@ _PLAIN_CHUNK_ELEMS = 1 << 26
 
 def scan_supported(metric: str, list_data: torch.Tensor, kk: int) -> bool:
     """Routing gate of both scan kernels: f32, bf16 or int8 storage, L2 /
-    inner product / cosine, ``kk <= 512`` (unfiltered is the caller's
-    condition)."""
+    inner product / cosine, ``kk <= 512``."""
     return list_data.dtype in _LEGS and metric in _METRICS and 0 < kk <= MAX_KK
 
 
-def kernel_name(schedule: str, list_data: torch.Tensor) -> str:
+def kernel_name(schedule: str, list_data: torch.Tensor, list_filter=None,
+                query_fid=None) -> str:
     """The launch-count name of ``schedule``'s ("probe_major" /
-    "query_major") kernel for ``list_data``'s storage type."""
-    return f"ivf_scan_{schedule}{_LEGS[list_data.dtype]}"
+    "query_major") kernel for ``list_data``'s storage type and filter leg
+    (none, ``_filt`` or ``_fid``)."""
+    leg = "" if list_filter is None else "_filt" if query_fid is None else "_fid"
+    return f"ivf_scan_{schedule}{_LEGS[list_data.dtype]}{leg}"
+
+
+def pack_list_filter(list_index: torch.Tensor, filter_words: torch.Tensor) -> torch.Tensor:
+    """The pass bit of every (list, slot) packed per list: [L, cap_w] int32
+    words from the filter's words over ids [W] (raft_tpu's
+    ``pack_list_filter``).  Padding slots (id < 0) pack as fail; an id past
+    the filter's words reads its last word, as raft_tpu's clamped gather
+    does."""
+    return pack_list_filter_table(list_index, filter_words[None])[0]
+
+
+def pack_list_filter_table(list_index: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_list_filter` of every row of a filter table [F, W]:
+    [F, L, cap_w] int32, the query-major scan's planes for ``query_fid``.
+    Rows are packed in groups so that the [rows, L, cap] intermediates stay
+    near ``_PLAIN_CHUNK_ELEMS`` elements."""
+    table = table.to(list_index.device)
+    L, cap = list_index.shape
+    safe = list_index.long().clamp(min=0)
+    word_at = (safe // WORD_BITS).clamp(max=table.shape[1] - 1)
+    shift = (safe % WORD_BITS).to(torch.int32)
+    real = list_index >= 0
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(1, L * cap))
+    out = torch.empty((table.shape[0], L, _n_words(cap)), dtype=torch.int32,
+                      device=list_index.device)
+    for s in range(0, table.shape[0], step):
+        ok = ((table[s:s + step][:, word_at] >> shift) & 1 == 1) & real
+        out[s:s + step] = pack_bits(ok)
+    return out
+
+
+def _check_filter(list_filter, query_fid, list_index, n_queries):
+    """Shapes of a filter leg: [L, cap_w] words, or with ``query_fid`` [Q]
+    an [F, L, cap_w] table."""
+    if list_filter is None:
+        if query_fid is not None:
+            raise ValueError("query_fid needs a list_filter table")
+        return
+    L, cap = list_index.shape
+    plane = (L, _n_words(cap))
+    if list_filter.dtype != torch.int32:
+        raise ValueError(f"list_filter words must be int32, got {list_filter.dtype}")
+    if query_fid is None:
+        if tuple(list_filter.shape) != plane:
+            raise ValueError(f"list_filter must be [n_lists, cap_w] = {plane}, "
+                             f"got {tuple(list_filter.shape)}")
+        return
+    if list_filter.ndim != 3 or tuple(list_filter.shape[1:]) != plane:
+        raise ValueError(f"query_fid needs a list_filter table [F, {plane[0]}, {plane[1]}], "
+                         f"got {tuple(list_filter.shape)}")
+    if tuple(query_fid.shape) != (n_queries,):
+        raise ValueError(f"query_fid must be [{n_queries}], got {tuple(query_fid.shape)}")
 
 
 def _ip(q: torch.Tensor, rows: torch.Tensor, scan_dtype: str, scan_scale: float):
@@ -77,8 +140,9 @@ def _ip(q: torch.Tensor, rows: torch.Tensor, scan_dtype: str, scan_scale: float)
     return sequential_dot(q, y)
 
 
-def _scores(ip, q2, y2, ids, metric):
-    """ip [..., M, N], q2 [..., M, 1], y2 / ids [..., 1, N] → masked scores."""
+def _scores(ip, q2, y2, ids, metric, passing=None):
+    """ip [..., M, N], q2 [..., M, 1], y2 / ids / passing (the slots' pass
+    bits, or None) [..., 1, N] → masked scores."""
     if metric == "inner_product":
         s = -ip
     elif metric == "cosine":
@@ -88,6 +152,8 @@ def _scores(ip, q2, y2, ids, metric):
     else:
         s = y2 - 2.0 * ip + q2
     invalid = (ids < 0) | torch.isinf(q2)
+    if passing is not None:
+        invalid = invalid | ~passing
     return torch.where(invalid, torch.full_like(s, float("inf")), s)
 
 
@@ -109,7 +175,7 @@ def _topk(sc, kk):
 def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
                                list_y2, list_index, kk: int, *,
                                metric: str = "sqeuclidean", scan_dtype: str = "highest",
-                               scan_scale: float = 1.0):
+                               scan_scale: float = 1.0, list_filter=None):
     """Plain probe-major scan, buckets in chunks of bounded size."""
     B, G, d = q_gathered.shape
     cap = list_data.shape[1]
@@ -120,8 +186,9 @@ def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
         ip = _ip(q_gathered[s:s + step].to(torch.float32), list_data[bl], scan_dtype,
                  scan_scale)                                       # [b, G, cap]
         ids = list_index[bl][:, None, :]                           # [b, 1, cap]
+        passing = None if list_filter is None else unpack_words(list_filter[bl], cap)[:, None]
         sc = _scores(ip, q2_gathered[s:s + step][:, :, None],
-                     list_y2[bl][:, None, :], ids, metric)
+                     list_y2[bl][:, None, :], ids, metric, passing)
         v, pos = _topk(sc, kk)
         vs.append(v)
         is_.append(torch.gather(ids.expand_as(sc), -1, pos))
@@ -130,7 +197,8 @@ def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
 
 def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
                                kk: int, *, metric: str = "sqeuclidean",
-                               scan_dtype: str = "highest", scan_scale: float = 1.0):
+                               scan_dtype: str = "highest", scan_scale: float = 1.0,
+                               list_filter=None, query_fid=None):
     """Plain query-major scan, queries in chunks of bounded size."""
     Q, P = probes.shape
     cap = list_data.shape[1]
@@ -142,24 +210,32 @@ def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
         rows = list_data[pr].reshape(b, P * cap, -1)
         ip = _ip(q[s:s + step, None, :].to(torch.float32), rows, scan_dtype, scan_scale)
         ids = list_index[pr].reshape(b, 1, P * cap)
+        passing = None
+        if list_filter is not None:
+            words = (list_filter[pr] if query_fid is None
+                     else list_filter[query_fid[s:s + step].long()[:, None], pr])
+            passing = unpack_words(words, cap).reshape(b, 1, P * cap)
         sc = _scores(ip, q2[s:s + step, None, None],
-                     list_y2[pr].reshape(b, 1, P * cap), ids, metric)
+                     list_y2[pr].reshape(b, 1, P * cap), ids, metric, passing)
         v, pos = _topk(sc, kk)
         vs.append(v[:, 0])
         is_.append(torch.gather(ids, -1, pos)[:, 0])
     return _finish(torch.cat(vs), torch.cat(is_).to(torch.int32))
 
 
-def _launch(name, tensors, args, out_shape, kk):
-    """Count and launch ``rt_<name>`` with the pointers of ``tensors``, then
-    ``args`` (ints, the scale, scratch pointers), outputs and stream."""
+def _launch(name, tensors, args, out_shape, kk, filtered: bool):
+    """Count launch ``name`` and launch its C entry (``rt_<name>`` less the
+    filter leg's suffix: one entry serves a storage type's unfiltered and
+    filter legs) with the pointers of ``tensors``, then ``args`` (ints, the
+    scale, filter and scratch pointers), outputs and stream."""
     _k.require_cuda(name, *tensors)
     dev = tensors[0].device
     out_v = torch.empty(out_shape + (kk,), dtype=torch.float32, device=dev)
     out_i = torch.empty(out_shape + (kk,), dtype=torch.int32, device=dev)
     lib = _k.library()
+    entry = "rt_" + (name.rsplit("_", 1)[0] if filtered else name)
     _k.count_launch(name)
-    code = getattr(lib, "rt_" + name)(
+    code = getattr(lib, entry)(
         *(t.data_ptr() for t in tensors), *args,
         out_v.data_ptr(), out_i.data_ptr(), _k.stream_of(tensors[0]),
     )
@@ -188,6 +264,19 @@ def _leg_arg(list_data, scan_dtype, scan_scale):
     return int(scan_dtype == "bfloat16")
 
 
+def _filter_args(list_filter, query_fid, dev, n_lists, cap):
+    """(words, fid, n_lists, cap_w) of the C entries, with null pointers
+    for an unfiltered scan; the tensors are kept alive by the caller."""
+    if list_filter is None:
+        return (None, None, n_lists, 0)
+    _k.require_cuda("ivf_scan filter", list_filter,
+                    *(() if query_fid is None else (query_fid,)))
+    if list_filter.device != dev:
+        raise ValueError(f"list_filter on {list_filter.device}, lists on {dev}")
+    fid = None if query_fid is None else query_fid.data_ptr()
+    return (list_filter.data_ptr(), fid, n_lists, _n_words(cap))
+
+
 def ivf_scan_probe_major(
     bucket_list: torch.Tensor,   # [B] int32 — list id per bucket
     q_gathered: torch.Tensor,    # [B, G, d] f32 — the bucket's queries
@@ -200,14 +289,17 @@ def ivf_scan_probe_major(
     metric: str = "sqeuclidean",
     scan_dtype: str = "highest",
     scan_scale: float = 1.0,     # int8 storage: the value of one step
+    list_filter: Optional[torch.Tensor] = None,   # [L, cap_w] int32 pass words
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-bucket (vals [B, G, kk], ids [B, G, kk]) score partials, through
     ``csrc/ivf_scan.cu``; CPU tensors take the plain version."""
     _check(metric, list_data, list_y2, list_index, kk, scan_dtype)
+    _check_filter(list_filter, None, list_index, 0)
     if list_data.device.type == "cpu":
         return ivf_scan_probe_major_torch(
             bucket_list, q_gathered, q2_gathered, list_data, list_y2,
             list_index, kk, metric=metric, scan_dtype=scan_dtype, scan_scale=scan_scale,
+            list_filter=list_filter,
         )
     B, G, d = q_gathered.shape
     L, cap, _ = list_data.shape
@@ -216,10 +308,13 @@ def ivf_scan_probe_major(
         q2_gathered.to(torch.float32), list_data, list_y2.to(torch.float32),
         list_index.to(torch.int32),
     )]
+    filt = None if list_filter is None else list_filter.contiguous()
+    words, _, _, cap_w = _filter_args(filt, None, tensors[0].device, L, cap)
     return _launch(
-        kernel_name("probe_major", list_data), tensors,
-        (B, G, cap, d, kk, _METRICS[metric], _leg_arg(list_data, scan_dtype, scan_scale)),
-        (B, G), kk,
+        kernel_name("probe_major", list_data, filt), tensors,
+        (B, G, cap, d, kk, _METRICS[metric], _leg_arg(list_data, scan_dtype, scan_scale),
+         words, cap_w),
+        (B, G), kk, filt is not None,
     )
 
 
@@ -235,14 +330,18 @@ def ivf_scan_query_major(
     metric: str = "sqeuclidean",
     scan_dtype: str = "highest",
     scan_scale: float = 1.0,
+    list_filter: Optional[torch.Tensor] = None,   # [L, cap_w], or [F, L, cap_w] with query_fid
+    query_fid: Optional[torch.Tensor] = None,     # [Q] int32 — each query's plane
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vals [Q, kk], ids [Q, kk]) score partials through
     ``csrc/ivf_scan.cu``; CPU tensors take the plain version."""
     _check(metric, list_data, list_y2, list_index, kk, scan_dtype)
+    _check_filter(list_filter, query_fid, list_index, probes.shape[0])
     if list_data.device.type == "cpu":
         return ivf_scan_query_major_torch(
             probes, q, q2, list_data, list_y2, list_index, kk, metric=metric,
-            scan_dtype=scan_dtype, scan_scale=scan_scale,
+            scan_dtype=scan_dtype, scan_scale=scan_scale, list_filter=list_filter,
+            query_fid=query_fid,
         )
     Q, P = probes.shape
     L, cap, d = list_data.shape
@@ -251,13 +350,16 @@ def ivf_scan_query_major(
         list_data, list_y2.to(torch.float32), list_index.to(torch.int32),
     )]
     dev = tensors[0].device
+    filt = None if list_filter is None else list_filter.contiguous()
+    fid = None if query_fid is None else query_fid.to(torch.int32).contiguous()
     splits = _k.grid_splits(Q, P, dev)
     part_shape = (Q, splits * kk) if splits > 1 else (0,)
     part_v = torch.empty(part_shape, dtype=torch.float32, device=dev)
     part_i = torch.empty(part_shape, dtype=torch.int32, device=dev)
     return _launch(
-        kernel_name("query_major", list_data), tensors,
+        kernel_name("query_major", list_data, filt, fid), tensors,
         (Q, P, cap, d, kk, _METRICS[metric], splits,
-         _leg_arg(list_data, scan_dtype, scan_scale), part_v.data_ptr(), part_i.data_ptr()),
-        (Q,), kk,
+         _leg_arg(list_data, scan_dtype, scan_scale),
+         *_filter_args(filt, fid, dev, L, cap), part_v.data_ptr(), part_i.data_ptr()),
+        (Q,), kk, filt is not None,
     )

@@ -1,6 +1,6 @@
 """Shared helpers of the indexes (counterpart of
-``raft_tpu.neighbors._common``; the unfiltered subset), and the search
-pipeline IVF-Flat and IVF-PQ share (:func:`scan_search`).
+``raft_tpu.neighbors._common``), the pass filters' folding and masks, and
+the search pipeline IVF-Flat and IVF-PQ share (:func:`scan_search`).
 
 List layout is host numpy metadata, as in raft_tpu; everything that
 touches rows or queries is torch on the index's device.
@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.core import validation
+from raft_tpu_torch.core.bitset import Bitset, RowFilter, bits_at
 from raft_tpu_torch.kernels.toolkit import round_up
 from raft_tpu_torch.ops.matrix import select_k
 
@@ -179,11 +181,59 @@ def coarse_select(queries: torch.Tensor, centers: torch.Tensor, metric: str,
     return probes
 
 
+def resolve_pass_filter(sample_filter, deleted_mask):
+    """Fold an optional tombstone mask into the pass-filter convention:
+    ``sample_filter`` (a :class:`Bitset` or :class:`RowFilter`) keeps its
+    set bits, ``deleted_mask`` (a :class:`Bitset`) excludes its set bits.
+    Returns one pass filter, or None.  A RowFilter may cover more ids than
+    the tombstones (its extra words pass through); otherwise both must
+    cover the same ids (``ValueError``); any other kind of filter raises
+    ``TypeError``."""
+    if not isinstance(sample_filter, (Bitset, RowFilter, type(None))):
+        raise TypeError(f"sample_filter must be a Bitset or a RowFilter, got "
+                        f"{type(sample_filter).__name__}")
+    if not isinstance(deleted_mask, (Bitset, type(None))):
+        raise TypeError(f"deleted_mask must be a Bitset, got {type(deleted_mask).__name__}")
+    if deleted_mask is None:
+        return sample_filter
+    if sample_filter is None:
+        return Bitset(~deleted_mask.words, deleted_mask.n_bits)
+    live = ~deleted_mask.words.to(sample_filter.words.device)
+    nw = live.shape[0]
+    if isinstance(sample_filter, RowFilter):
+        if sample_filter.n_bits < deleted_mask.n_bits:
+            raise ValueError(f"row filter covers {sample_filter.n_bits} ids but "
+                             f"deleted_mask covers {deleted_mask.n_bits}")
+        words = sample_filter.words.clone()
+        words[:, :nw] &= live
+        table = sample_filter.table
+        if table is not None:
+            table = table.clone()
+            table[:, :nw] &= live
+        return RowFilter(words, sample_filter.n_bits, fid=sample_filter.fid, table=table,
+                         pass_count=sample_filter.pass_count)
+    if sample_filter.n_bits != deleted_mask.n_bits:
+        raise ValueError(f"sample_filter covers {sample_filter.n_bits} ids but "
+                         f"deleted_mask covers {deleted_mask.n_bits}")
+    return Bitset(sample_filter.words & live, sample_filter.n_bits)
+
+
 def invalid_mask(ids: torch.Tensor, filter_words=None) -> torch.Tensor:
-    """Candidate mask of padding slots (the unfiltered form)."""
+    """Candidate mask: padding slots (id < 0), and ids whose bit in
+    ``filter_words`` is 0 — one word set [W], or a RowFilter's words
+    [rows, W] with ids [rows, ...] (then as :func:`invalid_mask_rows`)."""
+    if filter_words is not None and filter_words.ndim == 2:
+        return invalid_mask_rows(ids, filter_words)
+    invalid = ids < 0
     if filter_words is not None:
-        raise NotImplementedError("filtered IVF search arrives with the filters slice")
-    return ids < 0
+        invalid = invalid | ~bits_at(filter_words, ids)
+    return invalid
+
+
+def invalid_mask_rows(ids: torch.Tensor, row_words: torch.Tensor) -> torch.Tensor:
+    """:func:`invalid_mask` with a word set per row: ids [rows, ...] tested
+    against row_words [rows, W], row r by its own words."""
+    return ~RowFilter(row_words, row_words.shape[1] * 32).test_rows(ids) | (ids < 0)
 
 
 def invert_probes(probes: torch.Tensor, n_lists: int, bucket: int):
@@ -291,36 +341,71 @@ def qm_query_tile(n_probes: int) -> int:
     return max(8, min(4096, (32_768 // max(1, n_probes)) // 8 * 8))
 
 
+def identity_fid_tile(n_lists: int, list_cap: int, workspace_bytes: int, n_probes: int) -> int:
+    """Query tile of a row filter without a descriptor: each tile packs its
+    rows' words as a table of planes [tile, n_lists, cap_w], and the tile
+    is bounded so that the planes fit ``workspace_bytes``."""
+    plane_bytes = 4 * n_lists * -(-list_cap // 32)
+    return max(1, min(qm_query_tile(n_probes), workspace_bytes // plane_bytes))
+
+
 def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
-                metric: str, q_scan_fn, scan_kw: dict, workspace_bytes: int):
+                metric: str, q_scan_fn, scan_kw: dict, workspace_bytes: int,
+                pass_filter=None):
     """Coarse select → list scan → merge, the search both IVF indexes run,
     on the schedule raft_tpu's rule picks (:func:`select_scan_strategy`):
     probe-major for large batches, query-major for serving-sized ones.
     ``lists`` is (list_data, list_y2, list_index); ``q_scan_fn`` maps a
     block of raw queries to the rows the lists are scored against;
-    ``scan_kw`` carries the scan's storage-leg arguments.  Lists on the card
-    go to the scan kernels, which raise outside their envelope (``kk`` up
-    to ``ivf_scan.MAX_KK``); lists on the CPU go to the plain versions, at
-    any ``kk``.  The call stamps ``kernel_path`` "cuda" or "torch".  Returns
-    raw scores (the caller postprocesses) and ids."""
+    ``scan_kw`` carries the scan's storage-leg arguments.
+
+    ``pass_filter`` (from :func:`resolve_pass_filter`) picks the scan's
+    filter leg, packed once per call as raft_tpu packs it:
+
+    - a :class:`Bitset`: ``pack_list_filter`` words on either schedule;
+    - a :class:`RowFilter` (one filter per query) forces the query-major
+      schedule; with its descriptor (``table`` / ``fid``) the table is
+      packed once (``pack_list_filter_table``) and each query's ``fid``
+      rides beside it through the query tiles (the ``query_fid`` leg);
+      without one, each query tile packs its own rows' words as planes and
+      scans with ``fid`` = 0..tile-1 (:func:`identity_fid_tile`), so that
+      it too rides the ``query_fid`` leg and no plain scan runs on the
+      card.
+
+    Lists on the card go to the scan kernels, which raise outside their
+    envelope (``kk`` up to ``ivf_scan.MAX_KK``); lists on the CPU go to the
+    plain versions, at any ``kk``.  The call stamps ``kernel_path`` "cuda"
+    or "torch".  Returns raw scores (the caller postprocesses) and ids."""
     from raft_tpu_torch.kernels import ivf_scan as scan_mod
     from raft_tpu_torch.kernels import stamp_kernel_path
 
-    data = lists[0]
+    data, _, list_index = lists
+    dev = data.device
+    per_row = isinstance(pass_filter, RowFilter)
+    if per_row:
+        validation.expects(
+            pass_filter.words.shape[0] == queries.shape[0],
+            f"row filter has {pass_filter.words.shape[0]} rows for {queries.shape[0]} queries")
+        # probe-major scores whole lists against buckets of queries: a
+        # per-query filter has no per-list form there
+        strategy = "query_major"
     strategy, bucket, _, q_tile = select_scan_strategy(
         strategy, queries.shape[0], n_probes, centers.shape[0], data.shape[1],
         data.shape[2], workspace_bytes, k=k,
     )
     kk = min(k, data.shape[1]) if strategy == "probe_major" else k
-    on_card = data.device.type == "cuda"
+    on_card = dev.type == "cuda"
     stamp_kernel_path("cuda" if on_card else "torch")
+    lf = None
+    if pass_filter is not None and not per_row:
+        lf = scan_mod.pack_list_filter(list_index, pass_filter.words.to(dev))
     if strategy == "probe_major":
         scan = scan_mod.ivf_scan_probe_major if on_card else scan_mod.ivf_scan_probe_major_torch
 
         def run_pm(qt):
             args, bucket_pair = probe_major_scan_inputs(
                 qt, q_scan_fn(qt), centers, lists, metric, n_probes, k, bucket)
-            vals, ids = scan(*args, metric=metric, **scan_kw)
+            vals, ids = scan(*args, metric=metric, list_filter=lf, **scan_kw)
             return merge_probe_major_partials(
                 vals.reshape(-1, kk), ids.reshape(-1, kk), bucket_pair,
                 qt.shape[0], n_probes, kk, k,
@@ -329,11 +414,27 @@ def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
         return run_query_tiled(run_pm, queries, q_tile)
     scan = scan_mod.ivf_scan_query_major if on_card else scan_mod.ivf_scan_query_major_torch
 
-    def run_qm(qt):
+    def run_qm(qt, planes=None, fid=None):
         args = query_major_scan_inputs(qt, q_scan_fn(qt), centers, lists, metric, n_probes, k)
-        return scan(*args, metric=metric, **scan_kw)
+        return scan(*args, metric=metric, list_filter=lf if planes is None else planes,
+                    query_fid=fid, **scan_kw)
 
-    return run_query_tiled(run_qm, queries, qm_query_tile(n_probes))
+    tile = qm_query_tile(n_probes)
+    if not per_row:
+        return run_query_tiled(run_qm, queries, tile)
+    if pass_filter.table is not None:
+        planes = scan_mod.pack_list_filter_table(list_index, pass_filter.table.to(dev))
+        return run_query_tiled(lambda qt, fid: run_qm(qt, planes, fid), queries, tile,
+                               extras=(pass_filter.fid.to(device=dev, dtype=torch.int32),))
+
+    def run_rows(qt, words):
+        fid = torch.arange(qt.shape[0], dtype=torch.int32, device=dev)
+        return run_qm(qt, scan_mod.pack_list_filter_table(list_index, words), fid)
+
+    return run_query_tiled(
+        run_rows, queries,
+        identity_fid_tile(data.shape[0], data.shape[1], workspace_bytes, n_probes),
+        extras=(pass_filter.words.to(dev),))
 
 
 def sorted_id_dedup(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -357,16 +458,18 @@ def postprocess(v: torch.Tensor, metric: str) -> torch.Tensor:
     return v
 
 
-def run_query_tiled(run_fn, queries: torch.Tensor, q_tile: int):
-    """Run ``run_fn(query_block) → (v, i)`` over blocks of ``q_tile``
-    queries and concatenate (the tail block is simply shorter: eager
-    PyTorch has no compiled shape to keep)."""
+def run_query_tiled(run_fn, queries: torch.Tensor, q_tile: int, extras=()):
+    """Run ``run_fn(query_block, *extra_blocks) → (v, i)`` over blocks of
+    ``q_tile`` queries and concatenate.  ``extras`` are per-query tensors
+    (leading dimension n_q, e.g. each query's filter id) cut beside the
+    queries.  The tail block is simply shorter: eager PyTorch has no
+    compiled shape to keep."""
     n_q = queries.shape[0]
     if q_tile >= n_q:
-        return run_fn(queries)
+        return run_fn(queries, *extras)
     vs, is_ = [], []
     for s in range(0, n_q, q_tile):
-        v, i = run_fn(queries[s:s + q_tile])
+        v, i = run_fn(queries[s:s + q_tile], *(e[s:s + q_tile] for e in extras))
         vs.append(v)
         is_.append(i)
     return torch.cat(vs), torch.cat(is_)

@@ -1,5 +1,5 @@
 """CAGRA: graph index, build + batched beam search (counterpart of
-``raft_tpu.neighbors.cagra``; dense f32 / bf16 datasets, unfiltered).
+``raft_tpu.neighbors.cagra``; dense f32 / bf16 datasets).
 
 Build: a kNN graph of ``intermediate_graph_degree`` neighbours per row —
 IVF-PQ search of every row for ``gpu_top_k = 2 (inter + 1)`` candidates,
@@ -21,13 +21,21 @@ query of the tile has an unexplored finite slot; every further hop is a
 no-op, so the fixed trip count gives the same results with no host
 synchronisation inside the loop.
 
+Filtered search (``sample_filter`` / ``deleted_mask``) is raft_tpu's XLA
+body (``cagra.py:572-737``), as raft_tpu keeps its fused hop off filtered
+traffic: the traversal stays unfiltered, and a result buffer of the best
+k filter-passing candidates, with its own membership mask, is merged every
+hop (:func:`traverse_steps_filtered`); ``itopk`` is widened by the
+inverse pass rate (:func:`filtered_itopk`).  Its hops are PyTorch ops and
+``select_k`` (the select_k kernel on the card up to k = 512, a sort past
+it).
+
 Random seed ids come from a ``torch.Generator`` seeded with
 ``rand_xor_mask & 0x7FFFFFFF``, not raft_tpu's threefry: compare searches
 of the two packages by passing ``seed_ids``.  ``save`` / ``load`` use
 raft_tpu's file format (kind "cagra", version 1).
 
-Not in this slice (``NotImplementedError``, ROADMAP Queue 2): filters
-(``sample_filter``, ``deleted_mask``), int8 / uint8 datasets, ``compress``
+Not in this slice (``NotImplementedError``, ROADMAP Queue 2): int8 / uint8 datasets, ``compress``
 and VPQ datasets, paged datasets, ``EffortSpec``, the NN-descent builds;
 hnsw export and the sharded graph mode are not ported either.
 """
@@ -42,12 +50,19 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import serialize as ser
+from raft_tpu_torch.core.bitset import RowFilter
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.kernels import stamp_kernel_path
 from raft_tpu_torch.kernels.cagra_traverse import cagra_fused_hop
 from raft_tpu_torch.neighbors import brute_force, ivf_pq, nn_descent
-from raft_tpu_torch.neighbors._common import postprocess, sorted_id_dedup, subsample_trainset
+from raft_tpu_torch.neighbors._common import (
+    invalid_mask,
+    postprocess,
+    resolve_pass_filter,
+    sorted_id_dedup,
+    subsample_trainset,
+)
 from raft_tpu_torch.neighbors.refine import refine
 from raft_tpu_torch.ops.matrix import select_k
 
@@ -441,11 +456,24 @@ def pick_parents(buf_d: torch.Tensor, buf_i: torch.Tensor, explored: torch.Tenso
     return parents, explored.scatter(1, ppos, True)
 
 
+def filtered_itopk(itopk: int, n: int, pass_filter) -> int:
+    """raft_tpu's widening of the internal buffer for a filtered search: by
+    the inverse pass rate (``pass_filter.count()``, a host int), at most
+    32×, rounded up to a power of two and capped at n."""
+    passing = max(1, int(pass_filter.count()))
+    scale = min(32.0, max(1.0, n / passing))
+    widened = min(n, int(itopk * scale))
+    return min(1 << (widened - 1).bit_length(), n)
+
+
 def search_plan(params: SearchParams, index: Index, n_queries: int, k: int,
-                res: Optional[Resources] = None) -> Tuple[int, int, int]:
-    """(itopk, max_iter, query tile) of a search: raft_tpu's rules."""
+                res: Optional[Resources] = None, pass_filter=None) -> Tuple[int, int, int]:
+    """(itopk, max_iter, query tile) of a search: raft_tpu's rules, with
+    ``itopk`` widened for a pass filter (:func:`filtered_itopk`)."""
     res = ensure(res)
     itopk = min(max(params.itopk_size, k), index.size)
+    if pass_filter is not None:
+        itopk = filtered_itopk(itopk, index.size, pass_filter)
     width = params.search_width
     use_entries = index.entry_centers is not None and params.num_entry_centers > 0
     if params.max_iterations:
@@ -460,16 +488,69 @@ def search_plan(params: SearchParams, index: Index, n_queries: int, k: int,
     return itopk, max_iter, tile
 
 
+def traverse_steps_filtered(dataset: torch.Tensor, graph: torch.Tensor,
+                            queries: torch.Tensor, buf_d: torch.Tensor, buf_i: torch.Tensor,
+                            explored: torch.Tensor, k: int, steps: int, width: int,
+                            metric: str, words: torch.Tensor):
+    """raft_tpu's filtered search body over one query tile, ``steps`` hops;
+    ``words`` are the pass filter's words [W], or a RowFilter's rows of the
+    tile [tile, W].
+    The traversal is unfiltered (filtered-out nodes still route the walk);
+    a result buffer of the best ``k`` filter-passing candidates seen so far,
+    kept free of repeats by its own membership mask, is merged every hop.
+    A hop whose frontier is exhausted leaves both buffers as they are.
+    Returns (values [t, k], ids [t, k]) of the result buffer, deduplicated
+    once at the end."""
+    n = dataset.shape[0]
+    tile = queries.shape[0]
+    inf = torch.full((), float("inf"), device=buf_d.device)
+    deg = graph.shape[1]
+    c_w = width * deg
+    # earlier[i, j] ⇔ i < j: demotes later copies of an id in one batch
+    earlier = torch.triu(torch.ones((c_w, c_w), dtype=torch.bool, device=buf_d.device), 1)
+    res_d, res_i = select_k(torch.where(invalid_mask(buf_i, words), inf, buf_d), k,
+                            select_min=True, input_indices=buf_i)
+    res_i = torch.where(torch.isfinite(res_d), res_i, torch.full_like(res_i, -1))
+    for _ in range(steps):
+        parents, explored = pick_parents(buf_d, buf_i, explored, width)
+        nbrs = graph[parents.long().clamp(0, n - 1)]
+        cand = torch.where(parents[:, :, None] >= 0, nbrs,
+                           torch.full_like(nbrs, -1)).reshape(tile, c_w)
+        vecs = dataset[cand.long().clamp(0, n - 1)].to(torch.float32)
+        cd = torch.where(cand < 0, inf, _query_distance(queries, vecs, metric))
+        dup_in_batch = ((cand[:, :, None] == cand[:, None, :]) & earlier).any(dim=1)
+        in_buf = (cand[:, :, None] == buf_i[:, None, :]).any(dim=2)
+        cd = torch.where(dup_in_batch | in_buf, inf, cd)
+        # every node already in buf was offered to the result buffer when it
+        # was first met; res may hold ids long evicted from buf
+        in_res = (cand[:, :, None] == res_i[:, None, :]).any(dim=2)
+        offer = torch.where(in_res | invalid_mask(cand, words), inf, cd)
+        res_d, res_i = select_k(torch.cat([res_d, offer], dim=1), k, select_min=True,
+                                input_indices=torch.cat([res_i, cand], dim=1))
+        res_i = torch.where(torch.isfinite(res_d), res_i, torch.full_like(res_i, -1))
+        all_i = torch.cat([buf_i, cand], dim=1)
+        all_e = torch.cat([explored, torch.zeros_like(cand, dtype=torch.bool)], dim=1)
+        buf_d, pos = select_k(torch.cat([buf_d, cd], dim=1), buf_d.shape[1], select_min=True)
+        pos = pos.long()
+        buf_i = torch.gather(all_i, 1, pos)
+        buf_i = torch.where(torch.isfinite(buf_d), buf_i, torch.full_like(buf_i, -1))
+        explored = torch.gather(all_e, 1, pos) | ~torch.isfinite(buf_d)
+    order, dup = sorted_id_dedup(res_i)
+    s_i = torch.gather(res_i, 1, order)
+    s_d = torch.where(dup, inf, torch.gather(res_d, 1, order))
+    v, i = select_k(s_d, k, select_min=True, input_indices=s_i)
+    return v, torch.where(torch.isfinite(v), i, torch.full_like(i, -1))
+
+
 def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter=None,
            deleted_mask=None, res: Optional[Resources] = None, seed_ids=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched beam search: (distances [q, k] f32, indices [q, k] int32).
-    ``seed_ids`` [q, s] replaces the generated seeds.  The call stamps
-    ``kernel_path`` "cuda" (the hop kernel) or "torch"."""
-    if sample_filter is not None or deleted_mask is not None:
-        raise NotImplementedError(
-            "filtered CAGRA search arrives with the filters slice of the port "
-            "(ROADMAP Queue 2, filters)")
+    ``seed_ids`` [q, s] replaces the generated seeds.  ``sample_filter`` (a
+    ``Bitset``, or a ``RowFilter`` with one row per query) keeps its set
+    bits and ``deleted_mask`` excludes its set bits: such a search widens
+    ``itopk`` and runs :func:`traverse_steps_filtered` (no hop kernel).
+    The call stamps ``kernel_path`` "cuda" (its kernels) or "torch"."""
     if getattr(index, "paged", None) is not None:
         raise NotImplementedError(f"paged CAGRA datasets are not ported yet ({_ROADMAP})")
     res = ensure(res)
@@ -479,7 +560,13 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     if queries.ndim != 2 or queries.shape[1] != index.dim:
         raise ValueError(f"queries shape {tuple(queries.shape)} vs index dim {index.dim}")
     metric = DISTANCE_TYPES[index.metric]
-    itopk, max_iter, tile = search_plan(params, index, queries.shape[0], k, res)
+    pass_filter = resolve_pass_filter(sample_filter, deleted_mask)
+    per_row = isinstance(pass_filter, RowFilter)
+    if per_row and pass_filter.words.shape[0] != queries.shape[0]:
+        raise ValueError(f"row filter has {pass_filter.words.shape[0]} rows for "
+                         f"{queries.shape[0]} queries")
+    words = None if pass_filter is None else pass_filter.words.to(dev)
+    itopk, max_iter, tile = search_plan(params, index, queries.shape[0], k, res, pass_filter)
     if seed_ids is None:
         seed_ids = make_seed_ids(params, index, queries, k, itopk=itopk)
     else:
@@ -489,12 +576,19 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     for s in range(0, queries.shape[0], tile):
         qs = queries[s:s + tile]
         buf = traverse_init(index.dataset, qs, seed_ids[s:s + tile], itopk, metric)
-        buf_d, buf_i, _ = traverse_steps(index.dataset, index.graph, qs, *buf,
-                                         steps=max_iter, width=params.search_width,
-                                         metric=metric)
-        v, i = select_k(buf_d, k, select_min=True, input_indices=buf_i)
+        if pass_filter is None:
+            buf_d, buf_i, _ = traverse_steps(index.dataset, index.graph, qs, *buf,
+                                             steps=max_iter, width=params.search_width,
+                                             metric=metric)
+            v, i = select_k(buf_d, k, select_min=True, input_indices=buf_i)
+            i = torch.where(torch.isfinite(v), i, torch.full_like(i, -1))
+        else:
+            v, i = traverse_steps_filtered(
+                index.dataset, index.graph, qs, *buf, k=k, steps=max_iter,
+                width=params.search_width, metric=metric,
+                words=words[s:s + tile] if per_row else words)
         vs.append(v)
-        is_.append(torch.where(torch.isfinite(v), i, torch.full_like(i, -1)))
+        is_.append(i)
     stamp_kernel_path("cuda" if dev.type == "cuda" else "torch")
     if not vs:
         return (torch.zeros((0, k), dtype=torch.float32, device=dev),

@@ -10,8 +10,8 @@ Search is ``_common.scan_search``: coarse select (``torch.matmul`` +
 select_k) → list scan → merge, on raft_tpu's schedule rule.  Both scans
 reach the f32 legs of the CUDA kernels of ``kernels.ivf_scan`` for CUDA
 tensors (k up to 512 there; deeper k raises) and their plain versions for
-CPU tensors; every call stamps
-``kernel_path`` "cuda" or "torch".
+CPU tensors, unfiltered or on their filter legs (``sample_filter`` /
+``deleted_mask``); every call stamps ``kernel_path`` "cuda" or "torch".
 """
 
 from __future__ import annotations
@@ -252,12 +252,16 @@ def search(
     res: Optional[Resources] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (distances [q, k] f32, indices [q, k] int32); id -1 appears
-    only when the probed lists hold fewer than k rows (distance +inf)."""
-    if sample_filter is not None or deleted_mask is not None:
-        raise NotImplementedError(
-            "filtered ivf_flat search arrives with the filters slice of the port"
-        )
+    only when the probed lists hold fewer than k passing rows (distance
+    +inf).
+
+    ``sample_filter`` (a ``core.bitset.Bitset`` over ids, or a
+    ``RowFilter`` with one bitset per query, with or without its
+    ``fid`` / ``table`` descriptor) keeps its set bits; ``deleted_mask``
+    (a ``Bitset``) excludes its set bits.  See ``_common.scan_search`` for
+    the filter legs."""
     ensure(res).device  # raises without a card unless the caller asked for the CPU
+    pass_filter = _common.resolve_pass_filter(sample_filter, deleted_mask)
     dev = index.centers.device
     queries = as_f32(queries, dev)
     if queries.ndim != 2 or queries.shape[1] != index.dim:
@@ -272,7 +276,7 @@ def search(
     metric = DISTANCE_TYPES[index.metric]
     v, i = _common.scan_search(
         queries, int(k), n_probes, params.strategy, index.centers, _lists(index), metric,
-        lambda qt: qt, {}, ensure(res).workspace_limit_bytes,
+        lambda qt: qt, {}, ensure(res).workspace_limit_bytes, pass_filter,
     )
     return _common.postprocess(v, metric), i
 

@@ -22,9 +22,11 @@ compare builds by quality, or inject state.  ``save`` / ``load`` use
 raft_tpu's file format, so an index saved by either package loads in the
 other; the scan cache is derived state, rebuilt from the codes on load.
 
-Not in this slice (they raise ``NotImplementedError``): ``sample_filter``
-/ ``deleted_mask``, ``internal_distance_dtype="bfloat16"``.  On the card a
-search serves k up to 512 (the scan kernels' envelope) and raises past it.
+Filtered search (``sample_filter`` / ``deleted_mask``) rides the scans'
+filter legs (``_common.scan_search``).  Not in this slice (it raises
+``NotImplementedError``): ``internal_distance_dtype="bfloat16"``.  On the
+card a search serves k up to 512 (the scan kernels' envelope) and raises
+past it.
 Paged indexes, ``EffortSpec`` and the sharded build's unsplit layout are not
 ported.
 """
@@ -603,10 +605,8 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     """Returns (distances [q, k] f32, indices [q, k] int32): PQ
     approximations — pass the ids to ``neighbors.refine`` for exact
     distances.  Id -1 appears only when the probed lists hold fewer than k
-    rows (distance +inf)."""
-    if sample_filter is not None or deleted_mask is not None:
-        raise NotImplementedError(
-            "filtered ivf_pq search arrives with the filters slice of the port")
+    rows (distance +inf).  ``sample_filter`` / ``deleted_mask``: as
+    ``ivf_flat.search``."""
     if params.internal_distance_dtype != "float32":
         raise NotImplementedError(
             "internal_distance_dtype='bfloat16' is not in this slice of the port: "
@@ -615,6 +615,7 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     validation.check_in(params.strategy, ("auto", "query_major", "probe_major"), "strategy")
     res = ensure(res)
     res.device  # raises without a card unless the caller asked for the CPU
+    pass_filter = _common.resolve_pass_filter(sample_filter, deleted_mask)
     queries = as_f32(queries, index.centers.device)
     if queries.ndim != 2 or queries.shape[1] != index.dim:
         raise ValueError(f"queries shape {tuple(queries.shape)} vs index dim {index.dim}")
@@ -627,7 +628,7 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     v, i = _common.scan_search(
         queries, int(k), n_probes, params.strategy, index.centers, _lists(index), metric,
         lambda qt: _rotate(index, qt), scan_kwargs(index, params.lut_dtype),
-        res.workspace_limit_bytes,
+        res.workspace_limit_bytes, pass_filter,
     )
     return _common.postprocess(v, metric), i
 

@@ -48,14 +48,15 @@ def select_k_cost(rows: int, n: int, k: int, *, itemsize: int = 4) -> KernelCost
 
 
 def ivf_scan_cost(n_blocks: int, g: int, cap: int, rot: int, kk: int, *,
-                  itemsize: int = 4) -> KernelCost:
+                  itemsize: int = 4, cap_w: int = 0) -> KernelCost:
     """Both scan schedules: per (block, list) a [g, cap] score tile against
     [cap, rot] rows plus the fold; ``n_blocks`` counts buckets or
-    (query, probe) steps."""
+    (query, probe) steps.  A filtered leg reads ``cap_w`` filter words per
+    block besides."""
     per_block = 2 * g * cap * rot + 6 * kk * (kk + cap) * g
     flops = n_blocks * per_block
     bytes_accessed = n_blocks * (
-        cap * rot * itemsize + cap * 8 + g * rot * 4
+        cap * rot * itemsize + cap * 8 + g * rot * 4 + cap_w * 4
     ) + n_blocks * g * kk * 8
     return KernelCost(int(flops), int(bytes_accessed))
 
@@ -101,20 +102,32 @@ def fused_knn_work(n_q: int, n: int, d: int, k: int) -> KernelCost:
 
 def scan_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int,
               out_rows: int, kk: int, *, itemsize: int = 4,
-              compute: str = "float32") -> KernelCost:
+              compute: str = "float32", cap_w: int = 0,
+              query_fid=None) -> KernelCost:
     """IVF list scan over the (query, probe) pairs of ``probes`` [q, p]:
     2·d operations per (pair, real row of the probed list) in ``compute``
     arithmetic; the real rows (d values of ``itemsize`` bytes, an f32 norm
     and an int32 id) of each distinct probed list read once, each query (d
     f32 and its norm) and probe id read once, ``out_rows`` x ``kk`` values
     and ids written.  ``list_rows`` [n_lists] counts each list's real
-    rows."""
+    rows.  A filtered leg reads the ``cap_w`` filter words of each distinct
+    probed list once, or with ``query_fid`` [q] (each query's plane of a
+    filter table) those of each distinct (plane, list) pair, and the fids."""
     probes = probes.long()
     rows = list_rows.long().to(probes.device)
     pair_rows = int(rows[probes].sum())
-    list_bytes = int(rows[torch.unique(probes)].sum()) * (d * itemsize + 8)
+    lists = torch.unique(probes)
+    list_bytes = int(rows[lists].sum()) * (d * itemsize + 8)
     q, p = probes.shape
-    bytes_accessed = list_bytes + q * (d + 1) * 4 + q * p * 4 + out_rows * kk * 8
+    filter_bytes = 0
+    if cap_w:
+        if query_fid is None:
+            filter_bytes = 4 * cap_w * lists.numel()
+        else:
+            plane_list = query_fid.long().to(probes.device)[:, None] * rows.numel() + probes
+            filter_bytes = 4 * cap_w * torch.unique(plane_list).numel() + 4 * q
+    bytes_accessed = (list_bytes + filter_bytes + q * (d + 1) * 4 + q * p * 4
+                      + out_rows * kk * 8)
     return KernelCost(int(pair_rows * 2 * d), int(bytes_accessed), compute)
 
 

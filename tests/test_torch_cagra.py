@@ -203,9 +203,11 @@ def test_not_in_slice_options_raise(raft_index, data, tmp_path):
     x, q = data
     tidx = tcagra.from_graph("sqeuclidean", x, np.asarray(raft_index.graph), res=CPU)
     sp = tcagra.SearchParams()
-    with pytest.raises(NotImplementedError, match="filters"):
+    # filters are served (tests/test_torch_filtered_search.py); what is
+    # neither a Bitset nor a RowFilter is refused
+    with pytest.raises(TypeError, match="Bitset"):
         tcagra.search(sp, tidx, q, 10, sample_filter=object(), res=CPU)
-    with pytest.raises(NotImplementedError, match="filters"):
+    with pytest.raises(TypeError, match="Bitset"):
         tcagra.search(sp, tidx, q, 10, deleted_mask=object(), res=CPU)
     for dtype in (np.int8, np.uint8):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -70,7 +70,7 @@ def test_knn_rejects_out_of_slice_inputs():
     x, q = _data(100, 4, 2, 5)
     with pytest.raises(NotImplementedError):
         tbf.knn(x, q, 3, metric="l1", res=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Bitset"):   # filters are Bitsets / RowFilters
         tbf.knn(x, q, 3, sample_filter=object(), res=CPU)
     with pytest.raises(ValueError):
         tbf.knn(x, q, 101, res=CPU)

@@ -100,7 +100,7 @@ def test_extend_appends_and_finds_new_rows(data):
     assert new.size == 2540 and new.list_cap == idx.list_cap  # append fast path
     _, i = tivf.search(tivf.SearchParams(n_probes=16), new, x[2500:2540], 1, res=CPU)
     assert (i[:, 0].numpy() == np.arange(10_000, 10_040)).all()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Bitset"):   # filters are Bitsets / RowFilters
         tivf.search(tivf.SearchParams(), new, x[:4], 3, sample_filter=object(), res=CPU)
 
 

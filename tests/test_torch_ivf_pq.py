@@ -215,7 +215,7 @@ def test_build_seeds_never_need_multinomial_over_the_rows(data, monkeypatch, cod
 def test_out_of_slice_options_raise(data):
     x, q = data
     idx = tpq.build(tpq.IndexParams(**BUILD), x[:1000], res=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Bitset"):   # filters are Bitsets / RowFilters
         tpq.search(tpq.SearchParams(), idx, q[:4], 3, sample_filter=object(), res=CPU)
     with pytest.raises(NotImplementedError):
         tpq.search(tpq.SearchParams(internal_distance_dtype="bfloat16"), idx, q[:4], 3,

@@ -139,14 +139,19 @@ def test_launch_counts_reset_and_read():
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
     kernels.count_launch("select_k")
     assert kernels.launch_counts()["select_k"] == 1
-    # each storage leg of the scans counts on its own
-    for schedule in ("probe_major", "query_major"):
+    # each storage leg of the scans, unfiltered and on each filter leg,
+    # counts on its own
+    words = torch.zeros((1, 1), dtype=torch.int32)
+    for schedule, legs in (("probe_major", [(None, None), (words, None)]),
+                           ("query_major", [(None, None), (words, None), (words, words)])):
         for dtype in (torch.float32, torch.bfloat16, torch.int8):
-            name = ivf_scan.kernel_name(schedule, torch.zeros((1, 1, 1), dtype=dtype))
-            assert name in kernels.KERNELS
-            kernels.count_launch(name)
+            for list_filter, query_fid in legs:
+                name = ivf_scan.kernel_name(schedule, torch.zeros((1, 1, 1), dtype=dtype),
+                                            list_filter, query_fid)
+                assert name in kernels.KERNELS
+                kernels.count_launch(name)
     counts = kernels.launch_counts()
-    assert len(kernels.KERNELS) == 9
+    assert len(kernels.KERNELS) == 18
     assert all(counts[n] == 1 for n in kernels.KERNELS if n.startswith("ivf_scan"))
     kernels.reset_launch_counts()
     assert sum(kernels.launch_counts().values()) == 0
@@ -456,3 +461,162 @@ def test_cagra_search_on_the_card_matches_the_cpu(cuda):
     pv, pi = cagra.search(sp, host, q, 10, seed_ids=seeds, res=cpu)
     assert (i.cpu() == pi).float().mean() >= 0.99
     torch.testing.assert_close(v.cpu(), pv, rtol=1e-5, atol=1e-4)
+
+
+def _filter_leg_inputs(schedule, leg, dtype, d, kk, g):
+    """Card-test inputs of a filter leg: 12 lists of 300 slots (250 real),
+    pass bits at ~40 % with list 3 failing every slot; query-major gives
+    the first query only list 3, so all its probes fail.  ``leg`` "filt":
+    one plane [12, cap_w]; "fid": a table of 5 planes and each query's
+    plane."""
+    from raft_tpu_torch.core.bitset import Bitset
+
+    cap, L = 300, 12
+    scale = 0.0173 if dtype == torch.int8 else 1.0
+    if dtype == torch.int8:
+        data = torch.randint(-127, 128, (L, cap, d), generator=g, dtype=torch.int8)
+        vals = data.float() * torch.tensor(scale, dtype=torch.float32)
+    else:
+        data = torch.randn(L, cap, d, generator=g).to(dtype)
+        vals = data.float()
+    ids = torch.arange(L * cap, dtype=torch.int32).reshape(L, cap)
+    ids[:, 250:] = -1
+    y2 = torch.where(ids >= 0, (vals * vals).sum(-1), torch.zeros(()))
+    planes = 1 if leg == "filt" else 5
+    masks = torch.rand(planes, L * cap, generator=g) < 0.4
+    masks[:, ids[3].clamp(min=0).long()] = False
+    table = torch.stack([ivf_scan.pack_list_filter(ids, Bitset.from_mask(m, device="cpu").words)
+                         for m in masks])
+    if schedule == "probe_major":
+        qg = torch.randn(20, 100, d, generator=g)
+        q2g = (qg * qg).sum(-1)
+        q2g[:, 90:] = float("inf")
+        bl = torch.randint(0, L, (20,), generator=g, dtype=torch.int32)
+        bl[0] = 3
+        args = (bl, qg, q2g, data, y2, ids, kk)
+        kw = dict(list_filter=table[0])
+    else:
+        q = torch.randn(37, d, generator=g)
+        probes = torch.randint(0, L, (37, 5), generator=g, dtype=torch.int32)
+        probes[0] = 3
+        args = (probes, q, (q * q).sum(1), data, y2, ids, kk)
+        kw = (dict(list_filter=table[0]) if leg == "filt" else
+              dict(list_filter=table, query_fid=torch.randint(0, planes, (37,), generator=g,
+                                                              dtype=torch.int32)))
+    return args, dict(scan_scale=scale, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [10, 129, 258])
+@pytest.mark.parametrize("schedule,leg", [("probe_major", "filt"), ("query_major", "filt"),
+                                          ("query_major", "fid")])
+@pytest.mark.parametrize("dtype,scan_dtype,d", [
+    (torch.float32, "float32", 64), (torch.bfloat16, "float32", 64),
+    (torch.bfloat16, "bfloat16", 64), (torch.int8, "float32", 64), (torch.int8, "float32", 30),
+])
+def test_filter_legs_match_plain_bitwise(cuda, schedule, leg, dtype, scan_dtype, d, kk):
+    """Each filter leg (one plane of words, or per-query planes) against its
+    plain version on the card, bitwise; a list whose slots all fail and a
+    query whose probes all fail come out +inf / -1; only the leg's own
+    launch count moves."""
+    g = torch.Generator().manual_seed(11)
+    args, kw = _filter_leg_inputs(schedule, leg, dtype, d, kk, g)
+    on_card = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    kw_card = {n: a.to(cuda) if torch.is_tensor(a) else a for n, a in kw.items()}
+    plain = getattr(ivf_scan, f"ivf_scan_{schedule}_torch")
+    kernel = getattr(ivf_scan, f"ivf_scan_{schedule}")
+    want = plain(*on_card, scan_dtype=scan_dtype, **kw_card)
+    kernels.reset_launch_counts()
+    got = kernel(*on_card, scan_dtype=scan_dtype, **kw_card)
+    torch.cuda.synchronize()
+    name = ivf_scan.kernel_name(schedule, args[3], kw["list_filter"], kw.get("query_fid"))
+    assert name.endswith("_" + leg)
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {name: 1}
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isinf(got[0][0]).all() and (got[1][0] == -1).all()
+    assert bool(torch.isfinite(got[0][1:, ..., 0]).any())
+
+
+@pytest.mark.cuda
+def test_filtered_searches_on_the_card_match_the_cpu(cuda):
+    """ivf_flat, ivf_pq (bf16 and int8 caches), brute force and CAGRA with
+    a Bitset, tombstones, and a RowFilter with and without its descriptor:
+    the card's kernels agree with the CPU's plain versions, every IVF
+    search launches its own filter leg, and no returned id fails its
+    query's filter."""
+    from raft_tpu_torch.core.bitset import Bitset, RowFilter
+    from raft_tpu_torch.neighbors._common import resolve_pass_filter
+
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((6000, 32)).astype(np.float32)
+    q = rng.standard_normal((300, 32)).astype(np.float32)
+    res, cpu = Resources(device="cuda"), Resources(device="cpu")
+    keep = rng.random(6000) < 0.3
+    tomb = rng.random(6000) < 0.05
+    table = rng.random((4, 6000)) < 0.5
+    fid = rng.integers(0, 4, 300)
+    words = torch.stack([Bitset.from_mask(t, device="cpu").words for t in table])
+
+    def filters(dev):
+        return {
+            "bitset": (dict(sample_filter=Bitset.from_mask(keep, device=dev)), keep[None]),
+            "tomb": (dict(deleted_mask=Bitset.from_mask(tomb, device=dev)), ~tomb[None]),
+            "table": (dict(sample_filter=RowFilter.from_table(words, fid, 6000, device=dev)),
+                      table[fid]),
+            "rows": (dict(sample_filter=RowFilter.from_mask_rows(table[fid], device=dev)),
+                     table[fid]),
+        }
+
+    flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=16, kmeans_n_iters=2), x, res=res)
+    host_flat = ivf_flat.Index(*(t.cpu() if torch.is_tensor(t) else t for t in (
+        flat.metric, flat.centers, flat.list_data, flat.list_index, flat.list_sizes,
+        flat.list_norms)))
+    pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=16, pq_dim=16, kmeans_n_iters=2), x, res=res)
+    pq8 = ivf_pq.with_decoded_dtype(pq, "int8")
+    searches = [("ivf_flat", flat, host_flat, ivf_flat.search, ivf_flat.SearchParams)]
+    for idx in (pq, pq8):
+        host = ivf_pq.Index(*(getattr(idx, f).cpu() if torch.is_tensor(getattr(idx, f))
+                              else getattr(idx, f) for f in _PQ_FIELDS),
+                            scan_scale=idx.scan_scale, headroom=idx.headroom)
+        searches.append(("ivf_pq", idx, host, ivf_pq.search, ivf_pq.SearchParams))
+    on_card, on_cpu = filters(cuda), filters("cpu")
+    for tag, idx, host, search, params in searches:
+        for fname, (kw, ok) in on_card.items():
+            for strategy in ("query_major", "probe_major"):
+                sp = params(n_probes=6, strategy=strategy)
+                kernels.reset_launch_counts()
+                v, i = search(sp, idx, q, 10, res=res, **kw)
+                assert kernels.consume_kernel_path() == "cuda"
+                leg = "filt" if fname in ("bitset", "tomb") else "fid"
+                sched = strategy if leg == "filt" else "query_major"
+                name = f"{ivf_scan.kernel_name(sched, idx.list_data)}_{leg}"
+                assert kernels.launch_counts()[name] > 0, (tag, fname, strategy)
+                pv, pi = search(sp, host, q, 10, res=cpu, **on_cpu[fname][0])
+                torch.testing.assert_close(v.cpu(), pv, rtol=1e-5, atol=1e-4)
+                assert (i.cpu() == pi).float().mean() >= 0.999
+                ic = i.cpu().numpy()
+                rows = np.arange(300)[:, None] % ok.shape[0]
+                assert ok[rows, np.clip(ic, 0, None)][ic >= 0].all()
+    for fname, (kw, ok) in on_card.items():
+        v, i = brute_force.knn(x, q, 10, res=res, **kw)
+        pv, pi = brute_force.knn(x, q, 10, res=cpu, **on_cpu[fname][0])
+        torch.testing.assert_close(v.cpu(), pv, rtol=1e-5, atol=1e-4)
+        assert (i.cpu() == pi).float().mean() >= 0.999
+    cg = cagra.build(cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16,
+                                       build_algo="brute_force"), x, res=res)
+    host = cagra.from_graph(cg.metric, x, cg.graph.cpu(), cg.entry_centers.cpu(),
+                            cg.entry_ids.cpu(), res=cpu)
+    sp = cagra.SearchParams(itopk_size=32)
+    for fname, (kw, ok) in on_card.items():
+        pass_filter = resolve_pass_filter(on_cpu[fname][0].get("sample_filter"),
+                                          on_cpu[fname][0].get("deleted_mask"))
+        itopk, _, _ = cagra.search_plan(sp, host, 300, 10, cpu, pass_filter)
+        seeds = cagra.make_seed_ids(sp, host, torch.from_numpy(q), 10, itopk=itopk)
+        kernels.reset_launch_counts()
+        v, i = cagra.search(sp, cg, q, 10, res=res, seed_ids=seeds, **kw)
+        assert kernels.launch_counts()["cagra_fused_hop"] == 0
+        pv, pi = cagra.search(sp, host, q, 10, res=cpu, seed_ids=seeds, **on_cpu[fname][0])
+        assert (i.cpu() == pi).float().mean() >= 0.99
+        ic = i.cpu().numpy()
+        rows = np.arange(300)[:, None] % ok.shape[0]
+        assert ok[rows, np.clip(ic, 0, None)][ic >= 0].all()
