@@ -53,12 +53,27 @@ then drives the port's main paths at the scale of sift-128-euclidean
    (IVF-Flat also at n_probes=2, where recall is below 1), and each filter
    leg of the scans against its plain version on the inputs the main path
    gave it;
-10. where the time of each search goes: warm wall per search and, under
+10. paged storage (``raft_tpu_torch.store``, 1024-row pages): second copies
+   of the IVF-Flat index, both IVF-PQ caches, the brute-force rows and the
+   CAGRA index, paginated; with a pool holding every page (identity-pinned,
+   the upload timed beside one pinned ``copy_``) every search above is
+   repeated on them — IVF unfiltered, pass10 and table8 on both schedules,
+   the refined search, brute force on 1,000 queries, CAGRA on 10,000 and
+   20 x 64 queries and pass50 on 64 — and must be bitwise equal to the
+   monolithic search, on the paged legs only (``*_paged*``,
+   ``cagra_fused_hop_paged``, one hop launch per hop of every tile); an
+   IVF-Flat pool of a quarter of the pages serves 200 queries in batches
+   of 8 (bitwise equal, with misses and evictions; per batch the wall, the
+   monolithic wall and the admission's upload rate); a budget of half the
+   rows makes paged brute force and CAGRA raise ``BudgetExceeded``; and
+   each paged leg against its plain version and beside its unpaged kernel
+   on the same rows;
+11. where the time of each search goes: warm wall per search and, under
    ``torch.profiler``, device time by kernel and the device's busy share.
 
 Launch counts are set to 0 before each phase of the main paths and read
-after it.  Prints the card, a JSON line of profiles, a JSON line of
-per-kernel results, and last
+after it.  Prints the card, JSON lines of the over-budget batches, the
+uploads, profiles and per-kernel results, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when there is no card or any check fails.
 """
@@ -66,6 +81,7 @@ when there is no card or any check fails.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
@@ -102,6 +118,12 @@ PQ_MAIN = ("bfloat16", "bfloat16")
 TABLE_ROWS = 8
 CAGRA_PASS10_QUERIES = 1000
 FILTER_RECALL = 0.8
+#: paged storage: rows per page (raft_tpu's default), the over-budget arm's
+#: share of the pages, its queries and batch, and the paged oracle's queries
+PAGE_ROWS = 1024
+OVER_BUDGET_FRACTION = 0.25
+OVER_BUDGET_QUERIES, OVER_BUDGET_BATCH = 200, 8
+PAGED_BF_QUERIES = 1000
 
 
 def main() -> int:
@@ -127,6 +149,7 @@ def main() -> int:
     from raft_tpu_torch.neighbors.refine import refine
     from raft_tpu_torch.ops import cost, matrix
     from raft_tpu_torch.stats.metrics import recall_at_k
+    from raft_tpu_torch.store import BudgetExceeded, MemoryBudget, PagedRows, paginate_index
 
     failures = []
 
@@ -499,6 +522,226 @@ def main() -> int:
             check(phase_launches[ph][leg] > 0, f"{ph} launched {leg}")
     check(phase_launches["filt_cagra"]["cagra_fused_hop"] == 0,
           "filtered CAGRA keeps the hop kernel off filtered traffic, as raft_tpu does")
+    # -- main path: paged storage ---------------------------------------------
+    # second indexes made from the same tensors (copy.copy), paginated in
+    # place: the monolithic indexes above stay as they are
+    uploads = []
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    def paginate(idx, name, budget=None):
+        """A paginated copy of ``idx`` and its pager, timed; pinned up
+        front when the pool holds every page (the upload timed beside one
+        pinned ``copy_`` of the same bytes)."""
+        paged_idx = copy.copy(idx)
+        t0 = time.perf_counter()
+        pager = paginate_index(paged_idx, page_rows=PAGE_ROWS, budget=budget, name=name)
+        sync()
+        t_pag = time.perf_counter() - t0
+        print(f"{name}: {pager.n_pages} pages of {pager.store.page_bytes} B, {pager.slots} "
+              f"slots ({pager.nbytes} device bytes), paginated in {t_pag:.2f} s", flush=True)
+        if pager.slots == pager.n_pages:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            pager.pin_identity()
+            end.record()
+            sync()
+            pin_ms = start.elapsed_time(end)
+            nbytes = pager.store.data.nbytes
+            dst = torch.empty_like(pager.pool)
+            copy_ms = cuda_ms(lambda: dst.copy_(pager.store.pages, non_blocking=True), 3)
+            del dst
+            uploads.append({"name": f"{name} pin_identity", "bytes": nbytes, "ms": pin_ms,
+                             "gb_per_s": nbytes / pin_ms / 1e6, "pinned_copy_ms": copy_ms,
+                             "pinned_copy_gb_per_s": nbytes / copy_ms / 1e6})
+            print(f"{name}: pin_identity {pin_ms:.2f} ms ({nbytes / pin_ms / 1e6:.2f} GB/s), "
+                  f"one pinned copy_ {copy_ms:.2f} ms", flush=True)
+        return paged_idx, pager
+
+    p_flat, flat_pager = paginate(index, "paged_ivf_flat")
+    check(p_flat.list_data.device.type == "cpu" and flat_pager.pool.is_cuda
+          and p_flat.list_cap % PAGE_ROWS == 0,
+          f"paged ivf_flat: host list_data, device pool, cap {index.list_cap} -> "
+          f"{p_flat.list_cap}")
+    paged_checks = []   # (phase, search name, thunk, the monolithic output, the legs it launches)
+    paged_checks += [
+        ("paged_ivf_flat", "ivf_flat probe-major", lambda: ivf_flat.search(sp, p_flat, q, K, res=res),
+         outputs["ivf_flat probe-major"], ["ivf_scan_probe_major_paged"]),
+        ("paged_ivf_flat", "ivf_flat query-major",
+         lambda: batches(lambda qb, k: ivf_flat.search(sp, p_flat, qb, k, res=res), K)[:2],
+         outputs["ivf_flat query-major"], ["ivf_scan_query_major_paged"]),
+        ("paged_ivf_flat", "ivf_flat probe-major pass10",
+         lambda: ivf_flat.search(sp, p_flat, q, K, res=res, **filters["pass10"]),
+         filt_out["ivf_flat probe-major pass10"], ["ivf_scan_probe_major_paged_filt"]),
+        ("paged_ivf_flat", "ivf_flat query-major pass10",
+         lambda: batches(lambda qb, k, **kw: ivf_flat.search(sp, p_flat, qb, k, res=res, **kw),
+                         K, lambda b: filters["pass10"])[:2],
+         filt_out["ivf_flat query-major pass10"], ["ivf_scan_query_major_paged_filt"]),
+        ("paged_ivf_flat", "ivf_flat query-major table8",
+         lambda: batches(lambda qb, k, **kw: ivf_flat.search(sp, p_flat, qb, k, res=res, **kw),
+                         K, lambda b: table_batches[b])[:2],
+         filt_out["ivf_flat query-major table8"], ["ivf_scan_query_major_paged_fid"]),
+    ]
+    p_pq = {}
+    for cache in ("bfloat16", "int8"):
+        p_pq[cache], _ = paginate(pq_indexes[cache], f"paged_ivf_pq_{cache}")
+
+    def p_pq_search(cache, lut, n_probes=N_PROBES):
+        sp_pq = ivf_pq.SearchParams(n_probes=n_probes, lut_dtype=lut)
+        return lambda qb, k, **kw: ivf_pq.search(sp_pq, p_pq[cache], qb, k, res=res, **kw)
+
+    for cache, lut in PQ_LEGS:
+        tag = f"{cache} cache, {lut} products"
+        pm_leg = scan.kernel_name("probe_major", pq_indexes[cache].list_data) + "_paged"
+        qm_leg = scan.kernel_name("query_major", pq_indexes[cache].list_data) + "_paged"
+        fn = p_pq_search(cache, lut)
+        paged_checks += [
+            ("paged_ivf_pq", f"ivf_pq probe-major [{tag}]", lambda fn=fn: fn(q, K),
+             outputs[f"ivf_pq probe-major [{tag}]"], [pm_leg]),
+            ("paged_ivf_pq", f"ivf_pq query-major [{tag}]", lambda fn=fn: batches(fn, K)[:2],
+             outputs[f"ivf_pq query-major [{tag}]"], [qm_leg]),
+            ("paged_ivf_pq", f"ivf_pq probe-major pass10 [{tag}]",
+             lambda fn=fn: fn(q, K, **filters["pass10"]),
+             filt_out[f"ivf_pq probe-major pass10 [{tag}]"], [pm_leg + "_filt"]),
+            ("paged_ivf_pq", f"ivf_pq query-major pass10 [{tag}]",
+             lambda fn=fn: batches(fn, K, lambda b: filters["pass10"])[:2],
+             filt_out[f"ivf_pq query-major pass10 [{tag}]"], [qm_leg + "_filt"]),
+            ("paged_ivf_pq", f"ivf_pq query-major table8 [{tag}]",
+             lambda fn=fn: batches(fn, K, lambda b: table_batches[b])[:2],
+             filt_out[f"ivf_pq query-major table8 [{tag}]"], [qm_leg + "_fid"]),
+        ]
+
+    def p_refined():
+        _, cand_p = p_pq_search(*PQ_MAIN)(q, K * REFINE_RATIO)
+        return refine(x, q, cand_p, K, res=res)
+
+    paged_checks.append(("paged_ivf_pq", "ivf_pq probe-major + refine", p_refined,
+                         outputs["ivf_pq probe-major + refine"], ["select_k"]))
+    p_bf = brute_force.build(x, res=res)
+    p_bf, _ = paginate(p_bf, "paged_brute_force")
+    bf_ref = brute_force.knn(x, q[:PAGED_BF_QUERIES], K, res=res)
+    paged_checks.append(("paged_brute_force", "brute_force",
+                         lambda: brute_force.search(p_bf, q[:PAGED_BF_QUERIES], K, res=res),
+                         bf_ref, ["fused_knn"]))
+    p_cg, _ = paginate(cg, "paged_cagra")
+    cagra_pass50_64 = cagra_filtered(q[:QM_BATCH], filters["pass50"])()
+    paged_checks += [
+        ("paged_cagra", "cagra", lambda: cagra.search(cagra_sp, p_cg, q, K, res=res),
+         outputs["cagra"], ["cagra_fused_hop_paged"]),
+        ("paged_cagra", "cagra batches",
+         lambda: batches(lambda qb, k: cagra.search(cagra_sp, p_cg, qb, k, res=res), K)[:2],
+         outputs["cagra batches"], ["cagra_fused_hop_paged"]),
+        ("paged_cagra", "cagra pass50 64 q",
+         lambda: cagra.search(cagra_sp, p_cg, q[:QM_BATCH], K, res=res, **filters["pass50"]),
+         cagra_pass50_64, ["select_k"]),
+    ]
+    for ph in dict.fromkeys(spec[0] for spec in paged_checks):
+        specs = [spec for spec in paged_checks if spec[0] == ph]
+        with phase(ph):
+            got = {name: fn() for _, name, fn, _, _ in specs}
+        check(kernels.consume_kernel_path() == "cuda", f"{ph} routed to cuda")
+        for _, name, _, want, legs in specs:
+            check(same(got[name], want), f"{ph}: paged {name} bitwise equal to the monolithic search")
+        for leg in dict.fromkeys(leg for spec in specs for leg in spec[4]):
+            check(phase_launches[ph][leg] > 0, f"{ph} launched {leg}")
+        stray = {leg: c for leg, c in phase_launches[ph].items()
+                 if c and leg.startswith("ivf_scan") and "_paged" not in leg}
+        check(not stray, f"{ph}: no unpaged scan launched {stray or ''}")
+    r_mono = recall_at_k(outputs["ivf_pq probe-major + refine"][1], gt_i, K)
+    r_paged = recall_at_k(p_refined()[1], gt_i, K)
+    check(r_paged == r_mono, f"paged refined recall@10 {r_paged:.5f} == unpaged {r_mono:.5f}")
+    hops = phase_launches["paged_cagra"]["cagra_fused_hop_paged"]
+    want_hops = expected_hops(q.shape[0]) + QM_BATCHES * expected_hops(QM_BATCH)
+    check(hops == want_hops and phase_launches["paged_cagra"]["cagra_fused_hop"] == 0,
+          f"paged cagra: {hops} paged hop launches = tiles x max_iter {want_hops}, none dense")
+
+    # over budget: a quarter of the pages, served 8 queries at a time
+    n_pages = flat_pager.n_pages
+    page_bytes = flat_pager.store.page_bytes
+    over_slots = max(1, int(OVER_BUDGET_FRACTION * n_pages))
+    p_over, over_pager = paginate(index, "paged_ivf_flat_over_budget",
+                                  budget=MemoryBudget(over_slots * page_bytes + 4 * n_pages))
+    check(over_pager.slots == over_slots < n_pages,
+          f"over budget: {over_pager.slots} slots of {n_pages} pages (formula: {over_slots})")
+    admit_ms = []
+    ensure_resident = over_pager.ensure_resident
+
+    def timed_ensure(pages):
+        sync()
+        t0 = time.perf_counter()
+        ensure_resident(pages)
+        sync()
+        admit_ms.append((time.perf_counter() - t0) * 1e3)
+
+    over_pager.ensure_resident = timed_ensure
+    over_starts = range(0, OVER_BUDGET_QUERIES, OVER_BUDGET_BATCH)
+    mono_out, mono_walls = [], []
+    for b in over_starts:   # the monolithic batches, outside the phase
+        t0 = time.perf_counter()
+        mono_out.append(ivf_flat.search(sp, index, q[b:b + OVER_BUDGET_BATCH], K, res=res))
+        sync()
+        mono_walls.append((time.perf_counter() - t0) * 1e3)
+    over_rows, over_ok = [], True
+    with phase("paged_ivf_flat_over_budget"):
+        for i, b in enumerate(over_starts):
+            m0 = over_pager.misses + over_pager.prefetched
+            t0 = time.perf_counter()
+            got = ivf_flat.search(sp, p_over, q[b:b + OVER_BUDGET_BATCH], K, res=res)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            over_ok &= same(got, mono_out[i])
+            # pages uploaded: the admission's misses and any the prefetch
+            # thread fetched first (the admission then waits on its lock)
+            miss = over_pager.misses + over_pager.prefetched - m0
+            over_rows.append({"batch": i, "wall_ms": wall, "mono_wall_ms": mono_walls[i],
+                              "misses": miss, "admit_ms": admit_ms[-1],
+                              "upload_gb_per_s": miss * page_bytes / admit_ms[-1] / 1e6})
+    del over_pager.ensure_resident
+    check(kernels.consume_kernel_path() == "cuda", "paged_ivf_flat_over_budget routed to cuda")
+    check(over_ok, f"over budget: all {len(over_rows)} batches of {OVER_BUDGET_BATCH} bitwise "
+          "equal to the monolithic search")
+    st = over_pager.stats()
+    check(st["misses"] > 0 and st["evictions"] > 0,
+          f"over budget: misses {st['misses']} > 0 and evictions {st['evictions']} > 0")
+    check(phase_launches["paged_ivf_flat_over_budget"]["ivf_scan_query_major_paged"] > 0,
+          "over budget launched ivf_scan_query_major_paged")
+    for row in over_rows:
+        print(f"over budget batch {row['batch']}: wall {row['wall_ms']:.3f} ms, monolithic "
+              f"{row['mono_wall_ms']:.3f} ms, {row['misses']} misses, admission "
+              f"{row['admit_ms']:.3f} ms ({row['upload_gb_per_s']:.2f} GB/s)", flush=True)
+    print(json.dumps({"paged_over_budget": {"stats": st, "batches": over_rows}}), flush=True)
+    # the pinned copy_ of one batch's worth of pages (the upload's yardstick)
+    n_cold = max(row["misses"] for row in over_rows)
+    src = flat_pager.store.pages[:n_cold]
+    dst = torch.empty_like(src, device=dev)
+    cold_copy_ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    uploads.append({"name": f"over budget admission, {n_cold} pages (the largest)",
+                    "bytes": n_cold * page_bytes,
+                    "ms": max(r["admit_ms"] for r in over_rows if r["misses"] == n_cold),
+                    "pinned_copy_ms": cold_copy_ms,
+                    "pinned_copy_gb_per_s": n_cold * page_bytes / cold_copy_ms / 1e6})
+    del dst, src
+
+    # loud failures: the dense backends need every page resident
+    for kind, idx, search_fn in (
+            ("brute_force", brute_force.build(x, res=res),
+             lambda i: brute_force.search(i, q[:QM_BATCH], K, res=res)),
+            ("cagra", cg, lambda i: cagra.search(cagra_sp, i, q[:QM_BATCH], K, res=res))):
+        rows_pages = -(-x.shape[0] // PAGE_ROWS)
+        row_page_bytes = PAGE_ROWS * x.shape[1] * 4
+        small, _ = paginate(idx, f"loud_{kind}", budget=MemoryBudget(
+            rows_pages // 2 * row_page_bytes + 4 * rows_pages))
+        try:
+            search_fn(small)
+            raised = False
+        except BudgetExceeded:
+            raised = True
+        check(raised, f"paged {kind} over budget raises BudgetExceeded")
+        small.paged.close()
+        del small
+    print(json.dumps({"uploads": uploads}), flush=True)
+
     main_launches = {
         name: sum(p[name] for p in phase_launches.values()) for name in kernels.KERNELS
     }
@@ -700,9 +943,9 @@ def main() -> int:
         check(agree >= ID_AGREE, f"{name} ids agree on {agree:.5f} of slots")
         return err
 
-    def bitwise(name, kv, ki, pv, pi):
+    def bitwise(name, kv, ki, pv, pi, what="the plain version"):
         check(torch.equal(kv, pv) and torch.equal(ki, pi),
-              f"{name} values and ids bitwise equal to the plain version")
+              f"{name} values and ids bitwise equal to {what}")
         return max_err(kv, pv)
 
     def record(name, source, replaces, err, ms, plain_ms, work, raft_cost, library_ms, shape,
@@ -825,13 +1068,17 @@ def main() -> int:
            lib_ms, f"q [{FUSED_SUBSET}, 128] x [1000000, 128] k={K}", wide=wide)
 
     def scan_leg(schedule, name, idx, arg_sets, compare, legs, filt_of=None, filt_tag="",
-                 replaces=None):
+                 replaces=None, dense=None):
         """Kernel vs plain for one C entry of ``schedule`` on the main
         path's inputs ``arg_sets`` (the 10,000-query probe-major block, or
         the 20 serving batches), timed on the first.  ``legs``: (scan_kw,
         compute) pairs of the entry; the first is recorded, the others
         measured beside it.  ``filt_of(b)``: the filter arguments
-        (``list_filter``, ``query_fid``) of arg set b, for a filter leg."""
+        (``list_filter``, ``query_fid``) of arg set b, for a filter leg.
+        ``dense``: for a paged leg (``idx`` paginated, the arg sets holding
+        its PagedLists), the same rows as one device tensor: the unpaged
+        kernel runs on them beside the paged one, must agree bitwise, and
+        is timed beside it."""
         kernel = getattr(scan, f"ivf_scan_{schedule}")
         plain = getattr(scan, f"ivf_scan_{schedule}_torch")
         filt_of = filt_of or (lambda b: {})
@@ -849,12 +1096,12 @@ def main() -> int:
         else:
             probes = args[0]
             out_rows, raft_blocks, reps = probes.shape[0], (probes.numel(), 1), (10, 2)
-            replaces = replaces or "raft_tpu/kernels/ivf_scan.py:649"
+            replaces = replaces or ("raft_tpu/kernels/ivf_scan.py:580" if "query_fid" in filt_of(0)
+                                    else "raft_tpu/kernels/ivf_scan.py:649")
             shape = f"Q={out_rows} P={N_PROBES}"
         f0 = filt_of(0)
         cap_w = -(-idx.list_cap // 32) if f0 else 0
-        if "query_fid" in f0:
-            replaces = replaces or "raft_tpu/kernels/ivf_scan.py:580"
+        unpaged_args = None if dense is None else args[:3] + (dense,) + args[4:]
         measured = []
         for kw, comp in legs:
             scan_dtype = kw.get("scan_dtype", "highest")
@@ -863,22 +1110,37 @@ def main() -> int:
                     for b, a in enumerate(arg_sets)]
             err_ = compare(f"{name} {scan_dtype} products",
                            *(torch.cat([o[s][j] for o in outs]) for s in (0, 1) for j in (0, 1)))
-            work = cost.scan_work(probes, list_rows, width, out_rows, kk, itemsize=itemsize,
-                                  compute=comp, cap_w=cap_w, query_fid=f0.get("query_fid"))
+            work_kw = dict(itemsize=itemsize, compute=comp, cap_w=cap_w,
+                           query_fid=f0.get("query_fid"))
+            extra = {}
+            if dense is None:
+                work = cost.scan_work(probes, list_rows, width, out_rows, kk, **work_kw)
+            else:
+                work = cost.scan_paged_work(
+                    probes, list_rows, width, out_rows, kk, **work_kw,
+                    blocks=raft_blocks[0], pages_per_list=idx.paged.pages_per_list)
+                got = kernel(*args, metric=metric, **kw, **f0)
+                ref = kernel(*unpaged_args, metric=metric, **kw, **f0)
+                bitwise(f"{name} {scan_dtype} products", *got, *ref,
+                        what="the unpaged kernel on the same rows")
+                extra["unpaged_ms"] = cuda_ms(
+                    lambda: kernel(*unpaged_args, metric=metric, **kw, **f0), reps[0])
             raft = dataclasses.replace(cost.ivf_scan_cost(
                 *raft_blocks, idx.list_cap, width, kk, itemsize=itemsize, cap_w=cap_w),
                 compute=comp)
             measured.append((scan_dtype, err_,
                              cuda_ms(lambda: kernel(*args, metric=metric, **kw, **f0), reps[0]),
                              cuda_ms(lambda: plain(*args, metric=metric, **kw, **f0), reps[1]),
-                             work, raft))
-        (scan_dtype, err_, ms_, plain_, work, raft), *others = measured
+                             work, raft, extra))
+        (scan_dtype, err_, ms_, plain_, work, raft, extra), *others = measured
         also = [dict(zip(("scan_dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
-                         (o[0], o[1], o[2], o[3], *cost.bound_ms(o[4])))) for o in others]
+                         (o[0], o[1], o[2], o[3], *cost.bound_ms(o[4]))), **o[6]) for o in others]
         record(name, "raft_tpu_torch/csrc/ivf_scan.cu", replaces, err_, ms_, plain_, work, raft,
                None, f"{shape} cap={idx.list_cap} d={width} kk={kk} rows {idx.list_data.dtype}"
-               + (f", filter {filt_tag}" if filt_tag else ""),
-               scan_dtype=scan_dtype, **({"also": also} if also else {}))
+               + (f", filter {filt_tag}" if filt_tag else "")
+               + (f", paged {idx.paged.pages_per_list} x {PAGE_ROWS}-row pages a list"
+                  if dense is not None else ""),
+               scan_dtype=scan_dtype, **extra, **({"also": also} if also else {}))
 
     def serving_batches(inputs_fn):
         return [inputs_fn(q[b * QM_BATCH:(b + 1) * QM_BATCH]) for b in range(QM_BATCHES)]
@@ -943,6 +1205,37 @@ def main() -> int:
                  legs, fid_of(planes_pq), "table8, each query's plane")
     del lf10, planes8, flat_qm_sets, lf_pq, planes_pq, pq_qm_sets
 
+    # the paged legs (#4, and query-major's paged read) on the paged main
+    # path's inputs, each beside the unpaged kernel on the same rows
+    paged_pm = "raft_tpu/kernels/ivf_scan.py:278"
+    for tag, idx, legs in (
+        ("", p_flat, [({}, "float32")]),
+        ("_bf16", p_pq["bfloat16"], [(ivf_pq.scan_kwargs(bf16, "bfloat16"), "bfloat16"),
+                                     (ivf_pq.scan_kwargs(bf16, "float32"), "float32")]),
+        ("_int8", p_pq["int8"], [(ivf_pq.scan_kwargs(i8), "int8")]),
+    ):
+        dense = idx.list_data.to(dev)
+        lf_p, planes_p = filter_inputs(idx)
+        if tag:
+            args, _ = ivf_pq.probe_major_scan_inputs(idx, q, N_PROBES, K, pq_bucket)
+            qm_sets = serving_batches(
+                lambda qb: ivf_pq.query_major_scan_inputs(idx, qb, N_PROBES, K))
+        else:
+            args, _ = ivf_flat.probe_major_scan_inputs(idx, q, N_PROBES, K, bucket)
+            qm_sets = serving_batches(
+                lambda qb: ivf_flat.query_major_scan_inputs(idx, qb, N_PROBES, K))
+        scan_leg("probe_major", f"ivf_scan_probe_major{tag}_paged", idx, [args], bitwise, legs,
+                 replaces=paged_pm, dense=dense)
+        scan_leg("probe_major", f"ivf_scan_probe_major{tag}_paged_filt", idx, [args], bitwise,
+                 legs, lambda b: dict(list_filter=lf_p), "pass10", replaces=paged_pm, dense=dense)
+        scan_leg("query_major", f"ivf_scan_query_major{tag}_paged", idx, qm_sets, bitwise, legs,
+                 dense=dense)
+        scan_leg("query_major", f"ivf_scan_query_major{tag}_paged_filt", idx, qm_sets, bitwise,
+                 legs, lambda b: dict(list_filter=lf_p), "pass10", dense=dense)
+        scan_leg("query_major", f"ivf_scan_query_major{tag}_paged_fid", idx, qm_sets, bitwise,
+                 legs, fid_of(planes_p), "table8, each query's plane", dense=dense)
+        del dense, lf_p, planes_p, args, qm_sets
+
     # probe-major at kk=258 (the CAGRA build's scan), on the kk=10 row's
     # queries and buckets: f32 rows (IVF-Flat) and bf16 rows with f32
     # products (the build's leg)
@@ -967,16 +1260,19 @@ def main() -> int:
 
     # the CAGRA hop: the inputs of hop CAPTURE_HOP of the first query tile
     # (f32 rows, and a bf16 copy of the dataset), and of a 64-query batch
-    def capture_hop(index, n_q):
+    def capture_hop(index, n_q, dataset=None):
+        """The hop's inputs at hop CAPTURE_HOP, rows read from ``dataset``
+        (default: the index's own; a PagedRows for the paged leg)."""
+        ds = index.dataset if dataset is None else dataset
         itopk, _, tile = cagra.search_plan(cagra_sp, index, n_q, K, res)
         qs = q[:min(n_q, tile)]
         seeds = cagra.make_seed_ids(cagra_sp, index, qs, K, itopk=itopk)
-        buf = cagra.traverse_init(index.dataset, qs, seeds, itopk, metric)
+        buf = cagra.traverse_init(ds, qs, seeds, itopk, metric)
         buf_d, buf_i, explored = cagra.traverse_steps(
-            index.dataset, index.graph, qs, *buf, steps=CAPTURE_HOP - 1,
+            ds, index.graph, qs, *buf, steps=CAPTURE_HOP - 1,
             width=cagra_sp.search_width, metric=metric)
         parents, explored = cagra.pick_parents(buf_d, buf_i, explored, cagra_sp.search_width)
-        return (index.dataset, index.graph, qs, parents, buf_d, buf_i, explored)
+        return (ds, index.graph, qs, parents, buf_d, buf_i, explored)
 
     def hop_check(tag, args):
         got = ct.cagra_fused_hop(*args, metric=metric)
@@ -987,8 +1283,11 @@ def main() -> int:
         return max_err(got[0], want[0])
 
     def hop_work(args):
-        return cost.cagra_traverse_work(args[3], args[1].shape[1], args[0].shape[1],
-                                         args[4].shape[1], itemsize=args[0].element_size())
+        paged = isinstance(args[0], PagedRows)
+        fn = cost.cagra_traverse_paged_work if paged else cost.cagra_traverse_work
+        rows = args[0].pool if paged else args[0]
+        return fn(args[3], args[1].shape[1], args[0].shape[1], args[4].shape[1],
+                  itemsize=rows.element_size())
 
     hop_args = capture_hop(cg, q.shape[0])
     err = hop_check(f"tile {hop_args[2].shape[0]} f32", hop_args)
@@ -1017,7 +1316,46 @@ def main() -> int:
            None, f"tile {tile}, width {cagra_sp.search_width}, deg {cg.graph_degree}, "
            f"d {cg.dim}, itopk {itopk}, f32 rows (hop {CAPTURE_HOP})", also=also,
            wall_ms=cuda_ms(lambda: ct.cagra_fused_hop(*hop_args, metric=metric), 50))
-    del hop_args, hop_bf, hop_small, cg_bf16
+    # #8's paged leg: the same capture on the paginated index (rows through
+    # its identity-pinned pool; a paginated bf16 copy for the bf16 rows),
+    # beside the dense leg on the same inputs
+    def paged_view(idx):
+        pool, page_slot = idx.paged.view()
+        return PagedRows(pool, page_slot, idx.size)
+
+    p_cg_bf16, _ = paginate(cg_bf16, "paged_cagra_bf16")
+    hop_p = capture_hop(p_cg, q.shape[0], paged_view(p_cg))
+    hop_pbf = capture_hop(p_cg_bf16, q.shape[0], paged_view(p_cg_bf16))
+    err = hop_check(f"tile {hop_p[2].shape[0]} f32, paged", hop_p)
+    err = max(err, hop_check(f"tile {hop_pbf[2].shape[0]} bf16 rows, paged", hop_pbf))
+    unpaged = {}
+    for tag, a, dense_rows in (("f32", hop_p, cg.dataset), ("bf16", hop_pbf, cg_bf16.dataset)):
+        dense_args = (dense_rows,) + a[1:]
+        bitwise(f"cagra hop {tag}, paged leg", *ct.cagra_fused_hop(*a, metric=metric)[:2],
+                *ct.cagra_fused_hop(*dense_args, metric=metric)[:2],
+                what="the dense leg on the same inputs")
+        unpaged[tag] = device_ms(lambda: ct.cagra_fused_hop(*dense_args, metric=metric),
+                                 "cagra_hop_kernel")
+    also = [wide_entry(f"tile {hop_pbf[2].shape[0]}, itopk {hop_pbf[4].shape[1]}, bf16 rows",
+                       err, lambda: ct.cagra_fused_hop(*hop_pbf, metric=metric),
+                       lambda: ct.cagra_fused_hop_torch(*hop_pbf, metric=metric),
+                       hop_work(hop_pbf), reps=(50, 3))]
+    also[0].pop("library_ms")
+    also[0]["wall_ms"] = also[0]["ms"]
+    also[0]["ms"] = device_ms(lambda: ct.cagra_fused_hop(*hop_pbf, metric=metric),
+                              "cagra_hop_kernel")
+    also[0]["unpaged_ms"] = unpaged["bf16"]
+    tile, itopk = hop_p[4].shape
+    record("cagra_fused_hop_paged", "raft_tpu_torch/csrc/cagra_hop.cu",
+           "raft_tpu/kernels/cagra_traverse.py:180", err,
+           device_ms(lambda: ct.cagra_fused_hop(*hop_p, metric=metric), "cagra_hop_kernel"),
+           cuda_ms(lambda: ct.cagra_fused_hop_torch(*hop_p, metric=metric), 3), hop_work(hop_p),
+           cost.cagra_traverse_cost(tile, cagra_sp.search_width, cg.graph_degree, cg.dim, itopk),
+           None, f"tile {tile}, width {cagra_sp.search_width}, deg {cg.graph_degree}, "
+           f"d {cg.dim}, itopk {itopk}, f32 rows in {p_cg.paged.n_pages} pages of {PAGE_ROWS} "
+           f"(hop {CAPTURE_HOP})", also=also, unpaged_ms=unpaged["f32"],
+           wall_ms=cuda_ms(lambda: ct.cagra_fused_hop(*hop_p, metric=metric), 50))
+    del hop_args, hop_bf, hop_small, cg_bf16, hop_p, hop_pbf, p_cg_bf16
 
     # -- where the time of a search goes ------------------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -1071,6 +1409,18 @@ def main() -> int:
             lambda: ivf_flat.search(sp, index, q[:QM_BATCH], K, res=res, **table_batches[0])),
         f"filt_pass50_cagra_{QM_BATCH}q": profile_search(
             cagra_filtered(q[:QM_BATCH], filters["pass50"])),
+        "paged_probe_major_10000q": profile_search(
+            lambda: ivf_flat.search(sp, p_flat, q, K, res=res)),
+        f"paged_query_major_{QM_BATCH}q": profile_search(
+            lambda: ivf_flat.search(sp, p_flat, q[:QM_BATCH], K, res=res)),
+        "paged_pq_probe_major_10000q": profile_search(
+            lambda: p_pq_search(*PQ_MAIN)(q, K)),
+        f"paged_over_budget_{2 * OVER_BUDGET_QUERIES // OVER_BUDGET_BATCH}x"
+        f"{OVER_BUDGET_BATCH}q": profile_search(
+            lambda: [ivf_flat.search(sp, p_over, q[b:b + OVER_BUDGET_BATCH], K, res=res)
+                     for b in range(0, 2 * OVER_BUDGET_QUERIES, OVER_BUDGET_BATCH)][-1]),
+        f"paged_cagra_{QM_BATCH}q": profile_search(
+            lambda: cagra.search(cagra_sp, p_cg, q[:QM_BATCH], K, res=res)),
     }
     for name, prof_out in profiles.items():
         check(prof_out["device_busy_ms"] > 0, f"profile of {name} saw device time")

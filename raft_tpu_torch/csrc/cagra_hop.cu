@@ -3,7 +3,14 @@
 // candidate buffer, and recover the explored flags.
 //
 // Replaces raft_tpu/kernels/cagra_traverse.py cagra_fused_hop / _hop_kernel
-// (the dense-dataset leg; the paged leg waits for paged storage).
+// (the dense-dataset leg) and _hop_kernel_paged (the paged leg: the rows sit
+// in a pool of pages [slots][page_rows][d] behind a page table, and row id
+// is row id % page_rows of pool slot page_slot[id / page_rows]; a -1 entry,
+// a page not resident, reads slot 0, as raft_tpu's kernel clamps it).  The
+// paged leg differs only in where a row is read: the threads that load the
+// candidate ids also stage each candidate's row index (the id itself when
+// dense), and the row loads go through it.  Same scores, same fold: the
+// paged leg is bitwise the dense leg on an identity-placed pool.
 //
 // Semantics, identical to the TPU kernel and to the plain version
 // (kernels/cagra_traverse.py cagra_fused_hop_torch).  For parent w = 0 ..
@@ -49,10 +56,12 @@ cagra_hop_kernel(const T* __restrict__ data, const int* __restrict__ graph,
                  const float* __restrict__ queries, const int* __restrict__ parents,
                  const float* __restrict__ buf_d, const int* __restrict__ buf_i,
                  const uint8_t* __restrict__ explored, int d, int deg, int width,
-                 int itopk, int ip_mode, float* __restrict__ out_d,
-                 int* __restrict__ out_i, uint8_t* __restrict__ out_e) {
+                 int itopk, int ip_mode, const int* __restrict__ page_slot, int page_rows,
+                 float* __restrict__ out_d, int* __restrict__ out_i,
+                 uint8_t* __restrict__ out_e) {
   extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);    // [itopk] merged values
+  size_t* crow = reinterpret_cast<size_t*>(smem_raw);  // [deg] candidate row indices
+  float* lv = reinterpret_cast<float*>(crow + deg);  // [itopk] merged values
   int* li = reinterpret_cast<int*>(lv + itopk);      // [itopk] merged ids
   int* in_i = li + itopk;                            // [itopk] input ids
   float* sq = reinterpret_cast<float*>(in_i + itopk);  // [d] the query
@@ -82,8 +91,14 @@ cagra_hop_kernel(const T* __restrict__ data, const int* __restrict__ graph,
 
   for (int w = 0; w < width; ++w) {
     const int pid = parents[(size_t)t * width + w];
-    for (int j = tid; j < deg; j += kHopThreads)
-      cid[j] = pid >= 0 ? graph[(size_t)pid * deg + j] : -1;
+    for (int j = tid; j < deg; j += kHopThreads) {
+      const int id = pid >= 0 ? graph[(size_t)pid * deg + j] : -1;
+      cid[j] = id;
+      size_t row = id;
+      if (page_slot != nullptr && id >= 0)
+        row = (size_t)max(page_slot[id / page_rows], 0) * page_rows + id % page_rows;
+      crow[j] = row;
+    }
     __syncthreads();
     const float q2 = s_q2;
     for (int c0 = 0; c0 < deg; c0 += kHopThreads) {
@@ -99,7 +114,8 @@ cagra_hop_kernel(const T* __restrict__ data, const int* __restrict__ graph,
           const int r = idx / kHopBK;
           const int k = k0 + idx % kHopBK;
           const int id = r < c_rows ? cid[c0 + r] : -1;
-          xs[r][idx % kHopBK] = (id >= 0 && k < d) ? rt::as_f32(data[(size_t)id * d + k]) : 0.0f;
+          xs[r][idx % kHopBK] =
+              (id >= 0 && k < d) ? rt::as_f32(data[crow[c0 + r] * d + k]) : 0.0f;
         }
         __syncthreads();
         if (tid < c_rows) {
@@ -148,13 +164,15 @@ cagra_hop_kernel(const T* __restrict__ data, const int* __restrict__ graph,
 template <typename T>
 int launch_hop(const T* data, const int* graph, const float* queries, const int* parents,
                const float* buf_d, const int* buf_i, const uint8_t* explored, int tile, int d,
-               int deg, int width, int itopk, int ip_mode, float* out_d, int* out_i,
-               uint8_t* out_e, cudaStream_t stream) {
-  if (itopk < 1 || itopk > rt::kMaxK || d < 1 || deg < 1 || width < 1)
+               int deg, int width, int itopk, int ip_mode, const int* page_slot,
+               int page_rows, float* out_d, int* out_i, uint8_t* out_e,
+               cudaStream_t stream) {
+  if (itopk < 1 || itopk > rt::kMaxK || d < 1 || deg < 1 || width < 1 ||
+      (page_slot != nullptr && page_rows < 1))
     return (int)cudaErrorInvalidValue;
   if (tile == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)itopk * (3 * sizeof(int) + 1) + (size_t)d * sizeof(float) +
-                      (size_t)deg * (sizeof(float) + sizeof(int));
+  const size_t smem = (size_t)deg * sizeof(size_t) + (size_t)itopk * (3 * sizeof(int) + 1) +
+                      (size_t)d * sizeof(float) + (size_t)deg * (sizeof(float) + sizeof(int));
   if (smem > rt::kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
   auto kernel =
       rt::pick_wide(itopk, [](auto w) { return cagra_hop_kernel<T, decltype(w)::value>; });
@@ -163,27 +181,29 @@ int launch_hop(const T* data, const int* graph, const float* queries, const int*
   if (err != cudaSuccess) return (int)err;
   kernel<<<tile, kHopThreads, smem, stream>>>(
       data, graph, queries, parents, buf_d, buf_i, explored, d, deg, width, itopk, ip_mode,
-      out_d, out_i, out_e);
+      page_slot, page_rows, out_d, out_i, out_e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dataset [n, d] f32 (bf16 != 0: bf16), graph [n, deg] int32, queries
-// [tile, d] f32, parents [tile, width] int32, buffers [tile, itopk] (f32
-// values, int32 ids, uint8 flags); outputs of the same shapes.
+// dataset [n, d] f32 (bf16 != 0: bf16) — or, with a page table page_slot
+// [n_pages] int32 (null: dense), the pool of pages [slots][page_rows][d] —
+// graph [n, deg] int32, queries [tile, d] f32, parents [tile, width] int32,
+// buffers [tile, itopk] (f32 values, int32 ids, uint8 flags); outputs of
+// the same shapes.
 extern "C" int rt_cagra_hop(const void* data, int bf16, const int* graph, const float* queries,
                             const int* parents, const float* buf_d, const int* buf_i,
                             const void* explored, int tile, int d, int deg, int width,
-                            int itopk, int ip_mode, float* out_d, int* out_i, void* out_e,
-                            void* stream) {
+                            int itopk, int ip_mode, const int* page_slot, int page_rows,
+                            float* out_d, int* out_i, void* out_e, void* stream) {
   auto s = (cudaStream_t)stream;
   auto e_in = static_cast<const uint8_t*>(explored);
   auto e_out = static_cast<uint8_t*>(out_e);
   return bf16 ? launch_hop(static_cast<const __nv_bfloat16*>(data), graph, queries, parents,
-                           buf_d, buf_i, e_in, tile, d, deg, width, itopk, ip_mode, out_d,
-                           out_i, e_out, s)
+                           buf_d, buf_i, e_in, tile, d, deg, width, itopk, ip_mode, page_slot,
+                           page_rows, out_d, out_i, e_out, s)
               : launch_hop(static_cast<const float*>(data), graph, queries, parents, buf_d,
-                           buf_i, e_in, tile, d, deg, width, itopk, ip_mode, out_d, out_i,
-                           e_out, s);
+                           buf_i, e_in, tile, d, deg, width, itopk, ip_mode, page_slot,
+                           page_rows, out_d, out_i, e_out, s);
 }

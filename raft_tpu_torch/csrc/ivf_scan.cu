@@ -38,6 +38,25 @@
 // word per slot from plane fid[q] of an [F][n_lists][cap_w] table (the
 // query_fid leg) or from the one plane; the word is shared by 32 threads.
 //
+// Paged legs (kernel #4, raft_tpu's _ivf_scan_probe_major_paged, and the
+// same read in query-major; each with its own launch count in the
+// wrapper): the lists' rows sit in a pool of pages [slots][page_rows][d]
+// behind a page table [n_lists * ppl] (ppl = cap / page_rows), and slot c
+// of list l is row c % page_rows of pool slot table[l * ppl + c /
+// page_rows] (a -1 entry, a page not resident, reads slot 0 as raft_tpu's
+// kernels clamp it).  Only the row address changes: ids, norms and filter
+// words stay indexed by (list, slot) on the logical capacity, and the tile
+// walk, the fmaf order and the list insert are the monolithic leg's, so the
+// result is bitwise the monolithic scan's on the same rows.  A tile may
+// straddle pages (page_rows need only be a multiple of 8), so each row's
+// index is translated on its own, once a tile: one row a thread, passed
+// across the warp by shuffle to the lanes that load it (rt::lane_value),
+// or, in query-major's int8 loader, the thread's own eight rows.  The
+// paged loaders are a template flag (kPaged) of each kernel, so that the
+// monolithic instantiations compile as before: kernels whose monolithic
+// lists went through the translated loaders (on a null table) ran up to
+// 66 % slower on the card, or spilled registers (PERF.md, Findings).
+//
 // What bounds them on the H100.  Probe-major reuses each streamed list
 // across the bucket's queries (G ~ 256 at 10^4 queries), so it is bound by
 // arithmetic: f32 FMA for f32 compute, the bf16 or int8 tensor-core rate
@@ -72,19 +91,37 @@ struct Filt {
   int cap_w;
 };
 
+// The rows of the lists: monolithic [n_lists][cap][d] (slot == nullptr),
+// or pages [slots][rows][d] behind the page table slot [n_lists * ppl].
+struct Pages {
+  const int* slot;
+  int rows;
+  int ppl;
+};
+
+// Index, in the row array (the pool when paged), of slot c of list l.
+__device__ __forceinline__ size_t row_index(const Pages& pg, int l, int cap, int c) {
+  if (pg.slot == nullptr) return (size_t)l * cap + c;
+  const int s = max(pg.slot[(size_t)l * pg.ppl + c / pg.rows], 0);
+  return (size_t)s * pg.rows + c % pg.rows;
+}
+
 // Slot `slot`'s pass bit in a list's words; an arithmetic shift's sign
 // copies drop out at & 1.
 __device__ __forceinline__ bool passes(const int* list_words, int slot) {
   return ((list_words[slot >> 5] >> (slot & 31)) & 1) != 0;
 }
 
-// The kernel of a leg for lists of kk entries, filtered or not:
-// `pick(w, f)` returns it for kWide = decltype(w)::value and kFilt =
-// decltype(f)::value.
+// The kernel of a leg for lists of kk entries, filtered or not, paged or
+// not: `pick(w, f, p)` returns it for kWide = decltype(w)::value, kFilt =
+// decltype(f)::value and kPaged = decltype(p)::value.
 template <typename Pick>
-static inline auto pick_leg(int kk, bool filtered, Pick pick) {
+static inline auto pick_leg(int kk, bool filtered, bool paged, Pick pick) {
   return rt::pick_wide(kk, [&](auto w) {
-    return filtered ? pick(w, std::true_type{}) : pick(w, std::false_type{});
+    auto with = [&](auto f) {
+      return paged ? pick(w, f, std::true_type{}) : pick(w, f, std::false_type{});
+    };
+    return filtered ? with(std::true_type{}) : with(std::false_type{});
   });
 }
 
@@ -250,13 +287,15 @@ __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
 }
 
 // Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16;
-// kWide = kk > rt::kRegK (topk.cuh); kFilt = filter words.
-template <typename T, bool kBf16, bool kWide, bool kFilt>
+// kWide = kk > rt::kRegK (topk.cuh); kFilt = filter words; kPaged = rows
+// through the page table `pg` (the tile's rows translated by lanes 0-7 of
+// each warp, rt::load_chunk_rows).
+template <typename T, bool kBf16, bool kWide, bool kFilt, bool kPaged>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                    const float* __restrict__ q2g, const T* __restrict__ data,
                    const float* __restrict__ y2, const int* __restrict__ ids,
-                   int G, int cap, int d, int kk, int qpb, int metric, Filt filt,
+                   int G, int cap, int d, int kk, int qpb, int metric, Filt filt, Pages pg,
                    float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
   float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][kk]
@@ -270,8 +309,14 @@ probe_major_kernel(const int* __restrict__ bucket_list, const float* __restrict_
   pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, filt, sfilt, lv,
                         li, out_v, out_i, [] {},
           [&](int l, int c0, int c_rows, float (&ip)[4][4]) {
-            const T* rows = data + ((size_t)l * cap + c0) * d;
-            rt::tile_gemm<T, kBf16>(qa, q_rows, d, rows, c_rows, d, d, gsm, ip);
+            if constexpr (kPaged) {
+              const int r = 8 * (threadIdx.x / 32) + (threadIdx.x & 7);
+              const size_t mine = r < c_rows ? row_index(pg, l, cap, c0 + r) : 0;
+              rt::tile_gemm_rows<T, kBf16>(qa, q_rows, d, data, mine, c_rows, d, gsm, ip);
+            } else {
+              const T* rows = data + ((size_t)l * cap + c0) * d;
+              rt::tile_gemm<T, kBf16>(qa, q_rows, d, rows, c_rows, d, d, gsm, ip);
+            }
           });
 }
 
@@ -279,13 +324,14 @@ constexpr int kWords = rt::kBK / 4;   // int8 words (4 dimensions) per chunk
 
 // int8 leg: the block's queries are quantised once into shared memory as a
 // transposed [d4][kBM + 1] word array; rows stage kWords words at a time.
-template <bool kWide, bool kFilt>
+template <bool kWide, bool kFilt, bool kPaged>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                       const float* __restrict__ q2g, const int8_t* __restrict__ data,
                       const float* __restrict__ y2, const int* __restrict__ ids,
                       int G, int cap, int d, int kk, int qpb, int metric, float scan_scale,
-                      Filt filt, float* __restrict__ out_v, int* __restrict__ out_i) {
+                      Filt filt, Pages pg, float* __restrict__ out_v,
+                      int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
   float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][kk]
   int* li = reinterpret_cast<int*>(lv + qpb * kk);         // [qpb][kk]
@@ -315,6 +361,11 @@ probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restri
           },
           [&](int l, int c0, int c_rows, float (&ip)[4][4]) {
             const int8_t* rows = data + ((size_t)l * cap + c0) * d;
+            size_t mine = 0;   // kPaged: the index of tile row 8 warp + (lane & 7)
+            if constexpr (kPaged) {
+              const int r = 8 * warp + (lane & 7);
+              if (r < c_rows) mine = row_index(pg, l, cap, c0 + r);
+            }
             int acc[4][4];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
@@ -322,12 +373,22 @@ probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restri
               for (int j = 0; j < 4; ++j) acc[i][j] = 0;
             for (int w0 = 0; w0 < d4; w0 += kWords) {
               __syncthreads();
+              if constexpr (kPaged) {   // rows 8 warp + 4 t + lane / 8, word lane % 8
 #pragma unroll
-              for (int t = 0; t < (rt::kBN * kWords) / rt::kGemmThreads; ++t) {
-                const int idx = tid + t * rt::kGemmThreads;
-                const int r = idx / kWords;
-                const int w = idx % kWords;
-                sb[w][r] = load_word(rows + (size_t)r * d, r < c_rows, d, w0 + w);
+                for (int t = 0; t < (rt::kBN * kWords) / rt::kGemmThreads; ++t) {
+                  const int j = 4 * t + lane / 8;
+                  const int w = lane % 8;
+                  sb[w][8 * warp + j] = load_word(data + rt::lane_value(mine, j) * d,
+                                                  8 * warp + j < c_rows, d, w0 + w);
+                }
+              } else {
+#pragma unroll
+                for (int t = 0; t < (rt::kBN * kWords) / rt::kGemmThreads; ++t) {
+                  const int idx = tid + t * rt::kGemmThreads;
+                  const int r = idx / kWords;
+                  const int w = idx % kWords;
+                  sb[w][r] = load_word(rows + (size_t)r * d, r < c_rows, d, w0 + w);
+                }
               }
               __syncthreads();
               const int wn = min(kWords, d4 - w0);
@@ -409,14 +470,16 @@ __device__ __forceinline__ void qm_write(const float* lv, const int* li, int qi,
   }
 }
 
-// Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16.
-template <typename T, bool kBf16, bool kWide, bool kFilt>
+// Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16;
+// kPaged: rows through the page table `pg`, warp w loading rows 32 w ..
+// 32 w + 31 of the tile, each translated by the thread that scores it.
+template <typename T, bool kBf16, bool kWide, bool kFilt, bool kPaged>
 __global__ void __launch_bounds__(kQmRows)
 query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                    const float* __restrict__ q2v, const T* __restrict__ data,
                    const float* __restrict__ y2, const int* __restrict__ ids,
                    int P, int cap, int d, int kk, int metric, int p_chunk, Filt filt,
-                   float* __restrict__ out_v, int* __restrict__ out_i) {
+                   Pages pg, float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
   float* lv = reinterpret_cast<float*>(smem_raw);   // [kk]
   int* li = reinterpret_cast<int*>(lv + kk);        // [kk]
@@ -442,16 +505,39 @@ query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
     qm_walk<kWide, kFilt>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, filt, lv,
                           li, sv, sid, [&](int l, int c0, int c_rows) {
               const T* rows = data + ((size_t)l * cap + c0) * d;
+              const int lane = tid % 32;
+              const int r0 = 32 * (tid / 32);
+              size_t mine = 0;   // kPaged: the index of this thread's row c0 + tid
+              if constexpr (kPaged) {
+                if (tid < c_rows) mine = row_index(pg, l, cap, c0 + tid);
+              }
               float acc = 0.0f;
               for (int k0 = 0; k0 < d; k0 += kQmBK) {
                 __syncthreads();
+                if constexpr (kPaged) {
+                  // the warp's 32 rows, eight at a time: indices, loads, stores
+                  const int k = k0 + lane;
+                  for (int s0 = 0; s0 < 32; s0 += 8) {
+                    size_t row[8];
+                    T v[8];
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) row[j] = rt::lane_value(mine, s0 + j);
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                      v[j] = (r0 + s0 + j < c_rows && k < d) ? __ldg(data + row[j] * d + k)
+                                                              : T(0.0f);
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) xs.x[r0 + s0 + j][lane] = v[j];
+                  }
+                } else {
 #pragma unroll 4
-                for (int s = 0; s < kQmBK; ++s) {
-                  const int idx = tid + s * kQmRows;
-                  const int r = idx / kQmBK;
-                  const int k2 = idx % kQmBK;
-                  const int k = k0 + k2;
-                  xs.x[r][k2] = (r < c_rows && k < d) ? rows[(size_t)r * d + k] : T(0.0f);
+                  for (int s = 0; s < kQmBK; ++s) {
+                    const int idx = tid + s * kQmRows;
+                    const int r = idx / kQmBK;
+                    const int k2 = idx % kQmBK;
+                    const int k = k0 + k2;
+                    xs.x[r][k2] = (r < c_rows && k < d) ? rows[(size_t)r * d + k] : T(0.0f);
+                  }
                 }
                 __syncthreads();
                 const int kn = min(kQmBK, d - k0);
@@ -467,14 +553,17 @@ query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
 }
 
 // int8 leg: the query is quantised once into shared memory words; rows
-// stage as words, kQmWords per row per chunk.
-template <bool kWide, bool kFilt>
+// stage as words, kQmWords per row per chunk.  kPaged: rows through the
+// page table `pg`, each thread translating once a tile the eight rows it
+// loads.
+template <bool kWide, bool kFilt, bool kPaged>
 __global__ void __launch_bounds__(kQmRows)
 query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                       const float* __restrict__ q2v, const int8_t* __restrict__ data,
                       const float* __restrict__ y2, const int* __restrict__ ids,
                       int P, int cap, int d, int kk, int metric, int p_chunk, Filt filt,
-                      float scan_scale, float* __restrict__ out_v, int* __restrict__ out_i) {
+                      Pages pg, float scan_scale, float* __restrict__ out_v,
+                      int* __restrict__ out_i) {
   extern __shared__ unsigned char smem_raw[];
   float* lv = reinterpret_cast<float*>(smem_raw);   // [kk]
   int* li = reinterpret_cast<int*>(lv + kk);        // [kk]
@@ -503,6 +592,14 @@ query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ 
     qm_walk<kWide, kFilt>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, filt, lv,
                           li, sv, sid, [&](int l, int c0, int c_rows) {
               const int8_t* rows = data + ((size_t)l * cap + c0) * d;
+              size_t prow[kQmWords];   // kPaged: rows tid / 8 + 32 s, translated
+              if constexpr (kPaged) {
+#pragma unroll
+                for (int s = 0; s < kQmWords; ++s) {
+                  const int r = (tid + s * kQmRows) / kQmWords;
+                  prow[s] = r < c_rows ? row_index(pg, l, cap, c0 + r) : 0;
+                }
+              }
               int acc = 0;
               for (int w0 = 0; w0 < d4; w0 += kQmWords) {
                 __syncthreads();
@@ -511,7 +608,10 @@ query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ 
                   const int idx = tid + s * kQmRows;
                   const int r = idx / kQmWords;
                   const int w = idx % kQmWords;
-                  xw[r][w] = load_word(rows + (size_t)r * d, r < c_rows, d, w0 + w);
+                  if constexpr (kPaged)
+                    xw[r][w] = load_word(data + prow[s] * d, r < c_rows, d, w0 + w);
+                  else
+                    xw[r][w] = load_word(rows + (size_t)r * d, r < c_rows, d, w0 + w);
                 }
                 __syncthreads();
                 const int wn = min(kQmWords, d4 - w0);
@@ -536,6 +636,17 @@ bool bad_shape(int kk, int d, int cap, int g) {
   return kk < 1 || kk > rt::kMaxK || d < 1 || cap < 1 || g < 1;
 }
 
+// The rows of a C entry: `page_slot` null means monolithic lists
+// (page_rows ignored); paged lists need cap to be a multiple of page_rows.
+Pages make_pages(const int* page_slot, int page_rows, int cap) {
+  if (page_slot == nullptr) return Pages{nullptr, 1, 0};
+  return Pages{page_slot, page_rows, page_rows > 0 ? cap / page_rows : 0};
+}
+
+bool bad_pages(const Pages& pg, int cap) {
+  return pg.slot != nullptr && (pg.rows < 1 || cap % pg.rows != 0);
+}
+
 // The filter of a C entry: `words` null means unfiltered (cap_w ignored).
 Filt make_filt(const int* words, const int* fid, int n_lists, int cap_w) {
   return Filt{words, fid, n_lists, words != nullptr ? cap_w : 0};
@@ -548,21 +659,23 @@ size_t filt_smem(const Filt& f) { return (size_t)f.cap_w * sizeof(int); }
 template <typename T, bool kBf16>
 int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T* data,
                        const float* y2, const int* ids, int B, int G, int cap, int d,
-                       int kk, int metric, Filt filt, float* out_v, int* out_i,
+                       int kk, int metric, Filt filt, Pages pg, float* out_v, int* out_i,
                        cudaStream_t stream) {
-  if (bad_shape(kk, d, cap, G)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(kk, d, cap, G) || bad_pages(pg, cap)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const int qpb = rt::lists_per_block(kk, rt::kBM, filt_smem(filt));
   if (qpb < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + filt_smem(filt);
-  auto kernel = pick_leg(kk, filt.words != nullptr, [](auto w, auto f) {
-    return probe_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value>;
-  });
+  auto kernel =
+      pick_leg(kk, filt.words != nullptr, pg.slot != nullptr, [](auto w, auto f, auto p) {
+        return probe_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
+                                  decltype(p)::value>;
+      });
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, (G + qpb - 1) / qpb);
   kernel<<<grid, rt::kGemmThreads, smem, stream>>>(
-      bl, qg, q2g, data, y2, ids, G, cap, d, kk, qpb, metric, filt, out_v, out_i);
+      bl, qg, q2g, data, y2, ids, G, cap, d, kk, qpb, metric, filt, pg, out_v, out_i);
   return (int)cudaGetLastError();
 }
 
@@ -574,9 +687,10 @@ template <typename Kernel, typename Row, typename... Extra>
 int launch_query_major(Kernel kernel, size_t smem, const int* probes, const float* q,
                        const float* q2, const Row* data, const float* y2, const int* ids,
                        int Q, int P, int cap, int d, int kk, int metric, int splits,
-                       Filt filt, float* part_v, int* part_i, float* out_v, int* out_i,
-                       cudaStream_t stream, Extra... extra) {
-  if (bad_shape(kk, d, cap, P) || splits < 1) return (int)cudaErrorInvalidValue;
+                       Filt filt, Pages pg, float* part_v, int* part_i, float* out_v,
+                       int* out_i, cudaStream_t stream, Extra... extra) {
+  if (bad_shape(kk, d, cap, P) || splits < 1 || bad_pages(pg, cap))
+    return (int)cudaErrorInvalidValue;
   if (Q == 0) return (int)cudaSuccess;
   if (smem > rt::kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
@@ -585,7 +699,7 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
   splits = (P + p_chunk - 1) / p_chunk;
   const bool merge = splits > 1;
   kernel<<<dim3(Q, splits), kQmRows, smem, stream>>>(
-      probes, q, q2, data, y2, ids, P, cap, d, kk, metric, p_chunk, filt, extra...,
+      probes, q, q2, data, y2, ids, P, cap, d, kk, metric, p_chunk, filt, pg, extra...,
       merge ? part_v : out_v, merge ? part_i : out_i);
   err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return (int)err;
@@ -594,45 +708,51 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
 
 // The query-major kernel of a float leg for lists of kk entries.
 template <typename T, bool kBf16>
-auto qm_float_kernel(int kk, const Filt& filt) {
-  return pick_leg(kk, filt.words != nullptr, [](auto w, auto f) {
-    return query_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value>;
-  });
+auto qm_float_kernel(int kk, const Filt& filt, const Pages& pg) {
+  return pick_leg(kk, filt.words != nullptr, pg.slot != nullptr,
+                  [](auto w, auto f, auto p) {
+                    return query_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
+                                              decltype(p)::value>;
+                  });
 }
 
 template <typename T>
 int float_query_major(const int* probes, const float* q, const float* q2, const T* data,
                       const float* y2, const int* ids, int Q, int P, int cap, int d, int kk,
-                      int metric, int splits, int bf16_compute, Filt filt, float* part_v,
-                      int* part_i, float* out_v, int* out_i, cudaStream_t s) {
+                      int metric, int splits, int bf16_compute, Filt filt, Pages pg,
+                      float* part_v, int* part_i, float* out_v, int* out_i, cudaStream_t s) {
   const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) + (size_t)d * sizeof(float);
   return bf16_compute
-      ? launch_query_major(qm_float_kernel<T, true>(kk, filt), smem, probes, q, q2, data, y2,
-                           ids, Q, P, cap, d, kk, metric, splits, filt, part_v, part_i, out_v,
-                           out_i, s)
-      : launch_query_major(qm_float_kernel<T, false>(kk, filt), smem, probes, q, q2, data, y2,
-                           ids, Q, P, cap, d, kk, metric, splits, filt, part_v, part_i, out_v,
-                           out_i, s);
+      ? launch_query_major(qm_float_kernel<T, true>(kk, filt, pg), smem, probes, q, q2, data, y2,
+                           ids, Q, P, cap, d, kk, metric, splits, filt, pg, part_v, part_i,
+                           out_v, out_i, s)
+      : launch_query_major(qm_float_kernel<T, false>(kk, filt, pg), smem, probes, q, q2, data, y2,
+                           ids, Q, P, cap, d, kk, metric, splits, filt, pg, part_v, part_i,
+                           out_v, out_i, s);
 }
 
 }  // namespace
 
 // -- C entries: probe-major ----------------------------------------------
 // filt: [n_lists][cap_w] pass words, or null for the unfiltered leg.
+// page_slot: the page table [n_lists * cap / page_rows] of a pool of pages
+// passed as `data` ([slots][page_rows][d]), or null for monolithic lists.
 
 extern "C" int rt_ivf_scan_probe_major(const int* bucket_list, const float* qg,
                                        const float* q2g, const float* data,
                                        const float* y2, const int* ids, int B, int G,
                                        int cap, int d, int kk, int metric, int bf16_compute,
-                                       const int* filt, int cap_w, float* out_v, int* out_i,
+                                       const int* filt, int cap_w, const int* page_slot,
+                                       int page_rows, float* out_v, int* out_i,
                                        void* stream) {
   auto s = (cudaStream_t)stream;
   const Filt f = make_filt(filt, nullptr, 0, cap_w);
+  const Pages pg = make_pages(page_slot, page_rows, cap);
   return bf16_compute
       ? launch_probe_major<float, true>(bucket_list, qg, q2g, data, y2, ids, B, G, cap, d,
-                                        kk, metric, f, out_v, out_i, s)
+                                        kk, metric, f, pg, out_v, out_i, s)
       : launch_probe_major<float, false>(bucket_list, qg, q2g, data, y2, ids, B, G, cap, d,
-                                         kk, metric, f, out_v, out_i, s);
+                                         kk, metric, f, pg, out_v, out_i, s);
 }
 
 extern "C" int rt_ivf_scan_probe_major_bf16(const int* bucket_list, const float* qg,
@@ -640,15 +760,17 @@ extern "C" int rt_ivf_scan_probe_major_bf16(const int* bucket_list, const float*
                                             const float* y2, const int* ids, int B, int G,
                                             int cap, int d, int kk, int metric,
                                             int bf16_compute, const int* filt, int cap_w,
+                                            const int* page_slot, int page_rows,
                                             float* out_v, int* out_i, void* stream) {
   auto s = (cudaStream_t)stream;
   auto rows = static_cast<const __nv_bfloat16*>(data);
   const Filt f = make_filt(filt, nullptr, 0, cap_w);
+  const Pages pg = make_pages(page_slot, page_rows, cap);
   return bf16_compute
       ? launch_probe_major<__nv_bfloat16, true>(bucket_list, qg, q2g, rows, y2, ids, B, G,
-                                                cap, d, kk, metric, f, out_v, out_i, s)
+                                                cap, d, kk, metric, f, pg, out_v, out_i, s)
       : launch_probe_major<__nv_bfloat16, false>(bucket_list, qg, q2g, rows, y2, ids, B, G,
-                                                 cap, d, kk, metric, f, out_v, out_i, s);
+                                                 cap, d, kk, metric, f, pg, out_v, out_i, s);
 }
 
 extern "C" int rt_ivf_scan_probe_major_int8(const int* bucket_list, const float* qg,
@@ -656,39 +778,46 @@ extern "C" int rt_ivf_scan_probe_major_int8(const int* bucket_list, const float*
                                             const float* y2, const int* ids, int B, int G,
                                             int cap, int d, int kk, int metric,
                                             float scan_scale, const int* filt, int cap_w,
+                                            const int* page_slot, int page_rows,
                                             float* out_v, int* out_i, void* stream) {
-  if (bad_shape(kk, d, cap, G)) return (int)cudaErrorInvalidValue;
+  const Pages pg = make_pages(page_slot, page_rows, cap);
+  if (bad_shape(kk, d, cap, G) || bad_pages(pg, cap)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const Filt f = make_filt(filt, nullptr, 0, cap_w);
   const size_t words = (size_t)((d + 3) / 4) * (rt::kBM + 1) * sizeof(int) + filt_smem(f);
   const int qpb = rt::lists_per_block(kk, rt::kBM, words);
   if (qpb < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + words;
-  auto kernel = pick_leg(kk, f.words != nullptr, [](auto w, auto fl) {
-    return probe_major_i8_kernel<decltype(w)::value, decltype(fl)::value>;
-  });
+  auto kernel = pick_leg(kk, f.words != nullptr, pg.slot != nullptr,
+                         [](auto w, auto fl, auto p) {
+                           return probe_major_i8_kernel<decltype(w)::value, decltype(fl)::value,
+                                                        decltype(p)::value>;
+                         });
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, (G + qpb - 1) / qpb);
   kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
       bucket_list, qg, q2g, static_cast<const int8_t*>(data), y2, ids, G, cap, d, kk, qpb,
-      metric, scan_scale, f, out_v, out_i);
+      metric, scan_scale, f, pg, out_v, out_i);
   return (int)cudaGetLastError();
 }
 
 // -- C entries: query-major ----------------------------------------------
 // filt: pass words, [n_lists][cap_w], or [F][n_lists][cap_w] with fid [Q]
 // naming each query's plane (the query_fid leg); null filt: unfiltered.
+// page_slot / page_rows: as probe-major.
 
 extern "C" int rt_ivf_scan_query_major(const int* probes, const float* q, const float* q2,
                                        const float* data, const float* y2, const int* ids,
                                        int Q, int P, int cap, int d, int kk, int metric,
                                        int splits, int bf16_compute, const int* filt,
-                                       const int* fid, int n_lists, int cap_w, float* part_v,
+                                       const int* fid, int n_lists, int cap_w,
+                                       const int* page_slot, int page_rows, float* part_v,
                                        int* part_i, float* out_v, int* out_i, void* stream) {
   return float_query_major(probes, q, q2, data, y2, ids, Q, P, cap, d, kk, metric, splits,
-                           bf16_compute, make_filt(filt, fid, n_lists, cap_w), part_v, part_i,
-                           out_v, out_i, (cudaStream_t)stream);
+                           bf16_compute, make_filt(filt, fid, n_lists, cap_w),
+                           make_pages(page_slot, page_rows, cap), part_v, part_i, out_v,
+                           out_i, (cudaStream_t)stream);
 }
 
 extern "C" int rt_ivf_scan_query_major_bf16(const int* probes, const float* q,
@@ -696,12 +825,13 @@ extern "C" int rt_ivf_scan_query_major_bf16(const int* probes, const float* q,
                                             const float* y2, const int* ids, int Q, int P,
                                             int cap, int d, int kk, int metric, int splits,
                                             int bf16_compute, const int* filt, const int* fid,
-                                            int n_lists, int cap_w, float* part_v,
-                                            int* part_i, float* out_v, int* out_i,
-                                            void* stream) {
+                                            int n_lists, int cap_w, const int* page_slot,
+                                            int page_rows, float* part_v, int* part_i,
+                                            float* out_v, int* out_i, void* stream) {
   return float_query_major(probes, q, q2, static_cast<const __nv_bfloat16*>(data), y2, ids, Q,
                            P, cap, d, kk, metric, splits, bf16_compute,
-                           make_filt(filt, fid, n_lists, cap_w), part_v, part_i, out_v, out_i,
+                           make_filt(filt, fid, n_lists, cap_w),
+                           make_pages(page_slot, page_rows, cap), part_v, part_i, out_v, out_i,
                            (cudaStream_t)stream);
 }
 
@@ -710,17 +840,20 @@ extern "C" int rt_ivf_scan_query_major_int8(const int* probes, const float* q,
                                             const float* y2, const int* ids, int Q, int P,
                                             int cap, int d, int kk, int metric, int splits,
                                             float scan_scale, const int* filt, const int* fid,
-                                            int n_lists, int cap_w, float* part_v,
-                                            int* part_i, float* out_v, int* out_i,
-                                            void* stream) {
+                                            int n_lists, int cap_w, const int* page_slot,
+                                            int page_rows, float* part_v, int* part_i,
+                                            float* out_v, int* out_i, void* stream) {
   const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) +
                       (size_t)((d + 3) / 4) * sizeof(int);
   const Filt f = make_filt(filt, fid, n_lists, cap_w);
-  auto kernel = pick_leg(kk, f.words != nullptr, [](auto w, auto fl) {
-    return query_major_i8_kernel<decltype(w)::value, decltype(fl)::value>;
-  });
+  const Pages pg = make_pages(page_slot, page_rows, cap);
+  auto kernel = pick_leg(kk, f.words != nullptr, pg.slot != nullptr,
+                         [](auto w, auto fl, auto p) {
+                           return query_major_i8_kernel<decltype(w)::value, decltype(fl)::value,
+                                                        decltype(p)::value>;
+                         });
   return launch_query_major(kernel, smem, probes, q, q2,
                             static_cast<const int8_t*>(data), y2, ids, Q, P, cap, d, kk,
-                            metric, splits, f, part_v, part_i, out_v, out_i,
+                            metric, splits, f, pg, part_v, part_i, out_v, out_i,
                             (cudaStream_t)stream, scan_scale);
 }

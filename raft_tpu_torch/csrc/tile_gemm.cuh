@@ -10,7 +10,9 @@
 // tolerance.  No TF32, no tensor cores: the slice scores at full f32, as
 // raft_tpu does with Precision.HIGHEST.
 //
-// B may be stored as f32 or bf16 (upcast exactly on load).  With kBf16 both
+// B may be stored as f32 or bf16 (upcast exactly on load), at a stride
+// (tile_gemm) or one address per row (tile_gemm_rows: the rows of a paged
+// list, scattered over pages).  With kBf16 both
 // operands are rounded to bf16 (round to nearest even, as astype(bfloat16))
 // before the product: raft_tpu's lut_dtype="bfloat16" leg.  A product of two
 // bf16 values is exact in f32, so fmaf then adds exactly what the plain
@@ -62,11 +64,38 @@ __device__ __forceinline__ void load_chunk(float (*dst)[kBM + 1], const T* src,
   }
 }
 
-// acc[i][j] = dot(A[ty + 16 i], B[tx + 16 j]) over d dimensions.
-template <typename TB, bool kBf16 = false>
-__device__ __forceinline__ void tile_gemm(const float* A, int a_rows, int lda,
-                                          const TB* B, int b_rows, int ldb,
-                                          int d, GemmSmem& sm, float acc[4][4]) {
+// The value lane j of the warp holds in `mine`: a tile's translated row
+// indices are passed across the warp by shuffle, one a lane.  Indices, not
+// pointers, so that the loads stay reads of the kernel's read-only rows
+// (__ldg).
+__device__ __forceinline__ size_t lane_value(size_t mine, int j) {
+  return __shfl_sync(0xffffffffu, (unsigned long long)mine, j);
+}
+
+// load_chunk for B rows held one index per row: row r starts at base + r'
+// d, where lane j < 8 of warp w holds in `mine` the index r' of the tile's
+// row 8 w + j; warp w loads rows 8 w .. 8 w + 7, one a step, kBK
+// dimensions across its lanes.
+template <typename T, bool kRound>
+__device__ __forceinline__ void load_chunk_rows(float (*dst)[kBM + 1], const T* __restrict__ base,
+                                                size_t mine, int rows, int d, int k0, int tid) {
+  static_assert(kBN == 8 * (kGemmThreads / 32) && kBK == 32, "eight rows a warp, a lane a dim");
+  const int lane = tid % 32;
+  const int r0 = 8 * (tid / 32);
+  const int k = k0 + lane;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const size_t row = lane_value(mine, j);
+    const float v = (r0 + j < rows && k < d) ? as_f32(__ldg(base + row * d + k)) : 0.0f;
+    dst[lane][r0 + j] = kRound ? round_bf16(v) : v;
+  }
+}
+
+// acc[i][j] = dot(A[ty + 16 i], B[tx + 16 j]) over d dimensions, each chunk
+// staged by load(k0).
+template <typename Load>
+__device__ __forceinline__ void tile_gemm_with(Load&& load, int d, GemmSmem& sm,
+                                               float acc[4][4]) {
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
@@ -76,8 +105,7 @@ __device__ __forceinline__ void tile_gemm(const float* A, int a_rows, int lda,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
   for (int k0 = 0; k0 < d; k0 += kBK) {
     __syncthreads();
-    load_chunk<float, kBf16>(sm.a, A, a_rows, lda, d, k0, tid);
-    load_chunk<TB, kBf16>(sm.b, B, b_rows, ldb, d, k0, tid);
+    load(k0);
     __syncthreads();
     const int kn = min(kBK, d - k0);
     for (int kk = 0; kk < kn; ++kk) {
@@ -92,6 +120,30 @@ __device__ __forceinline__ void tile_gemm(const float* A, int a_rows, int lda,
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
   }
+}
+
+// The product with B rows at stride ldb.
+template <typename TB, bool kBf16 = false>
+__device__ __forceinline__ void tile_gemm(const float* A, int a_rows, int lda,
+                                          const TB* B, int b_rows, int ldb,
+                                          int d, GemmSmem& sm, float acc[4][4]) {
+  tile_gemm_with([&](int k0) {
+    load_chunk<float, kBf16>(sm.a, A, a_rows, lda, d, k0, threadIdx.x);
+    load_chunk<TB, kBf16>(sm.b, B, b_rows, ldb, d, k0, threadIdx.x);
+  }, d, sm, acc);
+}
+
+// The product with B rows one index per row (load_chunk_rows's `base`
+// and `mine`).
+template <typename TB, bool kBf16 = false>
+__device__ __forceinline__ void tile_gemm_rows(const float* A, int a_rows, int lda,
+                                               const TB* __restrict__ base, size_t mine,
+                                               int b_rows, int d, GemmSmem& sm,
+                                               float acc[4][4]) {
+  tile_gemm_with([&](int k0) {
+    load_chunk<float, kBf16>(sm.a, A, a_rows, lda, d, k0, threadIdx.x);
+    load_chunk_rows<TB, kBf16>(sm.b, base, mine, b_rows, d, k0, threadIdx.x);
+  }, d, sm, acc);
 }
 
 }  // namespace rt

@@ -63,6 +63,13 @@ KERNELS = (
     "ivf_scan_query_major_bf16_filt", "ivf_scan_query_major_int8_filt",
     "ivf_scan_query_major_fid", "ivf_scan_query_major_bf16_fid",
     "ivf_scan_query_major_int8_fid",
+    # the paged legs (lists read through a page table, store.PagedLists;
+    # rows through one, store.PagedRows): _paged after the storage suffix
+    *(f"ivf_scan_{schedule}{dtype}_paged{leg}"
+      for schedule, legs in (("probe_major", ("", "_filt")),
+                             ("query_major", ("", "_filt", "_fid")))
+      for dtype in ("", "_bf16", "_int8") for leg in legs),
+    "cagra_fused_hop_paged",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
@@ -167,19 +174,23 @@ _SIGNATURES = {
     "rt_fused_knn": [_P, _P, _P] + [_I] * 6 + [_P] * 5,
     # probe-major: 6 arrays, (B, G, cap, d, kk, metric), then bf16_compute
     # (float legs) or scan_scale (int8), the filter words (null: unfiltered)
-    # and cap_w, then outputs and stream
-    "rt_ivf_scan_probe_major": [_P] * 6 + [_I] * 7 + [_P, _I] + [_P] * 3,
-    "rt_ivf_scan_probe_major_bf16": [_P] * 6 + [_I] * 7 + [_P, _I] + [_P] * 3,
-    "rt_ivf_scan_probe_major_int8": [_P] * 6 + [_I] * 6 + [_F] + [_P, _I] + [_P] * 3,
+    # and cap_w, the page table (null: monolithic lists) and page_rows, then
+    # outputs and stream
+    "rt_ivf_scan_probe_major": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
+    "rt_ivf_scan_probe_major_bf16": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
+    "rt_ivf_scan_probe_major_int8": [_P] * 6 + [_I] * 6 + [_F] + [_P, _I] * 2 + [_P] * 3,
     # query-major: 6 arrays, (Q, P, cap, d, kk, metric, splits), then
     # bf16_compute or scan_scale, the filter words and query_fid (null: none),
-    # n_lists and cap_w, then parts, outputs and stream
-    "rt_ivf_scan_query_major": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I] + [_P] * 5,
-    "rt_ivf_scan_query_major_bf16": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I] + [_P] * 5,
-    "rt_ivf_scan_query_major_int8": [_P] * 6 + [_I] * 7 + [_F] + [_P, _P, _I, _I] + [_P] * 5,
-    # dataset, bf16 flag, graph, queries, parents, buf_d, buf_i, explored,
-    # (tile, d, deg, width, itopk, ip_mode), outputs and stream
-    "rt_cagra_hop": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P] * 4,
+    # n_lists and cap_w, the page table and page_rows, then parts, outputs
+    # and stream
+    "rt_ivf_scan_query_major": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I, _P, _I] + [_P] * 5,
+    "rt_ivf_scan_query_major_bf16": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I, _P, _I] + [_P] * 5,
+    "rt_ivf_scan_query_major_int8": ([_P] * 6 + [_I] * 7 + [_F] + [_P, _P, _I, _I, _P, _I]
+                                     + [_P] * 5),
+    # dataset (or page pool), bf16 flag, graph, queries, parents, buf_d,
+    # buf_i, explored, (tile, d, deg, width, itopk, ip_mode), the page table
+    # (null: dense) and page_rows, outputs and stream
+    "rt_cagra_hop": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P, _I] + [_P] * 4,
 }
 
 

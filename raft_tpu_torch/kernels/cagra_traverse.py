@@ -1,5 +1,8 @@
 """One CAGRA beam-search hop: ``csrc/cagra_hop.cu`` and its plain version
-(counterpart of ``raft_tpu.kernels.cagra_traverse``, the dense leg).
+(counterpart of ``raft_tpu.kernels.cagra_traverse``: the dense leg, and the
+paged leg ``_hop_kernel_paged`` for a ``store.PagedRows`` dataset, whose
+rows are read through the page table; launch counts ``cagra_fused_hop`` and
+``cagra_fused_hop_paged``).
 
 A hop takes each query's ``width`` parents (−1: none) and folds their
 neighbour lists into the query's candidate buffer ``(buf_d, buf_i,
@@ -24,6 +27,7 @@ import torch
 
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.kernels.toolkit import fold_topk, sequential_dot
+from raft_tpu_torch.store.paged import PagedRows
 
 #: widest candidate buffer the hop kernel serves (raft_tpu's MAX_ITOPK)
 MAX_ITOPK = 512
@@ -32,10 +36,10 @@ _DATASET_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def traverse_supported(dataset, itopk: int) -> bool:
-    """Routing gate of the hop kernel: a dense f32 or bf16 dataset and
-    ``0 < itopk <= 512``."""
+    """Routing gate of the hop kernel: a dense f32 or bf16 dataset, or a
+    ``PagedRows`` of them, and ``0 < itopk <= 512``."""
     return (
-        isinstance(dataset, torch.Tensor)
+        isinstance(dataset, (torch.Tensor, PagedRows))
         and dataset.dtype in _DATASET_DTYPES
         and 0 < itopk <= MAX_ITOPK
     )
@@ -44,11 +48,15 @@ def traverse_supported(dataset, itopk: int) -> bool:
 def _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric):
     if metric not in _METRICS:
         raise ValueError(f"cagra hop metric must be one of {_METRICS}, got {metric!r}")
-    if not isinstance(dataset, torch.Tensor) or dataset.dtype not in _DATASET_DTYPES:
-        raise ValueError(f"cagra hop serves dense f32/bf16 datasets, got "
+    if (not isinstance(dataset, (torch.Tensor, PagedRows))
+            or dataset.dtype not in _DATASET_DTYPES):
+        raise ValueError(f"cagra hop serves f32/bf16 datasets, dense or paged, got "
                          f"{getattr(dataset, 'dtype', type(dataset))}")
     tile, itopk = buf_d.shape
     n, d = dataset.shape
+    if isinstance(dataset, PagedRows) and dataset.page_slot.shape[0] * dataset.page_rows < n:
+        raise ValueError(f"page table of {dataset.page_slot.shape[0]} pages of "
+                         f"{dataset.page_rows} rows cannot hold {n} rows")
     if graph.ndim != 2 or graph.shape[0] != n:
         raise ValueError(f"graph {tuple(graph.shape)} vs dataset {tuple(dataset.shape)}")
     if queries.shape != (tile, d) or parents.ndim != 2 or parents.shape[0] != tile:
@@ -59,13 +67,21 @@ def _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric):
         raise ValueError("buf_d, buf_i and explored must share one [tile, itopk] shape")
 
 
+def gather_rows(dataset, ids: torch.Tensor) -> torch.Tensor:
+    """f32 rows of ``ids`` (clipped to [0, n)), from a dense dataset or
+    through a ``PagedRows`` page table."""
+    if isinstance(dataset, PagedRows):
+        return dataset.decode(ids)
+    return dataset[ids.long().clamp(0, dataset.shape[0] - 1)].to(torch.float32)
+
+
 def _sqnorm(rows: torch.Tensor) -> torch.Tensor:
     """|v|^2 of rows [..., d], one f32 sum in dimension order."""
     return sequential_dot(rows[..., None, :], rows[..., None, :])[..., 0, 0]
 
 
 def cagra_fused_hop_torch(
-    dataset: torch.Tensor,    # [n, d] f32 / bf16
+    dataset,                  # [n, d] f32 / bf16, or PagedRows
     graph: torch.Tensor,      # [n, deg] int32
     queries: torch.Tensor,    # [tile, d] f32
     parents: torch.Tensor,    # [tile, width] int32, -1 = no parent
@@ -89,7 +105,7 @@ def cagra_fused_hop_torch(
         pid = parents[:, w:w + 1].to(torch.int64)
         cand = graph[pid[:, 0].clamp(0, n - 1)].to(torch.int32)               # [t, deg]
         cand = torch.where(pid < 0, torch.full_like(cand, -1), cand)
-        rows = dataset[cand.long().clamp(0, n - 1)].to(torch.float32)          # [t, deg, d]
+        rows = gather_rows(dataset, cand)                                      # [t, deg, d]
         ip = sequential_dot(q[:, None, :], rows)[:, 0, :]
         if metric == "inner_product":
             cd = -ip
@@ -106,7 +122,7 @@ def cagra_fused_hop_torch(
 
 
 def cagra_fused_hop(
-    dataset: torch.Tensor,
+    dataset,
     graph: torch.Tensor,
     queries: torch.Tensor,
     parents: torch.Tensor,
@@ -118,9 +134,10 @@ def cagra_fused_hop(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One hop (arguments as :func:`cagra_fused_hop_torch`); returns the
     merged ``(buf_d, buf_i, explored)``.  CUDA tensors go through
-    ``csrc/cagra_hop.cu``, CPU tensors take the plain version; the call
-    stamps ``kernel_path`` "cuda" or "torch".  Raises outside
-    :func:`traverse_supported` on the card."""
+    ``csrc/cagra_hop.cu`` (a ``PagedRows`` dataset through its paged leg),
+    CPU tensors take the plain version; the call stamps ``kernel_path``
+    "cuda" or "torch".  Raises outside :func:`traverse_supported` on the
+    card."""
     _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
     if dataset.device.type == "cpu":
         _k.stamp_kernel_path("torch")
@@ -130,23 +147,30 @@ def cagra_fused_hop(
     if not traverse_supported(dataset, itopk):
         raise ValueError(f"cagra hop kernel serves itopk<={MAX_ITOPK}, got {itopk}")
     n, d = dataset.shape
-    x = dataset.contiguous()
+    paged = isinstance(dataset, PagedRows)
+    name = "cagra_fused_hop_paged" if paged else "cagra_fused_hop"
+    x = dataset.pool if paged else dataset.contiguous()
     tensors = [x] + [t.contiguous() for t in (
         graph.to(torch.int32), queries.to(torch.float32), parents.to(torch.int32),
         buf_d.to(torch.float32), buf_i.to(torch.int32), explored.to(torch.bool))]
-    _k.require_cuda("cagra_fused_hop", *tensors)
-    g, qf, par, bd, bi, be = tensors[1:]
+    if paged:
+        if dataset.page_slot.dtype != torch.int32:
+            raise ValueError(f"page table must be int32, got {dataset.page_slot.dtype}")
+        tensors.append(dataset.page_slot)
+    _k.require_cuda(name, *tensors)
+    g, qf, par, bd, bi, be = tensors[1:7]
     out_d = torch.empty_like(bd)
     out_i = torch.empty_like(bi)
     out_e = torch.empty_like(be)
     lib = _k.library()
     _k.stamp_kernel_path("cuda")
-    _k.count_launch("cagra_fused_hop")
+    _k.count_launch(name)
     code = lib.rt_cagra_hop(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), qf.data_ptr(),
         par.data_ptr(), bd.data_ptr(), bi.data_ptr(), be.data_ptr(), tile, d, g.shape[1],
-        par.shape[1], itopk, int(metric == "inner_product"), out_d.data_ptr(),
-        out_i.data_ptr(), out_e.data_ptr(), _k.stream_of(x),
+        par.shape[1], itopk, int(metric == "inner_product"),
+        dataset.page_slot.data_ptr() if paged else None, dataset.page_rows if paged else 0,
+        out_d.data_ptr(), out_i.data_ptr(), out_e.data_ptr(), _k.stream_of(x),
     )
-    _k.check("cagra_fused_hop", code)
+    _k.check(name, code)
     return out_d, out_i, out_e

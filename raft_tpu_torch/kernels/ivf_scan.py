@@ -22,6 +22,20 @@ C entry and a launch count of its own (``ivf_scan_<schedule>``, ``_bf16``,
   (``toolkit.quantize_queries_i8``), the int8 products summed exactly, and
   the sum rescaled by (query scale x ``scan_scale``).
 
+Paged lists (``store.PagedLists``, kernel #4 and the same read in
+query-major): ``list_data`` may be a pool [slots, page_rows, d] behind a
+page table ``page_slot [L * ppl]``; row c of list l is then row c % page_rows
+of slot ``page_slot[l * ppl + c // page_rows]``.  Only the row address
+changes: ids, norms and filter words stay indexed by (list, slot) on the
+logical capacity ppl * page_rows, and the result is bitwise the monolithic
+scan's on the same rows.  Each paged leg has a launch count of its own,
+``_paged`` after the storage suffix (``ivf_scan_probe_major_bf16_paged``,
+``ivf_scan_query_major_paged_fid``).  raft_tpu's paged Pallas leg folds
+page by page and serves kk <= page_rows without filters
+(``paged_scan_supported``); it computes the same function, so the one leg
+here serves any kk <= 512, filtered or not, and query-major too (raft_tpu
+gathers paged query-major batches on XLA).
+
 Filters (``_score_against_list``'s filtered leg): ``list_filter`` holds
 each list's pass bits packed per slot (:func:`pack_list_filter`, [L,
 cap_w] int32 words, cap_w = ceil(cap / 32)); on query-major it may instead
@@ -48,6 +62,7 @@ import torch
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.core.bitset import WORD_BITS, _n_words, pack_bits, unpack_words
 from raft_tpu_torch.kernels.toolkit import int8_scored_ip, sequential_dot, topk_by_position
+from raft_tpu_torch.store.paged import PagedLists, gather_lists
 
 #: deepest kk (probe-major gives a block fewer queries past kk = 349)
 MAX_KK = 512
@@ -60,19 +75,20 @@ SCAN_DTYPES = ("float32", "highest", "bfloat16")
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
-def scan_supported(metric: str, list_data: torch.Tensor, kk: int) -> bool:
-    """Routing gate of both scan kernels: f32, bf16 or int8 storage, L2 /
-    inner product / cosine, ``kk <= 512``."""
+def scan_supported(metric: str, list_data, kk: int) -> bool:
+    """Routing gate of both scan kernels: f32, bf16 or int8 storage (a
+    tensor or ``PagedLists``), L2 / inner product / cosine, ``kk <= 512``."""
     return list_data.dtype in _LEGS and metric in _METRICS and 0 < kk <= MAX_KK
 
 
-def kernel_name(schedule: str, list_data: torch.Tensor, list_filter=None,
-                query_fid=None) -> str:
+def kernel_name(schedule: str, list_data, list_filter=None, query_fid=None) -> str:
     """The launch-count name of ``schedule``'s ("probe_major" /
-    "query_major") kernel for ``list_data``'s storage type and filter leg
-    (none, ``_filt`` or ``_fid``)."""
+    "query_major") kernel for ``list_data``'s storage type, paging
+    (``_paged`` for a ``PagedLists``) and filter leg (none, ``_filt`` or
+    ``_fid``)."""
+    paged = "_paged" if isinstance(list_data, PagedLists) else ""
     leg = "" if list_filter is None else "_filt" if query_fid is None else "_fid"
-    return f"ivf_scan_{schedule}{_LEGS[list_data.dtype]}{leg}"
+    return f"ivf_scan_{schedule}{_LEGS[list_data.dtype]}{paged}{leg}"
 
 
 def pack_list_filter(list_index: torch.Tensor, filter_words: torch.Tensor) -> torch.Tensor:
@@ -176,15 +192,16 @@ def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
                                list_y2, list_index, kk: int, *,
                                metric: str = "sqeuclidean", scan_dtype: str = "highest",
                                scan_scale: float = 1.0, list_filter=None):
-    """Plain probe-major scan, buckets in chunks of bounded size."""
+    """Plain probe-major scan, buckets in chunks of bounded size; a
+    ``PagedLists`` is read through its page table (``gather_lists``)."""
     B, G, d = q_gathered.shape
     cap = list_data.shape[1]
     step = max(1, _PLAIN_CHUNK_ELEMS // max(1, G * cap))
     vs, is_ = [], []
     for s in range(0, B, step):
         bl = bucket_list[s:s + step].long()
-        ip = _ip(q_gathered[s:s + step].to(torch.float32), list_data[bl], scan_dtype,
-                 scan_scale)                                       # [b, G, cap]
+        ip = _ip(q_gathered[s:s + step].to(torch.float32), gather_lists(list_data, bl),
+                 scan_dtype, scan_scale)                           # [b, G, cap]
         ids = list_index[bl][:, None, :]                           # [b, 1, cap]
         passing = None if list_filter is None else unpack_words(list_filter[bl], cap)[:, None]
         sc = _scores(ip, q2_gathered[s:s + step][:, :, None],
@@ -199,7 +216,8 @@ def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
                                kk: int, *, metric: str = "sqeuclidean",
                                scan_dtype: str = "highest", scan_scale: float = 1.0,
                                list_filter=None, query_fid=None):
-    """Plain query-major scan, queries in chunks of bounded size."""
+    """Plain query-major scan, queries in chunks of bounded size; a
+    ``PagedLists`` is read through its page table (``gather_lists``)."""
     Q, P = probes.shape
     cap = list_data.shape[1]
     step = max(1, _PLAIN_CHUNK_ELEMS // max(1, P * cap * list_data.shape[2]))
@@ -207,7 +225,7 @@ def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
     for s in range(0, Q, step):
         pr = probes[s:s + step].long()
         b = pr.shape[0]
-        rows = list_data[pr].reshape(b, P * cap, -1)
+        rows = gather_lists(list_data, pr).reshape(b, P * cap, -1)
         ip = _ip(q[s:s + step, None, :].to(torch.float32), rows, scan_dtype, scan_scale)
         ids = list_index[pr].reshape(b, 1, P * cap)
         passing = None
@@ -223,19 +241,19 @@ def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
     return _finish(torch.cat(vs), torch.cat(is_).to(torch.int32))
 
 
-def _launch(name, tensors, args, out_shape, kk, filtered: bool):
-    """Count launch ``name`` and launch its C entry (``rt_<name>`` less the
-    filter leg's suffix: one entry serves a storage type's unfiltered and
-    filter legs) with the pointers of ``tensors``, then ``args`` (ints, the
-    scale, filter and scratch pointers), outputs and stream."""
+def _launch(name, schedule, list_data, tensors, args, out_shape, kk):
+    """Count launch ``name`` and launch the C entry of ``schedule`` for
+    ``list_data``'s storage type (``rt_ivf_scan_<schedule>[_bf16|_int8]``:
+    one entry serves a storage type's unfiltered, filter and paged legs)
+    with the pointers of ``tensors``, then ``args`` (ints, the scale,
+    filter, page-table and scratch pointers), outputs and stream."""
     _k.require_cuda(name, *tensors)
     dev = tensors[0].device
     out_v = torch.empty(out_shape + (kk,), dtype=torch.float32, device=dev)
     out_i = torch.empty(out_shape + (kk,), dtype=torch.int32, device=dev)
     lib = _k.library()
-    entry = "rt_" + (name.rsplit("_", 1)[0] if filtered else name)
     _k.count_launch(name)
-    code = getattr(lib, entry)(
+    code = getattr(lib, f"rt_ivf_scan_{schedule}{_LEGS[list_data.dtype]}")(
         *(t.data_ptr() for t in tensors), *args,
         out_v.data_ptr(), out_i.data_ptr(), _k.stream_of(tensors[0]),
     )
@@ -254,6 +272,11 @@ def _check(metric, list_data, list_y2, list_index, kk, scan_dtype):
     L, cap, _ = list_data.shape
     if list_y2.shape != (L, cap) or list_index.shape != (L, cap):
         raise ValueError("list_y2 / list_index must be [n_lists, cap]")
+    if isinstance(list_data, PagedLists) and (
+            list_data.page_slot.ndim != 1
+            or list_data.page_slot.shape[0] != L * list_data.pages_per_list):
+        raise ValueError(f"page table must be [n_lists * pages_per_list] = "
+                         f"[{L * list_data.pages_per_list}], got {tuple(list_data.page_slot.shape)}")
 
 
 def _leg_arg(list_data, scan_dtype, scan_scale):
@@ -277,11 +300,25 @@ def _filter_args(list_filter, query_fid, dev, n_lists, cap):
     return (list_filter.data_ptr(), fid, n_lists, _n_words(cap))
 
 
+def _rows_args(list_data, dev):
+    """(the row tensor, (page_slot, page_rows) of the C entries): the lists
+    themselves with a null table, or a ``PagedLists``' pool and table."""
+    if not isinstance(list_data, PagedLists):
+        return list_data.contiguous(), (None, 0)
+    table = list_data.page_slot
+    if table.dtype != torch.int32:
+        raise ValueError(f"page table must be int32, got {table.dtype}")
+    _k.require_cuda("ivf_scan page table", table)
+    if table.device != dev:
+        raise ValueError(f"page table on {table.device}, queries on {dev}")
+    return list_data.pool, (table.data_ptr(), list_data.page_rows)
+
+
 def ivf_scan_probe_major(
     bucket_list: torch.Tensor,   # [B] int32 — list id per bucket
     q_gathered: torch.Tensor,    # [B, G, d] f32 — the bucket's queries
     q2_gathered: torch.Tensor,   # [B, G] f32 — |q|^2, +inf at padding
-    list_data: torch.Tensor,     # [L, cap, d] f32 / bf16 / int8
+    list_data,                   # [L, cap, d] f32 / bf16 / int8, or PagedLists
     list_y2: torch.Tensor,       # [L, cap] f32 (0 at padding slots)
     list_index: torch.Tensor,    # [L, cap] int32 (-1 at padding slots)
     kk: int,
@@ -303,18 +340,20 @@ def ivf_scan_probe_major(
         )
     B, G, d = q_gathered.shape
     L, cap, _ = list_data.shape
+    dev = q_gathered.device
+    rows, pages = _rows_args(list_data, dev)
     tensors = [t.contiguous() for t in (
         bucket_list.to(torch.int32), q_gathered.to(torch.float32),
-        q2_gathered.to(torch.float32), list_data, list_y2.to(torch.float32),
+        q2_gathered.to(torch.float32), rows, list_y2.to(torch.float32),
         list_index.to(torch.int32),
     )]
     filt = None if list_filter is None else list_filter.contiguous()
-    words, _, _, cap_w = _filter_args(filt, None, tensors[0].device, L, cap)
+    words, _, _, cap_w = _filter_args(filt, None, dev, L, cap)
     return _launch(
-        kernel_name("probe_major", list_data, filt), tensors,
+        kernel_name("probe_major", list_data, filt), "probe_major", list_data, tensors,
         (B, G, cap, d, kk, _METRICS[metric], _leg_arg(list_data, scan_dtype, scan_scale),
-         words, cap_w),
-        (B, G), kk, filt is not None,
+         words, cap_w, *pages),
+        (B, G), kk,
     )
 
 
@@ -322,7 +361,7 @@ def ivf_scan_query_major(
     probes: torch.Tensor,        # [Q, P] int32 — probed list ids
     q: torch.Tensor,             # [Q, d] f32
     q2: torch.Tensor,            # [Q] f32 — |q|^2 (+inf marks padding)
-    list_data: torch.Tensor,     # [L, cap, d] f32 / bf16 / int8
+    list_data,                   # [L, cap, d] f32 / bf16 / int8, or PagedLists
     list_y2: torch.Tensor,       # [L, cap] f32
     list_index: torch.Tensor,    # [L, cap] int32
     kk: int,
@@ -345,11 +384,12 @@ def ivf_scan_query_major(
         )
     Q, P = probes.shape
     L, cap, d = list_data.shape
+    dev = q.device
+    rows, pages = _rows_args(list_data, dev)
     tensors = [t.contiguous() for t in (
         probes.to(torch.int32), q.to(torch.float32), q2.to(torch.float32),
-        list_data, list_y2.to(torch.float32), list_index.to(torch.int32),
+        rows, list_y2.to(torch.float32), list_index.to(torch.int32),
     )]
-    dev = tensors[0].device
     filt = None if list_filter is None else list_filter.contiguous()
     fid = None if query_fid is None else query_fid.to(torch.int32).contiguous()
     splits = _k.grid_splits(Q, P, dev)
@@ -357,9 +397,9 @@ def ivf_scan_query_major(
     part_v = torch.empty(part_shape, dtype=torch.float32, device=dev)
     part_i = torch.empty(part_shape, dtype=torch.int32, device=dev)
     return _launch(
-        kernel_name("query_major", list_data, filt, fid), tensors,
+        kernel_name("query_major", list_data, filt, fid), "query_major", list_data, tensors,
         (Q, P, cap, d, kk, _METRICS[metric], splits,
          _leg_arg(list_data, scan_dtype, scan_scale),
-         *_filter_args(filt, fid, dev, L, cap), part_v.data_ptr(), part_i.data_ptr()),
-        (Q,), kk, filt is not None,
+         *_filter_args(filt, fid, dev, L, cap), *pages, part_v.data_ptr(), part_i.data_ptr()),
+        (Q,), kk,
     )

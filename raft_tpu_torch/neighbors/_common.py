@@ -374,13 +374,16 @@ def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
 
     Lists on the card go to the scan kernels, which raise outside their
     envelope (``kk`` up to ``ivf_scan.MAX_KK``); lists on the CPU go to the
-    plain versions, at any ``kk``.  The call stamps ``kernel_path`` "cuda"
-    or "torch".  Returns raw scores (the caller postprocesses) and ids."""
+    plain versions, at any ``kk``.  A paged index's ``list_data`` is a
+    ``store.PagedLists`` (:func:`paged_lists_for_search`), whose device is
+    its pool's: the route follows it (the index's own ``list_data`` is then
+    a host tensor).  The call stamps ``kernel_path`` "cuda" or "torch".
+    Returns raw scores (the caller postprocesses) and ids."""
     from raft_tpu_torch.kernels import ivf_scan as scan_mod
     from raft_tpu_torch.kernels import stamp_kernel_path
 
     data, _, list_index = lists
-    dev = data.device
+    dev = data.device  # a PagedLists' pool device
     per_row = isinstance(pass_filter, RowFilter)
     if per_row:
         validation.expects(
@@ -435,6 +438,35 @@ def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
         run_rows, queries,
         identity_fid_tile(data.shape[0], data.shape[1], workspace_bytes, n_probes),
         extras=(pass_filter.words.to(dev),))
+
+
+def paged_lists_for_search(index, queries: torch.Tensor, metric: str, n_probes: int):
+    """Paged-search prefix shared by ivf_flat / ivf_pq (raft_tpu's
+    ``paged_lists_for_search``): key the pager by the probed lists and hand
+    back the ``store.PagedLists`` view the scans read through.
+
+    A pool that holds every page pins the identity placement once and skips
+    the coarse pass and all per-call bookkeeping: nothing can be evicted,
+    so the page table never changes after the pin, and the call costs no
+    host synchronisation.  A smaller pool runs the coarse pass, reads the
+    unique probed lists back to the host (one synchronisation, as
+    raft_tpu's makes one), then calls ``prefetch`` (an advisory hint) and
+    ``ensure_resident`` (the blocking admission, on the current stream).
+    The scan's own coarse pass repeats this one's selection: the same
+    deterministic computation on the same inputs."""
+    from raft_tpu_torch.store.paged import PagedLists, pages_for_lists
+
+    tiered = index.paged
+    if tiered.slots == tiered.n_pages:
+        tiered.pin_identity()
+    else:
+        probes = coarse_select(queries, index.centers, metric, n_probes)
+        lists = torch.unique(probes).cpu().numpy()
+        pages = pages_for_lists(lists, tiered.pages_per_list)
+        tiered.prefetch(pages)
+        tiered.ensure_resident(pages)
+    pool, page_slot = tiered.view()
+    return PagedLists(pool, page_slot, tiered.pages_per_list)
 
 
 def sorted_id_dedup(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -14,6 +14,11 @@ distance tiles by ``torch.matmul`` (a product raft_tpu also leaves outside
 any kernel), each tile's top-k and the running merge by
 ``ops.matrix.select_k`` (the select_k kernel on the card); a filtered-out
 column takes the worst value and id -1.
+
+A paged index (``store.paginate_index``; ``dataset`` is then a host
+tensor) scans every row each call, so ``search`` pins the whole payload in
+the device pool once (``BudgetExceeded`` when the pool is smaller) and
+passes the flat pool view to ``knn``: bitwise the dense rows.
 """
 
 from __future__ import annotations
@@ -147,6 +152,8 @@ class Index:
     def __init__(self, dataset: torch.Tensor, metric: str = "sqeuclidean"):
         self.dataset = dataset
         self.metric = metric
+        #: the store.TieredStore of a paged index (store.paginate_index)
+        self.paged = None
 
     @property
     def size(self) -> int:
@@ -165,5 +172,13 @@ def build(dataset, *, metric: str = "sqeuclidean",
 
 def search(index: Index, queries, k: int, *, sample_filter=None,
            deleted_mask=None, res: Optional[Resources] = None):
-    return knn(index.dataset, queries, k, metric=index.metric,
+    dataset = index.dataset
+    if index.paged is not None:
+        # every row is scanned each call: identity-pin the whole payload
+        # once (one host-to-device transfer; BudgetExceeded if the pool is
+        # short) and scan the flat pool view (bitwise the dense rows)
+        index.paged.pin_identity()
+        pool, _ = index.paged.view()
+        dataset = pool.reshape((-1,) + tuple(pool.shape[2:]))[: index.size]
+    return knn(dataset, queries, k, metric=index.metric,
                sample_filter=sample_filter, deleted_mask=deleted_mask, res=res)

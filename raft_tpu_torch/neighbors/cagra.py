@@ -35,8 +35,15 @@ Random seed ids come from a ``torch.Generator`` seeded with
 of the two packages by passing ``seed_ids``.  ``save`` / ``load`` use
 raft_tpu's file format (kind "cagra", version 1).
 
+Paged datasets (``store.paginate_index``; ``dataset`` is then a host
+tensor): the beam search gathers rows the graph decides, so ``search`` pins
+the whole payload in the device pool once (``BudgetExceeded`` when the pool
+is smaller) and reads rows through a ``store.PagedRows`` page table — the
+hop's paged leg unfiltered, ``PagedRows.decode`` in :func:`traverse_init`
+and the filtered body — bitwise equal to the dense search.
+
 Not in this slice (``NotImplementedError``, ROADMAP Queue 2): int8 / uint8 datasets, ``compress``
-and VPQ datasets, paged datasets, ``EffortSpec``, the NN-descent builds;
+and VPQ datasets, ``EffortSpec``, the NN-descent builds;
 hnsw export and the sharded graph mode are not ported either.
 """
 
@@ -54,7 +61,7 @@ from raft_tpu_torch.core.bitset import RowFilter
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.kernels import stamp_kernel_path
-from raft_tpu_torch.kernels.cagra_traverse import cagra_fused_hop
+from raft_tpu_torch.kernels.cagra_traverse import cagra_fused_hop, gather_rows
 from raft_tpu_torch.neighbors import brute_force, ivf_pq, nn_descent
 from raft_tpu_torch.neighbors._common import (
     invalid_mask,
@@ -65,6 +72,7 @@ from raft_tpu_torch.neighbors._common import (
 )
 from raft_tpu_torch.neighbors.refine import refine
 from raft_tpu_torch.ops.matrix import select_k
+from raft_tpu_torch.store.paged import PagedRows
 
 _SERIALIZATION_VERSION = 1
 _METRICS = ("sqeuclidean", "euclidean", "inner_product")
@@ -133,6 +141,8 @@ class Index:
         self.graph = graph
         self.entry_centers = entry_centers
         self.entry_ids = entry_ids
+        #: the store.TieredStore of a paged index (store.paginate_index)
+        self.paged = None
 
     @property
     def size(self) -> int:
@@ -408,14 +418,14 @@ def _query_distance(qs: torch.Tensor, vecs: torch.Tensor, metric: str) -> torch.
     return torch.clamp(q2[:, None] + v2 - 2.0 * ip, min=0.0)
 
 
-def traverse_init(dataset: torch.Tensor, queries: torch.Tensor, seed_ids: torch.Tensor,
+def traverse_init(dataset, queries: torch.Tensor, seed_ids: torch.Tensor,
                   itopk: int, metric: str):
     """The seed buffer ``(buf_d, buf_i, explored)`` [tile, itopk]: seed rows
-    scored, repeats dropped (the first occurrence kept), the best ``itopk``
-    kept, id -1 at every +inf slot, nothing explored."""
-    n = dataset.shape[0]
+    (of a dense dataset or a ``PagedRows``) scored, repeats dropped (the
+    first occurrence kept), the best ``itopk`` kept, id -1 at every +inf
+    slot, nothing explored."""
     seed_ids = seed_ids.to(torch.int32)
-    vecs = dataset[seed_ids.long().clamp(0, n - 1)].to(torch.float32)
+    vecs = gather_rows(dataset, seed_ids)
     dists = _query_distance(queries, vecs, metric)
     inf = torch.full((), float("inf"), device=dists.device)
     dists = torch.where(seed_ids < 0, inf, dists)
@@ -427,7 +437,7 @@ def traverse_init(dataset: torch.Tensor, queries: torch.Tensor, seed_ids: torch.
     return buf_d, buf_i, torch.zeros(buf_d.shape, dtype=torch.bool, device=buf_d.device)
 
 
-def traverse_steps(dataset: torch.Tensor, graph: torch.Tensor, queries: torch.Tensor,
+def traverse_steps(dataset, graph: torch.Tensor, queries: torch.Tensor,
                    buf_d: torch.Tensor, buf_i: torch.Tensor, explored: torch.Tensor,
                    steps: int, width: int, metric: str):
     """``steps`` beam-search hops over ``(buf_d, buf_i, explored)``: each
@@ -488,7 +498,7 @@ def search_plan(params: SearchParams, index: Index, n_queries: int, k: int,
     return itopk, max_iter, tile
 
 
-def traverse_steps_filtered(dataset: torch.Tensor, graph: torch.Tensor,
+def traverse_steps_filtered(dataset, graph: torch.Tensor,
                             queries: torch.Tensor, buf_d: torch.Tensor, buf_i: torch.Tensor,
                             explored: torch.Tensor, k: int, steps: int, width: int,
                             metric: str, words: torch.Tensor):
@@ -516,7 +526,7 @@ def traverse_steps_filtered(dataset: torch.Tensor, graph: torch.Tensor,
         nbrs = graph[parents.long().clamp(0, n - 1)]
         cand = torch.where(parents[:, :, None] >= 0, nbrs,
                            torch.full_like(nbrs, -1)).reshape(tile, c_w)
-        vecs = dataset[cand.long().clamp(0, n - 1)].to(torch.float32)
+        vecs = gather_rows(dataset, cand)
         cd = torch.where(cand < 0, inf, _query_distance(queries, vecs, metric))
         dup_in_batch = ((cand[:, :, None] == cand[:, None, :]) & earlier).any(dim=1)
         in_buf = (cand[:, :, None] == buf_i[:, None, :]).any(dim=2)
@@ -551,8 +561,6 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     bits and ``deleted_mask`` excludes its set bits: such a search widens
     ``itopk`` and runs :func:`traverse_steps_filtered` (no hop kernel).
     The call stamps ``kernel_path`` "cuda" (its kernels) or "torch"."""
-    if getattr(index, "paged", None) is not None:
-        raise NotImplementedError(f"paged CAGRA datasets are not ported yet ({_ROADMAP})")
     res = ensure(res)
     res.device  # raises without a card unless the caller asked for the CPU
     dev = index.graph.device
@@ -572,19 +580,27 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     else:
         seed_ids = torch.as_tensor(np.array(seed_ids) if isinstance(seed_ids, np.ndarray)
                                    else seed_ids).to(dev, torch.int32)
+    dataset = index.dataset
+    if index.paged is not None:
+        # the walk gathers rows the graph decides, so no probe-keyed
+        # prefetch exists: identity-pin the whole payload once
+        # (BudgetExceeded if the pool is short) and read through the table
+        index.paged.pin_identity()
+        pool, page_slot = index.paged.view()
+        dataset = PagedRows(pool, page_slot, index.size)
     vs, is_ = [], []
     for s in range(0, queries.shape[0], tile):
         qs = queries[s:s + tile]
-        buf = traverse_init(index.dataset, qs, seed_ids[s:s + tile], itopk, metric)
+        buf = traverse_init(dataset, qs, seed_ids[s:s + tile], itopk, metric)
         if pass_filter is None:
-            buf_d, buf_i, _ = traverse_steps(index.dataset, index.graph, qs, *buf,
+            buf_d, buf_i, _ = traverse_steps(dataset, index.graph, qs, *buf,
                                              steps=max_iter, width=params.search_width,
                                              metric=metric)
             v, i = select_k(buf_d, k, select_min=True, input_indices=buf_i)
             i = torch.where(torch.isfinite(v), i, torch.full_like(i, -1))
         else:
             v, i = traverse_steps_filtered(
-                index.dataset, index.graph, qs, *buf, k=k, steps=max_iter,
+                dataset, index.graph, qs, *buf, k=k, steps=max_iter,
                 width=params.search_width, metric=metric,
                 words=words[s:s + tile] if per_row else words)
         vs.append(v)

@@ -12,6 +12,12 @@ reach the f32 legs of the CUDA kernels of ``kernels.ivf_scan`` for CUDA
 tensors (k up to 512 there; deeper k raises) and their plain versions for
 CPU tensors, unfiltered or on their filter legs (``sample_filter`` /
 ``deleted_mask``); every call stamps ``kernel_path`` "cuda" or "torch".
+
+Paged storage (``store.paginate_index``): the lists move to host pages
+behind a device pool at ``index.paged`` (``list_data`` is then a host
+tensor at the page-aligned capacity), and ``search`` reads them through the
+page table on the paged legs of the same kernels, bitwise equal to the
+monolithic search; ``extend`` refuses a paged index, as raft_tpu's does.
 """
 
 from __future__ import annotations
@@ -77,6 +83,8 @@ class Index:
         self.list_sizes = list_sizes
         self.list_norms = list_norms
         self.headroom = headroom
+        #: the store.TieredStore of a paged index (store.paginate_index)
+        self.paged = None
         self._group_inverse = None
         self._scan_norms = None
 
@@ -165,6 +173,11 @@ def extend(index: Index, new_vectors, new_indices=None, *,
            res: Optional[Resources] = None) -> Index:
     """Add vectors: append into spare list capacity when every centroid
     group has room, else merge with the existing rows and repack."""
+    if index.paged is not None:
+        raise ValueError(
+            "extend() on a paged index is unsupported — paged serving routes growth "
+            "through side buffers and re-paginates at compaction"
+        )
     res = ensure(res)
     dev = index.centers.device
     x = as_f32(new_vectors, dev)
@@ -219,8 +232,15 @@ def extend(index: Index, new_vectors, new_indices=None, *,
                  list_norms, headroom=index.headroom)
 
 
-def _lists(index: Index):
-    return index.list_data, index.scan_norms, index.list_index
+def _lists(index: Index, queries: torch.Tensor, n_probes: int):
+    """(list_data, scan norms, list_index) of a search of ``queries``: a
+    paged index's lists are the ``PagedLists`` view, its probed pages made
+    resident (``_common.paged_lists_for_search``)."""
+    data = index.list_data
+    if index.paged is not None:
+        data = _common.paged_lists_for_search(index, queries, DISTANCE_TYPES[index.metric],
+                                              n_probes)
+    return data, index.scan_norms, index.list_index
 
 
 def probe_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
@@ -228,8 +248,8 @@ def probe_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
     """Coarse select + probe inversion for one probe-major block: returns
     (the positional arguments of ``ivf_scan_probe_major``, bucket_pair)."""
     return _common.probe_major_scan_inputs(
-        queries, queries, index.centers, _lists(index), DISTANCE_TYPES[index.metric],
-        n_probes, k, bucket)
+        queries, queries, index.centers, _lists(index, queries, n_probes),
+        DISTANCE_TYPES[index.metric], n_probes, k, bucket)
 
 
 def query_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
@@ -237,8 +257,8 @@ def query_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
     """Coarse select for one query-major block: the positional arguments
     of ``ivf_scan_query_major``."""
     return _common.query_major_scan_inputs(
-        queries, queries, index.centers, _lists(index), DISTANCE_TYPES[index.metric],
-        n_probes, k)
+        queries, queries, index.centers, _lists(index, queries, n_probes),
+        DISTANCE_TYPES[index.metric], n_probes, k)
 
 
 def search(
@@ -275,7 +295,8 @@ def search(
     validation.check_in(params.strategy, ("auto", "query_major", "probe_major"), "strategy")
     metric = DISTANCE_TYPES[index.metric]
     v, i = _common.scan_search(
-        queries, int(k), n_probes, params.strategy, index.centers, _lists(index), metric,
+        queries, int(k), n_probes, params.strategy, index.centers,
+        _lists(index, queries, n_probes), metric,
         lambda qt: qt, {}, ensure(res).workspace_limit_bytes, pass_filter,
     )
     return _common.postprocess(v, metric), i

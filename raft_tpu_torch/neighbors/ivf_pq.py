@@ -27,8 +27,12 @@ filter legs (``_common.scan_search``).  Not in this slice (it raises
 ``NotImplementedError``): ``internal_distance_dtype="bfloat16"``.  On the
 card a search serves k up to 512 (the scan kernels' envelope) and raises
 past it.
-Paged indexes, ``EffortSpec`` and the sharded build's unsplit layout are not
-ported.
+Paged storage (``store.paginate_index``): the scan cache moves to host pages
+behind a device pool at ``index.paged`` (``list_data`` and the codes are then
+host tensors at the page-aligned capacity), and ``search`` reads it through
+the page table on the paged legs of the same kernels, bitwise equal to the
+monolithic search; ``extend`` refuses a paged index, as raft_tpu's does.
+``EffortSpec`` and the sharded build's unsplit layout are not ported.
 """
 
 from __future__ import annotations
@@ -141,6 +145,8 @@ class Index:
         self.list_y2 = list_y2
         self.scan_scale = float(scan_scale)
         self.headroom = headroom
+        #: the store.TieredStore of a paged index (store.paginate_index)
+        self.paged = None
         self._group_inverse = None
 
     @property
@@ -496,6 +502,11 @@ def extend(index: Index, new_vectors, new_indices=None, *,
     """Encode and add rows: predict + encode one tile at a time (a numpy
     input is uploaded tile by tile), then append into spare capacity or
     repack every row."""
+    if index.paged is not None:
+        raise ValueError(
+            "extend() on a paged index is unsupported: paged serving routes growth "
+            "through side buffers and re-paginates at compaction"
+        )
     res = ensure(res)
     dev = index.centers.device
     n = new_vectors.shape[0]
@@ -569,8 +580,15 @@ def with_decoded_dtype(index: Index, decoded_dtype: str) -> Index:
                  headroom=index.headroom)
 
 
-def _lists(index: Index):
-    return index.list_data, index.list_y2, index.list_index
+def _lists(index: Index, queries: torch.Tensor, n_probes: int):
+    """(list_data, list_y2, list_index) of a search of ``queries``: a paged
+    index's scan cache is the ``PagedLists`` view, its probed pages made
+    resident (``_common.paged_lists_for_search``)."""
+    data = index.list_data
+    if index.paged is not None:
+        data = _common.paged_lists_for_search(index, queries, DISTANCE_TYPES[index.metric],
+                                              n_probes)
+    return data, index.list_y2, index.list_index
 
 
 def scan_kwargs(index: Index, lut_dtype: str = "float32") -> dict:
@@ -587,7 +605,7 @@ def probe_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int, 
     """(the positional arguments of ``ivf_scan_probe_major`` for one
     probe-major block, bucket_pair); add :func:`scan_kwargs`."""
     return _common.probe_major_scan_inputs(
-        queries, _rotate(index, queries), index.centers, _lists(index),
+        queries, _rotate(index, queries), index.centers, _lists(index, queries, n_probes),
         DISTANCE_TYPES[index.metric], n_probes, k, bucket)
 
 
@@ -595,7 +613,7 @@ def query_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int, 
     """The positional arguments of ``ivf_scan_query_major`` for one
     query-major block; add :func:`scan_kwargs`."""
     return _common.query_major_scan_inputs(
-        queries, _rotate(index, queries), index.centers, _lists(index),
+        queries, _rotate(index, queries), index.centers, _lists(index, queries, n_probes),
         DISTANCE_TYPES[index.metric], n_probes, k)
 
 
@@ -626,7 +644,8 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
             f"{n_probes}*{index.list_cap}; raise n_probes")
     metric = DISTANCE_TYPES[index.metric]
     v, i = _common.scan_search(
-        queries, int(k), n_probes, params.strategy, index.centers, _lists(index), metric,
+        queries, int(k), n_probes, params.strategy, index.centers,
+        _lists(index, queries, n_probes), metric,
         lambda qt: _rotate(index, qt), scan_kwargs(index, params.lut_dtype),
         res.workspace_limit_bytes, pass_filter,
     )

@@ -22,6 +22,7 @@ NVIDIA's H100 SXM data sheet.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -144,6 +145,26 @@ def cagra_traverse_work(parents: torch.Tensor, deg: int, d: int, itopk: int, *,
     bytes_accessed = (live * deg * (d * itemsize + 4) + tile * (d * 4 + width * 4)
                       + 2 * tile * itopk * 9)
     return KernelCost(int(live * 4 * deg * d), int(bytes_accessed))
+
+
+def scan_paged_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int, out_rows: int,
+                    kk: int, *, blocks: int, pages_per_list: int, **kw) -> KernelCost:
+    """A paged leg of either scan: :func:`scan_work` at the same inputs plus
+    the page-table reads, one int32 per (block, page of its list), where
+    ``blocks`` counts the live buckets (probe-major) or the (query, probe)
+    pairs (query-major)."""
+    w = scan_work(probes, list_rows, d, out_rows, kk, **kw)
+    return dataclasses.replace(w, bytes_accessed=w.bytes_accessed
+                               + 4 * int(blocks) * int(pages_per_list))
+
+
+def cagra_traverse_paged_work(parents: torch.Tensor, deg: int, d: int, itopk: int, *,
+                              itemsize: int = 4) -> KernelCost:
+    """The paged hop: :func:`cagra_traverse_work` plus one int32 page-table
+    read per candidate of each live parent."""
+    w = cagra_traverse_work(parents, deg, d, itopk, itemsize=itemsize)
+    live = int((parents >= 0).sum())
+    return dataclasses.replace(w, bytes_accessed=w.bytes_accessed + 4 * live * deg)
 
 
 def bound_ms(cost: KernelCost) -> tuple:

@@ -48,3 +48,44 @@ def hop_inputs(seed, metric, *, n=1500, d=48, deg=16, tile=24, itopk=32, width=2
     parents[0] = -1
     return (x, torch.from_numpy(graph), q, parents, buf_d, buf_i,
             explored.scatter(1, ppos, True))
+
+
+def scattered_pages(rows, page_rows, seed, spare=3):
+    """``rows`` [n, ...] (n a multiple of ``page_rows``) placed page by page
+    into a pool with ``spare`` extra slots in a random order, the spare
+    slots filled with noise: (pool [n_pages + spare, page_rows, ...],
+    page_slot [n_pages] int32) — a placement no identity read can pass."""
+    n_pages = rows.shape[0] // page_rows
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n_pages + spare, generator=g)
+    pages = rows.reshape((n_pages, page_rows) + tuple(rows.shape[1:]))
+    pool = torch.zeros((n_pages + spare,) + tuple(pages.shape[1:]), dtype=rows.dtype)
+    if rows.dtype == torch.int8:
+        pool[:] = torch.randint(-127, 128, pool.shape, generator=g, dtype=torch.int8)
+    else:
+        pool[:] = torch.randn(pool.shape, generator=g).to(rows.dtype)
+    pool[perm[:n_pages]] = pages
+    return pool, perm[:n_pages].to(torch.int32)
+
+
+def paged_lists(list_data, page_rows, seed):
+    """A ``store.PagedLists`` over the lists [L, cap, d] (cap a multiple of
+    ``page_rows``) with a scattered placement."""
+    from raft_tpu_torch.store import PagedLists
+
+    L, cap = list_data.shape[:2]
+    pool, page_slot = scattered_pages(list_data.reshape((L * cap,) + tuple(list_data.shape[2:])),
+                                      page_rows, seed)
+    return PagedLists(pool, page_slot, cap // page_rows)
+
+
+def paged_rows(x, page_rows, seed):
+    """A ``store.PagedRows`` over the rows [n, d] (zero-padded to a page
+    multiple) with a scattered placement."""
+    from raft_tpu_torch.store import PagedRows
+
+    n = x.shape[0]
+    pad = -n % page_rows
+    rows = torch.cat([x, torch.zeros((pad,) + tuple(x.shape[1:]), dtype=x.dtype)])
+    pool, page_slot = scattered_pages(rows, page_rows, seed)
+    return PagedRows(pool, page_slot, n)

@@ -4,6 +4,8 @@ built (one set of seed ids for both, raft_tpu's fused hop in interpret
 mode), the file format both ways, the port's own builds at raft_tpu's
 recall thresholds, and the options this slice does not serve."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from raft_tpu_torch.neighbors import cagra as tcagra
 from raft_tpu_torch.neighbors import nn_descent as tnn
 from raft_tpu_torch.neighbors._common import sorted_id_dedup
 from raft_tpu_torch.stats.metrics import recall_at_k
+from raft_tpu_torch.store import paginate_index
 
 CPU = Resources(device="cpu")
 
@@ -220,9 +223,12 @@ def test_not_in_slice_options_raise(raft_index, data, tmp_path):
             getattr(tcagra, name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         from raft_tpu_torch.neighbors import hnsw  # noqa: F401
-    tidx.paged = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcagra.search(sp, tidx, q, 10, res=CPU)
+    # paged datasets are served since slice 5 (tests/test_torch_paged_search.py)
+    paged = copy.copy(tidx)
+    paginate_index(paged, page_rows=8, budget=None)
+    for a, b in zip(tcagra.search(sp, paged, q[:8], 10, res=CPU),
+                    tcagra.search(sp, tidx, q[:8], 10, res=CPU)):
+        assert torch.equal(a, b)
     # a VPQ-compressed index saved by raft_tpu
     path = str(tmp_path / "vpq.idx")
     jcagra.save(path, jcagra.compress(raft_index))

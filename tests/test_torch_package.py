@@ -140,18 +140,21 @@ def test_launch_counts_reset_and_read():
     kernels.count_launch("select_k")
     assert kernels.launch_counts()["select_k"] == 1
     # each storage leg of the scans, unfiltered and on each filter leg,
-    # counts on its own
+    # monolithic and paged, counts on its own
+    from raft_tpu_torch.store import PagedLists
+
     words = torch.zeros((1, 1), dtype=torch.int32)
     for schedule, legs in (("probe_major", [(None, None), (words, None)]),
                            ("query_major", [(None, None), (words, None), (words, words)])):
         for dtype in (torch.float32, torch.bfloat16, torch.int8):
-            for list_filter, query_fid in legs:
-                name = ivf_scan.kernel_name(schedule, torch.zeros((1, 1, 1), dtype=dtype),
-                                            list_filter, query_fid)
-                assert name in kernels.KERNELS
-                kernels.count_launch(name)
+            lists = torch.zeros((1, 8, 1), dtype=dtype)
+            for list_data in (lists, PagedLists(lists, torch.zeros(1, dtype=torch.int32), 1)):
+                for list_filter, query_fid in legs:
+                    name = ivf_scan.kernel_name(schedule, list_data, list_filter, query_fid)
+                    assert name in kernels.KERNELS
+                    kernels.count_launch(name)
     counts = kernels.launch_counts()
-    assert len(kernels.KERNELS) == 18
+    assert len(kernels.KERNELS) == 34 and "cagra_fused_hop_paged" in kernels.KERNELS
     assert all(counts[n] == 1 for n in kernels.KERNELS if n.startswith("ivf_scan"))
     kernels.reset_launch_counts()
     assert sum(kernels.launch_counts().values()) == 0
@@ -620,3 +623,149 @@ def test_filtered_searches_on_the_card_match_the_cpu(cuda):
         ic = i.cpu().numpy()
         rows = np.arange(300)[:, None] % ok.shape[0]
         assert ok[rows, np.clip(ic, 0, None)][ic >= 0].all()
+
+
+def _on(paged, dev):
+    """A PagedLists / PagedRows with its pool and table moved to ``dev``."""
+    from raft_tpu_torch.store import PagedLists
+
+    if isinstance(paged, PagedLists):
+        return PagedLists(paged.pool.to(dev), paged.page_slot.to(dev), paged.pages_per_list)
+    return type(paged)(paged.pool.to(dev), paged.page_slot.to(dev), paged.n_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_rows", [8, 1024])
+@pytest.mark.parametrize("kk", [10, 129])
+@pytest.mark.parametrize("schedule,leg", [("probe_major", None), ("probe_major", "filt"),
+                                          ("query_major", None), ("query_major", "filt"),
+                                          ("query_major", "fid")])
+@pytest.mark.parametrize("dtype,scan_dtype,d", [
+    (torch.float32, "float32", 64), (torch.bfloat16, "float32", 64),
+    (torch.bfloat16, "bfloat16", 64), (torch.int8, "float32", 64), (torch.int8, "float32", 30),
+])
+def test_paged_scan_legs_match_plain_and_unpaged_bitwise(cuda, schedule, leg, dtype, scan_dtype,
+                                                         d, kk, page_rows):
+    """Kernel #4 (and query-major's paged read) on lists placed page by page
+    in a scattered pool: bitwise equal to its plain version, to the unpaged
+    kernel on the same rows, and only the paged leg's count moves.  Page
+    rows 8 make every 64-row tile straddle pages; 1024 is the default."""
+    from _torch_parity import paged_lists
+
+    g = torch.Generator().manual_seed(21)
+    args, kw = _filter_leg_inputs(schedule, leg or "filt", dtype, d, kk, g)
+    if leg is None:
+        kw.pop("list_filter")
+    # repad the 300-slot lists to a page multiple, as paginate_index does
+    cap2 = -(-300 // page_rows) * page_rows
+    data, y2, ids = args[3:6]
+    pad = cap2 - data.shape[1]
+    data = torch.nn.functional.pad(data, (0, 0, 0, pad))
+    y2 = torch.nn.functional.pad(y2, (0, pad))
+    ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+    if "list_filter" in kw:
+        lf = kw["list_filter"]
+        kw["list_filter"] = torch.nn.functional.pad(lf, (0, -(-cap2 // 32) - lf.shape[-1]))
+    paged = paged_lists(data, page_rows, 4)
+    plain = getattr(ivf_scan, f"ivf_scan_{schedule}_torch")
+    kernel = getattr(ivf_scan, f"ivf_scan_{schedule}")
+    card = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    mono = card[:3] + [data.to(cuda), y2.to(cuda), ids.to(cuda), kk]
+    pag = card[:3] + [_on(paged, cuda), y2.to(cuda), ids.to(cuda), kk]
+    kw_card = {n: a.to(cuda) for n, a in kw.items() if torch.is_tensor(a)}
+    kw_card["scan_scale"] = kw["scan_scale"]
+    want = plain(*pag, scan_dtype=scan_dtype, **kw_card)
+    unpaged = kernel(*mono, scan_dtype=scan_dtype, **kw_card)
+    kernels.reset_launch_counts()
+    got = kernel(*pag, scan_dtype=scan_dtype, **kw_card)
+    torch.cuda.synchronize()
+    name = ivf_scan.kernel_name(schedule, pag[3], kw_card.get("list_filter"),
+                                kw_card.get("query_fid"))
+    assert "_paged" in name and name in kernels.KERNELS
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {name: 1}
+    for a, b, c in zip(got, want, unpaged):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert bool(torch.isfinite(got[0]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_rows", [8, 1024])
+@pytest.mark.parametrize("metric,dtype", [("sqeuclidean", torch.float32),
+                                          ("inner_product", torch.float32),
+                                          ("sqeuclidean", torch.bfloat16)])
+def test_paged_hop_matches_plain_and_dense_bitwise(cuda, metric, dtype, page_rows):
+    """#8's paged leg on rows in a scattered pool: bitwise equal to its
+    plain version (``PagedRows.decode``) and to the dense leg, with its own
+    launch count."""
+    from _torch_parity import paged_rows
+
+    x, *rest = hop_inputs(9, metric, n=4000, d=128, deg=64, tile=300, itopk=64, width=2)
+    x = x.to(dtype)
+    rest = [a.to(cuda) for a in rest]
+    paged = _on(paged_rows(x, page_rows, 6), cuda)
+    want = cagra_traverse.cagra_fused_hop_torch(paged, *rest, metric=metric)
+    dense = cagra_traverse.cagra_fused_hop(x.to(cuda), *rest, metric=metric)
+    kernels.reset_launch_counts()
+    got = cagra_traverse.cagra_fused_hop(paged, *rest, metric=metric)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {"cagra_fused_hop_paged": 1}
+    for a, b, c in zip(got, want, dense):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_paged_searches_on_the_card_match_monolithic(cuda):
+    """All four indexes paginated on the card (a pinned pool; IVF-Flat also
+    over budget, a query at a time): ids and distances bitwise equal to the
+    monolithic searches, and each IVF search launches its paged legs."""
+    import copy
+
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.store import MemoryBudget, paginate_index
+
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((6000, 32)).astype(np.float32)
+    q = rng.standard_normal((300, 32)).astype(np.float32)
+    res = Resources(device="cuda")
+    keep = Bitset.from_mask(rng.random(6000) < 0.3, device="cuda")
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=32), x, res=res)
+    pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=32, pq_dim=16), x, res=res)
+    for mod, idx, sp_cls in ((ivf_flat, flat, ivf_flat.SearchParams),
+                             (ivf_pq, pq, ivf_pq.SearchParams)):
+        paged = copy.copy(idx)
+        paginate_index(paged, page_rows=64, budget=None)
+        for strategy in ("probe_major", "query_major"):
+            sp = sp_cls(n_probes=8, strategy=strategy)
+            for kw in ({}, {"sample_filter": keep}):
+                kernels.reset_launch_counts()
+                got = mod.search(sp, paged, q, 10, res=res, **kw)
+                assert same(got, mod.search(sp, idx, q, 10, res=res, **kw))
+                assert any(c and "_paged" in n for n, c in kernels.launch_counts().items())
+    over = copy.copy(flat)
+    ppl = -(-flat.list_cap // 64)
+    n_pages = flat.n_lists * ppl
+    t = paginate_index(over, page_rows=64,
+                       budget=MemoryBudget(n_pages // 4 * 64 * 32 * 4 + 4 * n_pages))
+    sp = ivf_flat.SearchParams(n_probes=4)
+    for row in q[:40]:
+        assert same(ivf_flat.search(sp, over, row[None], 10, res=res),
+                    ivf_flat.search(sp, flat, row[None], 10, res=res))
+    assert t.misses > 0 and t.evictions > 0
+    bf = brute_force.build(x, res=res)
+    pbf = copy.copy(bf)
+    paginate_index(pbf, page_rows=64, budget=None)
+    assert same(brute_force.search(pbf, q, 10, res=res), brute_force.search(bf, q, 10, res=res))
+    cg = cagra.build(cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16,
+                                       build_algo="brute_force"), x, res=res)
+    pcg = copy.copy(cg)
+    paginate_index(pcg, page_rows=64, budget=None)
+    sp = cagra.SearchParams(itopk_size=32)
+    kernels.reset_launch_counts()
+    assert same(cagra.search(sp, pcg, q, 10, res=res), cagra.search(sp, cg, q, 10, res=res))
+    assert kernels.launch_counts()["cagra_fused_hop_paged"] > 0
+    assert same(cagra.search(sp, pcg, q, 10, res=res, sample_filter=keep),
+                cagra.search(sp, cg, q, 10, res=res, sample_filter=keep))
