@@ -68,7 +68,28 @@ then drives the port's main paths at the scale of sift-128-euclidean
    rows makes paged brute force and CAGRA raise ``BudgetExceeded``; and
    each paged leg against its plain version and beside its unpaged kernel
    on the same rows;
-11. where the time of each search goes: warm wall per search and, under
+11. kernel #7 (``kernels.fused_l2_argmin``) at raft_tpu's prims shape
+   (8,192 x 1,024 centers x 128) and at the k-means assignment of the 1M
+   rows; flat k-means (``cluster.kmeans.fit``, 1,024 clusters, 20 Lloyd
+   iterations, ``init="array"`` from a seeded sample of rows): two fits
+   bitwise equal, inertia finite and falling, ``predict`` equal to
+   ``distance.fused_l2_nn_argmin``; ``distance.pairwise_distance`` over
+   every canonical metric on 2,048 x 2,048 rows (non-negative rows for the
+   divergences, 2-D for haversine), ``fused_l2_nn`` and
+   ``masked_l2_nn_argmin`` at 8,192 x 1,024, each held to the same call on
+   the CPU; brute force over l1, cosine, chebyshev and correlation (100,000
+   rows, 1,000 queries, the select_k kernel);
+12. IVF-Flat over the 1M rows scaled by 16, rounded and clipped to uint8
+   (BIGANN's dtype), the same integers shifted to int8, and cast to bf16,
+   at raft's defaults: recall against the uint8 oracle, every search on its
+   storage type's legs (``_u8`` / ``_s8`` / ``_bf16``, filtered too), a
+   save / load round trip in raft_tpu's format, and the same searches on
+   the plain versions;
+13. deep k: IVF-Flat at k=1,000 on both schedules and brute force at
+   k=2,048 on 1,000 queries;
+14. four threads, each on its own CUDA stream, searching the over-budget
+   IVF-Flat index: bitwise the single-thread results;
+15. where the time of each search goes: warm wall per search and, under
    ``torch.profiler``, device time by kernel and the device's busy share.
 
 Launch counts are set to 0 before each phase of the main paths and read
@@ -83,9 +104,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
@@ -124,6 +147,21 @@ PAGE_ROWS = 1024
 OVER_BUDGET_FRACTION = 0.25
 OVER_BUDGET_QUERIES, OVER_BUDGET_BATCH = 200, 8
 PAGED_BF_QUERIES = 1000
+#: kernel #7 and flat k-means: raft_tpu's prims bench rows (bench/prims.py),
+#: the clusters and Lloyd iterations of the main path's fit
+ARGMIN_ROWS, KM_CLUSTERS, KM_ITERS = 8192, 1024, 20
+#: the distance layer: rows of each pairwise matrix, rows held to the CPU
+DIST_ROWS, DIST_CPU_ROWS = 2048, 256
+#: brute force over the other metrics: rows, queries, queries held to the CPU
+BF_METRICS = ("l1", "cosine", "chebyshev", "correlation")
+BF_ROWS, BF_QUERIES, BF_CPU_QUERIES = 100_000, 1000, 50
+#: 8-bit IVF-Flat: the rows scaled by this before rounding to uint8 (the
+#: synthetic rows span ~-4..14; BIGANN's uint8 rows span 0..255)
+U8_SCALE = 16.0
+#: deep k: queries, the IVF k, the brute-force k
+DEEP_QUERIES, DEEP_IVF_K, DEEP_BF_K = 1000, 1000, 2048
+#: threads searching the over-budget IVF-Flat index, and their batches
+THREADS, THREAD_QUERIES = 4, 256
 
 
 def main() -> int:
@@ -136,11 +174,12 @@ def main() -> int:
 
     import numpy as np
 
-    from raft_tpu_torch import datasets, kernels
-    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch import datasets, distance, kernels
+    from raft_tpu_torch.cluster import kmeans, kmeans_balanced
     from raft_tpu_torch.core.bitset import Bitset, RowFilter
     from raft_tpu_torch.core.resources import Resources, as_f32
     from raft_tpu_torch.kernels import cagra_traverse as ct
+    from raft_tpu_torch.kernels import fused_argmin as fa
     from raft_tpu_torch.kernels import fused_knn as fk
     from raft_tpu_torch.kernels import ivf_scan as scan
     from raft_tpu_torch.kernels import select_k as sk
@@ -227,13 +266,15 @@ def main() -> int:
         print(f"{name}: {time.perf_counter() - t0:.3f} s, launches "
               f"{ {n: c for n, c in phase_launches[name].items() if c} }", flush=True)
 
-    def batches(search_fn, k, kw_of=lambda b: {}):
+    def batches(search_fn, k, kw_of=lambda b: {}, queries=None):
         """``search_fn(query_block, k, **kw_of(b))`` over the QM_BATCHES
-        serving batches: (values, ids, wall ms per batch)."""
+        serving batches of ``queries`` (default: the main queries): (values,
+        ids, wall ms per batch)."""
+        queries = q if queries is None else queries
         outs, walls = [], []
         for b in range(QM_BATCHES):
             t0 = time.perf_counter()
-            outs.append(search_fn(q[b * QM_BATCH:(b + 1) * QM_BATCH], k, **kw_of(b)))
+            outs.append(search_fn(queries[b * QM_BATCH:(b + 1) * QM_BATCH], k, **kw_of(b)))
             sync()
             walls.append((time.perf_counter() - t0) * 1e3)
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), walls
@@ -742,6 +783,251 @@ def main() -> int:
         del small
     print(json.dumps({"uploads": uploads}), flush=True)
 
+    # -- main path: kernel #7, the distance layer, flat k-means ----------------
+    # k-means' initial centers: a fixed seeded sample of rows (init="array")
+    km_rows = np.sort(np.random.default_rng(SEED).choice(x.shape[0], KM_CLUSTERS, replace=False))
+    km_init = x[torch.from_numpy(km_rows).to(dev)]
+    cc_init = (km_init * km_init).sum(dim=1)
+    with phase("fused_argmin"):
+        am_small = kernels.fused_l2_argmin(x[:ARGMIN_ROWS], km_init, cc_init)
+        am_full = kernels.fused_l2_argmin(x, km_init, cc_init)
+    check(phase_launches["fused_argmin"]["fused_argmin"] == 2, "fused_l2_argmin launched #7 twice")
+    for tag, (v, i), n in (("8192", am_small, ARGMIN_ROWS), ("1M", am_full, x.shape[0])):
+        check(tuple(v.shape) == (n,) and v.dtype == torch.float32 and i.dtype == torch.int32
+              and bool(torch.isfinite(v).all()) and bool(((i >= 0) & (i < KM_CLUSTERS)).all()),
+              f"fused_l2_argmin {tag} x {KM_CLUSTERS}: finite scores, ids in range")
+    # the rows' own centers are sampled rows: each such row's argmin is its
+    # own center (or an exact duplicate of it)
+    own = am_full[1][torch.from_numpy(km_rows).to(dev)].long()
+    check(bool((km_init[own] == km_init).all(dim=1).all()),
+          "fused_l2_argmin: each sampled row's nearest center is itself")
+
+    km_params = kmeans.KMeansParams(n_clusters=KM_CLUSTERS, max_iter=KM_ITERS, init="array",
+                                    seed=SEED)
+    km_history = []
+    with phase("kmeans"):
+        t0 = time.perf_counter()
+        km_c, km_inertia, km_iters = kmeans.fit(km_params, x, init_centers=km_init,
+                                                history=km_history, res=res)
+        sync()
+        km_fit_s = time.perf_counter() - t0
+        km_labels = kmeans.predict(km_c, x, res=res)
+        km_nn = distance.fused_l2_nn_argmin(x, km_c, res=res)
+    again = kmeans.fit(km_params, x, init_centers=km_init, res=res)
+    check(torch.equal(again[0], km_c) and float(again[1]) == float(km_inertia)
+          and again[2] == km_iters, "two k-means fits, one init: centers and inertia bitwise equal")
+    del again
+    check(torch.equal(km_labels, km_nn), "kmeans.predict equals fused_l2_nn_argmin on the fit")
+    km_falling = all(b <= a * (1 + 1e-6) for a, b in zip(km_history, km_history[1:]))
+    check(len(km_history) == km_iters and all(np.isfinite(km_history)) and km_falling
+          and km_history[-1] < km_history[0] and np.isfinite(float(km_inertia)),
+          f"kmeans inertia finite and falling over {km_iters} iterations "
+          f"({km_history[0]:.6g} -> {km_history[-1]:.6g}, final {float(km_inertia):.6g})")
+    am_fit = kernels.fused_l2_argmin(x, km_c, (km_c * km_c).sum(dim=1))[1]
+    km_agree = float((am_fit.long() == km_labels.long()).float().mean())
+    print(f"kmeans fit: {km_fit_s:.3f} s, {km_iters} iterations, "
+          f"{km_fit_s * 1e3 / max(km_iters, 1):.3f} ms per Lloyd iteration; inertia by "
+          f"iteration {json.dumps(km_history)}; kernel #7's labels (no |x|^2, no clamp) agree "
+          f"with predict on {km_agree:.6f} of rows", flush=True)
+    del am_fit
+
+    # pairwise distances over every canonical metric, on the card and
+    # (DIST_CPU_ROWS rows of x) on the CPU; (rtol, atol): Gram-term metrics
+    # cancel terms near |x|^2 (~1e4 here) in another summation order
+    cpu = Resources(device="cpu")
+    dx, dy = x[:DIST_ROWS], x[DIST_ROWS:2 * DIST_ROWS]
+    simplex = lambda t: t.clamp(min=0) / t.clamp(min=0).sum(dim=1, keepdim=True)
+    latlon = lambda t: torch.stack([t[:, 0] / 20.0, t[:, 1] / 5.0], dim=1)   # radians
+    metric_data = {"hellinger": simplex, "jensenshannon": simplex, "kl_divergence": simplex,
+                   "jaccard": lambda t: (t > 5).float(), "dice": lambda t: (t > 5).float(),
+                   "russellrao": lambda t: (t > 5).float(), "haversine": latlon,
+                   "hamming": lambda t: torch.round(t / 4)}
+    gram_tol, elem_tol = (1e-4, 1e-2), (1e-5, 1e-4)
+    metric_tol = {"chebyshev": (0.0, 0.0), "hamming": (1e-6, 0.0), "jensenshannon": (1e-4, 1e-5),
+                  "kl_divergence": (1e-4, 1e-5), "haversine": (1e-5, 1e-6),
+                  "canberra": elem_tol, "l1": elem_tol, "minkowski": (1e-4, 1e-3),
+                  "braycurtis": elem_tol}
+    canon = sorted(set(distance.DISTANCE_TYPES.values()))
+    dist_in = {m: (metric_data.get(m, lambda t: t)(dx), metric_data.get(m, lambda t: t)(dy))
+               for m in canon}
+    with phase("distance"):
+        t0 = time.perf_counter()
+        dist_out = {m: distance.pairwise_distance(*dist_in[m], metric=m, res=res) for m in canon}
+        sync()
+        dist_s = time.perf_counter() - t0
+        fnn = distance.fused_l2_nn(x[:ARGMIN_ROWS], km_c, res=res)
+        adj = torch.from_numpy(np.random.default_rng(SEED).random((ARGMIN_ROWS, KM_CLUSTERS))
+                               < 0.5).to(dev)
+        mnn = distance.masked_l2_nn_argmin(x[:ARGMIN_ROWS], km_c, adj, res=res)
+    worst = {}
+    for m in canon:
+        a, b = dist_in[m]
+        ref = distance.pairwise_distance(a[:DIST_CPU_ROWS].cpu(), b.cpu(), metric=m, res=cpu)
+        got = dist_out[m][:DIST_CPU_ROWS].cpu()
+        rtol, atol = metric_tol.get(m, gram_tol)
+        worst[m] = float((got - ref).abs().max())
+        check(tuple(dist_out[m].shape) == (DIST_ROWS, DIST_ROWS)
+              and bool(torch.isfinite(dist_out[m]).all())
+              and torch.allclose(got, ref, rtol=rtol, atol=atol),
+              f"pairwise_distance {m} [{DIST_ROWS}, {DIST_ROWS}] within rtol {rtol} atol {atol} "
+              f"of the CPU (max abs diff {worst[m]:.3e})")
+    print(f"pairwise_distance, {len(canon)} metrics on {DIST_ROWS} x {DIST_ROWS} x "
+          f"{dx.shape[1]}: {dist_s:.3f} s", flush=True)
+    for tag, (v, i), ref in (
+            ("fused_l2_nn", fnn, distance.fused_l2_nn(x[:ARGMIN_ROWS].cpu(), km_c.cpu(), res=cpu)),
+            ("masked_l2_nn_argmin", mnn, distance.masked_l2_nn_argmin(
+                x[:ARGMIN_ROWS].cpu(), km_c.cpu(), adj.cpu(), res=cpu))):
+        agree = float((i.cpu() == ref[1]).float().mean())
+        check(torch.allclose(v.cpu(), ref[0], rtol=1e-4, atol=1e-2) and agree >= ID_AGREE,
+              f"{tag} {ARGMIN_ROWS} x {KM_CLUSTERS}: values within rtol 1e-4 atol 1e-2 of the "
+              f"CPU, ids agree on {agree:.5f}")
+    del dist_out, dist_in, adj
+
+    # brute force over metrics past the fused kernel's: the tiled leg, its
+    # selections on the select_k kernel
+    bx, bq = x[:BF_ROWS], q[:BF_QUERIES]
+    with phase("brute_force_metrics"):
+        bfm = {m: brute_force.knn(bx, bq, K, metric=m, res=res) for m in BF_METRICS}
+    check(kernels.consume_kernel_path() == "cuda", "brute force metrics routed to cuda")
+    check(phase_launches["brute_force_metrics"]["select_k"] > 0
+          and phase_launches["brute_force_metrics"]["fused_knn"] == 0,
+          "brute force metrics launched select_k (the tiled leg), not fused_knn")
+    for m, (v, i) in bfm.items():
+        rv, ri = brute_force.knn(bx.cpu(), bq[:BF_CPU_QUERIES].cpu(), K, metric=m, res=cpu)
+        v0, i0 = v[:BF_CPU_QUERIES].cpu(), i[:BF_CPU_QUERIES].cpu()
+        # ids equal except at a value tie (in either run's list)
+        gaps = torch.cat([torch.full((rv.shape[0], 1), float("inf")), rv.diff(dim=1).abs(),
+                          torch.full((rv.shape[0], 1), float("inf"))], dim=1)
+        untied = (gaps[:, :-1] > 1e-5 * rv.abs().clamp(min=1)) & (gaps[:, 1:] > 1e-5 * rv.abs().clamp(min=1))
+        check(bool(torch.isfinite(v).all()) and torch.allclose(v0, rv, rtol=1e-5, atol=1e-4)
+              and torch.equal(i0[untied], ri[untied]),
+              f"brute force {m} [{BF_QUERIES}, {K}] over {BF_ROWS} rows: values within rtol 1e-5 "
+              f"atol 1e-4 of the CPU, ids equal except at ties ({int((~untied).sum())} tied)")
+
+    # -- main path: IVF-Flat over 8-bit and bf16 rows ---------------------------
+    x_u8 = torch.clamp(torch.round(x * U8_SCALE), 0, 255).to(torch.uint8)
+    q_u8 = torch.clamp(torch.round(q * U8_SCALE), 0, 255)            # f32 queries
+    rows8 = {"u8": (x_u8, q_u8), "s8": ((x_u8.to(torch.int16) - 128).to(torch.int8), q_u8 - 128),
+             "bf16": (x_u8.to(torch.bfloat16), q_u8)}
+    with phase("oracle_u8"):
+        gt8_i = brute_force.knn(x_u8, q_u8, K, res=res)[1]
+    check(phase_launches["oracle_u8"]["fused_knn"] > 0, "uint8 oracle launched fused_knn")
+    # a shift by 128 leaves every L2 distance as it is, and bf16 holds these
+    # integers exactly: one oracle serves all three
+    idx8, out8, legs8 = {}, {}, {}
+    for tag, (rows, qs8) in rows8.items():
+        with phase(f"ivf_flat_{tag}_build"):
+            idx8[tag] = ivf_flat.build(params, rows, res=res)
+        check(idx8[tag].list_data.dtype == rows.dtype,
+              f"ivf_flat {tag}: lists kept as {rows.dtype} (cap {idx8[tag].list_cap})")
+        leg = {"u8": "_u8", "s8": "_s8", "bf16": "_bf16"}[tag]
+        legs8[tag] = leg
+        with phase(f"ivf_flat_{tag}"):
+            out8[f"{tag} probe-major"] = ivf_flat.search(sp, idx8[tag], qs8, K, res=res)
+            out8[f"{tag} query-major"] = batches(
+                lambda qb, k, **kw: ivf_flat.search(sp, idx8[tag], qb, k, res=res, **kw), K,
+                queries=qs8)[:2]
+            out8[f"{tag} probe-major pass10"] = ivf_flat.search(sp, idx8[tag], qs8, K, res=res,
+                                                                **filters["pass10"])
+            out8[f"{tag} query-major pass10"] = batches(
+                lambda qb, k, **kw: ivf_flat.search(sp, idx8[tag], qb, k, res=res, **kw), K,
+                lambda b: filters["pass10"], qs8)[:2]
+            out8[f"{tag} query-major table8"] = batches(
+                lambda qb, k, **kw: ivf_flat.search(sp, idx8[tag], qb, k, res=res, **kw), K,
+                lambda b: table_batches[b], qs8)[:2]
+        check(kernels.consume_kernel_path() == "cuda", f"ivf_flat {tag} routed to cuda")
+        pl = phase_launches[f"ivf_flat_{tag}"]
+        for name in (f"ivf_scan_probe_major{leg}", f"ivf_scan_probe_major{leg}_filt",
+                     f"ivf_scan_query_major{leg}", f"ivf_scan_query_major{leg}_filt",
+                     f"ivf_scan_query_major{leg}_fid"):
+            check(pl[name] > 0, f"ivf_flat {tag} launched {name}")
+        stray = {n: c for n, c in pl.items() if c and n.startswith("ivf_scan") and leg not in n}
+        check(not stray, f"ivf_flat {tag}: no other scan leg launched {stray or ''}")
+        for sched in ("probe-major", "query-major"):
+            r = recall_at_k(out8[f"{tag} {sched}"][1], gt8_i[:out8[f"{tag} {sched}"][1].shape[0]], K)
+            out8[f"{tag} {sched} recall"] = r
+            check(r >= 0.8, f"ivf_flat {tag} {sched} recall@{K} {r:.5f} >= 0.8 against the "
+                  "uint8 oracle")
+        for fname in ("pass10", "table8"):
+            for name in [n for n in out8 if n.startswith(tag) and n.endswith(fname)]:
+                ids = out8[name][1]
+                ok = passes[fname](ids.long().clamp(min=0)) | (ids < 0)
+                check(bool(ok.all()) and float((ids >= 0).float().mean()) >= 0.99,
+                      f"ivf_flat {name}: no id fails its filter, >= 99 % filled")
+    # the uint8 and bf16 indexes hold the same integers (bf16 holds them
+    # exactly), so their builds train on the same f32 rows: the same ids.
+    # (The int8 copy is shifted by 128, which moves k-means' rounding.)
+    check(all(torch.equal(out8[f"u8 {s_}"][1], out8[f"bf16 {s_}"][1])
+              for s_ in ("probe-major", "query-major")),
+          "u8 and bf16 IVF-Flat (one set of integers) give the same ids on both schedules")
+    # raft_tpu's format: a save / load round trip in memory
+    buf = io.BytesIO()
+    ivf_flat.save(buf, idx8["u8"])
+    buf.seek(0)
+    back = ivf_flat.load(buf, res=res)
+    check(back.list_data.dtype == torch.uint8 and torch.equal(back.list_data, idx8["u8"].list_data)
+          and same(ivf_flat.search(sp, back, q_u8, K, res=res), out8["u8 probe-major"]),
+          f"ivf_flat u8 save -> load ({buf.tell()} bytes): uint8 lists, searches bitwise equal")
+    del buf, back
+
+    # -- main path: deep k (past the kernels' former 512) -------------------------
+    dq = q[:DEEP_QUERIES]
+    deep = {}
+    with phase("deep_k"):
+        for strategy in ("probe_major", "query_major"):
+            deep[strategy] = ivf_flat.search(ivf_flat.SearchParams(n_probes=N_PROBES,
+                                                                   strategy=strategy),
+                                             index, dq, DEEP_IVF_K, res=res)
+            check(kernels.consume_kernel_path() == "cuda", f"deep k {strategy} stamped cuda")
+        deep["brute_force"] = brute_force.knn(x, dq, DEEP_BF_K, res=res)
+        check(kernels.consume_kernel_path() == "cuda", "deep k brute force stamped cuda")
+    for name, kk_ in (("ivf_scan_probe_major", DEEP_IVF_K), ("ivf_scan_query_major", DEEP_IVF_K),
+                      ("fused_knn", DEEP_BF_K)):
+        check(phase_launches["deep_k"][name] > 0, f"deep k launched {name} (k {kk_})")
+    for name, (v, i) in deep.items():
+        k_ = DEEP_BF_K if name == "brute_force" else DEEP_IVF_K
+        check(tuple(i.shape) == (DEEP_QUERIES, k_) and bool((i >= 0).all())
+              and bool(torch.isfinite(v).all()),
+              f"deep k {name} [{DEEP_QUERIES}, {k_}]: every slot filled")
+    check(torch.equal(deep["probe_major"][1][:, :K], deep["query_major"][1][:, :K]),
+          "deep k: both schedules agree on the first 10")
+
+    # -- main path: threads searching one paged index over budget ----------------
+    t_batches = [q[b:b + OVER_BUDGET_BATCH] for b in range(0, THREAD_QUERIES, OVER_BUDGET_BATCH)]
+    t_want = [ivf_flat.search(sp, index, qb, K, res=res) for qb in t_batches]
+    sync()   # the threads' own streams do not wait on this one
+    t_out, t_err = [[] for _ in range(THREADS)], []
+
+    def searcher(t):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for j in range(len(t_batches)):
+                    b = (j + t * len(t_batches) // THREADS) % len(t_batches)
+                    v, i = ivf_flat.search(sp, p_over, t_batches[b], K, res=res)
+                    stream.synchronize()
+                    t_out[t].append((b, v, i))
+        except Exception as e:  # surfaced by the check below
+            t_err.append(repr(e))
+
+    with phase("paged_threads"):
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=searcher, args=(t,)) for t in range(THREADS)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        threads_s = time.perf_counter() - t0
+    t_ok = not t_err and all(len(o) == len(t_batches) for o in t_out) and all(
+        same((v, i), t_want[b]) for o in t_out for b, v, i in o)
+    check(t_ok, f"{THREADS} threads on their own streams x {len(t_batches)} batches of "
+          f"{OVER_BUDGET_BATCH} over budget: bitwise the single-thread results {t_err or ''}")
+    check(phase_launches["paged_threads"]["ivf_scan_query_major_paged"] > 0,
+          "paged threads launched ivf_scan_query_major_paged")
+    print(f"paged threads: {THREADS} x {len(t_batches)} batches in {threads_s:.3f} s; "
+          f"pager {json.dumps(over_pager.stats())}", flush=True)
+    del t_want, t_out
+
     main_launches = {
         name: sum(p[name] for p in phase_launches.values()) for name in kernels.KERNELS
     }
@@ -925,6 +1211,35 @@ def main() -> int:
                   f"{tag}: kernel-path recall within 0.005 of the plain path")
     check(kernel_cagra["cagra itopk 16, 4 hops"] < 0.95,
           "cagra low-effort recall is below 0.95 (the comparison can fail)")
+    # the 8-bit and bf16 IVF-Flat searches on the plain versions, at 20 and
+    # LOW_PROBES probes (where recall is below 1, so the comparison can fail)
+    sp_low8 = ivf_flat.SearchParams(n_probes=LOW_PROBES)
+
+    def recalls8():
+        out = {}
+        for tag, (_, qs8) in rows8.items():
+            for sp_, tag_p in ((sp, N_PROBES), (sp_low8, LOW_PROBES)):
+                i_pm = ivf_flat.search(sp_, idx8[tag], qs8, K, res=res)[1]
+                i_qm = batches(lambda qb, k: ivf_flat.search(sp_, idx8[tag], qb, k, res=res), K,
+                               queries=qs8)[1]
+                out[f"ivf_flat {tag} probe-major n_probes={tag_p}"] = recall_at_k(i_pm, gt8_i, K)
+                out[f"ivf_flat {tag} query-major n_probes={tag_p}"] = recall_at_k(
+                    i_qm, gt8_i[:i_qm.shape[0]], K)
+        return out
+
+    kernel8 = recalls8()
+    kernels.reset_launch_counts()
+    with plain_versions():
+        plain8 = recalls8()
+    check(sum(kernels.launch_counts().values()) == 0, "plain 8-bit path launched no kernel")
+    for name, r in kernel8.items():
+        recall_table[name] = [r, plain8[name]]
+        print(f"recall@{K} {name}: kernel path {r:.5f}, plain path {plain8[name]:.5f}",
+              flush=True)
+        check(abs(r - plain8[name]) <= 0.005, f"{name}: kernel-path recall within 0.005 of the "
+              "plain path")
+    check(min(r for n, r in kernel8.items() if f"={LOW_PROBES}" in n) < 0.95,
+          f"8-bit IVF-Flat recall at n_probes={LOW_PROBES} is below 0.95 (the comparison can fail)")
     print(json.dumps({"recall_kernel_vs_plain": recall_table}), flush=True)
 
     # -- kernels against their plain versions -------------------------------
@@ -1135,7 +1450,10 @@ def main() -> int:
         (scan_dtype, err_, ms_, plain_, work, raft, extra), *others = measured
         also = [dict(zip(("scan_dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
                          (o[0], o[1], o[2], o[3], *cost.bound_ms(o[4]))), **o[6]) for o in others]
-        record(name, "raft_tpu_torch/csrc/ivf_scan.cu", replaces, err_, ms_, plain_, work, raft,
+        source = next(f"raft_tpu_torch/csrc/ivf_scan_{src}.cu" for leg, src in (
+            ("_bf16", "bf16"), ("_int8", "int8"), ("_u8", "8bit"), ("_s8", "8bit"), ("", "f32"))
+            if leg in name)
+        record(name, source, replaces, err_, ms_, plain_, work, raft,
                None, f"{shape} cap={idx.list_cap} d={width} kk={kk} rows {idx.list_data.dtype}"
                + (f", filter {filt_tag}" if filt_tag else "")
                + (f", paged {idx.paged.pages_per_list} x {PAGE_ROWS}-row pages a list"
@@ -1257,6 +1575,96 @@ def main() -> int:
     wide_scan("ivf_scan_probe_major_bf16", bf16,
               ivf_pq.probe_major_scan_inputs(bf16, q, N_PROBES, WIDE_KK, pq_bucket)[0], bitwise,
               ivf_pq.scan_kwargs(bf16, "float32"))
+
+    # the raw 8-bit legs (IVF-Flat over uint8 / int8 rows), unfiltered and on
+    # both filter legs, on the 8-bit main path's inputs: bitwise
+    raw_kw = [({"scan_scale": None}, "float32")]
+    for tag in ("u8", "s8"):
+        idx, qs8 = idx8[tag], rows8[tag][1]
+        args8, _ = ivf_flat.probe_major_scan_inputs(idx, qs8, N_PROBES, K, bucket)
+        sets8 = [ivf_flat.query_major_scan_inputs(idx, qs8[b * QM_BATCH:(b + 1) * QM_BATCH],
+                                                  N_PROBES, K) for b in range(QM_BATCHES)]
+        lf8, planes8_ = filter_inputs(idx)
+        scan_leg("probe_major", f"ivf_scan_probe_major_{tag}", idx, [args8], bitwise, raw_kw)
+        scan_leg("probe_major", f"ivf_scan_probe_major_{tag}_filt", idx, [args8], bitwise, raw_kw,
+                 lambda b: dict(list_filter=lf8), "pass10")
+        scan_leg("query_major", f"ivf_scan_query_major_{tag}", idx, sets8, bitwise, raw_kw)
+        scan_leg("query_major", f"ivf_scan_query_major_{tag}_filt", idx, sets8, bitwise, raw_kw,
+                 lambda b: dict(list_filter=lf8), "pass10")
+        scan_leg("query_major", f"ivf_scan_query_major_{tag}_fid", idx, sets8, bitwise, raw_kw,
+                 fid_of(planes8_), "table8, each query's plane")
+        del args8, sets8, lf8, planes8_
+
+    # deep k: the IVF-Flat scans at k 1000 and fused_knn at k 2048, on the
+    # deep main path's queries, bitwise, each recorded beside its kk=10 row
+    def add_wide(name, entry):
+        next(r for r in results if r["name"] == name).setdefault("wide", []).append(entry)
+
+    _, bucket_d, _, _ = _common.select_scan_strategy(
+        "probe_major", DEEP_QUERIES, N_PROBES, index.n_lists, index.list_cap, index.dim,
+        res.workspace_limit_bytes, k=DEEP_IVF_K)
+    args_d, _ = ivf_flat.probe_major_scan_inputs(index, dq, N_PROBES, DEEP_IVF_K, bucket_d)
+    probes_d = _common.coarse_select(dq, index.centers, metric, N_PROBES)
+    rows_d = (index.list_index >= 0).sum(dim=1)
+    for schedule, args_ in (("probe_major", args_d),
+                            ("query_major", ivf_flat.query_major_scan_inputs(
+                                index, dq, N_PROBES, DEEP_IVF_K))):
+        kern = getattr(scan, f"ivf_scan_{schedule}")
+        plain_fn = getattr(scan, f"ivf_scan_{schedule}_torch")
+        kk_ = args_[-1]
+        out_rows = probes_d.numel() if schedule == "probe_major" else DEEP_QUERIES
+        add_wide(f"ivf_scan_{schedule}", wide_entry(
+            f"{DEEP_QUERIES} q, kk={kk_}", bitwise(f"ivf_scan_{schedule} kk={kk_}",
+                                                   *kern(*args_), *plain_fn(*args_)),
+            lambda: kern(*args_), lambda: plain_fn(*args_),
+            cost.scan_work(probes_d, rows_d, index.dim, out_rows, kk_), reps=(5, 1)))
+    del args_d
+    kv, ki = fk.fused_l2_topk(dq, x, xx, DEEP_BF_K)
+    pv, pi = fk.fused_l2_topk_torch(dq, x, xx, DEEP_BF_K)
+    add_wide("fused_knn", wide_entry(
+        f"q [{DEEP_QUERIES}, 128] x [1000000, 128] k={DEEP_BF_K}",
+        bitwise(f"fused_knn k={DEEP_BF_K}", kv, ki, pv, pi),
+        lambda: fk.fused_l2_topk(dq, x, xx, DEEP_BF_K),
+        lambda: fk.fused_l2_topk_torch(dq, x, xx, DEEP_BF_K),
+        cost.fused_knn_work(DEEP_QUERIES, x.shape[0], x.shape[1], DEEP_BF_K),
+        lambda: torch.topk(torch.cdist(dq, x), DEEP_BF_K, dim=1, largest=False), reps=(3, 1)))
+    del kv, ki, pv, pi
+
+    # kernel #7 at the prims shape (recorded) and at the k-means assignment
+    # of 1M rows: bitwise; its library yardstick is two calls (no single
+    # PyTorch call computes a fused argmin): addmm, then min
+    x_am = x[:ARGMIN_ROWS]
+    am_args = {"8192": (x_am, km_init, cc_init), "1M": (x, km_init, cc_init)}
+    am_err = 0.0
+    for tag, a in am_args.items():
+        am_err = max(am_err, bitwise(f"fused_argmin {tag} x {KM_CLUSTERS}",
+                                     *kernels.fused_l2_argmin(*a), *fa.fused_l2_argmin_torch(*a)))
+
+    def am_library(a):
+        return lambda: torch.addmm(a[2], a[0], a[1].T, alpha=-2).min(dim=1)
+
+    full = am_args["1M"]
+    record("fused_argmin", "raft_tpu_torch/csrc/fused_argmin.cu",
+           "raft_tpu/kernels/fused_argmin.py:84", am_err,
+           cuda_ms(lambda: kernels.fused_l2_argmin(*am_args["8192"]), 20),
+           cuda_ms(lambda: fa.fused_l2_argmin_torch(*am_args["8192"]), 3),
+           cost.fused_argmin_work(ARGMIN_ROWS, KM_CLUSTERS, x.shape[1]),
+           cost.fused_argmin_cost(ARGMIN_ROWS, KM_CLUSTERS, x.shape[1]),
+           cuda_ms(am_library(am_args["8192"]), 20),
+           f"[{ARGMIN_ROWS}, 128] x [{KM_CLUSTERS}, 128] (raft_tpu bench/prims.py:215)",
+           library_call="torch.addmm(cc, x, c.T, alpha=-2) then .min(dim=1): two calls",
+           wide=[wide_entry(f"[{x.shape[0]}, 128] x [{KM_CLUSTERS}, 128] (the k-means assignment)",
+                            am_err, lambda: kernels.fused_l2_argmin(*full),
+                            lambda: fa.fused_l2_argmin_torch(*full),
+                            cost.fused_argmin_work(x.shape[0], KM_CLUSTERS, x.shape[1]),
+                            am_library(full), reps=(5, 2))])
+    r7 = results[-1]
+    for tag, e in (("8192", r7), ("1M", r7["wide"][0])):
+        print(f"fused_argmin {tag} x {KM_CLUSTERS} x 128: {e['ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), {100 * e['bound_ms'] / e['ms']:.1f} % "
+              f"of bound; addmm + min {e['library_ms']:.4f} ms; plain {e['plain_ms']:.3f} ms",
+              flush=True)
+    del am_args, full, x_am
 
     # the CAGRA hop: the inputs of hop CAPTURE_HOP of the first query tile
     # (f32 rows, and a bf16 copy of the dataset), and of a 64-query batch

@@ -60,6 +60,23 @@ def ensure(res: Optional[Resources]) -> Resources:
     return res if res is not None else default_resources()
 
 
+def from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor of its own dtype.  Two-byte void arrays
+    (``|V2``: what ``np.save`` writes for a bfloat16 array, as raft_tpu's
+    bf16 lists are saved) and ml_dtypes' bfloat16 are read as bfloat16."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on ``device``, keeping its dtype."""
+    if isinstance(x, np.ndarray):
+        x = from_numpy(x)
+    return torch.as_tensor(x).to(device=device)
+
+
 def as_f32(x, device: torch.device) -> torch.Tensor:
     """A numpy array or tensor as an f32 tensor on ``device`` (no copy when
     it already is one)."""

@@ -54,7 +54,12 @@ def deserialize_scalar(fh: BinaryIO):
 def serialize_array(fh: BinaryIO, arr) -> None:
     """Write one array in standard .npy format (host-staged)."""
     if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
+        t = arr.detach().cpu()
+        # numpy has no bfloat16: its two bytes go out as |V2, as np.save
+        # writes raft_tpu's bfloat16 arrays (read back by
+        # core.resources.from_numpy)
+        arr = (t.view(torch.int16).numpy().view(np.dtype("V2")) if t.dtype == torch.bfloat16
+               else t.numpy())
     np.save(fh, np.asarray(arr), allow_pickle=False)
 
 

@@ -48,6 +48,9 @@
 namespace {
 
 constexpr int kHopThreads = 128;   // candidates scored per pass, one per thread
+// deepest internal buffer: raft's own itopk bound (raft_tpu's
+// kernels/cagra_traverse.py:33), below the lists' kMaxK
+constexpr int kMaxItopk = 512;
 constexpr int kHopBK = 32;         // dimensions staged per chunk
 
 template <typename T, bool kWide>
@@ -167,7 +170,7 @@ int launch_hop(const T* data, const int* graph, const float* queries, const int*
                int deg, int width, int itopk, int ip_mode, const int* page_slot,
                int page_rows, float* out_d, int* out_i, uint8_t* out_e,
                cudaStream_t stream) {
-  if (itopk < 1 || itopk > rt::kMaxK || d < 1 || deg < 1 || width < 1 ||
+  if (itopk < 1 || itopk > kMaxItopk || d < 1 || deg < 1 || width < 1 ||
       (page_slot != nullptr && page_rows < 1))
     return (int)cudaErrorInvalidValue;
   if (tile == 0) return (int)cudaSuccess;

@@ -1,5 +1,8 @@
 // IVF list scans: score stored rows against queries and keep each query's
-// top-kk by (score, position).
+// top-kk by (score, position).  This header holds the kernels and their
+// launchers; the C entries are split by storage type over
+// ivf_scan_f32.cu, ivf_scan_bf16.cu, ivf_scan_int8.cu and ivf_scan_8bit.cu,
+// so that the library build compiles them in parallel (one nvcc each).
 //
 // ivf_scan_probe_major replaces raft_tpu/kernels/ivf_scan.py
 // ivf_scan_probe_major / _scan_kernel.  One bucket is one list and up to G
@@ -12,6 +15,10 @@
 // legs), each with its own launch count in the wrapper:
 //  - f32 rows (IVF-Flat, IVF-PQ decoded_dtype="float32");
 //  - bf16 rows (IVF-PQ's default scan cache), upcast exactly on load;
+//  - uint8 / int8 rows as raw values (IVF-Flat over 8-bit datasets, which
+//    raft_tpu scans upcast to f32 at scan_dtype "highest"): each value is
+//    converted to f32 where it is staged, then the f32 legs' fmaf chain
+//    runs on it.  Unfiltered and filter legs; no paged or bf16-compute leg.
 //  - int8 rows (IVF-PQ's memory-lean cache).  Each query is quantised in the
 //    kernel, sq = max(max|q| / 127, 1e-12), q_i8 = clip(rint(q / sq), -127,
 //    127), as toolkit.quantize_queries_i8; int8 x int8 products sum in int32
@@ -70,10 +77,14 @@
 // accumulator, and warp 0 folds the 256 scores of a tile into the list
 // (topk.cuh).  A small batch splits each query's probes over several blocks
 // and merges their lists.
+#pragma once
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tile_gemm.cuh"
 #include "topk.cuh"
@@ -114,12 +125,16 @@ __device__ __forceinline__ bool passes(const int* list_words, int slot) {
 
 // The kernel of a leg for lists of kk entries, filtered or not, paged or
 // not: `pick(w, f, p)` returns it for kWide = decltype(w)::value, kFilt =
-// decltype(f)::value and kPaged = decltype(p)::value.
-template <typename Pick>
+// decltype(f)::value and kPaged = decltype(p)::value.  kPagedOk = false
+// instantiates no paged kernel (the caller refuses a page table).
+template <bool kPagedOk = true, typename Pick>
 static inline auto pick_leg(int kk, bool filtered, bool paged, Pick pick) {
   return rt::pick_wide(kk, [&](auto w) {
     auto with = [&](auto f) {
-      return paged ? pick(w, f, std::true_type{}) : pick(w, f, std::false_type{});
+      if constexpr (kPagedOk)
+        return paged ? pick(w, f, std::true_type{}) : pick(w, f, std::false_type{});
+      else
+        return pick(w, f, std::false_type{});
     };
     return filtered ? with(std::true_type{}) : with(std::false_type{});
   });
@@ -423,6 +438,10 @@ constexpr int kQmWords = kQmBK / 4;
 template <typename T> struct QmTile;
 template <> struct QmTile<float> { float x[kQmRows][kQmBK + 1]; };
 template <> struct QmTile<__nv_bfloat16> { __nv_bfloat16 x[kQmRows][kQmBK + 2]; };
+// 33-byte rows: thread t's byte falls in bank (33 t / 4) % 32, distinct
+// across a warp
+template <> struct QmTile<int8_t> { int8_t x[kQmRows][kQmBK + 1]; };
+template <> struct QmTile<uint8_t> { uint8_t x[kQmRows][kQmBK + 1]; };
 
 // Walk the block's part of the query's pool, probes [p_begin, p_end), in
 // 256-row tiles: score, mask and fold each tile.  `tile_ip(l, c0, c_rows)`
@@ -628,35 +647,35 @@ query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ 
 // A block may hold more than 48 KB of shared memory in all (static tiles
 // plus the dynamic lists) only once its kernel opts in to the dynamic part.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t dynamic) {
+inline cudaError_t allow_smem(Kernel kernel, size_t dynamic) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic);
 }
 
-bool bad_shape(int kk, int d, int cap, int g) {
+inline bool bad_shape(int kk, int d, int cap, int g) {
   return kk < 1 || kk > rt::kMaxK || d < 1 || cap < 1 || g < 1;
 }
 
 // The rows of a C entry: `page_slot` null means monolithic lists
 // (page_rows ignored); paged lists need cap to be a multiple of page_rows.
-Pages make_pages(const int* page_slot, int page_rows, int cap) {
+inline Pages make_pages(const int* page_slot, int page_rows, int cap) {
   if (page_slot == nullptr) return Pages{nullptr, 1, 0};
   return Pages{page_slot, page_rows, page_rows > 0 ? cap / page_rows : 0};
 }
 
-bool bad_pages(const Pages& pg, int cap) {
+inline bool bad_pages(const Pages& pg, int cap) {
   return pg.slot != nullptr && (pg.rows < 1 || cap % pg.rows != 0);
 }
 
 // The filter of a C entry: `words` null means unfiltered (cap_w ignored).
-Filt make_filt(const int* words, const int* fid, int n_lists, int cap_w) {
+inline Filt make_filt(const int* words, const int* fid, int n_lists, int cap_w) {
   return Filt{words, fid, n_lists, words != nullptr ? cap_w : 0};
 }
 
 // Bytes of dynamic shared memory a probe-major block stages its list's
 // filter words in (0 unfiltered).
-size_t filt_smem(const Filt& f) { return (size_t)f.cap_w * sizeof(int); }
+inline size_t filt_smem(const Filt& f) { return (size_t)f.cap_w * sizeof(int); }
 
-template <typename T, bool kBf16>
+template <typename T, bool kBf16, bool kPagedOk = true>
 int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T* data,
                        const float* y2, const int* ids, int B, int G, int cap, int d,
                        int kk, int metric, Filt filt, Pages pg, float* out_v, int* out_i,
@@ -666,8 +685,9 @@ int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T
   const int qpb = rt::lists_per_block(kk, rt::kBM, filt_smem(filt));
   if (qpb < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + filt_smem(filt);
+  if (!kPagedOk && pg.slot != nullptr) return (int)cudaErrorInvalidValue;
   auto kernel =
-      pick_leg(kk, filt.words != nullptr, pg.slot != nullptr, [](auto w, auto f, auto p) {
+      pick_leg<kPagedOk>(kk, filt.words != nullptr, pg.slot != nullptr, [](auto w, auto f, auto p) {
         return probe_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
                                   decltype(p)::value>;
       });
@@ -707,9 +727,9 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
 }
 
 // The query-major kernel of a float leg for lists of kk entries.
-template <typename T, bool kBf16>
+template <typename T, bool kBf16, bool kPagedOk = true>
 auto qm_float_kernel(int kk, const Filt& filt, const Pages& pg) {
-  return pick_leg(kk, filt.words != nullptr, pg.slot != nullptr,
+  return pick_leg<kPagedOk>(kk, filt.words != nullptr, pg.slot != nullptr,
                   [](auto w, auto f, auto p) {
                     return query_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
                                               decltype(p)::value>;
@@ -732,128 +752,3 @@ int float_query_major(const int* probes, const float* q, const float* q2, const 
 }
 
 }  // namespace
-
-// -- C entries: probe-major ----------------------------------------------
-// filt: [n_lists][cap_w] pass words, or null for the unfiltered leg.
-// page_slot: the page table [n_lists * cap / page_rows] of a pool of pages
-// passed as `data` ([slots][page_rows][d]), or null for monolithic lists.
-
-extern "C" int rt_ivf_scan_probe_major(const int* bucket_list, const float* qg,
-                                       const float* q2g, const float* data,
-                                       const float* y2, const int* ids, int B, int G,
-                                       int cap, int d, int kk, int metric, int bf16_compute,
-                                       const int* filt, int cap_w, const int* page_slot,
-                                       int page_rows, float* out_v, int* out_i,
-                                       void* stream) {
-  auto s = (cudaStream_t)stream;
-  const Filt f = make_filt(filt, nullptr, 0, cap_w);
-  const Pages pg = make_pages(page_slot, page_rows, cap);
-  return bf16_compute
-      ? launch_probe_major<float, true>(bucket_list, qg, q2g, data, y2, ids, B, G, cap, d,
-                                        kk, metric, f, pg, out_v, out_i, s)
-      : launch_probe_major<float, false>(bucket_list, qg, q2g, data, y2, ids, B, G, cap, d,
-                                         kk, metric, f, pg, out_v, out_i, s);
-}
-
-extern "C" int rt_ivf_scan_probe_major_bf16(const int* bucket_list, const float* qg,
-                                            const float* q2g, const void* data,
-                                            const float* y2, const int* ids, int B, int G,
-                                            int cap, int d, int kk, int metric,
-                                            int bf16_compute, const int* filt, int cap_w,
-                                            const int* page_slot, int page_rows,
-                                            float* out_v, int* out_i, void* stream) {
-  auto s = (cudaStream_t)stream;
-  auto rows = static_cast<const __nv_bfloat16*>(data);
-  const Filt f = make_filt(filt, nullptr, 0, cap_w);
-  const Pages pg = make_pages(page_slot, page_rows, cap);
-  return bf16_compute
-      ? launch_probe_major<__nv_bfloat16, true>(bucket_list, qg, q2g, rows, y2, ids, B, G,
-                                                cap, d, kk, metric, f, pg, out_v, out_i, s)
-      : launch_probe_major<__nv_bfloat16, false>(bucket_list, qg, q2g, rows, y2, ids, B, G,
-                                                 cap, d, kk, metric, f, pg, out_v, out_i, s);
-}
-
-extern "C" int rt_ivf_scan_probe_major_int8(const int* bucket_list, const float* qg,
-                                            const float* q2g, const void* data,
-                                            const float* y2, const int* ids, int B, int G,
-                                            int cap, int d, int kk, int metric,
-                                            float scan_scale, const int* filt, int cap_w,
-                                            const int* page_slot, int page_rows,
-                                            float* out_v, int* out_i, void* stream) {
-  const Pages pg = make_pages(page_slot, page_rows, cap);
-  if (bad_shape(kk, d, cap, G) || bad_pages(pg, cap)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
-  const Filt f = make_filt(filt, nullptr, 0, cap_w);
-  const size_t words = (size_t)((d + 3) / 4) * (rt::kBM + 1) * sizeof(int) + filt_smem(f);
-  const int qpb = rt::lists_per_block(kk, rt::kBM, words);
-  if (qpb < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + words;
-  auto kernel = pick_leg(kk, f.words != nullptr, pg.slot != nullptr,
-                         [](auto w, auto fl, auto p) {
-                           return probe_major_i8_kernel<decltype(w)::value, decltype(fl)::value,
-                                                        decltype(p)::value>;
-                         });
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, (G + qpb - 1) / qpb);
-  kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
-      bucket_list, qg, q2g, static_cast<const int8_t*>(data), y2, ids, G, cap, d, kk, qpb,
-      metric, scan_scale, f, pg, out_v, out_i);
-  return (int)cudaGetLastError();
-}
-
-// -- C entries: query-major ----------------------------------------------
-// filt: pass words, [n_lists][cap_w], or [F][n_lists][cap_w] with fid [Q]
-// naming each query's plane (the query_fid leg); null filt: unfiltered.
-// page_slot / page_rows: as probe-major.
-
-extern "C" int rt_ivf_scan_query_major(const int* probes, const float* q, const float* q2,
-                                       const float* data, const float* y2, const int* ids,
-                                       int Q, int P, int cap, int d, int kk, int metric,
-                                       int splits, int bf16_compute, const int* filt,
-                                       const int* fid, int n_lists, int cap_w,
-                                       const int* page_slot, int page_rows, float* part_v,
-                                       int* part_i, float* out_v, int* out_i, void* stream) {
-  return float_query_major(probes, q, q2, data, y2, ids, Q, P, cap, d, kk, metric, splits,
-                           bf16_compute, make_filt(filt, fid, n_lists, cap_w),
-                           make_pages(page_slot, page_rows, cap), part_v, part_i, out_v,
-                           out_i, (cudaStream_t)stream);
-}
-
-extern "C" int rt_ivf_scan_query_major_bf16(const int* probes, const float* q,
-                                            const float* q2, const void* data,
-                                            const float* y2, const int* ids, int Q, int P,
-                                            int cap, int d, int kk, int metric, int splits,
-                                            int bf16_compute, const int* filt, const int* fid,
-                                            int n_lists, int cap_w, const int* page_slot,
-                                            int page_rows, float* part_v, int* part_i,
-                                            float* out_v, int* out_i, void* stream) {
-  return float_query_major(probes, q, q2, static_cast<const __nv_bfloat16*>(data), y2, ids, Q,
-                           P, cap, d, kk, metric, splits, bf16_compute,
-                           make_filt(filt, fid, n_lists, cap_w),
-                           make_pages(page_slot, page_rows, cap), part_v, part_i, out_v, out_i,
-                           (cudaStream_t)stream);
-}
-
-extern "C" int rt_ivf_scan_query_major_int8(const int* probes, const float* q,
-                                            const float* q2, const void* data,
-                                            const float* y2, const int* ids, int Q, int P,
-                                            int cap, int d, int kk, int metric, int splits,
-                                            float scan_scale, const int* filt, const int* fid,
-                                            int n_lists, int cap_w, const int* page_slot,
-                                            int page_rows, float* part_v, int* part_i,
-                                            float* out_v, int* out_i, void* stream) {
-  const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) +
-                      (size_t)((d + 3) / 4) * sizeof(int);
-  const Filt f = make_filt(filt, fid, n_lists, cap_w);
-  const Pages pg = make_pages(page_slot, page_rows, cap);
-  auto kernel = pick_leg(kk, f.words != nullptr, pg.slot != nullptr,
-                         [](auto w, auto fl, auto p) {
-                           return query_major_i8_kernel<decltype(w)::value, decltype(fl)::value,
-                                                        decltype(p)::value>;
-                         });
-  return launch_query_major(kernel, smem, probes, q, q2,
-                            static_cast<const int8_t*>(data), y2, ids, Q, P, cap, d, kk,
-                            metric, splits, f, pg, part_v, part_i, out_v, out_i,
-                            (cudaStream_t)stream, scan_scale);
-}

@@ -1,0 +1,47 @@
+// IVF list scans, bf16 rows: the C entries of both schedules (the kernels
+// and launchers are ivf_scan.cuh).
+
+#include "ivf_scan.cuh"
+
+// -- C entries: probe-major ----------------------------------------------
+// filt: [n_lists][cap_w] pass words, or null for the unfiltered leg.
+// page_slot: the page table [n_lists * cap / page_rows] of a pool of pages
+// passed as `data` ([slots][page_rows][d]), or null for monolithic lists.
+
+extern "C" int rt_ivf_scan_probe_major_bf16(const int* bucket_list, const float* qg,
+                                            const float* q2g, const void* data,
+                                            const float* y2, const int* ids, int B, int G,
+                                            int cap, int d, int kk, int metric,
+                                            int bf16_compute, const int* filt, int cap_w,
+                                            const int* page_slot, int page_rows,
+                                            float* out_v, int* out_i, void* stream) {
+  auto s = (cudaStream_t)stream;
+  auto rows = static_cast<const __nv_bfloat16*>(data);
+  const Filt f = make_filt(filt, nullptr, 0, cap_w);
+  const Pages pg = make_pages(page_slot, page_rows, cap);
+  return bf16_compute
+      ? launch_probe_major<__nv_bfloat16, true>(bucket_list, qg, q2g, rows, y2, ids, B, G,
+                                                cap, d, kk, metric, f, pg, out_v, out_i, s)
+      : launch_probe_major<__nv_bfloat16, false>(bucket_list, qg, q2g, rows, y2, ids, B, G,
+                                                 cap, d, kk, metric, f, pg, out_v, out_i, s);
+}
+
+// -- C entries: query-major ----------------------------------------------
+// filt: pass words, [n_lists][cap_w], or [F][n_lists][cap_w] with fid [Q]
+// naming each query's plane (the query_fid leg); null filt: unfiltered.
+// page_slot / page_rows: as probe-major.
+
+extern "C" int rt_ivf_scan_query_major_bf16(const int* probes, const float* q,
+                                            const float* q2, const void* data,
+                                            const float* y2, const int* ids, int Q, int P,
+                                            int cap, int d, int kk, int metric, int splits,
+                                            int bf16_compute, const int* filt, const int* fid,
+                                            int n_lists, int cap_w, const int* page_slot,
+                                            int page_rows, float* part_v, int* part_i,
+                                            float* out_v, int* out_i, void* stream) {
+  return float_query_major(probes, q, q2, static_cast<const __nv_bfloat16*>(data), y2, ids, Q,
+                           P, cap, d, kk, metric, splits, bf16_compute,
+                           make_filt(filt, fid, n_lists, cap_w),
+                           make_pages(page_slot, page_rows, cap), part_v, part_i, out_v, out_i,
+                           (cudaStream_t)stream);
+}

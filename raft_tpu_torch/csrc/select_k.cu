@@ -1,4 +1,4 @@
-// Per-row k-selection for rows of up to 8192 floats, k <= 512.
+// Per-row k-selection for rows of up to 8192 floats, k <= 2048.
 //
 // Replaces raft_tpu/kernels/select_k.py select_k_pallas / _select_kernel
 // (k rounds of masked min-extraction with a removal mask).
@@ -24,7 +24,7 @@
 namespace {
 
 constexpr int kMaxN = 8192;
-constexpr int kMaxK = 512;
+constexpr int kMaxK = 2048;
 constexpr int kThreads = 256;
 
 struct Key {

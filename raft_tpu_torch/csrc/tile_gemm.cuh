@@ -10,7 +10,7 @@
 // tolerance.  No TF32, no tensor cores: the slice scores at full f32, as
 // raft_tpu does with Precision.HIGHEST.
 //
-// B may be stored as f32 or bf16 (upcast exactly on load), at a stride
+// B may be stored as f32, bf16, int8 or uint8 (upcast exactly on load), at a stride
 // (tile_gemm) or one address per row (tile_gemm_rows: the rows of a paged
 // list, scattered over pages).  With kBf16 both
 // operands are rounded to bf16 (round to nearest even, as astype(bfloat16))
@@ -26,6 +26,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace rt {
 
@@ -41,6 +42,9 @@ struct GemmSmem {
 
 __device__ __forceinline__ float as_f32(float v) { return v; }
 __device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// 8-bit rows of raw values (IVF-Flat over an 8-bit dataset): exact in f32
+__device__ __forceinline__ float as_f32(int8_t v) { return (float)v; }
+__device__ __forceinline__ float as_f32(uint8_t v) { return (float)v; }
 
 // f32 -> bf16 -> f32, round to nearest even
 __device__ __forceinline__ float round_bf16(float v) {

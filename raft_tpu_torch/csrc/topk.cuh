@@ -14,14 +14,19 @@
 // in position order.  After the first few tiles almost every candidate
 // fails the threshold test, so the fold costs one compare per candidate.
 //
-// k runs up to kMaxK = 512 (CAGRA's widest internal buffer).  A list of at
-// most kRegK = 128 entries shifts through 4 registers a lane in one step,
-// as it always has.  A longer list (kWide, a template flag of every list
-// function and of every kernel that folds lists, set by the launcher when
-// k > kRegK, through pick_wide) shifts 32 entries at a time, from its tail
-// down to the insertion point, through one register a lane.  The k <= 128
-// kernels are separate instantiations, so they keep their register counts
-// (one kernel holding both paths spilled).
+// k runs up to kMaxK = 2048.  A list of at most kRegK = 128 entries
+// shifts through 4 registers a lane in one step, as it always has.  A
+// longer list (kWide, a template flag of every list function and of every
+// kernel that folds lists, set by the launcher when k > kRegK, through
+// pick_wide) shifts 32 entries at a time, from its tail down to the
+// insertion point, through one register a lane; its length is a runtime
+// value, so one wide instantiation serves every k in (128, 2048], sized at
+// launch.  A list lives in dynamic shared memory (8 k bytes): a block holds
+// fewer lists as k grows (lists_per_block), 11 of them at k = 2048.  The
+// k <= 128 kernels are separate instantiations, so they keep their register
+// counts (one kernel holding both paths spilled).  raft_tpu's Pallas scans
+// bound kk only by one (G, kk) f32 + int32 VMEM block; kMaxK is this port's
+// own bound, and a launch past it is refused.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,7 +36,7 @@
 
 namespace rt {
 
-constexpr int kMaxK = 512;      // deepest k any kernel of the port serves
+constexpr int kMaxK = 2048;     // deepest k any list-folding kernel serves
 constexpr int kRegK = 128;      // deepest k shifted through registers at once
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -194,6 +199,10 @@ static inline cudaError_t merge_parts(const float* part_v, const int* part_i, in
   const int blocks = (rows + kMergeWarps - 1) / kMergeWarps;
   const size_t smem = (size_t)kMergeWarps * k * (sizeof(float) + sizeof(int));
   auto kernel = pick_wide(k, [](auto w) { return merge_parts_kernel<decltype(w)::value>; });
+  // past k = 768 the four lists take more than 48 KB: opt in
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   kernel<<<blocks, 32 * kMergeWarps, smem, stream>>>(
       part_v, part_i, rows, n_cand, k, out_v, out_i);
   return cudaGetLastError();

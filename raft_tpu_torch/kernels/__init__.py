@@ -70,6 +70,12 @@ KERNELS = (
                              ("query_major", ("", "_filt", "_fid")))
       for dtype in ("", "_bf16", "_int8") for leg in legs),
     "cagra_fused_hop_paged",
+    # raw 8-bit rows (IVF-Flat over a uint8 / int8 dataset), unpaged
+    *(f"ivf_scan_{schedule}{dtype}{leg}"
+      for schedule, legs in (("probe_major", ("", "_filt")),
+                             ("query_major", ("", "_filt", "_fid")))
+      for dtype in ("_u8", "_s8") for leg in legs),
+    "fused_argmin",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
@@ -179,6 +185,8 @@ _SIGNATURES = {
     "rt_ivf_scan_probe_major": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
     "rt_ivf_scan_probe_major_bf16": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
     "rt_ivf_scan_probe_major_int8": [_P] * 6 + [_I] * 6 + [_F] + [_P, _I] * 2 + [_P] * 3,
+    "rt_ivf_scan_probe_major_u8": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
+    "rt_ivf_scan_probe_major_s8": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
     # query-major: 6 arrays, (Q, P, cap, d, kk, metric, splits), then
     # bf16_compute or scan_scale, the filter words and query_fid (null: none),
     # n_lists and cap_w, the page table and page_rows, then parts, outputs
@@ -187,10 +195,14 @@ _SIGNATURES = {
     "rt_ivf_scan_query_major_bf16": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I, _P, _I] + [_P] * 5,
     "rt_ivf_scan_query_major_int8": ([_P] * 6 + [_I] * 7 + [_F] + [_P, _P, _I, _I, _P, _I]
                                      + [_P] * 5),
+    "rt_ivf_scan_query_major_u8": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I, _P, _I] + [_P] * 5,
+    "rt_ivf_scan_query_major_s8": [_P] * 6 + [_I] * 8 + [_P, _P, _I, _I, _P, _I] + [_P] * 5,
     # dataset (or page pool), bf16 flag, graph, queries, parents, buf_d,
     # buf_i, explored, (tile, d, deg, width, itopk, ip_mode), the page table
     # (null: dense) and page_rows, outputs and stream
     "rt_cagra_hop": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P, _I] + [_P] * 4,
+    # x, centers, center norms, (n, n_centers, d), outputs and stream
+    "rt_fused_argmin": [_P] * 3 + [_I] * 3 + [_P] * 3,
 }
 
 
@@ -245,3 +257,7 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+# raft_tpu's public name for kernel #7 (raft_tpu.kernels.fused_l2_argmin)
+from raft_tpu_torch.kernels.fused_argmin import fused_l2_argmin  # noqa: E402

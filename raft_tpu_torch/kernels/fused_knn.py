@@ -15,8 +15,9 @@ import torch
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.kernels.toolkit import cdiv, sequential_dot, topk_by_position
 
-#: deepest k (shared memory holds fewer queries' lists per block past 349)
-MAX_K = 512
+#: deepest k (shared memory holds fewer queries' lists per block past 349);
+#: raft_tpu's Pallas kernel bounds k only by its VMEM blocks
+MAX_K = 2048
 #: queries per block of the kernel (csrc/tile_gemm.cuh kBM)
 _TILE_Q = 64
 #: fewest dataset rows one block's part may hold when a small batch is
@@ -70,7 +71,8 @@ def fused_l2_topk(
     :func:`fused_l2_topk_torch`."""
     _check(queries, dataset, dataset_sqnorms, k, mode)
     if k > MAX_K:
-        raise ValueError(f"fused_l2_topk serves k<={MAX_K}, got {k}")
+        raise ValueError(f"fused_l2_topk serves k<={MAX_K}, got {k} (raft_tpu's Pallas kernel: "
+                         "one (query tile, k) f32 + int32 VMEM block)")
     if queries.device.type == "cpu":
         return fused_l2_topk_torch(queries, dataset, dataset_sqnorms, k, mode=mode)
     q = queries.to(torch.float32).contiguous()

@@ -13,14 +13,18 @@ norms of the stored values (zeroed at padding slots; the kernels mask by
 
 Each storage type is one leg of raft_tpu's ``_score_against_list``, with a
 C entry and a launch count of its own (``ivf_scan_<schedule>``, ``_bf16``,
-``_int8``):
+``_int8``, ``_u8``, ``_s8``):
 
 - f32 / bf16 rows: with ``scan_dtype`` "float32" or "highest" the rows are
   upcast and every dot product is summed in f32; with "bfloat16" (ivf_pq's
   ``lut_dtype``) both operands are rounded to bf16 first;
-- int8 rows (values int8 x ``scan_scale``): each query is quantized
-  (``toolkit.quantize_queries_i8``), the int8 products summed exactly, and
-  the sum rescaled by (query scale x ``scan_scale``).
+- int8 rows of a scaled cache (values int8 x ``scan_scale``, IVF-PQ): each
+  query is quantized (``toolkit.quantize_queries_i8``), the int8 products
+  summed exactly, and the sum rescaled by (query scale x ``scan_scale``);
+- uint8 rows, and int8 rows with ``scan_scale=None``: raw values (IVF-Flat
+  over an 8-bit dataset).  raft_tpu scans them upcast to f32 at
+  ``scan_dtype`` "highest" on its XLA leg; here they take the f32 legs'
+  product on the upcast rows (``_u8`` / ``_s8``; unpaged only).
 
 Paged lists (``store.PagedLists``, kernel #4 and the same read in
 query-major): ``list_data`` may be a pool [slots, page_rows, d] behind a
@@ -33,7 +37,7 @@ scan's on the same rows.  Each paged leg has a launch count of its own,
 ``ivf_scan_query_major_paged_fid``).  raft_tpu's paged Pallas leg folds
 page by page and serves kk <= page_rows without filters
 (``paged_scan_supported``); it computes the same function, so the one leg
-here serves any kk <= 512, filtered or not, and query-major too (raft_tpu
+here serves any kk <= 2048, filtered or not, and query-major too (raft_tpu
 gathers paged query-major batches on XLA).
 
 Filters (``_score_against_list``'s filtered leg): ``list_filter`` holds
@@ -64,11 +68,15 @@ from raft_tpu_torch.core.bitset import WORD_BITS, _n_words, pack_bits, unpack_wo
 from raft_tpu_torch.kernels.toolkit import int8_scored_ip, sequential_dot, topk_by_position
 from raft_tpu_torch.store.paged import PagedLists, gather_lists
 
-#: deepest kk (probe-major gives a block fewer queries past kk = 349)
-MAX_KK = 512
+#: deepest kk (probe-major gives a block fewer queries past kk = 349);
+#: raft_tpu's Pallas scans bound kk only by one (G, kk) f32 + int32 VMEM block
+MAX_KK = 2048
 _METRICS = {"sqeuclidean": 0, "euclidean": 0, "inner_product": 1, "cosine": 2}
-#: storage dtype → suffix of its kernel's name
-_LEGS = {torch.float32: "", torch.bfloat16: "_bf16", torch.int8: "_int8"}
+#: storage dtype → suffix of its kernel's name (int8: the scaled cache's
+#: leg; raw int8 rows, ``scan_scale=None``, take "_s8")
+_LEGS = {torch.float32: "", torch.bfloat16: "_bf16", torch.int8: "_int8", torch.uint8: "_u8"}
+#: the legs whose rows hold raw 8-bit values
+_RAW8 = ("_u8", "_s8")
 #: "float32" and "highest" both compute in f32 (raft_tpu's names)
 SCAN_DTYPES = ("float32", "highest", "bfloat16")
 #: score elements the plain versions materialize per chunk
@@ -76,19 +84,30 @@ _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
 def scan_supported(metric: str, list_data, kk: int) -> bool:
-    """Routing gate of both scan kernels: f32, bf16 or int8 storage (a
-    tensor or ``PagedLists``), L2 / inner product / cosine, ``kk <= 512``."""
+    """Routing gate of both scan kernels: f32, bf16, int8 or uint8 storage
+    (a tensor or ``PagedLists``), L2 / inner product / cosine,
+    ``kk <= 2048``."""
     return list_data.dtype in _LEGS and metric in _METRICS and 0 < kk <= MAX_KK
 
 
-def kernel_name(schedule: str, list_data, list_filter=None, query_fid=None) -> str:
+def storage_leg(dtype, scan_scale=1.0) -> str:
+    """The suffix of the storage leg for rows of ``dtype``: "", "_bf16",
+    "_int8" (a scaled int8 cache), "_s8" (raw int8 rows: ``scan_scale``
+    None) or "_u8"."""
+    if dtype == torch.int8 and scan_scale is None:
+        return "_s8"
+    return _LEGS[dtype]
+
+
+def kernel_name(schedule: str, list_data, list_filter=None, query_fid=None,
+                scan_scale=1.0) -> str:
     """The launch-count name of ``schedule``'s ("probe_major" /
-    "query_major") kernel for ``list_data``'s storage type, paging
-    (``_paged`` for a ``PagedLists``) and filter leg (none, ``_filt`` or
-    ``_fid``)."""
+    "query_major") kernel for ``list_data``'s storage type (raw int8 rows
+    with ``scan_scale=None``), paging (``_paged`` for a ``PagedLists``) and
+    filter leg (none, ``_filt`` or ``_fid``)."""
     paged = "_paged" if isinstance(list_data, PagedLists) else ""
     leg = "" if list_filter is None else "_filt" if query_fid is None else "_fid"
-    return f"ivf_scan_{schedule}{_LEGS[list_data.dtype]}{paged}{leg}"
+    return f"ivf_scan_{schedule}{storage_leg(list_data.dtype, scan_scale)}{paged}{leg}"
 
 
 def pack_list_filter(list_index: torch.Tensor, filter_words: torch.Tensor) -> torch.Tensor:
@@ -143,11 +162,11 @@ def _check_filter(list_filter, query_fid, list_index, n_queries):
         raise ValueError(f"query_fid must be [{n_queries}], got {tuple(query_fid.shape)}")
 
 
-def _ip(q: torch.Tensor, rows: torch.Tensor, scan_dtype: str, scan_scale: float):
+def _ip(q: torch.Tensor, rows: torch.Tensor, scan_dtype: str, scan_scale):
     """q·y of f32 queries [..., M, d] against stored rows [..., N, d]: the
-    leg of ``_score_against_list`` that ``rows``' type and ``scan_dtype``
-    select."""
-    if rows.dtype == torch.int8:
+    leg of ``_score_against_list`` that ``rows``' type, ``scan_scale``
+    (None: raw 8-bit rows) and ``scan_dtype`` select."""
+    if rows.dtype == torch.int8 and scan_scale is not None:
         return int8_scored_ip(q, rows, scan_scale)
     y = rows.to(torch.float32)
     if scan_dtype == "bfloat16":
@@ -191,7 +210,7 @@ def _topk(sc, kk):
 def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
                                list_y2, list_index, kk: int, *,
                                metric: str = "sqeuclidean", scan_dtype: str = "highest",
-                               scan_scale: float = 1.0, list_filter=None):
+                               scan_scale=1.0, list_filter=None):
     """Plain probe-major scan, buckets in chunks of bounded size; a
     ``PagedLists`` is read through its page table (``gather_lists``)."""
     B, G, d = q_gathered.shape
@@ -214,7 +233,7 @@ def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
 
 def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
                                kk: int, *, metric: str = "sqeuclidean",
-                               scan_dtype: str = "highest", scan_scale: float = 1.0,
+                               scan_dtype: str = "highest", scan_scale=1.0,
                                list_filter=None, query_fid=None):
     """Plain query-major scan, queries in chunks of bounded size; a
     ``PagedLists`` is read through its page table (``gather_lists``)."""
@@ -241,9 +260,9 @@ def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
     return _finish(torch.cat(vs), torch.cat(is_).to(torch.int32))
 
 
-def _launch(name, schedule, list_data, tensors, args, out_shape, kk):
+def _launch(name, schedule, leg, tensors, args, out_shape, kk):
     """Count launch ``name`` and launch the C entry of ``schedule`` for
-    ``list_data``'s storage type (``rt_ivf_scan_<schedule>[_bf16|_int8]``:
+    ``leg``, the storage type (``rt_ivf_scan_<schedule>[_bf16|_int8|_u8|_s8]``:
     one entry serves a storage type's unfiltered, filter and paged legs)
     with the pointers of ``tensors``, then ``args`` (ints, the scale,
     filter, page-table and scratch pointers), outputs and stream."""
@@ -253,7 +272,7 @@ def _launch(name, schedule, list_data, tensors, args, out_shape, kk):
     out_i = torch.empty(out_shape + (kk,), dtype=torch.int32, device=dev)
     lib = _k.library()
     _k.count_launch(name)
-    code = getattr(lib, f"rt_ivf_scan_{schedule}{_LEGS[list_data.dtype]}")(
+    code = getattr(lib, f"rt_ivf_scan_{schedule}{leg}")(
         *(t.data_ptr() for t in tensors), *args,
         out_v.data_ptr(), out_i.data_ptr(), _k.stream_of(tensors[0]),
     )
@@ -261,14 +280,21 @@ def _launch(name, schedule, list_data, tensors, args, out_shape, kk):
     return out_v, out_i
 
 
-def _check(metric, list_data, list_y2, list_index, kk, scan_dtype):
+def _check(metric, list_data, list_y2, list_index, kk, scan_dtype, scan_scale):
     if not scan_supported(metric, list_data, kk):
         raise ValueError(
             f"ivf scan kernel serves {sorted(map(str, _LEGS))} storage, kk<={MAX_KK} and "
-            f"metrics {sorted(_METRICS)}; got {list_data.dtype}, kk={kk}, {metric!r}"
+            f"metrics {sorted(_METRICS)}; got {list_data.dtype}, kk={kk}, {metric!r} "
+            "(raft_tpu's Pallas scans bound kk only by one (G, kk) f32 + int32 VMEM block)"
         )
     if scan_dtype not in SCAN_DTYPES:
         raise ValueError(f"scan_dtype {scan_dtype!r} not in {SCAN_DTYPES}")
+    if storage_leg(list_data.dtype, scan_scale) in _RAW8:
+        if scan_dtype == "bfloat16":
+            raise ValueError("raw 8-bit rows are scanned in f32 (scan_dtype 'highest'), "
+                             "as raft_tpu scans IVF-Flat's 8-bit lists")
+        if isinstance(list_data, PagedLists):
+            raise NotImplementedError("a paged scan of raw 8-bit rows has no kernel leg yet")
     L, cap, _ = list_data.shape
     if list_y2.shape != (L, cap) or list_index.shape != (L, cap):
         raise ValueError("list_y2 / list_index must be [n_lists, cap]")
@@ -280,9 +306,9 @@ def _check(metric, list_data, list_y2, list_index, kk, scan_dtype):
 
 
 def _leg_arg(list_data, scan_dtype, scan_scale):
-    """The leg's own argument: scan_scale (as f32) for int8 rows, else
-    whether to compute in bf16."""
-    if list_data.dtype == torch.int8:
+    """The leg's own argument: scan_scale (as f32) for a scaled int8
+    cache, else whether to compute in bf16."""
+    if storage_leg(list_data.dtype, scan_scale) == "_int8":
         return float(scan_scale)
     return int(scan_dtype == "bfloat16")
 
@@ -325,12 +351,12 @@ def ivf_scan_probe_major(
     *,
     metric: str = "sqeuclidean",
     scan_dtype: str = "highest",
-    scan_scale: float = 1.0,     # int8 storage: the value of one step
+    scan_scale: Optional[float] = 1.0,   # int8 cache: the value of one step; None: raw rows
     list_filter: Optional[torch.Tensor] = None,   # [L, cap_w] int32 pass words
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-bucket (vals [B, G, kk], ids [B, G, kk]) score partials, through
     ``csrc/ivf_scan.cu``; CPU tensors take the plain version."""
-    _check(metric, list_data, list_y2, list_index, kk, scan_dtype)
+    _check(metric, list_data, list_y2, list_index, kk, scan_dtype, scan_scale)
     _check_filter(list_filter, None, list_index, 0)
     if list_data.device.type == "cpu":
         return ivf_scan_probe_major_torch(
@@ -350,7 +376,8 @@ def ivf_scan_probe_major(
     filt = None if list_filter is None else list_filter.contiguous()
     words, _, _, cap_w = _filter_args(filt, None, dev, L, cap)
     return _launch(
-        kernel_name("probe_major", list_data, filt), "probe_major", list_data, tensors,
+        kernel_name("probe_major", list_data, filt, scan_scale=scan_scale), "probe_major",
+        storage_leg(list_data.dtype, scan_scale), tensors,
         (B, G, cap, d, kk, _METRICS[metric], _leg_arg(list_data, scan_dtype, scan_scale),
          words, cap_w, *pages),
         (B, G), kk,
@@ -368,13 +395,13 @@ def ivf_scan_query_major(
     *,
     metric: str = "sqeuclidean",
     scan_dtype: str = "highest",
-    scan_scale: float = 1.0,
+    scan_scale: Optional[float] = 1.0,
     list_filter: Optional[torch.Tensor] = None,   # [L, cap_w], or [F, L, cap_w] with query_fid
     query_fid: Optional[torch.Tensor] = None,     # [Q] int32 — each query's plane
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vals [Q, kk], ids [Q, kk]) score partials through
     ``csrc/ivf_scan.cu``; CPU tensors take the plain version."""
-    _check(metric, list_data, list_y2, list_index, kk, scan_dtype)
+    _check(metric, list_data, list_y2, list_index, kk, scan_dtype, scan_scale)
     _check_filter(list_filter, query_fid, list_index, probes.shape[0])
     if list_data.device.type == "cpu":
         return ivf_scan_query_major_torch(
@@ -397,7 +424,8 @@ def ivf_scan_query_major(
     part_v = torch.empty(part_shape, dtype=torch.float32, device=dev)
     part_i = torch.empty(part_shape, dtype=torch.int32, device=dev)
     return _launch(
-        kernel_name("query_major", list_data, filt, fid), "query_major", list_data, tensors,
+        kernel_name("query_major", list_data, filt, fid, scan_scale), "query_major",
+        storage_leg(list_data.dtype, scan_scale), tensors,
         (Q, P, cap, d, kk, _METRICS[metric], splits,
          _leg_arg(list_data, scan_dtype, scan_scale),
          *_filter_args(filt, fid, dev, L, cap), *pages, part_v.data_ptr(), part_i.data_ptr()),

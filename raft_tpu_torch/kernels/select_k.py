@@ -23,14 +23,14 @@ from raft_tpu_torch.kernels.toolkit import topk_by_position
 #: widest row the shared-memory kernel serves (matrix.select_k's chunked
 #: tournament takes wider rows)
 MAX_N = 8192
-#: deepest k (CAGRA's widest internal buffer)
-MAX_K = 512
+#: deepest k (csrc/topk.cuh kMaxK: the port's list envelope)
+MAX_K = 2048
 
 _INT32_MAX = 2**31 - 1
 
 
 def select_k_supported(n: int, k: int, dtype) -> bool:
-    """Routing gate: float rows, ``0 < k <= 512``, ``k <= n <= 8192``."""
+    """Routing gate: float rows, ``0 < k <= 2048``, ``k <= n <= 8192``."""
     return (
         dtype in (torch.float32, torch.bfloat16)
         and 0 < k <= MAX_K

@@ -8,6 +8,7 @@ touches rows or queries is torch on the index's device.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -467,6 +468,27 @@ def paged_lists_for_search(index, queries: torch.Tensor, metric: str, n_probes: 
         tiered.ensure_resident(pages)
     pool, page_slot = tiered.view()
     return PagedLists(pool, page_slot, tiered.pages_per_list)
+
+
+@contextlib.contextmanager
+def search_lists(index, queries: torch.Tensor, metric: str, n_probes: int,
+                 list_y2: torch.Tensor):
+    """(list_data, list_y2, list_index) for one search of an IVF index,
+    held for the ``with`` block in which the caller enqueues its scans.
+    A paged index yields the ``PagedLists`` view of
+    :func:`paged_lists_for_search`; when its pool holds fewer slots than
+    pages, the block runs under the store's ``search_guard``, so that
+    searches from several threads (and streams) cannot evict one
+    another's pages between admission and scan.  A fully resident pool
+    (pinned once) takes no guard."""
+    if index.paged is None:
+        yield index.list_data, list_y2, index.list_index
+        return
+    tiered = index.paged
+    full = tiered.slots == tiered.n_pages
+    with contextlib.nullcontext() if full else tiered.search_guard():
+        yield (paged_lists_for_search(index, queries, metric, n_probes), list_y2,
+               index.list_index)
 
 
 def sorted_id_dedup(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

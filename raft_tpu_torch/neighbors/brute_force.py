@@ -1,19 +1,28 @@
 """Exact (brute-force) kNN — the oracle every recall is scored against
-(counterpart of ``raft_tpu.neighbors.brute_force``; this slice ports
-sqeuclidean, euclidean and inner_product).
+(counterpart of ``raft_tpu.neighbors.brute_force``), over every metric of
+``DISTANCE_TYPES``.
 
-Routing, as raft_tpu's fused path (``brute_force.py:197-222``) with no
-switch: CUDA tensors go through ``kernels.fused_knn.fused_l2_topk``, which
-serves ``k <= 512`` and raises past it; CPU tensors take its plain version
-at any k.  The kernel returns partial scores; |q|^2 is added here and
-clamped at 0, and euclidean takes the root.
+Routing, with no switch:
 
-Filtered searches (``sample_filter`` / ``deleted_mask``) take raft_tpu's
-tiled leg (``_tiled_knn``), as the fused kernel has no post-filter leg:
-distance tiles by ``torch.matmul`` (a product raft_tpu also leaves outside
-any kernel), each tile's top-k and the running merge by
-``ops.matrix.select_k`` (the select_k kernel on the card); a filtered-out
-column takes the worst value and id -1.
+- Unfiltered sqeuclidean / euclidean / inner_product: raft_tpu's fused
+  path (``brute_force.py:197-222``).  CUDA tensors go through
+  ``kernels.fused_knn.fused_l2_topk`` (kernel #2), which serves
+  ``k <= 2048`` and raises past it; CPU tensors take its plain version at
+  any k.  The kernel returns partial scores; |q|^2 is added here and
+  clamped at 0, and euclidean takes the root.  It scores an f32 copy of
+  the dataset: 8-bit values and their products are exact in f32, and so
+  are their sums while 255^2 d < 2^24.
+- Every other metric, and every filtered search (``sample_filter`` /
+  ``deleted_mask``): raft_tpu's tiled leg (``_tiled_knn``): query tiles of
+  up to 1,024 rows against column tiles of the dataset sized from the
+  workspace, each a ``distance.pairwise.distance_matrix_tile`` (the exact
+  integer Gram when queries and dataset are both 8-bit), each tile's top-k
+  and the running merge by ``ops.matrix.select_k`` (the select_k kernel,
+  #1, on the card); a filtered-out column takes the worst value and id -1.
+
+``Index`` keeps the dataset in its input dtype (f32, bf16, int8, uint8),
+and ``save`` / ``load`` read and write raft_tpu's format, so an index saved
+by either package loads in the other.
 
 A paged index (``store.paginate_index``; ``dataset`` is then a host
 tensor) scans every row each call, so ``search`` pins the whole payload in
@@ -27,16 +36,19 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import validation
 from raft_tpu_torch.core.bitset import RowFilter
-from raft_tpu_torch.core.resources import Resources, as_f32, ensure
-from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
+from raft_tpu_torch.core.resources import Resources, ensure, from_numpy, to_device
+from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES, EXPANDED, distance_matrix_tile
 from raft_tpu_torch.kernels import stamp_kernel_path
 from raft_tpu_torch.kernels.fused_knn import fused_l2_topk, fused_l2_topk_torch
 from raft_tpu_torch.neighbors._common import invalid_mask, resolve_pass_filter
 from raft_tpu_torch.ops.matrix import select_k
 
-_SUPPORTED = ("sqeuclidean", "euclidean", "inner_product")
+_SERIALIZATION_VERSION = 1
+#: the metrics of the fused kernel
+_FUSED = ("sqeuclidean", "euclidean", "inner_product")
 
 
 def knn(
@@ -45,25 +57,23 @@ def knn(
     k: int,
     *,
     metric: str = "sqeuclidean",
+    p: float = 2.0,
     sample_filter=None,
     deleted_mask=None,
     res: Optional[Resources] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN: (distances [n_q, k] f32, indices [n_q, k] int32).
     ``inner_product`` returns the largest products, every other metric the
-    smallest distances.  ``sample_filter`` (a ``Bitset``, or a ``RowFilter``
-    with one row per query) keeps its set bits, ``deleted_mask`` excludes
-    its set bits; an excluded row surfaces as id -1 at the worst value."""
+    smallest distances (``p``: minkowski's order).  ``sample_filter`` (a
+    ``Bitset``, or a ``RowFilter`` with one row per query) keeps its set
+    bits, ``deleted_mask`` excludes its set bits; an excluded row surfaces
+    as id -1 at the worst value."""
     res = ensure(res)
     device = res.device
     validation.check_in(metric, DISTANCE_TYPES, "metric")
     canonical = DISTANCE_TYPES[metric]
-    if canonical not in _SUPPORTED:
-        raise NotImplementedError(
-            f"brute_force metric {metric!r} arrives in a later slice of the port"
-        )
-    dataset = as_f32(dataset, device)
-    queries = as_f32(queries, device)
+    dataset = to_device(dataset, device)
+    queries = to_device(queries, device)
     validation.check_matrix(dataset, "dataset")
     validation.check_matrix(queries, "queries")
     validation.check_same_cols(dataset, queries, "dataset", "queries")
@@ -72,6 +82,7 @@ def knn(
         k <= dataset.shape[0], f"k={k} larger than dataset size {dataset.shape[0]}"
     )
     pass_filter = resolve_pass_filter(sample_filter, deleted_mask)
+    stamp_kernel_path("cuda" if device.type == "cuda" else "torch")
     if pass_filter is not None:
         n = dataset.shape[0]
         if pass_filter.n_bits < n:
@@ -81,16 +92,20 @@ def knn(
                 pass_filter.words.shape[0] == queries.shape[0],
                 f"row filter has {pass_filter.words.shape[0]} rows for "
                 f"{queries.shape[0]} queries")
-        stamp_kernel_path("cuda" if device.type == "cuda" else "torch")
-        return _tiled_knn(queries, dataset, int(k), canonical, pass_filter.words.to(device), res)
+    if pass_filter is not None or canonical not in _FUSED:
+        both_int = not dataset.is_floating_point() and not queries.is_floating_point()
+        if not both_int:
+            queries = queries.to(torch.float32)
+        words = None if pass_filter is None else pass_filter.words.to(device)
+        return _tiled_knn(queries, dataset, int(k), canonical, p, words, res)
+    dataset = dataset.to(torch.float32)
+    queries = queries.to(torch.float32)
     mode = "ip" if canonical == "inner_product" else "l2"
     if mode == "ip":
         xx = torch.zeros(dataset.shape[0], dtype=torch.float32, device=device)
     else:
         xx = (dataset * dataset).sum(dim=1)
-    on_card = device.type == "cuda"
-    stamp_kernel_path("cuda" if on_card else "torch")
-    topk = fused_l2_topk if on_card else fused_l2_topk_torch
+    topk = fused_l2_topk if device.type == "cuda" else fused_l2_topk_torch
     vals, idx = topk(queries, dataset, xx, int(k), mode=mode)
     if mode == "ip":
         return -vals, idx
@@ -101,44 +116,41 @@ def knn(
     return vals, idx
 
 
-def _tiled_knn(queries: torch.Tensor, dataset: torch.Tensor, k: int, metric: str,
-               words: torch.Tensor, res: Resources):
-    """raft_tpu's ``_tiled_knn`` with a pass filter's words (one set [W], or
-    a RowFilter's [n_q, W]): query tiles of up to 1,024 rows against column
-    tiles of the dataset sized from the workspace (raft_tpu's rule), each
-    tile's top-k merged into a running top-k.  Excluded columns take the
-    worst value and id -1."""
+def _tiled_knn(queries: torch.Tensor, dataset: torch.Tensor, k: int, metric: str, p: float,
+               words: Optional[torch.Tensor], res: Resources):
+    """raft_tpu's ``_tiled_knn``: query tiles of up to 1,024 rows against
+    column tiles of the dataset sized from the workspace (raft_tpu's rule:
+    an expanded tile holds [query_tile, tile_cols], an elementwise one the
+    [query_tile, tile_cols, d] broadcast), each tile's top-k merged into a
+    running top-k, earlier columns first.  ``words``: a pass filter's
+    words (one set [W], or a RowFilter's [n_q, W]), or None; excluded
+    columns take the worst value and id -1."""
     n, d = dataset.shape
     select_min = metric != "inner_product"
     worst = float("inf") if select_min else float("-inf")
     query_tile = min(max(queries.shape[0], 1), 1024)
-    tile_cols = int(min(n, max(512, res.workspace_rows(4 * max(d, query_tile), cap=1 << 14))))
-    per_row = words.ndim == 2
-    yy = None if metric == "inner_product" else (dataset * dataset).sum(dim=1)
+    elem = 4 * max(d, query_tile) if metric in EXPANDED or metric == "haversine" \
+        else 4 * d * query_tile
+    tile_cols = int(min(n, max(512, res.workspace_rows(elem, cap=1 << 14))))
+    per_row = words is not None and words.ndim == 2
     vs, is_ = [], []
     for qs in range(0, queries.shape[0], query_tile):
         qt = queries[qs:qs + query_tile]
-        xx = None if yy is None else (qt * qt).sum(dim=1)
         best_v = torch.full((qt.shape[0], k), worst, dtype=torch.float32, device=qt.device)
         best_i = torch.full((qt.shape[0], k), -1, dtype=torch.int32, device=qt.device)
         for cs in range(0, n, tile_cols):
             tile = dataset[cs:cs + tile_cols]
-            ip = torch.matmul(qt, tile.T)
-            if metric == "inner_product":
-                dist = ip
-            else:
-                dist = torch.clamp(xx[:, None] + yy[None, cs:cs + tile.shape[0]] - 2.0 * ip,
-                                   min=0.0)
-                if metric == "euclidean":
-                    dist = torch.sqrt(dist)
+            dist = distance_matrix_tile(qt, tile, metric, p)
             col = torch.arange(cs, cs + tile.shape[0], device=qt.device)
-            failing = (invalid_mask(col.expand(qt.shape[0], -1), words[qs:qs + query_tile])
-                       if per_row else invalid_mask(col, words)[None, :])
-            dist = torch.where(failing, torch.full_like(dist, worst), dist)
-            ids = torch.where(failing, torch.full((), -1, dtype=torch.int32, device=qt.device),
-                              col.to(torch.int32)[None, :])
+            ids = col.to(torch.int32)[None, :].expand(qt.shape[0], -1)
+            if words is not None:
+                failing = (invalid_mask(col.expand(qt.shape[0], -1), words[qs:qs + query_tile])
+                           if per_row else invalid_mask(col, words)[None, :])
+                dist = torch.where(failing, torch.full_like(dist, worst), dist)
+                ids = torch.where(failing, torch.full((), -1, dtype=torch.int32,
+                                                      device=qt.device), ids)
             tv, ti = select_k(dist, min(k, tile.shape[0]), select_min=select_min,
-                              input_indices=ids.expand(qt.shape[0], -1))
+                              input_indices=ids)
             best_v, best_i = select_k(torch.cat([best_v, tv], dim=1), k, select_min=select_min,
                                       input_indices=torch.cat([best_i, ti], dim=1))
         vs.append(best_v)
@@ -147,7 +159,7 @@ def _tiled_knn(queries: torch.Tensor, dataset: torch.Tensor, k: int, metric: str
 
 
 class Index:
-    """Brute-force index: the dataset and its metric."""
+    """Brute-force index: the dataset (in its input dtype) and its metric."""
 
     def __init__(self, dataset: torch.Tensor, metric: str = "sqeuclidean"):
         self.dataset = dataset
@@ -167,7 +179,7 @@ class Index:
 def build(dataset, *, metric: str = "sqeuclidean",
           res: Optional[Resources] = None) -> Index:
     res = ensure(res)
-    return Index(as_f32(dataset, res.device), metric)
+    return Index(to_device(dataset, res.device), metric)
 
 
 def search(index: Index, queries, k: int, *, sample_filter=None,
@@ -182,3 +194,15 @@ def search(index: Index, queries, k: int, *, sample_filter=None,
         dataset = pool.reshape((-1,) + tuple(pool.shape[2:]))[: index.size]
     return knn(dataset, queries, k, metric=index.metric,
                sample_filter=sample_filter, deleted_mask=deleted_mask, res=res)
+
+
+def save(filename: str, index: Index) -> None:
+    """raft_tpu's format: the metric and the dataset in its dtype."""
+    ser.save_tree(filename, "brute_force", _SERIALIZATION_VERSION,
+                  {"metric": index.metric}, {"dataset": index.dataset})
+
+
+def load(filename: str, *, res: Optional[Resources] = None) -> Index:
+    """An index saved by this package's or raft_tpu's ``save``."""
+    scalars, arrays = ser.load_tree(filename, "brute_force", _SERIALIZATION_VERSION)
+    return Index(from_numpy(arrays["dataset"]).to(ensure(res).device), scalars["metric"])

@@ -27,7 +27,7 @@ traffic: the traversal stays unfiltered, and a result buffer of the best
 k filter-passing candidates, with its own membership mask, is merged every
 hop (:func:`traverse_steps_filtered`); ``itopk`` is widened by the
 inverse pass rate (:func:`filtered_itopk`).  Its hops are PyTorch ops and
-``select_k`` (the select_k kernel on the card up to k = 512, a sort past
+``select_k`` (the select_k kernel on the card up to k = 2048, a sort past
 it).
 
 Random seed ids come from a ``torch.Generator`` seeded with

@@ -1,17 +1,23 @@
-"""IVF-Flat: inverted-file index over uncompressed f32 vectors
-(counterpart of ``raft_tpu.neighbors.ivf_flat``).
+"""IVF-Flat: inverted-file index over uncompressed vectors (counterpart of
+``raft_tpu.neighbors.ivf_flat``).
 
 Storage is raft_tpu's dense padded layout: ``list_data [n_lists, cap,
-dim]``, ``list_index [n_lists, cap]`` (-1 past each list's size),
-``list_norms [n_lists, cap]`` (+inf past the size).  An index saved by
-``raft_tpu.neighbors.ivf_flat.save`` loads here unchanged.
+dim]`` in the dataset's dtype (f32, bf16, int8 or uint8), ``list_index
+[n_lists, cap]`` (-1 past each list's size), ``list_norms [n_lists, cap]``
+f32 (+inf past the size).  As in raft_tpu, k-means trains on the rows cast
+to f32 and the norms are those of the stored rows cast to f32.  An index
+saved by ``raft_tpu.neighbors.ivf_flat.save`` loads here unchanged.
 
 Search is ``_common.scan_search``: coarse select (``torch.matmul`` +
-select_k) → list scan → merge, on raft_tpu's schedule rule.  Both scans
-reach the f32 legs of the CUDA kernels of ``kernels.ivf_scan`` for CUDA
-tensors (k up to 512 there; deeper k raises) and their plain versions for
-CPU tensors, unfiltered or on their filter legs (``sample_filter`` /
-``deleted_mask``); every call stamps ``kernel_path`` "cuda" or "torch".
+select_k) → list scan → merge, on raft_tpu's schedule rule, every row
+scored in f32 (raft_tpu's ``scan_dtype="highest"``).  Both scans reach the
+CUDA kernels of ``kernels.ivf_scan`` for CUDA tensors (k up to 2048 there;
+deeper k raises) on the storage type's leg (f32; bf16 rows with f32
+products; raw uint8 / int8 rows, ``_u8`` / ``_s8``), and their plain
+versions for CPU tensors, unfiltered or on their filter legs
+(``sample_filter`` / ``deleted_mask``); every call stamps ``kernel_path``
+"cuda" or "torch".  A paged search of 8-bit lists raises
+``NotImplementedError`` (no paged 8-bit leg yet).
 
 Paged storage (``store.paginate_index``): the lists move to host pages
 behind a device pool at ``index.paged`` (``list_data`` is then a host
@@ -31,7 +37,8 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import validation
-from raft_tpu_torch.core.resources import Resources, as_f32, ensure
+from raft_tpu_torch.core.resources import Resources, as_f32, ensure, to_device
+from raft_tpu_torch.core.resources import from_numpy as tensor_from_numpy
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.neighbors import _common
 from raft_tpu_torch.neighbors._common import (
@@ -46,6 +53,11 @@ from raft_tpu_torch.neighbors._common import (
 
 _SERIALIZATION_VERSION = 1
 _METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
+#: the list storage types (raft_tpu keeps the dataset's dtype)
+_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.uint8)
+#: the scans' storage-leg arguments: raw rows (an int8 list is not a
+#: scaled cache), scored in f32
+_SCAN_KW = {"scan_scale": None}
 
 
 @dataclass
@@ -71,11 +83,9 @@ class Index:
 
     def __init__(self, metric, centers, list_data, list_index, list_sizes,
                  list_norms, headroom: bool = True):
-        if list_data.dtype != torch.float32:
+        if list_data.dtype not in _DTYPES:
             raise NotImplementedError(
-                f"ivf_flat storage {list_data.dtype}: this slice of the port "
-                "stores float32 lists (bf16 / int8 legs come later)"
-            )
+                f"ivf_flat storage {list_data.dtype}: the port stores {_DTYPES}")
         self.metric = metric
         self.centers = centers
         self.list_data = list_data
@@ -123,22 +133,24 @@ def _kb_metric(metric: str) -> str:
 
 def _pack_lists(rows: torch.Tensor, ids: torch.Tensor, labels: np.ndarray,
                 n_lists: int, headroom: bool):
-    """Scatter rows into the padded [n_lists', cap, dim] layout; oversized
-    lists are split with duplicated centroids (returns center_map)."""
+    """Scatter rows into the padded [n_lists', cap, dim] layout (in the rows'
+    dtype; norms of the rows cast to f32); oversized lists are split with
+    duplicated centroids (returns center_map)."""
     n, d = rows.shape
     lst, slot, sizes, center_map, cap = compute_list_layout(
         labels, n_lists, max_cap=default_max_cap(n, n_lists), headroom=headroom,
     )
     L = len(center_map)
     dev = rows.device
-    l_data = torch.zeros((L, cap, d), dtype=torch.float32, device=dev)
+    l_data = torch.zeros((L, cap, d), dtype=rows.dtype, device=dev)
     l_index = torch.full((L, cap), -1, dtype=torch.int32, device=dev)
     l_norms = torch.full((L, cap), float("inf"), dtype=torch.float32, device=dev)
     lj = torch.from_numpy(lst).to(dev)
     sj = torch.from_numpy(slot).to(dev)
     l_data[lj, sj] = rows
     l_index[lj, sj] = ids.to(torch.int32)
-    l_norms[lj, sj] = (rows * rows).sum(dim=1)
+    rows32 = rows.to(torch.float32)
+    l_norms[lj, sj] = (rows32 * rows32).sum(dim=1)
     return l_data, l_index, torch.from_numpy(sizes).to(dev), l_norms, center_map
 
 
@@ -146,6 +158,7 @@ def build(params: IndexParams, dataset, *, res: Optional[Resources] = None) -> I
     """Subsample a trainset → balanced k-means → predict → pack lists."""
     res = ensure(res)
     device = res.device
+    dataset = to_device(dataset, device)
     n, d = dataset.shape
     if DISTANCE_TYPES[params.metric] not in _METRICS:
         raise ValueError(f"ivf_flat supports L2/IP/cosine metrics, got {params.metric}")
@@ -158,7 +171,7 @@ def build(params: IndexParams, dataset, *, res: Optional[Resources] = None) -> I
     index = Index(
         params.metric,
         centers,
-        torch.zeros((params.n_lists, 8, d), dtype=torch.float32, device=device),
+        torch.zeros((params.n_lists, 8, d), dtype=dataset.dtype, device=device),
         torch.full((params.n_lists, 8), -1, dtype=torch.int32, device=device),
         torch.zeros((params.n_lists,), dtype=torch.int32, device=device),
         torch.full((params.n_lists, 8), float("inf"), dtype=torch.float32, device=device),
@@ -180,10 +193,11 @@ def extend(index: Index, new_vectors, new_indices=None, *,
         )
     res = ensure(res)
     dev = index.centers.device
-    x = as_f32(new_vectors, dev)
+    x = to_device(new_vectors, dev).to(index.list_data.dtype)   # stored as the lists
+    x32 = x.to(torch.float32)
     n_new = x.shape[0]
     labels = kmeans_balanced.predict(
-        index.centers, x, metric=_kb_metric(index.metric), res=res
+        index.centers, x32, metric=_kb_metric(index.metric), res=res
     ).cpu().numpy()
     old_n = index.size
     if new_indices is None:
@@ -206,7 +220,7 @@ def extend(index: Index, new_vectors, new_indices=None, *,
             list_norms = index.list_norms.clone()
             list_data[lj, sj] = x
             list_index[lj, sj] = new_ids
-            list_norms[lj, sj] = (x * x).sum(dim=1)
+            list_norms[lj, sj] = (x32 * x32).sum(dim=1)
             new = Index(
                 index.metric, index.centers, list_data, list_index,
                 index.list_sizes + torch.from_numpy(counts_new).to(dev, torch.int32),
@@ -294,11 +308,11 @@ def search(
         )
     validation.check_in(params.strategy, ("auto", "query_major", "probe_major"), "strategy")
     metric = DISTANCE_TYPES[index.metric]
-    v, i = _common.scan_search(
-        queries, int(k), n_probes, params.strategy, index.centers,
-        _lists(index, queries, n_probes), metric,
-        lambda qt: qt, {}, ensure(res).workspace_limit_bytes, pass_filter,
-    )
+    with _common.search_lists(index, queries, metric, n_probes, index.scan_norms) as lists:
+        v, i = _common.scan_search(
+            queries, int(k), n_probes, params.strategy, index.centers, lists, metric,
+            lambda qt: qt, _SCAN_KW, ensure(res).workspace_limit_bytes, pass_filter,
+        )
     return _common.postprocess(v, metric), i
 
 
@@ -321,7 +335,7 @@ def from_numpy(arrays, metric: str, *, headroom: bool = True,
     """An Index from raft_tpu's index arrays (``centers``, ``list_data``,
     ``list_index``, ``list_sizes``, ``list_norms``)."""
     dev = ensure(res).device
-    t = {name: torch.from_numpy(np.array(arrays[name])).to(dev)  # a writable copy
+    t = {name: tensor_from_numpy(np.array(arrays[name])).to(dev)  # a writable copy
          for name in ("centers", "list_data", "list_index", "list_sizes", "list_norms")}
     return Index(metric, t["centers"], t["list_data"], t["list_index"].to(torch.int32),
                  t["list_sizes"].to(torch.int32), t["list_norms"], headroom=headroom)

@@ -25,7 +25,7 @@ other; the scan cache is derived state, rebuilt from the codes on load.
 Filtered search (``sample_filter`` / ``deleted_mask``) rides the scans'
 filter legs (``_common.scan_search``).  Not in this slice (it raises
 ``NotImplementedError``): ``internal_distance_dtype="bfloat16"``.  On the
-card a search serves k up to 512 (the scan kernels' envelope) and raises
+card a search serves k up to 2048 (the scan kernels' envelope) and raises
 past it.
 Paged storage (``store.paginate_index``): the scan cache moves to host pages
 behind a device pool at ``index.paged`` (``list_data`` and the codes are then
@@ -643,12 +643,12 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
             f"k={k} exceeds the candidate pool n_probes*list_cap="
             f"{n_probes}*{index.list_cap}; raise n_probes")
     metric = DISTANCE_TYPES[index.metric]
-    v, i = _common.scan_search(
-        queries, int(k), n_probes, params.strategy, index.centers,
-        _lists(index, queries, n_probes), metric,
-        lambda qt: _rotate(index, qt), scan_kwargs(index, params.lut_dtype),
-        res.workspace_limit_bytes, pass_filter,
-    )
+    with _common.search_lists(index, queries, metric, n_probes, index.list_y2) as lists:
+        v, i = _common.scan_search(
+            queries, int(k), n_probes, params.strategy, index.centers, lists, metric,
+            lambda qt: _rotate(index, qt), scan_kwargs(index, params.lut_dtype),
+            res.workspace_limit_bytes, pass_filter,
+        )
     return _common.postprocess(v, metric), i
 
 

@@ -22,8 +22,11 @@ NVIDIA's H100 SXM data sheet.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from dataclasses import dataclass
+from typing import Iterator, List, Tuple
 
 import torch
 
@@ -85,6 +88,18 @@ def fused_knn_cost(n_q: int, n: int, d: int, k: int, *, itemsize: int = 4) -> Ke
     return KernelCost(int(flops), int(bytes_accessed))
 
 
+def fused_argmin_cost(n: int, n_centers: int, d: int, *, itemsize: int = 4) -> KernelCost:
+    """1-NN assignment: 2·d MACs per (row, center) pair plus the running
+    argmin."""
+    flops = n * n_centers * (2 * d + 3)
+    bytes_accessed = (
+        (n + n_centers) * d * itemsize
+        + n_centers * itemsize
+        + n * (itemsize + 4)
+    )
+    return KernelCost(int(flops), int(bytes_accessed))
+
+
 def select_k_work(rows: int, n: int, k: int, *, with_ids: bool = False,
                   itemsize: int = 4) -> KernelCost:
     """Row-wise top-k of [rows, n]: each score (and its id, when ids are
@@ -99,6 +114,14 @@ def fused_knn_work(n_q: int, n: int, d: int, k: int) -> KernelCost:
     row norms read once, [n_q, k] values and ids written."""
     bytes_accessed = (n_q + n) * d * 4 + n * 4 + n_q * k * 8
     return KernelCost(int(n_q * n * 2 * d), int(bytes_accessed))
+
+
+def fused_argmin_work(n: int, n_centers: int, d: int) -> KernelCost:
+    """1-NN assignment: 2·d flops per (row, center) pair; x and the centers
+    read once at 4 bytes a value, the center norms once, and an f32 score
+    and an int32 id written per row."""
+    bytes_accessed = (n + n_centers) * d * 4 + n_centers * 4 + n * 8
+    return KernelCost(int(n * n_centers * 2 * d), int(bytes_accessed))
 
 
 def scan_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int,
@@ -172,3 +195,31 @@ def bound_ms(cost: KernelCost) -> tuple:
     t_bytes = cost.bytes_accessed / H100_BYTES_PER_S * 1e3
     t_ops = cost.flops / H100_PEAK_OPS[cost.compute] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# per-call capture: a kernel wrapper notes its cost where it launches, and a
+# caller that opened a capture() scope collects the notes (raft_tpu's
+# capture / note)
+
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def capture() -> Iterator[List[Tuple[str, KernelCost]]]:
+    """Collect every :func:`note` issued on this thread while the scope is
+    open; nested scopes shadow (the inner scope owns the notes)."""
+    prev = getattr(_tls, "notes", None)
+    _tls.notes = []
+    try:
+        yield _tls.notes
+    finally:
+        _tls.notes = prev
+
+
+def note(name: str, cost: KernelCost) -> None:
+    """Record one kernel launch's cost (a no-op outside a :func:`capture`
+    scope, so wrappers call it unconditionally)."""
+    notes = getattr(_tls, "notes", None)
+    if notes is not None:
+        notes.append((name, cost))

@@ -31,11 +31,20 @@ made under the store's lock on the CUDA stream that was current where the
 admission was asked for (the prefetch thread adopts the stream of the
 :meth:`prefetch` call), so they queue behind the scans already enqueued
 there and ahead of the ones that follow: stream order takes the place of
-raft_tpu's snapshot.  A search enqueues its scan right after its
-admission, so a prefetch hint queued before the latest blocking admission
-is dropped unrun: it could otherwise evict a page that admission promised
-to a scan not yet enqueued.  One thread searches a paged index at a time
-(the serving layer that would search it from several is not ported).
+raft_tpu's snapshot.  A prefetch hint queued before the latest blocking
+admission is dropped unrun: it could otherwise evict a page that admission
+promised to a scan not yet enqueued.
+
+Searches from several threads.  A search of a partial pool holds
+:meth:`search_guard` from its admission until its scans are enqueued, so
+that no other search's admission evicts (and overwrites) one of its pages
+in between.  On the card the guard also orders streams: it is entered by
+making the caller's stream wait on an event recorded after each other
+stream's last guarded search, so that a later admission's in-place page
+writes cannot overtake a scan still queued on another stream, and a scan
+cannot read a page whose upload is still queued there.  A pool that holds
+every page is pinned once (:meth:`pin_identity`) and never changes again,
+so its searches take no guard and no per-call synchronisation.
 
 Left out (their subsystems are not ported; ROADMAP Queue 2): the obs
 registry counters (``raft_tpu_page_*_total``) and the debounced
@@ -172,6 +181,10 @@ class TieredStore:
             depth = _env.env_int("RAFT_TPU_PAGE_PREFETCH_DEPTH", 2)
         self._prefetch_q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._prefetch_thread: Optional[threading.Thread] = None
+        #: held by a search from its admission to its scans' enqueue
+        self._search_lock = threading.RLock()
+        #: CUDA stream handle → event recorded after its last guarded search
+        self._scan_events: Dict[int, "torch.cuda.Event"] = {}
 
     # -- sizing --------------------------------------------------------------
     @property
@@ -236,6 +249,27 @@ class TieredStore:
             protected = np.zeros(self.slots, bool)
             protected[slot_of[present]] = True
             self._fetch(missing, protected, self._current_stream())
+
+    @contextlib.contextmanager
+    def search_guard(self):
+        """Hold for one search of a partial pool, from its admission until
+        its scans are enqueued (see the module docstring): searches of one
+        store run their admit → view → launch one after another, and on the
+        card the caller's stream first waits for every other stream's last
+        guarded search."""
+        with self._search_lock:
+            stream = self._current_stream()
+            if stream is not None:
+                for handle, event in self._scan_events.items():
+                    if handle != stream.cuda_stream:
+                        stream.wait_event(event)
+            try:
+                yield
+            finally:
+                if stream is not None:
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                    self._scan_events[stream.cuda_stream] = event
 
     def prefetch(self, pages: Sequence[int]) -> bool:
         """Async warm-start keyed by the coarse-probe result.  Returns

@@ -68,8 +68,8 @@ def test_knn_exact_self_neighbors_and_deep_k():
 
 def test_knn_rejects_out_of_slice_inputs():
     x, q = _data(100, 4, 2, 5)
-    with pytest.raises(NotImplementedError):
-        tbf.knn(x, q, 3, metric="l1", res=CPU)
+    with pytest.raises(ValueError, match="metric"):   # every DISTANCE_TYPES name is served
+        tbf.knn(x, q, 3, metric="l3", res=CPU)
     with pytest.raises(TypeError, match="Bitset"):   # filters are Bitsets / RowFilters
         tbf.knn(x, q, 3, sample_filter=object(), res=CPU)
     with pytest.raises(ValueError):

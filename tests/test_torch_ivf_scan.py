@@ -198,18 +198,23 @@ def test_quantize_queries_i8_bitwise_with_raft():
 def test_scan_envelope():
     data = torch.zeros((2, 8, 4))
     assert tscan.scan_supported("sqeuclidean", data, 10)
-    assert tscan.scan_supported("sqeuclidean", data, 512)
-    assert not tscan.scan_supported("sqeuclidean", data, 513)
+    assert tscan.scan_supported("sqeuclidean", data, 2048)
+    assert not tscan.scan_supported("sqeuclidean", data, 2049)
+    assert tscan.scan_supported("sqeuclidean", data.to(torch.uint8), 10)
     assert tscan.scan_supported("sqeuclidean", data.to(torch.bfloat16), 10)
     assert tscan.scan_supported("sqeuclidean", data.to(torch.int8), 10)
     assert not tscan.scan_supported("sqeuclidean", data.to(torch.float16), 10)
     assert not tscan.scan_supported("l1", data, 10)
     assert tscan.kernel_name("probe_major", data.to(torch.int8)) == "ivf_scan_probe_major_int8"
     assert tscan.kernel_name("query_major", data) == "ivf_scan_query_major"
+    # raw 8-bit rows (IVF-Flat's 8-bit lists): scan_scale None for int8
+    assert tscan.kernel_name("query_major", data.to(torch.uint8)) == "ivf_scan_query_major_u8"
+    assert (tscan.kernel_name("probe_major", data.to(torch.int8), scan_scale=None)
+            == "ivf_scan_probe_major_s8")
     args = (torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 4)), torch.zeros(1),
             data, torch.zeros((2, 8)), torch.zeros((2, 8), dtype=torch.int32))
-    with pytest.raises(ValueError):
-        tscan.ivf_scan_query_major(*args, 600)
+    with pytest.raises(ValueError, match="kk<=2048"):
+        tscan.ivf_scan_query_major(*args, 2049)
     with pytest.raises(ValueError):
         tscan.ivf_scan_query_major(*args, 4, scan_dtype="float16")
     wide = torch.zeros((2, 8, 1041), dtype=torch.int8)  # past the exact f32 sum
@@ -253,3 +258,28 @@ def test_scan_work_charges_stored_width_and_the_legs_rate(itemsize, compute):
     assert by == "operations"
     assert ms == pytest.approx(heavy.flops / cost.H100_PEAK_OPS[compute] * 1e3)
     assert cost.H100_PEAK_OPS["float32"] < cost.H100_PEAK_OPS["bfloat16"] < cost.H100_PEAK_OPS["int8"]
+
+
+@pytest.mark.parametrize("k", [600, 2048])
+@pytest.mark.parametrize("strategy", ["query_major", "probe_major"])
+def test_ivf_flat_search_past_512_matches_raft_tpu(k, strategy, tmp_path):
+    """k past the kernels' former 512, to the new 2048: the port's search
+    (plain versions on the CPU) of an index raft_tpu built and saved, against
+    raft_tpu's own search of it (its XLA leg, which takes any k)."""
+    from raft_tpu.neighbors import ivf_flat as jivf
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import ivf_flat as tivf
+
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((5000, 8)).astype(np.float32)
+    q = rng.standard_normal((9, 8)).astype(np.float32)
+    jidx = jivf.build(jivf.IndexParams(n_lists=4, kmeans_n_iters=3), x)
+    path = str(tmp_path / "ivf")
+    jivf.save(path, jidx)
+    idx = tivf.load(path, res=Resources(device="cpu"))
+    assert 4 * idx.list_cap > k
+    jv, ji = jivf.search(jivf.SearchParams(n_probes=4, strategy=strategy), jidx, q, k)
+    tv, ti = tivf.search(tivf.SearchParams(n_probes=4, strategy=strategy), idx, q, k,
+                         res=Resources(device="cpu"))
+    assert tv.shape == (9, k)
+    assert_topk_match(tv, ti, jv, ji)

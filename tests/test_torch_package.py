@@ -153,8 +153,17 @@ def test_launch_counts_reset_and_read():
                     name = ivf_scan.kernel_name(schedule, list_data, list_filter, query_fid)
                     assert name in kernels.KERNELS
                     kernels.count_launch(name)
+        # raw 8-bit rows (IVF-Flat over uint8 / int8 datasets), unpaged
+        for dtype, suffix in ((torch.uint8, "_u8"), (torch.int8, "_s8")):
+            lists = torch.zeros((1, 8, 1), dtype=dtype)
+            for list_filter, query_fid in legs:
+                name = ivf_scan.kernel_name(schedule, lists, list_filter, query_fid,
+                                            scan_scale=None)
+                assert suffix in name and name in kernels.KERNELS
+                kernels.count_launch(name)
     counts = kernels.launch_counts()
-    assert len(kernels.KERNELS) == 34 and "cagra_fused_hop_paged" in kernels.KERNELS
+    assert len(kernels.KERNELS) == 45 and "cagra_fused_hop_paged" in kernels.KERNELS
+    assert "fused_argmin" in kernels.KERNELS
     assert all(counts[n] == 1 for n in kernels.KERNELS if n.startswith("ivf_scan"))
     kernels.reset_launch_counts()
     assert sum(kernels.launch_counts().values()) == 0
@@ -367,22 +376,22 @@ def test_ivf_pq_search_and_refine_on_the_card(cuda, decoded_dtype, lut_dtype):
 @pytest.mark.cuda
 def test_k_past_the_kernel_envelope_raises_on_the_card(cuda):
     """On the card every search goes to its kernels, which raise past
-    k = 512: no search falls back to a plain version there."""
+    k = 2048: no search falls back to a plain version there."""
     rng = np.random.default_rng(6)
-    x = rng.standard_normal((6000, 32)).astype(np.float32)
+    x = rng.standard_normal((24000, 32)).astype(np.float32)
     q = rng.standard_normal((300, 32)).astype(np.float32)
     res = Resources(device="cuda")
     flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=8, kmeans_n_iters=2), x, res=res)
     pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=8, pq_dim=16, kmeans_n_iters=2), x, res=res)
-    assert flat.list_cap > 513 and pq.list_cap > 513
+    assert flat.list_cap > 2049 and pq.list_cap > 2049
     kernels.reset_launch_counts()
     for strategy in ("query_major", "probe_major"):
-        with pytest.raises(ValueError, match="kk<=512"):
-            ivf_flat.search(ivf_flat.SearchParams(n_probes=6, strategy=strategy), flat, q, 513)
-        with pytest.raises(ValueError, match="kk<=512"):
-            ivf_pq.search(ivf_pq.SearchParams(n_probes=6, strategy=strategy), pq, q, 513)
-    with pytest.raises(ValueError, match="k<=512"):
-        brute_force.knn(x, q, 513, res=res)
+        with pytest.raises(ValueError, match="kk<=2048"):
+            ivf_flat.search(ivf_flat.SearchParams(n_probes=6, strategy=strategy), flat, q, 2049)
+        with pytest.raises(ValueError, match="kk<=2048"):
+            ivf_pq.search(ivf_pq.SearchParams(n_probes=6, strategy=strategy), pq, q, 2049)
+    with pytest.raises(ValueError, match="k<=2048"):
+        brute_force.knn(x, q, 2049, res=res)
     assert all(n == 0 for name, n in kernels.launch_counts().items() if name != "select_k")
 
 
@@ -769,3 +778,283 @@ def test_paged_searches_on_the_card_match_monolithic(cuda):
     assert kernels.launch_counts()["cagra_fused_hop_paged"] > 0
     assert same(cagra.search(sp, pcg, q, 10, res=res, sample_filter=keep),
                 cagra.search(sp, cg, q, 10, res=res, sample_filter=keep))
+
+
+# -- deep k, raw 8-bit rows, kernel #7 ---------------------------------------
+
+
+def _deep_inputs(schedule, dtype, raw, kk, g, leg=None):
+    """Scan inputs whose lists hold more (passing) real rows than ``kk``: 6
+    lists of kk + 96 slots (2 kk + 96 on a filter leg, which passes ~70 %),
+    the last 40 padding, d 32; ``raw``: 8-bit rows of raw values
+    (``scan_scale`` None), else an int8 cache at scale 0.0173.  ``leg``:
+    None, "filt" (one plane) or "fid" (query-major, 3 planes)."""
+    from raft_tpu_torch.core.bitset import Bitset
+
+    L, cap, d = 6, (2 * kk if leg else kk) + 96, 32
+    scale = None if raw else (0.0173 if dtype == torch.int8 else 1.0)
+    if dtype in (torch.int8, torch.uint8):
+        lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+        data = torch.randint(lo, hi, (L, cap, d), generator=g).to(dtype)
+        vals = data.float() * (1.0 if raw else torch.tensor(scale, dtype=torch.float32))
+    else:
+        data = torch.randn(L, cap, d, generator=g).to(dtype)
+        vals = data.float()
+    ids = torch.arange(L * cap, dtype=torch.int32).reshape(L, cap)
+    ids[:, cap - 40:] = -1
+    y2 = torch.where(ids >= 0, (vals * vals).sum(-1), torch.zeros(()))
+    kw = {"scan_scale": scale}
+    if leg is not None:
+        planes = 3 if leg == "fid" else 1
+        masks = torch.rand(planes, L * cap, generator=g) < 0.7
+        table = torch.stack([ivf_scan.pack_list_filter(ids, Bitset.from_mask(m, device="cpu").words)
+                             for m in masks])
+    q_scale = 40.0 if dtype in (torch.int8, torch.uint8) and raw else 1.0
+    if schedule == "probe_major":
+        qg = torch.randn(8, 40, d, generator=g) * q_scale
+        q2g = (qg * qg).sum(-1)
+        q2g[:, 35:] = float("inf")
+        args = (torch.randint(0, L, (8,), generator=g, dtype=torch.int32), qg, q2g,
+                data, y2, ids, kk)
+        if leg is not None:
+            kw["list_filter"] = table[0]
+    else:
+        q = torch.randn(20, d, generator=g) * q_scale
+        args = (torch.randint(0, L, (20, 3), generator=g, dtype=torch.int32), q,
+                (q * q).sum(1), data, y2, ids, kk)
+        if leg == "filt":
+            kw["list_filter"] = table[0]
+        elif leg == "fid":
+            kw.update(list_filter=table,
+                      query_fid=torch.randint(0, 3, (20,), generator=g, dtype=torch.int32))
+    return args, kw
+
+
+def _run_leg(cuda, schedule, args, kw, scan_dtype="highest", paged_rows=None):
+    """(kernel output, plain output, the leg's launch name, counts) of one
+    scan leg on the card; ``paged_rows``: read the lists through a page
+    table of pages of that many rows (a scattered pool)."""
+    from _torch_parity import paged_lists
+
+    card = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    if paged_rows is not None:
+        card[3] = _on(paged_lists(args[3], paged_rows, 4), cuda)
+    kw_card = {n: a.to(cuda) if torch.is_tensor(a) else a for n, a in kw.items()}
+    plain = getattr(ivf_scan, f"ivf_scan_{schedule}_torch")
+    kernel = getattr(ivf_scan, f"ivf_scan_{schedule}")
+    want = plain(*card, scan_dtype=scan_dtype, **kw_card)
+    kernels.reset_launch_counts()
+    got = kernel(*card, scan_dtype=scan_dtype, **kw_card)
+    torch.cuda.synchronize()
+    name = ivf_scan.kernel_name(schedule, card[3], kw_card.get("list_filter"),
+                                kw_card.get("query_fid"), kw["scan_scale"])
+    return got, want, name, {n: c for n, c in kernels.launch_counts().items() if c}
+
+
+_DEEP_LEGS = [  # (dtype, raw, scan_dtype, paged page rows)
+    (torch.float32, False, "highest", None), (torch.bfloat16, False, "float32", None),
+    (torch.bfloat16, False, "bfloat16", None), (torch.int8, False, "float32", None),
+    (torch.uint8, True, "highest", None), (torch.int8, True, "highest", None),
+    (torch.float32, False, "highest", 64), (torch.int8, False, "float32", 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [513, 1024, 2048])
+@pytest.mark.parametrize("schedule,leg", [("probe_major", None), ("probe_major", "filt"),
+                                          ("query_major", None), ("query_major", "filt"),
+                                          ("query_major", "fid")])
+@pytest.mark.parametrize("dtype,raw,scan_dtype,paged", _DEEP_LEGS)
+def test_deep_k_scan_legs_match_plain_bitwise(cuda, schedule, leg, dtype, raw, scan_dtype,
+                                              paged, kk):
+    """Every scan leg (#3 / #5 storage legs, #6 fid, #4 paged, the raw 8-bit
+    rows) past the former kk = 512, up to 2048: bitwise its plain version
+    on the card, only the leg's own count moving; query-major's 20 queries
+    split their probes, so the merge runs at kk too."""
+    g = torch.Generator().manual_seed(31)
+    args, kw = _deep_inputs(schedule, dtype, raw, kk, g, leg)
+    if paged is not None:
+        # the lists' capacity must be a page multiple: pad kk + 96 up
+        cap2 = -(-args[3].shape[1] // paged) * paged
+        pad = cap2 - args[3].shape[1]
+        args = (*args[:3], torch.nn.functional.pad(args[3], (0, 0, 0, pad)),
+                torch.nn.functional.pad(args[4], (0, pad)),
+                torch.nn.functional.pad(args[5], (0, pad), value=-1), kk)
+        if "list_filter" in kw:
+            lf = kw["list_filter"]
+            kw["list_filter"] = torch.nn.functional.pad(lf, (0, -(-cap2 // 32) - lf.shape[-1]))
+    got, want, name, counts = _run_leg(cuda, schedule, args, kw, scan_dtype, paged)
+    assert counts == {name: 1} and got[0].shape[-1] == kk
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(torch.isfinite(got[0][..., kk - 1]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [10, 129])
+@pytest.mark.parametrize("schedule,leg", [("probe_major", None), ("probe_major", "filt"),
+                                          ("query_major", None), ("query_major", "filt"),
+                                          ("query_major", "fid")])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product", "cosine"])
+def test_raw_8bit_legs_match_plain_bitwise(cuda, schedule, leg, dtype, kk, metric):
+    """The _u8 / _s8 legs (IVF-Flat over 8-bit datasets): values converted
+    to f32 where they are staged, then the f32 legs' fmaf chain: bitwise
+    the plain version's ``sequential_dot`` over the upcast rows."""
+    g = torch.Generator().manual_seed(33)
+    args, kw = _deep_inputs(schedule, dtype, True, kk, g, leg)
+    kw["metric"] = metric
+    got, want, name, counts = _run_leg(cuda, schedule, args, kw)
+    assert ("_u8" if dtype == torch.uint8 else "_s8") in name
+    assert counts == {name: 1}
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_raw_8bit_legs_refuse_bf16_compute_and_pages(cuda):
+    from _torch_parity import paged_lists
+
+    g = torch.Generator().manual_seed(34)
+    args, kw = _deep_inputs("query_major", torch.uint8, True, 16, g)   # 112 slots: 14 pages
+    card = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    with pytest.raises(ValueError, match="f32"):
+        ivf_scan.ivf_scan_query_major(*card, scan_dtype="bfloat16", scan_scale=None)
+    card[3] = _on(paged_lists(args[3], 8, 4), cuda)
+    with pytest.raises(NotImplementedError, match="paged"):
+        ivf_scan.ivf_scan_query_major(*card, scan_scale=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [513, 1024, 2048])
+def test_select_k_and_fused_knn_past_512_match_plain(cuda, k):
+    """select_k (#1) and fused_knn (#2) at k past the former 512: select_k
+    bitwise in both tie disciplines; fused_knn bitwise (fewer queries a
+    block, and the split batch's merge at k)."""
+    g = torch.Generator().manual_seed(35)
+    s = torch.round(torch.randn(40, 4000, generator=g) * 3)
+    ids = torch.randint(-1, 400, (40, 4000), generator=g, dtype=torch.int32)
+    for stable in (False, True):
+        want = select_k.select_k_torch(s, k, stable=stable, input_indices=ids)
+        got = select_k.select_k_kernel(s.to(cuda), k, stable=stable, input_indices=ids.to(cuda))
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    x, q = torch.randn(20000, 32, generator=g), torch.randn(70, 32, generator=g)
+    xx = (x * x).sum(1)
+    want = fused_knn.fused_l2_topk_torch(q.to(cuda), x.to(cuda), xx.to(cuda), k)
+    kernels.reset_launch_counts()
+    got = fused_knn.fused_l2_topk(q.to(cuda), x.to(cuda), xx.to(cuda), k)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_knn"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_centers,d", [(1100, 300, 40), (8192, 1024, 128), (5, 1, 3),
+                                           (70, 129, 64)])
+def test_fused_argmin_kernel_matches_plain_bitwise(cuda, n, n_centers, d):
+    """Kernel #7 against its plain version on the card: scores and ids
+    bitwise, with duplicate centers (a tie the first must win), a +inf
+    norm (a center that never wins) and rows past any multiple of 64."""
+    from raft_tpu_torch.kernels import fused_argmin
+
+    g = torch.Generator().manual_seed(36)
+    x = torch.randn(n, d, generator=g)
+    c = torch.randn(n_centers, d, generator=g)
+    if n_centers > 2:
+        c[n_centers - 1] = c[n_centers // 2]          # a duplicate, later index
+        x[0] = c[n_centers // 2]
+    cc = (c * c).sum(1)
+    if n_centers > 3:
+        cc[1] = float("inf")
+    from raft_tpu_torch.ops import cost
+
+    want = fused_argmin.fused_l2_argmin_torch(x.to(cuda), c.to(cuda), cc.to(cuda))
+    kernels.reset_launch_counts()
+    with cost.capture() as notes:
+        got = kernels.fused_l2_argmin(x.to(cuda), c.to(cuda), cc.to(cuda))
+    torch.cuda.synchronize()
+    assert {n_: c_ for n_, c_ in kernels.launch_counts().items() if c_} == {"fused_argmin": 1}
+    assert notes == [("fused_argmin", cost.fused_argmin_cost(n, n_centers, d))]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if n_centers > 2:
+        assert int(got[1][0]) == n_centers // 2      # the first of the duplicates
+    if n_centers > 3:
+        assert not bool((got[1] == 1).any())         # the +inf center never wins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.bfloat16])
+def test_ivf_flat_8bit_and_bf16_search_on_the_card(cuda, dtype):
+    """IVF-Flat over uint8 / int8 / bf16 rows on the card: both schedules
+    on the storage type's kernel leg (no plain scan), ids and distances
+    bitwise the CPU search of the same index."""
+    rng = np.random.default_rng(37)
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+    centers = rng.integers(lo + 40, hi - 40, (40, 32))
+    x = np.clip(centers[rng.integers(0, 40, 6000)] + rng.integers(-20, 20, (6000, 32)), lo, hi - 1)
+    q = np.clip(centers[rng.integers(0, 40, 300)] + rng.integers(-20, 20, (300, 32)), lo, hi - 1)
+    xt = torch.from_numpy(x).to(dtype)
+    idx = ivf_flat.build(ivf_flat.IndexParams(n_lists=16, kmeans_n_iters=4), xt.to(cuda),
+                         res=Resources(device="cuda"))
+    assert idx.list_data.dtype == dtype
+    host = ivf_flat.Index(idx.metric, idx.centers.cpu(), idx.list_data.cpu(),
+                          idx.list_index.cpu(), idx.list_sizes.cpu(), idx.list_norms.cpu())
+    leg = {torch.uint8: "_u8", torch.int8: "_s8", torch.bfloat16: "_bf16"}[dtype]
+    for strategy in ("query_major", "probe_major"):
+        sp = ivf_flat.SearchParams(n_probes=6, strategy=strategy)
+        kernels.reset_launch_counts()
+        v, i = ivf_flat.search(sp, idx, q.astype(np.float32), 10)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[f"ivf_scan_{strategy}{leg}"] > 0
+        pv, pi = ivf_flat.search(sp, host, q.astype(np.float32), 10, res=Resources(device="cpu"))
+        assert torch.equal(i.cpu(), pi) and torch.equal(v.cpu(), pv)
+
+
+@pytest.mark.cuda
+def test_threads_on_their_own_streams_search_one_paged_index(cuda):
+    """Four threads, each on its own CUDA stream, searching one IVF-Flat
+    index whose pool holds a quarter of its pages: every result bitwise the
+    monolithic search (the store's search guard orders the streams)."""
+    import copy
+    import threading
+
+    from raft_tpu_torch.store import MemoryBudget, paginate_index
+
+    rng = np.random.default_rng(38)
+    x = rng.standard_normal((6000, 32)).astype(np.float32)
+    q = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32)).to(cuda)
+    res = Resources(device="cuda")
+    flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=32), x, res=res)
+    over = copy.copy(flat)
+    ppl = -(-flat.list_cap // 64)
+    n_pages = flat.n_lists * ppl
+    tiered = paginate_index(over, page_rows=64,
+                            budget=MemoryBudget(n_pages // 4 * 64 * 32 * 4 + 4 * n_pages))
+    sp = ivf_flat.SearchParams(n_probes=4)
+    batches = [q[s:s + 1] for s in range(24)]   # a batch's pages must fit the pool
+    want = [ivf_flat.search(sp, flat, b, 10, res=res) for b in batches]
+    torch.cuda.synchronize()   # the threads' streams do not wait for this one
+    out = [[] for _ in range(4)]
+    errors = []
+
+    def worker(t):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for r in range(3):
+                    for b in range(len(batches)):
+                        i = (b + 6 * t + r) % len(batches)
+                        v, ids = ivf_flat.search(sp, over, batches[i], 10, res=res)
+                        out[t].append((i, v.cpu(), ids.cpu()))   # synchronises this stream
+        except Exception as e:  # pragma: no cover - surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == []
+    for per in out:
+        assert len(per) == 3 * len(batches)
+        for i, v, ids in per:
+            assert torch.equal(v, want[i][0].cpu()) and torch.equal(ids, want[i][1].cpu())
+    assert tiered.evictions > 0

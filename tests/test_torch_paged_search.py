@@ -19,6 +19,7 @@ on raft_tpu's fixture sizes (``tests/test_store_paged_index.py``: N 400, D
 """
 
 import copy
+import threading
 
 import numpy as np
 import pytest
@@ -253,6 +254,57 @@ def test_ivf_serves_payload_larger_than_hot_pool(saved, corpus, kind):
                  mod.search(sp, mono, row[None], K, res=CPU))
     st = tiered.stats()
     assert st["misses"] > 0 and st["evictions"] > 0, st
+
+
+def _search_from_threads(search, batches, n_threads=4, rounds=3):
+    """Each of ``n_threads`` threads runs ``search`` over every batch
+    ``rounds`` times, all starting together; returns each thread's results
+    in batch order."""
+    barrier = threading.Barrier(n_threads)
+    results = [[] for _ in range(n_threads)]
+    errors = []
+
+    def worker(t):
+        try:
+            barrier.wait()
+            for r in range(rounds):
+                # threads walk the batches from different starting points, so
+                # their admissions evict one another's pages
+                for b in range(len(batches)):
+                    i = (b + t * len(batches) // n_threads + r) % len(batches)
+                    results[t].append((i, search(batches[i])))
+        except Exception as e:  # pragma: no cover - surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == []
+    return results
+
+
+@pytest.mark.parametrize("kind", ("ivf_flat", "ivf_pq"))
+def test_threads_searching_one_index_over_budget(saved, corpus, kind):
+    """Four threads searching one index whose pool holds 60 % of its pages,
+    in batches of two queries: every result bitwise the single-thread
+    search (each search holds the store's guard from its admission until
+    its scans are enqueued, so no other thread's admission evicts a page
+    between them)."""
+    _, q = corpus
+    mono = saved[kind][2]
+    paged, tiered = _paged_copy(mono, budget=_ivf_page_budget(mono, 0.6), name=f"thr:{kind}")
+    assert tiered.slots < tiered.n_pages
+    mod = tivf if kind == "ivf_flat" else tpq
+    sp = mod.SearchParams(n_probes=4)
+    batches = [q[s:s + 2] for s in range(0, len(q), 2)]
+    want = [mod.search(sp, mono, b, K, res=CPU) for b in batches]
+    for per_thread in _search_from_threads(lambda b: mod.search(sp, paged, b, K, res=CPU),
+                                           batches):
+        for i, got in per_thread:
+            _bitwise(got, want[i])
+    assert tiered.stats()["evictions"] > 0
 
 
 def test_batch_whose_pages_exceed_the_pool_is_loud(saved, corpus):

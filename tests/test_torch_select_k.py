@@ -25,7 +25,8 @@ def _assert_same(a, b):
 # k 129 over 258-wide rows is CAGRA's refine; raft_tpu's Pallas select_k
 # stops at k 128, so past it the reference is raft_tpu's routed select_k
 @pytest.mark.parametrize("rows,n,k", [(5, 37, 7), (8, 128, 16), (3, 1000, 32), (1, 8, 8),
-                                      (4, 258, 129), (2, 600, 258)])
+                                      (4, 258, 129), (2, 600, 258), (2, 1300, 600),
+                                      (1, 2100, 2048)])
 @pytest.mark.parametrize("select_min", [True, False])
 def test_positional_heavy_ties_vs_pallas(rows, n, k, select_min):
     rng = np.random.default_rng(rows * n + k)
@@ -103,13 +104,14 @@ def test_stable_negative_ids_vs_pallas_and_xla(select_min):
     _assert_same(got, xla)
 
 
-@pytest.mark.parametrize("k", [150, 600])
-def test_stable_past_the_kernel_envelope_matches_xla(k):
-    # past raft_tpu's envelope (k 128) both: k 150 takes the port kernel's
-    # plain version, k 600 (past the port's 512) the plain two-key sort
+@pytest.mark.parametrize("k,n", [(150, 700), (600, 700), (2048, 2100)])
+def test_stable_past_the_kernel_envelope_matches_xla(k, n):
+    # past raft_tpu's envelope (k 128) all: each takes the port kernel's
+    # plain version (its envelope runs to k 2048); raft_tpu's reference is
+    # its XLA two-key sort
     rng = np.random.default_rng(3)
-    s = np.asarray(rng.integers(0, 6, size=(3, 700)), np.float32)
-    ids = rng.integers(-1, 300, size=(3, 700)).astype(np.int32)
+    s = np.asarray(rng.integers(0, 6, size=(3, n)), np.float32)
+    ids = rng.integers(-1, 300, size=(3, n)).astype(np.int32)
     got = tmatrix.select_k_stable(torch.from_numpy(s), k, input_indices=torch.from_numpy(ids))
     ref = jmatrix.select_k_stable(jnp.asarray(s), k, input_indices=jnp.asarray(ids))
     _assert_same(got, ref)
@@ -150,7 +152,7 @@ def test_topk_and_integer_paths_vs_xla():
 
 
 def test_supported_envelope_matches_raft():
-    """raft_tpu's gate, but k runs to 512 (raft_tpu's Pallas kernel: 128)."""
+    """raft_tpu's gate, but k runs to 2048 (raft_tpu's Pallas kernel: 128)."""
     from raft_tpu.kernels.select_k import select_k_supported as jsup
 
     for n, k, dt, jdt in [(512, 32, torch.float32, jnp.float32),
@@ -159,12 +161,15 @@ def test_supported_envelope_matches_raft():
                           (512, 129, torch.float32, jnp.float32),
                           (8192, 512, torch.float32, jnp.float32),
                           (600, 513, torch.float32, jnp.float32),
+                          (4000, 2048, torch.float32, jnp.float32),
+                          (4000, 2049, torch.float32, jnp.float32),
                           (16, 32, torch.float32, jnp.float32),
                           (512, 32, torch.int32, jnp.int32)]:
         widened = 128 < k <= tsk.MAX_K and jsup(n, 128, jdt)
         assert tsk.select_k_supported(n, k, dt) == (jsup(n, k, jdt) or widened)
     assert tsk.select_k_supported(258, 129, torch.float32)
-    assert not tsk.select_k_supported(600, 513, torch.float32)
+    assert tsk.select_k_supported(600, 513, torch.float32)
+    assert not tsk.select_k_supported(4000, 2049, torch.float32)
     with pytest.raises(ValueError):
         tsk.select_k_kernel(torch.zeros((2, 16), dtype=torch.int32), 4)
 
