@@ -36,7 +36,8 @@ then drives the port's main paths at the scale of sift-128-euclidean
    it: select_k, the bf16 / int8 scan legs and the CAGRA hop (f32 and bf16
    rows) bitwise, the others within rtol 1e-5 / atol 1e-4 with ids equal
    on >= 99.9% of slots, also at the widened k the CAGRA build needs (k=129
-   for select_k and fused_knn, kk=258 for probe-major); times of kernel,
+   for select_k and fused_knn, kk=258 for probe-major, and select_k at
+   CAGRA's per-hop and filtered shapes on the device clock); times of kernel,
    plain version and (as a yardstick only) one PyTorch library call; the
    bound of each from the work its inputs need (``raft_tpu_torch.ops.cost``);
 9. filtered search (numpy filters from seed 0 over the 1M ids: ``pass50``
@@ -84,7 +85,10 @@ then drives the port's main paths at the scale of sift-128-euclidean
    at raft's defaults: recall against the uint8 oracle, every search on its
    storage type's legs (``_u8`` / ``_s8`` / ``_bf16``, filtered too), a
    save / load round trip in raft_tpu's format, and the same searches on
-   the plain versions;
+   the plain versions; the uint8 and int8 indexes paginated, pinned (every
+   search again, bitwise, on the ``_u8_paged`` / ``_s8_paged`` legs) and
+   over budget (a quarter of the pages, batches of 8, bitwise), and each
+   paged 8-bit leg against its plain version and its unpaged kernel;
 13. deep k: IVF-Flat at k=1,000 on both schedules and brute force at
    k=2,048 on 1,000 queries;
 14. four threads, each on its own CUDA stream, searching the over-budget
@@ -213,9 +217,10 @@ def main() -> int:
         return start.elapsed_time(end) / reps
 
     def device_ms(fn, kernel_name, reps=50):
-        """Device time of one launch of ``kernel_name`` per call of ``fn``, from
-        ``torch.profiler``: for a kernel shorter than its wrapper's host
-        work, CUDA events around back-to-back calls time the host."""
+        """Device time of one launch of ``kernel_name`` per call of ``fn``
+        (None: of all the call's kernels), from ``torch.profiler``: for a
+        kernel shorter than its wrapper's host work, CUDA events around
+        back-to-back calls time the host."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -225,7 +230,9 @@ def main() -> int:
                 fn()
             sync()
         us = [e.device_time_total for e in prof.events()
-              if e.device_type.name == "CUDA" and kernel_name in e.name]
+              if e.device_type.name == "CUDA" and (kernel_name is None or kernel_name in e.name)]
+        if kernel_name is None:   # every kernel the call launches
+            return sum(us) / 1e3 / reps
         return sum(us) / 1e3 / reps if len(us) == reps else float("nan")
 
     # -- the card and the kernels -------------------------------------------
@@ -970,6 +977,57 @@ def main() -> int:
           f"ivf_flat u8 save -> load ({buf.tell()} bytes): uint8 lists, searches bitwise equal")
     del buf, back
 
+    # -- main path: paged 8-bit IVF-Flat (the _u8_paged / _s8_paged legs) ---------
+    # the uint8 and int8 indexes paginated as the f32 one: a pinned pool
+    # holding every page (every search above, bitwise), and a quarter of the
+    # pages served 8 queries at a time
+    p8 = {}
+    for tag in ("u8", "s8"):
+        idx, qs8, leg = idx8[tag], rows8[tag][1], legs8[tag]
+        p8[tag], pin8 = paginate(idx, f"paged_ivf_flat_{tag}")
+
+        def p8_batches(kw_of=lambda b: {}, pidx=p8[tag], qs8=qs8):
+            return batches(lambda qb, k, **kw: ivf_flat.search(sp, pidx, qb, k, res=res, **kw),
+                           K, kw_of, qs8)[:2]
+
+        with phase(f"paged_ivf_flat_{tag}"):
+            got8 = {"probe-major": ivf_flat.search(sp, p8[tag], qs8, K, res=res),
+                    "query-major": p8_batches(),
+                    "probe-major pass10": ivf_flat.search(sp, p8[tag], qs8, K, res=res,
+                                                          **filters["pass10"]),
+                    "query-major pass10": p8_batches(lambda b: filters["pass10"]),
+                    "query-major table8": p8_batches(lambda b: table_batches[b])}
+        check(kernels.consume_kernel_path() == "cuda", f"paged_ivf_flat_{tag} routed to cuda")
+        for name, out in got8.items():
+            check(same(out, out8[f"{tag} {name}"]),
+                  f"paged ivf_flat {tag} {name} bitwise equal to the monolithic search")
+        pl = phase_launches[f"paged_ivf_flat_{tag}"]
+        for name in (f"ivf_scan_probe_major{leg}_paged", f"ivf_scan_probe_major{leg}_paged_filt",
+                     f"ivf_scan_query_major{leg}_paged", f"ivf_scan_query_major{leg}_paged_filt",
+                     f"ivf_scan_query_major{leg}_paged_fid"):
+            check(pl[name] > 0, f"paged ivf_flat {tag} launched {name}")
+        stray = {n: c for n, c in pl.items() if c and n.startswith("ivf_scan") and "_paged" not in n}
+        check(not stray, f"paged ivf_flat {tag}: no unpaged scan launched {stray or ''}")
+        n_pages8, page_bytes8 = pin8.n_pages, pin8.store.page_bytes
+        p_ov8, ov8 = paginate(idx, f"paged_ivf_flat_{tag}_over_budget", budget=MemoryBudget(
+            max(1, int(OVER_BUDGET_FRACTION * n_pages8)) * page_bytes8 + 4 * n_pages8))
+        check(ov8.slots < ov8.n_pages, f"paged ivf_flat {tag} over budget: {ov8.slots} slots of "
+              f"{ov8.n_pages} pages")
+        want8 = [ivf_flat.search(sp, idx, qs8[b:b + OVER_BUDGET_BATCH], K, res=res)
+                 for b in over_starts]
+        with phase(f"paged_ivf_flat_{tag}_over_budget"):
+            ok8 = all(same(ivf_flat.search(sp, p_ov8, qs8[b:b + OVER_BUDGET_BATCH], K, res=res),
+                           want8[i]) for i, b in enumerate(over_starts))
+        st8 = ov8.stats()
+        check(ok8 and st8["misses"] > 0 and st8["evictions"] > 0
+              and phase_launches[f"paged_ivf_flat_{tag}_over_budget"][
+                  f"ivf_scan_query_major{leg}_paged"] > 0,
+              f"paged ivf_flat {tag} over budget: {len(want8)} batches of {OVER_BUDGET_BATCH} "
+              f"bitwise equal to the monolithic search on ivf_scan_query_major{leg}_paged "
+              f"({st8['misses']} misses, {st8['evictions']} evictions)")
+        ov8.close()
+        del p_ov8, ov8, want8, got8
+
     # -- main path: deep k (past the kernels' former 512) -------------------------
     dq = q[:DEEP_QUERIES]
     deep = {}
@@ -1594,6 +1652,26 @@ def main() -> int:
         scan_leg("query_major", f"ivf_scan_query_major_{tag}_fid", idx, sets8, bitwise, raw_kw,
                  fid_of(planes8_), "table8, each query's plane")
         del args8, sets8, lf8, planes8_
+        # the same legs read through the pinned pool's page table, beside the
+        # unpaged kernel on the same rows
+        idx = p8[tag]
+        dense = idx.list_data.to(dev)
+        args8, _ = ivf_flat.probe_major_scan_inputs(idx, qs8, N_PROBES, K, bucket)
+        sets8 = [ivf_flat.query_major_scan_inputs(idx, qs8[b * QM_BATCH:(b + 1) * QM_BATCH],
+                                                  N_PROBES, K) for b in range(QM_BATCHES)]
+        lf8, planes8_ = filter_inputs(idx)
+        scan_leg("probe_major", f"ivf_scan_probe_major_{tag}_paged", idx, [args8], bitwise,
+                 raw_kw, replaces=paged_pm, dense=dense)
+        scan_leg("probe_major", f"ivf_scan_probe_major_{tag}_paged_filt", idx, [args8], bitwise,
+                 raw_kw, lambda b: dict(list_filter=lf8), "pass10", replaces=paged_pm,
+                 dense=dense)
+        scan_leg("query_major", f"ivf_scan_query_major_{tag}_paged", idx, sets8, bitwise, raw_kw,
+                 dense=dense)
+        scan_leg("query_major", f"ivf_scan_query_major_{tag}_paged_filt", idx, sets8, bitwise,
+                 raw_kw, lambda b: dict(list_filter=lf8), "pass10", dense=dense)
+        scan_leg("query_major", f"ivf_scan_query_major_{tag}_paged_fid", idx, sets8, bitwise,
+                 raw_kw, fid_of(planes8_), "table8, each query's plane", dense=dense)
+        del args8, sets8, lf8, planes8_, dense
 
     # deep k: the IVF-Flat scans at k 1000 and fused_knn at k 2048, on the
     # deep main path's queries, bitwise, each recorded beside its kk=10 row
@@ -1724,6 +1802,27 @@ def main() -> int:
            None, f"tile {tile}, width {cagra_sp.search_width}, deg {cg.graph_degree}, "
            f"d {cg.dim}, itopk {itopk}, f32 rows (hop {CAPTURE_HOP})", also=also,
            wall_ms=cuda_ms(lambda: ct.cagra_fused_hop(*hop_args, metric=metric), 50))
+    # select_k at CAGRA's own shapes, from hop CAPTURE_HOP's buffers: the
+    # per-hop parent pick ([tile, itopk], k = width; the buffer stands in for
+    # its explored-masked copy), and the filtered body's buffer fold ([64,
+    # 2 itopk], k = itopk) and result fold ([64, k + itopk], k).  Launches
+    # this short are timed on the device (profiler), the wall beside it
+    nxt = ct.cagra_fused_hop(*hop_small, metric=metric)
+    for tag, rows_, k_ in (
+            ("parent pick", hop_args[4], cagra_sp.search_width),
+            ("filtered buffer", torch.cat([hop_small[4], nxt[0]], dim=1), hop_small[4].shape[1]),
+            ("filtered result", torch.cat([hop_small[4][:, :K], nxt[0]], dim=1), K)):
+        bound_, by_ = cost.bound_ms(cost.select_k_work(rows_.shape[0], rows_.shape[1], k_))
+        add_wide("select_k", {
+            "shape": f"[{rows_.shape[0]}, {rows_.shape[1]}] k={k_} (CAGRA {tag})",
+            "max_abs_err": bitwise(f"select_k {tuple(rows_.shape)} k={k_} (CAGRA {tag})",
+                                   *sk.select_k_kernel(rows_, k_), *sk.select_k_torch(rows_, k_)),
+            "ms": device_ms(lambda: sk.select_k_kernel(rows_, k_), "select_k"),
+            "wall_ms": cuda_ms(lambda: sk.select_k_kernel(rows_, k_), 200),
+            "plain_ms": device_ms(lambda: sk.select_k_torch(rows_, k_), None, reps=20),
+            "bound_ms": bound_, "bound_by": by_,
+            "library_ms": device_ms(lambda: torch.topk(rows_, k_, dim=1, largest=False), None)})
+    del nxt
     # #8's paged leg: the same capture on the paginated index (rows through
     # its identity-pinned pool; a paginated bf16 copy for the bf16 rows),
     # beside the dense leg on the same inputs

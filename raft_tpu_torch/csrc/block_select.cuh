@@ -1,0 +1,230 @@
+// Selection building blocks of the redesigned select_k (#1) and fused_knn
+// (#2) kernels, after RAFT's warp-sort / block-select
+// (matrix/detail/select_warpsort.cuh, select_radix.cuh): keys that order as
+// unsigned integers, bitonic networks in registers (one warp) and in shared
+// memory (one block), and a radix select of the k-th key.  The scans keep
+// topk.cuh's lists; nothing here changes them.
+//
+// Keys.  A float orders as the unsigned integer `okey`: the sign bit is
+// flipped for a positive value and every bit for a negative one, so that
+// unsigned order is float order (NaN folded to one key above +inf).
+// `okey` holds -0.0 and +0.0 equal; `okey_signed` ranks -0.0 below +0.0
+// (the IEEE total order of lax.top_k).  A 64-bit sort key puts okey above
+// a 32-bit tie (a position, an id or a column), so that one unsigned
+// compare orders (value, tie).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace rt {
+
+constexpr unsigned long long kPadKey = ~0ull;   // above every real key
+
+__device__ __forceinline__ unsigned okey_signed(float v) {
+  if (v != v) return 0xffc00000u;                // NaN: above +inf (0xff800000)
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned okey(float v) {
+  return okey_signed(v == 0.0f ? 0.0f : v);
+}
+
+// The float of an okey (zeros come back as +0.0).
+__device__ __forceinline__ float okey_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// -- one warp, keys in registers ------------------------------------------
+// Element e of a warp's 32 R elements sits in register e % R of lane e / R,
+// so strides below R are exchanges within a lane and the rest are shuffles
+// (lane ^ stride / R).  An Item is a 64-bit key, plus a position when two
+// items may share a key (kTwo: select_k's stable mode).
+
+template <bool kTwo>
+struct Item {
+  unsigned long long k;
+  int p;
+};
+
+template <bool kTwo>
+__device__ __forceinline__ bool item_less(const Item<kTwo>& a, const Item<kTwo>& b) {
+  if constexpr (kTwo) return a.k < b.k || (a.k == b.k && a.p < b.p);
+  return a.k < b.k;
+}
+
+template <bool kTwo>
+__device__ __forceinline__ Item<kTwo> shfl_xor_item(const Item<kTwo>& a, int mask) {
+  Item<kTwo> o;
+  o.k = __shfl_xor_sync(0xffffffffu, a.k, mask);
+  if constexpr (kTwo) o.p = __shfl_xor_sync(0xffffffffu, a.p, mask);
+  else o.p = 0;
+  return o;
+}
+
+// One compare-exchange stage of a bitonic network over the warp's 32 R
+// items: partners e and e ^ stride; the pair is ascending where e & size is
+// 0 (size = 32 R: every pair ascending).
+template <int R, bool kTwo>
+__device__ __forceinline__ void warp_stage(Item<kTwo> (&x)[R], int size, int stride, int lane) {
+  if (stride < R) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int jp = j ^ stride;
+      if (jp > j) {
+        const int e = lane * R + j;
+        const bool asc = (e & size) == 0;
+        if (item_less(x[jp], x[j]) == asc) {
+          const Item<kTwo> t = x[j];
+          x[j] = x[jp];
+          x[jp] = t;
+        }
+      }
+    }
+  } else {
+    const int lm = stride / R;
+    const bool lower = (lane & lm) == 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int e = lane * R + j;
+      const bool asc = (e & size) == 0;
+      const Item<kTwo> o = shfl_xor_item(x[j], lm);
+      // the lower element of an ascending pair keeps the smaller one
+      const bool take_small = lower == asc;
+      if (item_less(o, x[j]) == take_small) x[j] = o;
+    }
+  }
+}
+
+__host__ __device__ constexpr int log2_of(int v) { return v <= 1 ? 0 : 1 + log2_of(v / 2); }
+
+// Sort the warp's 32 R items ascending.  (Loops over exponents, so that
+// they unroll and every register index is a constant.)
+template <int R, bool kTwo>
+__device__ __forceinline__ void warp_sort(Item<kTwo> (&x)[R], int lane) {
+  constexpr int kLog = log2_of(32 * R);
+#pragma unroll
+  for (int ls = 1; ls <= kLog; ++ls)
+#pragma unroll
+    for (int ss = ls - 1; ss >= 0; --ss) warp_stage<R, kTwo>(x, 1 << ls, 1 << ss, lane);
+}
+
+// q (sorted ascending) becomes the 32 R smallest of q and c (c sorted
+// ascending), sorted: min(q[e], c[32 R - 1 - e]) is bitonic and holds them.
+template <int R, bool kTwo>
+__device__ __forceinline__ void warp_merge(Item<kTwo> (&q)[R], const Item<kTwo> (&c)[R],
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const Item<kTwo> o = shfl_xor_item(c[R - 1 - j], 31);   // element 32 R - 1 - e
+    if (item_less(o, q[j])) q[j] = o;
+  }
+  constexpr int kLog = log2_of(32 * R);
+#pragma unroll
+  for (int ss = kLog - 1; ss >= 0; --ss) warp_stage<R, kTwo>(q, 32 * R, 1 << ss, lane);
+}
+
+// -- one block, keys in shared memory ---------------------------------------
+// Sort n (a power of two) items ascending: 64-bit keys, and with kTwo a
+// position that breaks equal keys.  Every thread of the block calls it.
+
+template <bool kTwo>
+__device__ void block_sort(unsigned long long* key, int* pos, int n) {
+  for (int size = 2; size <= n; size *= 2) {
+    for (int stride = size / 2; stride > 0; stride /= 2) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
+        const int lo = 2 * t - (t & (stride - 1));   // the pair (lo, lo + stride)
+        const int hi = lo + stride;
+        const bool asc = (lo & size) == 0;
+        const unsigned long long a = key[lo], b = key[hi];
+        bool swap;
+        if constexpr (kTwo) {
+          const int pa = pos[lo], pb = pos[hi];
+          swap = (b < a || (b == a && pb < pa)) == asc;
+          if (swap) {
+            pos[lo] = pb;
+            pos[hi] = pa;
+          }
+        } else {
+          swap = (b < a) == asc;
+        }
+        if (swap) {
+          key[lo] = b;
+          key[hi] = a;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// -- radix select -----------------------------------------------------------
+// The k-th smallest of the 32-bit keys at indices [0, n) (1 <= k <= the
+// number of keys) by four passes of eight
+// bits, most significant first, over a 256-bin histogram `hist` in shared
+// memory (258 ints); `key_at(e, key)` sets key e and returns false for an
+// index that holds none.  Returns the key; *below is the count of keys
+// strictly smaller.  kBlock: the whole block calls it (indices split over
+// its threads, blockDim.x a multiple of 32); else one warp does (lanes
+// split them), with a `hist` of its own.
+
+template <bool kBlock, typename KeyAt>
+__device__ unsigned radix_select(KeyAt key_at, int n, int k, int* hist, int* below) {
+  const int tid = kBlock ? threadIdx.x : (threadIdx.x & 31);
+  const int nt = kBlock ? blockDim.x : 32;
+  auto sync = [] {
+    if constexpr (kBlock) __syncthreads();
+    else __syncwarp();
+  };
+  unsigned prefix = 0u, mask = 0u;
+  int rank = k;   // the rank still to find among the keys matching prefix
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int b = tid; b < 256; b += nt) hist[b] = 0;
+    sync();
+    // plain atomics, no warp vote in the loop: the loads of many
+    // iterations stay in flight (a vote a round to merge a warp's adds to
+    // one bin made the k = 2048 fused_knn 50 % slower)
+    for (int e = tid; e < n; e += nt) {
+      unsigned key;
+      if (key_at(e, key) && (key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1);
+    }
+    sync();
+    // the bin where the cumulative count reaches rank: the first warp scans
+    // eight bins a lane and leaves (bin, count before it) in hist[256..257]
+    if (tid < 32) {
+      int own = 0;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) own += hist[8 * tid + b];
+      int incl = own;
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (tid >= off) incl += o;
+      }
+      const int excl = incl - own;
+      if (excl < rank && rank <= incl) {
+        int c = excl;
+        for (int b = 0; b < 8; ++b) {
+          const int h = hist[8 * tid + b];
+          if (c + h >= rank) {
+            hist[256] = 8 * tid + b;
+            hist[257] = c;
+            break;
+          }
+          c += h;
+        }
+      }
+    }
+    sync();
+    rank -= hist[257];
+    prefix |= (unsigned)hist[256] << shift;
+    mask |= 255u << shift;
+    sync();
+  }
+  *below = k - rank;
+  return prefix;
+}
+
+}  // namespace rt

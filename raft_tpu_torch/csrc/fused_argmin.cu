@@ -14,8 +14,8 @@
 // What bounds it on the H100: 2 d flops per (row, center) pair against one
 // read of x and of the centers, so at n_centers ~ 10^3 it is bound by f32
 // FMA rate (no tensor cores: raft_tpu scores at Precision.HIGHEST, and the
-// kernel must stay bitwise to its plain version).  The design is
-// fused_knn.cu's: a 64 x 64 register-tiled product per step (tile_gemm.cuh:
+// kernel must stay bitwise to its plain version).  The design is a
+// 64 x 64 register-tiled product per step (tile_gemm.cuh:
 // each dot product one f32 accumulator, fmaf in dimension order, as
 // toolkit.sequential_dot), then an epilogue that rounds where the plain
 // version's tensor ops round (__fsub_rn(cc, 2 dot)), a per-thread min over

@@ -1,4 +1,4 @@
-// Brute-force kNN partial scores folded into a running top-k; the
+// Brute-force kNN: the k smallest partial scores of each query; the
 // [n_q, n] score matrix never reaches device memory.
 //
 // Replaces raft_tpu/kernels/fused_knn.py fused_l2_topk / _fused_knn_kernel.
@@ -9,119 +9,423 @@
 //
 // What bounds it on the H100: 2 d flops per (query, row) pair against one
 // read of the dataset, so at 10^4 queries it is bound by f32 FMA rate (no
-// tensor cores: the slice scores at full f32).  The design is a 64 x 64
-// register-tiled product per step (tile_gemm.cuh, 16 FMAs per thread per
-// dimension) whose scores go to shared memory, where each warp folds eight
-// queries' 64 candidates into their lists with one compare per candidate
-// (topk.cuh).  One block owns 64 queries (fewer past k = 349, where 64
-// lists outgrow shared memory) and streams one contiguous part of the
-// dataset; a batch too small to fill the card cuts the dataset into
-// more parts and merges their lists (topk.cuh merge_parts).
+// tensor cores: the slice scores at full f32), and past k = 128 it was
+// bound by the selection: topk.cuh's lists, in shared memory at 8 k bytes
+// each, shifted up to k / 32 chunks for each candidate that beat a list's
+// k-th value and left 11 query rows of the 64-row tile at k = 2048 (957 ms
+// at k = 2048 on 1,000 queries, 37 times topk(cdist)).
+//
+// The design: a 64 x 64 register-tiled product per step (16 FMAs per
+// thread per dimension, each pair's dot product one fmaf chain in dimension
+// order, its operands read four dimensions at a time), one block per 64
+// queries and one contiguous part of the dataset, the query and dataset
+// chunks staged by cp.async two stages deep, so that the next chunk (also
+// the next tile's first, across the selection) loads while this one is
+// multiplied.  Every query row of the tile stays at every k: the lists
+// leave shared memory.  Each (query, part) appends the scores below its
+// threshold, in column order, to an array of `cap` >= k + 256 slots in
+// device memory; when arrays near full, the block's warps share them out,
+// each finding an array's k-th key by a radix select, keeping the k
+// smallest in place (stable, so the array stays in column order and a tie
+// goes to the lower column) and making that key the threshold.  A survivor
+// costs O(1) amortised, not O(k).  A final kernel per query selects the k
+// smallest of its parts' arrays the same way and sorts them (bitonic,
+// shared memory).  The wrapper cuts the dataset into as many parts as fill
+// whole waves of the card (two blocks an SM).
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
+#include "block_select.cuh"
 #include "tile_gemm.cuh"
 #include "topk.cuh"
 
 namespace {
 
-template <bool kWide>
-__global__ void __launch_bounds__(rt::kGemmThreads)
+constexpr int kWarps = rt::kGemmThreads / 32;
+
+// A stage: dimensions k0 .. k0 + 31 of the block's query rows and of the
+// tile's dataset rows, row-major, each row padded to kRow floats: 16-byte
+// aligned for float4 reads along the dimensions, and the rows tx + 16 j a
+// warp reads at once fall on distinct bank groups.  (The transposed,
+// one-float-a-read layout of tile_gemm.cuh made shared-memory reads, 8 per
+// 16 FMAs, the bound.)
+constexpr int kRow = rt::kBK + 4;
+
+struct Stage {
+  float a[rt::kBM][kRow];
+  float b[rt::kBN][kRow];
+};
+
+// cp.async of `bytes` (4: 0 or 4; 16: 0 .. 16) of src; the rest of the
+// slot is filled with zero.
+template <int kSize>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int bytes) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (kSize == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
+                 "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(src),
+                 "r"(bytes));
+}
+
+// Stage dimensions k0 .. k0 + 31 of the block's query rows and of the
+// tile's dataset rows (zeros past the rows and past d), and commit them as
+// one group: four dimensions a copy where rows are 16-byte aligned (kVec),
+// else one.
+template <bool kVec>
+__device__ __forceinline__ void issue_chunk(Stage& st, const float* qa, int q_rows,
+                                            const float* xb, int c_rows, int d, int k0,
+                                            int tid) {
+  constexpr int kPer = kVec ? 4 : 1;   // dimensions a copy
+  constexpr int kCopies = rt::kBK / kPer;
+#pragma unroll
+  for (int s = 0; s < (rt::kBM * kCopies) / rt::kGemmThreads; ++s) {
+    const int idx = tid + s * rt::kGemmThreads;
+    const int r = idx / kCopies;
+    const int kk = kPer * (idx % kCopies);
+    const int k = k0 + kk;
+    const int bytes = k < d ? 4 * min(kPer, d - k) : 0;
+    const int ba = r < q_rows ? bytes : 0;
+    const int bb = r < c_rows ? bytes : 0;
+    cp_async<4 * kPer>(&st.a[r][kk], ba ? qa + (size_t)r * d + k : qa, ba);
+    cp_async<4 * kPer>(&st.b[r][kk], bb ? xb + (size_t)r * d + k : xb, bb);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ unsigned lanemask_lt(int lane) { return (1u << lane) - 1u; }
+
+// One warp: keep the k smallest (okey, then array position) of the cnt
+// entries of a candidate array, in place and in their order; returns the
+// k-th value (the array's new threshold).  (A whole block compacting one
+// array at a time, staged in shared memory, made k = 10 12 % slower: at a
+// small k every row compacts at once after the first tiles, and eight
+// warps do eight rows at a time.)
+__device__ float compact(float* cv, int* ci, int cnt, int k, int* hist, int lane) {
+  int below;
+  const unsigned kth = rt::radix_select<false>(
+      [&](int e, unsigned& key) {
+        key = rt::okey(cv[e]);
+        return true;
+      },
+      cnt, k, hist, &below);
+  const int need_eq = k - below;   // of the entries equal to the k-th, the first need_eq stay
+  int w = 0, eq = 0;
+  for (int e0 = 0; e0 < cnt; e0 += 32) {
+    const int e = e0 + lane;
+    float v = 0.0f;
+    int id = 0;
+    unsigned key = ~0u;
+    if (e < cnt) {
+      v = cv[e];
+      id = ci[e];
+      key = rt::okey(v);
+    }
+    const bool is_eq = e < cnt && key == kth;
+    const unsigned eqm = __ballot_sync(0xffffffffu, is_eq);
+    const bool keep =
+        (e < cnt && key < kth) || (is_eq && eq + __popc(eqm & lanemask_lt(lane)) < need_eq);
+    const unsigned km = __ballot_sync(0xffffffffu, keep);
+    __syncwarp();   // the chunk is read before any lane writes (writes go at or below it)
+    if (keep) {
+      const int pos = w + __popc(km & lanemask_lt(lane));
+      cv[pos] = v;
+      ci[pos] = id;
+    }
+    w += __popc(km);
+    eq += __popc(eqm);
+    __syncwarp();
+  }
+  return rt::okey_value(kth);
+}
+
+// Candidate arrays: row m of the block, part blockIdx.y, at
+// cand + ((q0 + m) * gridDim.y + blockIdx.y) * cap; counts [n_q][gridDim.y]
+// receive each array's final length (<= k).
+template <bool kVec>
+__global__ void __launch_bounds__(rt::kGemmThreads, 2)
 fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                 const float* __restrict__ xx, int n_q, int n, int d, int k,
-                 int ip_mode, int c_chunk, int qpb, float* __restrict__ out_v,
-                 int* __restrict__ out_i) {
-  extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][k]
-  int* li = reinterpret_cast<int*>(lv + qpb * k);          // [qpb][k]
-  __shared__ rt::GemmSmem gsm;
-  __shared__ float s[rt::kBM][rt::kBN + 1];
+                 const float* __restrict__ xx, int n_q, int n, int d, int k, int ip_mode,
+                 int c_chunk, int cap, float* __restrict__ cand_v, int* __restrict__ cand_i,
+                 int* __restrict__ counts) {
+  __shared__ Stage st[2];
+  __shared__ float sthr[rt::kBM];
+  __shared__ int scount[rt::kBM];
+  __shared__ int shist[kWarps][258];
+  __shared__ int slist[rt::kBM];   // the rows to compact, and how many
+  __shared__ int snum;
+  __shared__ int sflag;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int q0 = blockIdx.x * qpb;
-  const int q_rows = min(qpb, n_q - q0);
+  const int q0 = blockIdx.x * rt::kBM;
+  const int q_rows = min(rt::kBM, n_q - q0);
   const float* qa = q + (size_t)q0 * d;
-  // this block's part of the dataset, and where its lists go: row
-  // (q0 + m) of [n_q, gridDim.y * k], part blockIdx.y
-  const int c_begin = blockIdx.y * c_chunk;
+  const int splits = gridDim.y;
+  const int part = blockIdx.y;
+  const int c_begin = part * c_chunk;
   const int c_end = min(n, c_begin + c_chunk);
-  const size_t out_stride = (size_t)gridDim.y * k;
-  const size_t out_off = (size_t)blockIdx.y * k;
+  auto row_base = [&](int m) { return ((size_t)(q0 + m) * splits + part) * cap; };
 
-  for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32)
-    rt::list_init(lv + m * k, li + m * k, k, lane);
+  if (tid < rt::kBM) {
+    sthr[tid] = CUDART_INF_F;
+    scount[tid] = 0;
+  }
+  if (tid == 0) sflag = 0;
 
-  float acc[4][4];
-  for (int c0 = c_begin; c0 < c_end; c0 += rt::kBN) {
+  const int nchunks = (d + rt::kBK - 1) / rt::kBK;
+  const int tiles = (c_end - c_begin + rt::kBN - 1) / rt::kBN;
+  const int total = tiles * nchunks;
+  issue_chunk<kVec>(st[0], qa, q_rows, x + (size_t)c_begin * d, min(rt::kBN, c_end - c_begin),
+                    d, 0, tid);
+  int g = 0;
+  for (int t = 0; t < tiles; ++t) {
+    const int c0 = c_begin + t * rt::kBN;
     const int c_rows = min(rt::kBN, c_end - c0);
-    rt::tile_gemm(qa, q_rows, d, x + (size_t)c0 * d, c_rows, d, d, gsm, acc);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int ch = 0; ch < nchunks; ++ch, ++g) {
+      if (g + 1 < total) {   // the next chunk, the next tile's first after the last
+        const int t1 = (g + 1) / nchunks;
+        const int c1 = c_begin + t1 * rt::kBN;
+        issue_chunk<kVec>(st[(g + 1) & 1], qa, q_rows, x + (size_t)c1 * d,
+                          min(rt::kBN, c_end - c1), d, ((g + 1) % nchunks) * rt::kBK, tid);
+        asm volatile("cp.async.wait_group 1;\n" ::);
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
+      __syncthreads();
+      const Stage& sm = st[g & 1];
+      const int kn = min(rt::kBK, d - ch * rt::kBK);
+      int kk = 0;
+      for (; kk + 4 <= kn; kk += 4) {   // four dimensions, in order, per pair
+        float4 av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          av[i] = *reinterpret_cast<const float4*>(&sm.a[ty + 16 * i][kk]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(&sm.b[tx + 16 * j][kk]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+          }
+      }
+      for (; kk < kn; ++kk) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = sm.a[ty + 16 * i][kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = sm.b[tx + 16 * j][kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+    // scores below their row's threshold join its array, in column order
+    // (j, then tx): the half-warp (tid / 16) that owns row ty + 16 i appends
+    float norm[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j;
-      const float norm = (c < c_rows && !ip_mode) ? xx[c0 + c] : 0.0f;
+      norm[j] = (c < c_rows && !ip_mode) ? xx[c0 + c] : 0.0f;
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float v;
-        if (c >= c_rows) {
-          v = CUDART_INF_F;
-        } else if (ip_mode) {
-          v = -acc[i][j];
-        } else {
-          v = norm - 2.0f * acc[i][j];
+    for (int i = 0; i < 4; ++i) {
+      const int row = ty + 16 * i;
+      const float thr = sthr[row];
+      int base = scount[row];
+      float* rv = cand_v + row_base(row);
+      int* ri = cand_i + row_base(row);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float v = ip_mode ? -acc[i][j] : norm[j] - 2.0f * acc[i][j];
+        const bool keep = row < q_rows && c < c_rows && v < thr;
+        const unsigned half = (__ballot_sync(0xffffffffu, keep) >> (lane & 16)) & 0xffffu;
+        if (keep) {
+          const int pos = base + __popc(half & ((1u << tx) - 1u));
+          rv[pos] = v;
+          ri[pos] = c0 + c;
         }
-        s[ty + 16 * i][c] = v;
+        base += __popc(half);
+      }
+      if (tx == 0 && row < q_rows) {
+        scount[row] = base;
+        if (base > cap - rt::kBN) sflag = 1;
       }
     }
     __syncthreads();
-    for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32) {
-      float* mv = lv + m * k;
-      int* mi = li + m * k;
-      for (int cc = 0; cc < rt::kBN; cc += 32) {
-        const int c = cc + lane;
-        rt::list_offer32<kWide>(s[m][c], c0 + c, mv, mi, k, lane);
+    const int flagged = sflag;
+    if (flagged) {   // arrays that may not hold the next tile: listed, then compacted
+      if (warp == 0) {
+        const bool n0 = lane < q_rows && scount[lane] > cap - rt::kBN;
+        const bool n1 = lane + 32 < q_rows && scount[lane + 32] > cap - rt::kBN;
+        const unsigned b0 = __ballot_sync(0xffffffffu, n0);
+        const unsigned b1 = __ballot_sync(0xffffffffu, n1);
+        if (n0) slist[__popc(b0 & lanemask_lt(lane))] = lane;
+        if (n1) slist[__popc(b0) + __popc(b1 & lanemask_lt(lane))] = lane + 32;
+        if (lane == 0) snum = __popc(b0) + __popc(b1);
       }
+      __syncthreads();   // every thread has read sflag: it may be cleared
+      if (tid == 0) sflag = 0;
+      for (int t2 = warp; t2 < snum; t2 += kWarps) {
+        const int m = slist[t2];
+        const float thr = compact(cand_v + row_base(m), cand_i + row_base(m), scount[m], k,
+                                  shist[warp], lane);
+        if (lane == 0) {
+          sthr[m] = thr;
+          scount[m] = k;
+        }
+      }
+      __syncthreads();
     }
   }
-  __syncwarp();
-  for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32) {
-    for (int p = lane; p < k; p += 32) {
-      out_v[(size_t)(q0 + m) * out_stride + out_off + p] = lv[m * k + p];
-      out_i[(size_t)(q0 + m) * out_stride + out_off + p] = li[m * k + p];
+  for (int m = warp; m < q_rows; m += kWarps) {
+    int cnt = scount[m];
+    if (cnt > k) {
+      compact(cand_v + row_base(m), cand_i + row_base(m), cnt, k, shist[warp], lane);
+      cnt = k;
     }
+    if (lane == 0) counts[(size_t)(q0 + m) * splits + part] = cnt;
+  }
+}
+
+// The sort key of a candidate: okey(value), then column, then the sign of
+// a zero (which okey drops and the output keeps).
+__device__ __forceinline__ unsigned long long cand_key(float v, int col) {
+  return (unsigned long long)rt::okey(v) << 32 |
+         ((unsigned)col << 1 | (__float_as_uint(v) >> 31));
+}
+
+constexpr int kFinalThreads = 256;
+
+// Exclusive prefix of `flag` over the block (thread order) and the block's
+// total; `sw` holds kFinalThreads / 32 ints.
+__device__ __forceinline__ int block_prefix(bool flag, int* sw, int* total) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const unsigned m = __ballot_sync(0xffffffffu, flag);
+  __syncthreads();
+  if (lane == 0) sw[warp] = __popc(m);
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < kFinalThreads / 32; ++w) {
+    before += w < warp ? sw[w] : 0;
+    all += sw[w];
+  }
+  *total = all;
+  return before + __popc(m & lanemask_lt(lane));
+}
+
+// One block per query: the k smallest by (score, column) of its parts'
+// candidate arrays (each in column order, parts in column order), sorted.
+__global__ void __launch_bounds__(kFinalThreads)
+fused_knn_final_kernel(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
+                       const int* __restrict__ counts, int splits, int cap, int k, int k_pow2,
+                       float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ unsigned long long skey[];   // [k_pow2]
+  __shared__ int hist[258];
+  __shared__ int sw[kFinalThreads / 32];
+  const int qi = blockIdx.x;
+  const float* cv = cand_v + (size_t)qi * splits * cap;
+  const int* ci = cand_i + (size_t)qi * splits * cap;
+  const int* cnt = counts + (size_t)qi * splits;
+  // index e = p k + i: entry i of part p's array (present while i < cnt[p])
+  auto at = [&](int e, float& v, int& col) {
+    const int p = e / k;
+    const int i = e - p * k;
+    if (i >= cnt[p]) return false;
+    v = cv[(size_t)p * cap + i];
+    col = ci[(size_t)p * cap + i];
+    return true;
+  };
+  const int n_idx = splits * k;
+  int below;
+  const unsigned kth = rt::radix_select<true>(
+      [&](int e, unsigned& key) {
+        float v;
+        int col;
+        if (!at(e, v, col)) return false;
+        key = rt::okey(v);
+        return true;
+      },
+      n_idx, k, hist, &below);
+  const int need_eq = k - below;
+  int w = 0, eq = 0;
+  for (int e0 = 0; e0 < n_idx; e0 += kFinalThreads) {
+    const int e = e0 + threadIdx.x;
+    float v = 0.0f;
+    int col = 0;
+    const bool present = e < n_idx && at(e, v, col);
+    const unsigned key = present ? rt::okey(v) : ~0u;
+    const bool is_eq = present && key == kth;
+    int eq_total, keep_total;
+    const int eq_rank = eq + block_prefix(is_eq, sw, &eq_total);
+    const bool keep = (present && key < kth) || (is_eq && eq_rank < need_eq);
+    const int pos = w + block_prefix(keep, sw, &keep_total);
+    if (keep) skey[pos] = cand_key(v, col);
+    w += keep_total;
+    eq += eq_total;
+  }
+  for (int p = k + threadIdx.x; p < k_pow2; p += kFinalThreads) skey[p] = rt::kPadKey;
+  rt::block_sort<false>(skey, nullptr, k_pow2);
+  for (int t = threadIdx.x; t < k; t += kFinalThreads) {
+    const unsigned long long key = skey[t];
+    const unsigned low = (unsigned)key;
+    float v = rt::okey_value((unsigned)(key >> 32));
+    if (v == 0.0f && (low & 1u)) v = -0.0f;
+    out_v[(size_t)qi * k + t] = v;
+    out_i[(size_t)qi * k + t] = (int)(low >> 1);
   }
 }
 
 }  // namespace
 
-// splits > 1 cuts the dataset into that many contiguous parts, one grid
-// column each (so small query batches still fill the card); their lists
-// land in part_v / part_i [n_q, splits * k] and merge_parts folds them.
+// splits cuts the dataset into that many contiguous parts, one grid column
+// each (so small query batches still fill the card); part_v / part_i are
+// the candidate arrays [n_q, splits, cap] and counts [n_q, splits] their
+// lengths, folded by the final kernel.
 extern "C" int rt_fused_knn(const float* q, const float* x, const float* xx,
-                            int n_q, int n, int d, int k, int ip_mode, int splits,
-                            float* part_v, int* part_i, float* out_v, int* out_i,
-                            void* stream) {
-  if (k < 1 || k > rt::kMaxK || k > n || d < 1 || splits < 1)
+                            int n_q, int n, int d, int k, int ip_mode, int splits, int cap,
+                            float* part_v, int* part_i, int* counts, float* out_v,
+                            int* out_i, void* stream) {
+  if (k < 1 || k > rt::kMaxK || k > n || d < 1 || splits < 1 || cap < k + 4 * rt::kBN)
     return (int)cudaErrorInvalidValue;
   if (n_q == 0) return (int)cudaSuccess;
-  const int qpb = rt::lists_per_block(k, rt::kBM);
-  const size_t smem = (size_t)qpb * k * (sizeof(float) + sizeof(int));
-  auto kernel = rt::pick_wide(k, [](auto w) { return fused_knn_kernel<decltype(w)::value>; });
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  auto s = (cudaStream_t)stream;
   const int c_chunk = ((n + splits - 1) / splits + rt::kBN - 1) / rt::kBN * rt::kBN;
   splits = (n + c_chunk - 1) / c_chunk;
-  dim3 grid((n_q + qpb - 1) / qpb, splits);
-  const bool merge = splits > 1;
-  kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
-      q, x, xx, n_q, n, d, k, ip_mode, c_chunk, qpb, merge ? part_v : out_v,
-      merge ? part_i : out_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !merge) return (int)err;
-  return (int)rt::merge_parts(part_v, part_i, n_q, splits * k, k, out_v, out_i,
-                              (cudaStream_t)stream);
+  dim3 grid((n_q + rt::kBM - 1) / rt::kBM, splits);
+  // rows 16-byte aligned: four dimensions a copy
+  const bool vec = d % 4 == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)x % 16 == 0;
+  auto kernel = vec ? fused_knn_kernel<true> : fused_knn_kernel<false>;
+  kernel<<<grid, rt::kGemmThreads, 0, s>>>(q, x, xx, n_q, n, d, k, ip_mode, c_chunk, cap, part_v,
+                                           part_i, counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int k_pow2 = 1;
+  while (k_pow2 < k) k_pow2 *= 2;
+  const size_t smem = (size_t)k_pow2 * sizeof(unsigned long long);
+  err = cudaFuncSetAttribute(fused_knn_final_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_knn_final_kernel<<<n_q, kFinalThreads, smem, s>>>(part_v, part_i, counts, splits, cap, k,
+                                                           k_pow2, out_v, out_i);
+  return (int)cudaGetLastError();
 }

@@ -125,16 +125,12 @@ __device__ __forceinline__ bool passes(const int* list_words, int slot) {
 
 // The kernel of a leg for lists of kk entries, filtered or not, paged or
 // not: `pick(w, f, p)` returns it for kWide = decltype(w)::value, kFilt =
-// decltype(f)::value and kPaged = decltype(p)::value.  kPagedOk = false
-// instantiates no paged kernel (the caller refuses a page table).
-template <bool kPagedOk = true, typename Pick>
+// decltype(f)::value and kPaged = decltype(p)::value.
+template <typename Pick>
 static inline auto pick_leg(int kk, bool filtered, bool paged, Pick pick) {
   return rt::pick_wide(kk, [&](auto w) {
     auto with = [&](auto f) {
-      if constexpr (kPagedOk)
-        return paged ? pick(w, f, std::true_type{}) : pick(w, f, std::false_type{});
-      else
-        return pick(w, f, std::false_type{});
+      return paged ? pick(w, f, std::true_type{}) : pick(w, f, std::false_type{});
     };
     return filtered ? with(std::true_type{}) : with(std::false_type{});
   });
@@ -675,7 +671,7 @@ inline Filt make_filt(const int* words, const int* fid, int n_lists, int cap_w) 
 // filter words in (0 unfiltered).
 inline size_t filt_smem(const Filt& f) { return (size_t)f.cap_w * sizeof(int); }
 
-template <typename T, bool kBf16, bool kPagedOk = true>
+template <typename T, bool kBf16>
 int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T* data,
                        const float* y2, const int* ids, int B, int G, int cap, int d,
                        int kk, int metric, Filt filt, Pages pg, float* out_v, int* out_i,
@@ -685,9 +681,8 @@ int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T
   const int qpb = rt::lists_per_block(kk, rt::kBM, filt_smem(filt));
   if (qpb < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + filt_smem(filt);
-  if (!kPagedOk && pg.slot != nullptr) return (int)cudaErrorInvalidValue;
   auto kernel =
-      pick_leg<kPagedOk>(kk, filt.words != nullptr, pg.slot != nullptr, [](auto w, auto f, auto p) {
+      pick_leg(kk, filt.words != nullptr, pg.slot != nullptr, [](auto w, auto f, auto p) {
         return probe_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
                                   decltype(p)::value>;
       });
@@ -727,9 +722,9 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
 }
 
 // The query-major kernel of a float leg for lists of kk entries.
-template <typename T, bool kBf16, bool kPagedOk = true>
+template <typename T, bool kBf16>
 auto qm_float_kernel(int kk, const Filt& filt, const Pages& pg) {
-  return pick_leg<kPagedOk>(kk, filt.words != nullptr, pg.slot != nullptr,
+  return pick_leg(kk, filt.words != nullptr, pg.slot != nullptr,
                   [](auto w, auto f, auto p) {
                     return query_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
                                               decltype(p)::value>;

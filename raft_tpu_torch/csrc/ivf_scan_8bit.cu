@@ -8,8 +8,10 @@
 // uint8_t / int8_t: each value is converted to f32 where it is staged, and
 // the product is the f32 legs' fmaf chain in dimension order, bitwise the
 // plain version's sequential_dot over the upcast rows.  This is not the
-// int8 cache's leg, which quantises the queries.  bf16_compute must be 0,
-// and there is no paged leg (page_slot must be null).
+// int8 cache's leg, which quantises the queries.  bf16_compute must be 0.
+// A page table (page_slot) takes the paged instantiations of the same
+// kernels (kPaged), as for f32 rows: raft_tpu pages such lists through its
+// XLA gather.
 
 #include "ivf_scan.cuh"
 
@@ -22,7 +24,7 @@ int probe_major_8bit(const int* bucket_list, const float* qg, const float* q2g, 
                      const int* page_slot, int page_rows, float* out_v, int* out_i,
                      void* stream) {
   if (bf16_compute) return (int)cudaErrorInvalidValue;
-  return launch_probe_major<T, false, false>(
+  return launch_probe_major<T, false>(
       bucket_list, qg, q2g, static_cast<const T*>(data), y2, ids, B, G, cap, d, kk, metric,
       make_filt(filt, nullptr, 0, cap_w), make_pages(page_slot, page_rows, cap), out_v, out_i,
       (cudaStream_t)stream);
@@ -34,11 +36,11 @@ int query_major_8bit(const int* probes, const float* q, const float* q2, const v
                      int metric, int splits, int bf16_compute, const int* filt, const int* fid,
                      int n_lists, int cap_w, const int* page_slot, int page_rows,
                      float* part_v, int* part_i, float* out_v, int* out_i, void* stream) {
-  if (bf16_compute || page_slot != nullptr) return (int)cudaErrorInvalidValue;
+  if (bf16_compute) return (int)cudaErrorInvalidValue;
   const Filt f = make_filt(filt, fid, n_lists, cap_w);
-  const Pages pg = make_pages(nullptr, 0, cap);
+  const Pages pg = make_pages(page_slot, page_rows, cap);
   const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) + (size_t)d * sizeof(float);
-  return launch_query_major(qm_float_kernel<T, false, false>(kk, f, pg), smem, probes, q, q2,
+  return launch_query_major(qm_float_kernel<T, false>(kk, f, pg), smem, probes, q, q2,
                             static_cast<const T*>(data), y2, ids, Q, P, cap, d, kk, metric,
                             splits, f, pg, part_v, part_i, out_v, out_i, (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
 // A 64 x 64 f32 score tile, A rows against B rows, for 256 threads: the
-// matrix product inside the fused brute-force kernel and the probe-major
-// IVF scan.
+// matrix product inside the probe-major IVF scan and the fused L2 argmin
+// (fused_knn.cu stages its tiles row-major for float4 reads instead).
 //
 // Every dot product is ONE f32 accumulator updated by fmaf in dimension
 // order 0, 1, ..., d-1.  The plain PyTorch versions accumulate in the same

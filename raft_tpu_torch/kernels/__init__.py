@@ -70,11 +70,11 @@ KERNELS = (
                              ("query_major", ("", "_filt", "_fid")))
       for dtype in ("", "_bf16", "_int8") for leg in legs),
     "cagra_fused_hop_paged",
-    # raw 8-bit rows (IVF-Flat over a uint8 / int8 dataset), unpaged
-    *(f"ivf_scan_{schedule}{dtype}{leg}"
+    # raw 8-bit rows (IVF-Flat over a uint8 / int8 dataset), unpaged and paged
+    *(f"ivf_scan_{schedule}{dtype}{paged}{leg}"
       for schedule, legs in (("probe_major", ("", "_filt")),
                              ("query_major", ("", "_filt", "_fid")))
-      for dtype in ("_u8", "_s8") for leg in legs),
+      for dtype in ("_u8", "_s8") for paged in ("", "_paged") for leg in legs),
     "fused_argmin",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -176,8 +176,10 @@ _I = ctypes.c_int
 _L = ctypes.c_long
 _F = ctypes.c_float
 _SIGNATURES = {
-    "rt_select_k": [_P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P],
-    "rt_fused_knn": [_P, _P, _P] + [_I] * 6 + [_P] * 5,
+    "rt_select_k": [_P, _P, _L] + [_I] * 6 + [_P] * 3,
+    # q, x, |x|^2, (n_q, n, d, k, ip_mode, splits, cap), scratch (values,
+    # ids, counts), outputs and stream
+    "rt_fused_knn": [_P, _P, _P] + [_I] * 7 + [_P] * 6,
     # probe-major: 6 arrays, (B, G, cap, d, kk, metric), then bf16_compute
     # (float legs) or scan_scale (int8), the filter words (null: unfiltered)
     # and cap_w, the page table (null: monolithic lists) and page_rows, then

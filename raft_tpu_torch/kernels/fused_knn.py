@@ -3,11 +3,15 @@
 
 Scores are partial: ``l2`` gives |x|^2 - 2 q.x (add |q|^2 for the true
 squared distance), ``ip`` gives -q.x.  Each query keeps the k smallest by
-(score, dataset column), ascending; the lowest column wins a tie.
+(score, dataset column), ascending; the lowest column wins a tie.  The
+kernel appends the candidates below each query's threshold to arrays in
+device memory that a radix select compacts (``csrc/fused_knn.cu``), and
+gives the plain version's result bitwise.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -15,14 +19,28 @@ import torch
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.kernels.toolkit import cdiv, sequential_dot, topk_by_position
 
-#: deepest k (shared memory holds fewer queries' lists per block past 349);
-#: raft_tpu's Pallas kernel bounds k only by its VMEM blocks
+#: deepest k; raft_tpu's Pallas kernel bounds k only by its VMEM blocks
 MAX_K = 2048
 #: queries per block of the kernel (csrc/tile_gemm.cuh kBM)
 _TILE_Q = 64
 #: fewest dataset rows one block's part may hold when a small batch is
 #: split over more blocks
 _MIN_PART_ROWS = 512
+#: blocks an SM holds at once (the kernel's registers allow two)
+_BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=1024)
+def _splits(blocks: int, max_splits: int, slots: int) -> int:
+    """Parts to cut the dataset into for ``blocks`` query blocks on a card
+    that runs ``slots`` blocks at once: the fewest whose time (whole waves
+    of blocks, each doing 1 / splits of a query block's work: a wave begun
+    for a few blocks costs a full one) is within 5 % of the least.  Each
+    part keeps its own k candidates, so fewer parts select less."""
+    limit = max(1, min(max_splits, 4 * cdiv(slots, blocks)))
+    time = {s: cdiv(blocks * s, slots) / s for s in range(1, limit + 1)}
+    best = min(time.values())
+    return min(s for s, t in time.items() if t <= 1.05 * best)
 
 
 def _check(queries, dataset, dataset_sqnorms, k, mode):
@@ -81,18 +99,22 @@ def fused_l2_topk(
     _k.require_cuda("fused_knn", q, x, xx)
     n_q, d = q.shape
     n = x.shape[0]
-    splits = _k.grid_splits(cdiv(n_q, _TILE_Q), max(1, n // _MIN_PART_ROWS), q.device)
+    splits = _splits(cdiv(n_q, _TILE_Q), max(1, n // max(_MIN_PART_ROWS, k)),
+                     _BLOCKS_PER_SM * _k.sm_count(q.device.index or 0))
+    # one candidate array of `cap` slots per (query, part): k kept, and room
+    # for a few tiles between compactions
+    cap = max(2 * k, k + 256)
     out_v = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
-    part_v = torch.empty((n_q, splits * k) if splits > 1 else (0,),
-                         dtype=torch.float32, device=q.device)
-    part_i = torch.empty(part_v.shape, dtype=torch.int32, device=q.device)
+    part_v = torch.empty((n_q, splits, cap), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((n_q, splits, cap), dtype=torch.int32, device=q.device)
+    counts = torch.empty((n_q, splits), dtype=torch.int32, device=q.device)
     lib = _k.library()
     _k.count_launch("fused_knn")
     code = lib.rt_fused_knn(
-        q.data_ptr(), x.data_ptr(), xx.data_ptr(), n_q, n, d, k,
-        int(mode == "ip"), splits, part_v.data_ptr(), part_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), _k.stream_of(q),
+        q.data_ptr(), x.data_ptr(), xx.data_ptr(), n_q, n, d, k, int(mode == "ip"), splits, cap,
+        part_v.data_ptr(), part_i.data_ptr(), counts.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), _k.stream_of(q),
     )
     _k.check("fused_knn", code)
     return out_v, out_i

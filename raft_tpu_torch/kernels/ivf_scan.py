@@ -24,7 +24,7 @@ C entry and a launch count of its own (``ivf_scan_<schedule>``, ``_bf16``,
 - uint8 rows, and int8 rows with ``scan_scale=None``: raw values (IVF-Flat
   over an 8-bit dataset).  raft_tpu scans them upcast to f32 at
   ``scan_dtype`` "highest" on its XLA leg; here they take the f32 legs'
-  product on the upcast rows (``_u8`` / ``_s8``; unpaged only).
+  product on the upcast rows (``_u8`` / ``_s8``, paged too).
 
 Paged lists (``store.PagedLists``, kernel #4 and the same read in
 query-major): ``list_data`` may be a pool [slots, page_rows, d] behind a
@@ -293,8 +293,6 @@ def _check(metric, list_data, list_y2, list_index, kk, scan_dtype, scan_scale):
         if scan_dtype == "bfloat16":
             raise ValueError("raw 8-bit rows are scanned in f32 (scan_dtype 'highest'), "
                              "as raft_tpu scans IVF-Flat's 8-bit lists")
-        if isinstance(list_data, PagedLists):
-            raise NotImplementedError("a paged scan of raw 8-bit rows has no kernel leg yet")
     L, cap, _ = list_data.shape
     if list_y2.shape != (L, cap) or list_index.shape != (L, cap):
         raise ValueError("list_y2 / list_index must be [n_lists, cap]")

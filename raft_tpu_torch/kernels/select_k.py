@@ -8,7 +8,11 @@ Both tie disciplines of raft_tpu:
 - **stable** (``stable=True``): the smallest id wins a tie, negative ids
   lose every tie and surface as -1.
 
-Rows come out sorted (ascending for ``select_min``).
+Rows come out sorted (ascending for ``select_min``).  Signed zeros follow
+raft_tpu: positional selection holds -0.0 and +0.0 equal up to k = 128
+(raft_tpu's Pallas kernel) and ranks -0.0 below +0.0 past it (raft_tpu's
+``lax.top_k``); stable selection holds them equal at every k (its two-key
+``lax.sort``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ from raft_tpu_torch.kernels.toolkit import topk_by_position
 MAX_N = 8192
 #: deepest k (csrc/topk.cuh kMaxK: the port's list envelope)
 MAX_K = 2048
+#: deepest k of raft_tpu's Pallas select_k; past it raft_tpu's positional
+#: selection is lax.top_k, which ranks -0.0 below +0.0
+PALLAS_MAX_K = 128
 
 _INT32_MAX = 2**31 - 1
 
@@ -55,7 +62,9 @@ def select_k_torch(
     stable: bool = False,
     input_indices: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: stable sorts on (value[, tie key], position)."""
+    """Plain version: stable sorts on (value[, tie key], position); past
+    ``PALLAS_MAX_K`` positional selection ranks -0.0 below the +0.0 of the
+    (possibly negated) values."""
     rows, n = scores.shape
     v = scores.to(torch.float32)
     if not select_min:
@@ -72,7 +81,7 @@ def select_k_torch(
         out_i = torch.gather(ids, -1, pos)
         out_i = torch.where(out_i < 0, torch.full_like(out_i, -1), out_i)
     else:
-        vals, pos = topk_by_position(v, k)
+        vals, pos = topk_by_position(v, k, signed_zeros=k > PALLAS_MAX_K)
         out_i = torch.gather(ids, -1, pos)
     if not select_min:
         vals = -vals
@@ -121,7 +130,7 @@ def select_k_kernel(
     _k.count_launch("select_k")
     code = lib.rt_select_k(
         v.data_ptr(), ids.data_ptr() if ids is not None else None, stride,
-        rows, n, k, int(select_min), int(stable),
+        rows, n, k, int(select_min), int(stable), int(not stable and k > PALLAS_MAX_K),
         out_v.data_ptr(), out_i.data_ptr(), _k.stream_of(v),
     )
     _k.check("select_k", code)

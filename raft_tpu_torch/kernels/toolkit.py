@@ -20,12 +20,29 @@ def round_up(x: int, multiple: int) -> int:
     return cdiv(x, multiple) * multiple
 
 
-def topk_by_position(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k smallest entries of each row by (value, position): a stable
-    sort on value, so the lowest position wins a tie (``torch.topk`` leaves
-    its tie order unspecified).  Returns (values, positions int64)."""
-    v, pos = torch.sort(values, dim=-1, stable=True)
-    return v[..., :k], pos[..., :k]
+def topk_by_position(values: torch.Tensor, k: int, *, descending: bool = False,
+                     signed_zeros: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest (``descending``: largest) entries of each row by
+    (value, position): a stable sort on value, so the lowest position wins a
+    tie (``torch.topk`` leaves its tie order unspecified).  -0.0 and +0.0
+    tie, as raft_tpu's Pallas select_k holds them; with ``signed_zeros``
+    -0.0 ranks below +0.0, as ``lax.top_k`` orders floats (it comes first
+    among the smallest, last among the largest).  Returns (values,
+    positions int64)."""
+    if not signed_zeros:
+        v, pos = torch.sort(values, dim=-1, descending=descending, stable=True)
+        return v[..., :k], pos[..., :k]
+    # one stable sort of the values' bits as integers that order as the
+    # floats do, -0.0 just below +0.0 (every NaN above +inf, as torch.sort
+    # puts NaN last)
+    v = values if values.dtype in (torch.float32, torch.float64) else values.float()
+    itype = torch.int32 if v.dtype == torch.float32 else torch.int64
+    bits = v.contiguous().view(itype)
+    top = torch.iinfo(itype).max
+    key = torch.where(bits < 0, bits ^ top, bits)
+    key = torch.where(torch.isnan(v), torch.full_like(key, top), key)
+    pos = torch.sort(key, dim=-1, descending=descending, stable=True).indices[..., :k]
+    return torch.gather(values, -1, pos), pos
 
 
 def fold_topk(run_v: torch.Tensor, run_i: torch.Tensor, cand_v: torch.Tensor,

@@ -16,8 +16,8 @@ deeper k raises) on the storage type's leg (f32; bf16 rows with f32
 products; raw uint8 / int8 rows, ``_u8`` / ``_s8``), and their plain
 versions for CPU tensors, unfiltered or on their filter legs
 (``sample_filter`` / ``deleted_mask``); every call stamps ``kernel_path``
-"cuda" or "torch".  A paged search of 8-bit lists raises
-``NotImplementedError`` (no paged 8-bit leg yet).
+"cuda" or "torch".  A paged search of 8-bit lists takes the paged
+``_u8`` / ``_s8`` legs.
 
 Paged storage (``store.paginate_index``): the lists move to host pages
 behind a device pool at ``index.paged`` (``list_data`` is then a host

@@ -7,6 +7,13 @@ kernel envelope (``kernels.select_k.select_k_supported``) take the
 select_k kernel (its plain version for CPU tensors); everything else takes
 a stable sort.  Every path returns the k smallest (or largest) by (value,
 position): the lowest position wins a tie, as ``lax.top_k`` gives.
+
+Signed zeros follow raft_tpu's routing too.  Where raft_tpu runs its Pallas
+select_k (float rows, ``k <= 128``, ``k <= n <= 8192``, not chunked) -0.0
+and +0.0 tie; everywhere else raft_tpu takes ``lax.top_k``, which ranks
+-0.0 below +0.0, and so does the port (the chunked tournament, the sort
+path, ``algo="topk"``, and the kernel past k = 128).  ``select_k_stable``
+holds them equal at every k, as raft_tpu's two-key ``lax.sort`` does.
 """
 
 from __future__ import annotations
@@ -29,9 +36,9 @@ def _is_int(t: torch.Tensor) -> bool:
 
 
 def _topk_max(cur: torch.Tensor, k: int):
-    """Largest k by (value desc, position asc) — lax.top_k's rule."""
-    v, pos = torch.sort(cur, dim=-1, descending=True, stable=True)
-    return v[..., :k], pos[..., :k]
+    """Largest k by (value desc, position asc), +0.0 above -0.0 —
+    lax.top_k's rule."""
+    return topk_by_position(cur, k, descending=True, signed_zeros=True)
 
 
 def _select_k_chunked(scores: torch.Tensor, k: int, select_min: bool):
@@ -118,10 +125,9 @@ def select_k(
                 order = order.flip(-1)
             idx = order[..., :k]
             vals = torch.gather(scores, -1, idx)
-        elif select_min:
-            vals, idx = topk_by_position(scores, k)
         else:
-            vals, idx = _topk_max(scores, k)
+            vals, idx = topk_by_position(scores, k, descending=not select_min,
+                                         signed_zeros=True)
         idx = _take_ids(input_indices, idx.to(torch.int32))
     if squeeze:
         return vals[0], idx[0]

@@ -134,3 +134,55 @@ def test_brute_force_save_load_both_ways(dtype, metric, tmp_path):
     tbf.save(tpath, tbf.build(x, metric=metric, res=CPU))
     j = jbf.load(tpath)
     assert j.metric == metric and np.array_equal(np.asarray(j.dataset), x)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8"])
+def test_paged_8bit_ivf_flat_matches_raft_tpu_paged_and_monolithic(dtype, tmp_path):
+    """An 8-bit IVF-Flat index raft_tpu built and saved, paged by each
+    package (8-row pages, no budget): the port's paged search gives raft_tpu's
+    paged ids and values, and is bitwise the port's monolithic search, on
+    both schedules (the paged ``_u8`` / ``_s8`` legs' plain versions)."""
+    import copy
+
+    from raft_tpu.store import paginate_index as j_paginate
+    from raft_tpu_torch.store import paginate_index
+
+    jx, _, q = _dataset(dtype)
+    jidx = jivf.build(jivf.IndexParams(n_lists=16, kmeans_n_iters=4), jx)
+    path = str(tmp_path / "ivf")
+    jivf.save(path, jidx)
+    jpaged = jivf.load(path)
+    j_paginate(jpaged, page_rows=8, budget=None, name=f"raft:paged8:{dtype}")
+    mono = tivf.load(path, res=CPU)
+    paged = copy.copy(mono)
+    paginate_index(paged, page_rows=8, budget=None, name=f"port:paged8:{dtype}")
+    assert paged.list_data.dtype == _TORCH[dtype] and paged.paged.pool.dtype == _TORCH[dtype]
+    for strategy in ("query_major", "probe_major"):
+        jv, ji = jivf.search(jivf.SearchParams(n_probes=6, strategy=strategy), jpaged, q, 10)
+        sp = tivf.SearchParams(n_probes=6, strategy=strategy)
+        tv, ti = tivf.search(sp, paged, q, 10, res=CPU)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6)
+        mv, mi = tivf.search(sp, mono, q, 10, res=CPU)
+        assert torch.equal(tv, mv) and torch.equal(ti, mi)
+    # the scan wrappers take the paged view (CPU tensors: their plain versions)
+    from _torch_parity import paged_lists
+    from raft_tpu_torch.kernels import ivf_scan as tscan
+
+    rows, ids, y2 = paged.list_data, paged.list_index, paged.scan_norms
+    view = paged_lists(rows, 8, 4)
+    qt = torch.from_numpy(q)
+    probes = torch.randint(0, 16, (q.shape[0], 5), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    args = (probes, qt, (qt * qt).sum(1))
+    for metric in ("sqeuclidean", "inner_product"):
+        want = tscan.ivf_scan_query_major_torch(*args, rows, y2, ids, 10, metric=metric,
+                                                scan_scale=None)
+        got = tscan.ivf_scan_query_major(*args, view, y2, ids, 10, metric=metric,
+                                         scan_scale=None)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    qg = qt[:8][None].expand(3, 8, -1).contiguous()
+    pm = (torch.tensor([0, 7, 15], dtype=torch.int32), qg, (qg * qg).sum(-1))
+    want = tscan.ivf_scan_probe_major_torch(*pm, rows, y2, ids, 10, scan_scale=None)
+    got = tscan.ivf_scan_probe_major(*pm, view, y2, ids, 10, scan_scale=None)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -23,7 +23,8 @@ from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq, refin
 from _torch_parity import hop_inputs
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "raft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "raft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                REPO / "kernel_ab.py"]
 
 
 def _imported_modules(path: Path):
@@ -153,16 +154,17 @@ def test_launch_counts_reset_and_read():
                     name = ivf_scan.kernel_name(schedule, list_data, list_filter, query_fid)
                     assert name in kernels.KERNELS
                     kernels.count_launch(name)
-        # raw 8-bit rows (IVF-Flat over uint8 / int8 datasets), unpaged
+        # raw 8-bit rows (IVF-Flat over uint8 / int8 datasets), unpaged and paged
         for dtype, suffix in ((torch.uint8, "_u8"), (torch.int8, "_s8")):
             lists = torch.zeros((1, 8, 1), dtype=dtype)
-            for list_filter, query_fid in legs:
-                name = ivf_scan.kernel_name(schedule, lists, list_filter, query_fid,
-                                            scan_scale=None)
-                assert suffix in name and name in kernels.KERNELS
-                kernels.count_launch(name)
+            for list_data in (lists, PagedLists(lists, torch.zeros(1, dtype=torch.int32), 1)):
+                for list_filter, query_fid in legs:
+                    name = ivf_scan.kernel_name(schedule, list_data, list_filter, query_fid,
+                                                scan_scale=None)
+                    assert suffix in name and name in kernels.KERNELS
+                    kernels.count_launch(name)
     counts = kernels.launch_counts()
-    assert len(kernels.KERNELS) == 45 and "cagra_fused_hop_paged" in kernels.KERNELS
+    assert len(kernels.KERNELS) == 55 and "cagra_fused_hop_paged" in kernels.KERNELS
     assert "fused_argmin" in kernels.KERNELS
     assert all(counts[n] == 1 for n in kernels.KERNELS if n.startswith("ivf_scan"))
     kernels.reset_launch_counts()
@@ -229,6 +231,75 @@ def test_fused_knn_kernel_matches_plain(cuda, k):
     got = fused_knn.fused_l2_topk(q.to(cuda), x.to(cuda), xx.to(cuda), k)
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-4)
     assert (got[1].cpu() == want[1]).float().mean() >= 0.999
+
+
+def _select_rows(rows, n, g):
+    """Rows for the select_k kernel: heavy ties (values rounded to a few
+    levels), zeros of both signs, +inf pads at each row's tail and a few
+    -inf."""
+    s = torch.round(torch.randn(rows, n, generator=g) * 1.5)
+    zero = s == 0
+    s[zero] = torch.where(torch.rand(int(zero.sum()), generator=g) < 0.5,
+                          torch.tensor(-0.0), torch.tensor(0.0))
+    s[:, n - n // 7:] = float("inf")
+    s[torch.rand(rows, n, generator=g) < 0.01] = float("-inf")
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 127, 128, 129, 256, 600, 2048])
+def test_select_k_redesign_matches_plain_bitwise(cuda, k):
+    """The redesigned select_k (#1: warp bitonic queue up to k = 256, block
+    sort past it) against ``select_k_torch``, bitwise (values with their
+    signs, ids): rows of n in {k, k + 1, 74, 128, 258, 1099, 4097, 8192}
+    (those >= k), both directions, positional (ids given or not) and stable
+    (ids with negatives); signed zeros tie up to k = 128 and rank -0.0
+    first past it (positional), tie at every k (stable)."""
+    g = torch.Generator().manual_seed(40 + k)
+    for n in sorted({k, k + 1, 74, 128, 258, 1099, 4097, 8192}):
+        if n < k:
+            continue
+        s = _select_rows(5, n, g)
+        ids = torch.randint(-1, n // 3 + 2, (5, n), generator=g, dtype=torch.int32)
+        for select_min in (True, False):
+            for stable, ii in ((False, None), (False, ids), (True, ids), (True, None)):
+                want = select_k.select_k_torch(s, k, select_min=select_min, stable=stable,
+                                               input_indices=ii)
+                kernels.reset_launch_counts()
+                got = select_k.select_k_kernel(s.to(cuda), k, select_min=select_min,
+                                               stable=stable,
+                                               input_indices=None if ii is None else ii.to(cuda))
+                torch.cuda.synchronize()
+                assert kernels.launch_counts()["select_k"] == 1
+                gv, gi = got[0].cpu(), got[1].cpu()
+                assert torch.equal(gi, want[1]), (n, select_min, stable, ii is None)
+                assert torch.equal(gv.view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 128, 129, 512, 2048])
+@pytest.mark.parametrize("mode", ["l2", "ip"])
+def test_fused_knn_redesign_matches_plain_bitwise(cuda, k, mode):
+    """fused_knn (#2, redesigned: candidate arrays and radix selection) against
+    ``fused_l2_topk_torch``, bitwise: n_q and n not multiples of 64,
+    duplicated dataset rows (score ties: the lower column wins), one part
+    (n small) and several (the dataset cut over more blocks), both modes;
+    d 40 stages four dimensions a copy, d 30 one."""
+    g = torch.Generator().manual_seed(50 + k)
+    for n, n_q, d in ((max(k, 300) + 37, 45, 40), (max(20 * k, 20000) + 11, 131, 30)):
+        x = torch.round(torch.randn(n, d, generator=g) * 4) / 4
+        x[n // 2: n // 2 + 50] = x[: 50]           # duplicates, later columns
+        x[7 * n // 8: 7 * n // 8 + 10] = x[3]
+        q = torch.randn(n_q, d, generator=g)
+        q[: 5] = 0.0                                 # every ip score a zero: all tie
+        xx = (x * x).sum(1)
+        want = fused_knn.fused_l2_topk_torch(q.to(cuda), x.to(cuda), xx.to(cuda), k, mode=mode)
+        kernels.reset_launch_counts()
+        got = fused_knn.fused_l2_topk(q.to(cuda), x.to(cuda), xx.to(cuda), k, mode=mode)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fused_knn"] == 1
+        assert torch.equal(got[1], want[1]), (n, n_q)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
 def _lists(cuda):
@@ -910,17 +981,52 @@ def test_raw_8bit_legs_match_plain_bitwise(cuda, schedule, leg, dtype, kk, metri
 
 
 @pytest.mark.cuda
-def test_raw_8bit_legs_refuse_bf16_compute_and_pages(cuda):
+@pytest.mark.parametrize("page_rows", [8, 64])
+@pytest.mark.parametrize("kk", [10, 129])
+@pytest.mark.parametrize("schedule,leg", [("probe_major", None), ("probe_major", "filt"),
+                                          ("query_major", None), ("query_major", "filt"),
+                                          ("query_major", "fid")])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_raw_8bit_legs_refuse_bf16_compute_and_paged_legs_match_plain_and_unpaged(
+        cuda, schedule, leg, dtype, kk, page_rows):
+    """The raw 8-bit legs refuse bf16 compute (raft_tpu scans such lists at
+    "highest"); read through a page table (the _u8_paged / _s8_paged legs)
+    they are bitwise their plain version and the unpaged kernel on the same
+    rows, and only the paged leg's count moves.  Page rows 8 make every
+    64-row tile straddle pages."""
     from _torch_parity import paged_lists
 
     g = torch.Generator().manual_seed(34)
-    args, kw = _deep_inputs("query_major", torch.uint8, True, 16, g)   # 112 slots: 14 pages
+    args, kw = _deep_inputs(schedule, dtype, True, kk, g, leg)
     card = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    kw_card = {n: a.to(cuda) if torch.is_tensor(a) else a for n, a in kw.items()}
+    kernel = getattr(ivf_scan, f"ivf_scan_{schedule}")
     with pytest.raises(ValueError, match="f32"):
-        ivf_scan.ivf_scan_query_major(*card, scan_dtype="bfloat16", scan_scale=None)
-    card[3] = _on(paged_lists(args[3], 8, 4), cuda)
-    with pytest.raises(NotImplementedError, match="paged"):
-        ivf_scan.ivf_scan_query_major(*card, scan_scale=None)
+        kernel(*card, scan_dtype="bfloat16", **kw_card)
+    # repad the lists to a page multiple, as paginate_index does
+    data, y2, ids = args[3:6]
+    cap2 = -(-data.shape[1] // page_rows) * page_rows
+    pad = cap2 - data.shape[1]
+    mono = card[:3] + [torch.nn.functional.pad(data, (0, 0, 0, pad)).to(cuda),
+                       torch.nn.functional.pad(y2, (0, pad)).to(cuda),
+                       torch.nn.functional.pad(ids, (0, pad), value=-1).to(cuda), kk]
+    pag = mono[:3] + [_on(paged_lists(mono[3].cpu(), page_rows, 4), cuda)] + mono[4:]
+    if "list_filter" in kw_card:
+        lf = kw_card["list_filter"]
+        kw_card["list_filter"] = torch.nn.functional.pad(lf, (0, -(-cap2 // 32) - lf.shape[-1]))
+    plain = getattr(ivf_scan, f"ivf_scan_{schedule}_torch")
+    want = plain(*pag, **kw_card)
+    unpaged = kernel(*mono, **kw_card)
+    kernels.reset_launch_counts()
+    got = kernel(*pag, **kw_card)
+    torch.cuda.synchronize()
+    name = ivf_scan.kernel_name(schedule, pag[3], kw_card.get("list_filter"),
+                                kw_card.get("query_fid"), scan_scale=None)
+    suffix = "_u8_paged" if dtype == torch.uint8 else "_s8_paged"
+    assert suffix in name and name in kernels.KERNELS
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {name: 1}
+    for a, b, c in zip(got, want, unpaged):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.cuda

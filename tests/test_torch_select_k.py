@@ -34,9 +34,6 @@ def test_positional_heavy_ties_vs_pallas(rows, n, k, select_min):
     if k <= 128:
         ref = select_k_pallas(jnp.asarray(s), k, select_min=select_min, interpret=True)
     else:
-        # + 0 turns -0.0 into +0.0, the one tie on which XLA's order differs
-        # (test_signed_zero_ties_past_128_differ_from_xla)
-        s = s + np.float32(0)
         ref = jmatrix.select_k(jnp.asarray(s), k, select_min=select_min)
     got = tsk.select_k_torch(torch.from_numpy(s), k, select_min=select_min)
     _assert_same(got, ref)
@@ -44,32 +41,95 @@ def test_positional_heavy_ties_vs_pallas(rows, n, k, select_min):
     _assert_same(tmatrix.select_k(torch.from_numpy(s), k, select_min=select_min), ref)
 
 
+def _zero_heavy(rng, rows, n, select_min):
+    """Rows whose k-th smallest (largest) lands among many zeros of both
+    signs: |round(z / 2)|, about two thirds of them zeros (negated when
+    selecting the largest), every zero's sign drawn at random."""
+    s = np.abs(np.round(rng.standard_normal((rows, n)) * 0.5)).astype(np.float32)
+    zero = s == 0
+    s[zero] = np.where(rng.random(int(zero.sum())) < 0.5, np.float32(-0.0), np.float32(0.0))
+    return s if select_min else -s
+
+
+# (300, 100): raft_tpu's Pallas select_k, zeros tie; past k 128 its
+# lax.top_k; n 9000: its chunked tournament (lax.top_k at every level)
+@pytest.mark.parametrize("n,k", [(300, 100), (300, 200), (9000, 20), (9000, 600)])
 @pytest.mark.parametrize("select_min", [True, False])
-def test_signed_zero_ties_past_128_differ_from_xla(select_min):
-    """Past k 128 raft_tpu's select_k is XLA's top_k, which ranks -0.0 before
-    +0.0 (after it, selecting the largest).  The port holds the two equal
-    and keeps position order, as raft_tpu's Pallas kernel does up to k 128;
-    with the zeros' signs dropped the two agree."""
-    rng = np.random.default_rng(7)
-    s = np.round(rng.standard_normal((2, 300)) * 3).astype(np.float32)
+def test_signed_zero_ties_match_raft_tpu(n, k, select_min):
+    """raft_tpu ranks -0.0 below +0.0 wherever it takes lax.top_k (past k
+    128, and on the chunked path at any k: -0.0 first among the smallest,
+    last among the largest) and holds them equal where its Pallas kernel
+    runs; the port follows it on every path, ids bitwise."""
+    rng = np.random.default_rng(7 + k)
+    s = _zero_heavy(rng, 2, n, select_min)
+    key = s if select_min else -s
+    kth = np.sort(key, axis=1)[:, k - 1]
+    assert (kth == 0).all()     # the cut lies among the zeros
     neg = np.signbit(s[s == 0])
     assert neg.any() and not neg.all()
-    k = 200
-    key = s if select_min else -s
-    by_position = np.argsort(key, axis=1, kind="stable")[:, :k]
-    sign = np.signbit(s).astype(np.int8)
-    minus_zero_first = np.stack([
-        np.lexsort((np.arange(300), -sign[r] if select_min else sign[r], key[r]))[:k]
-        for r in range(2)])
     got = tmatrix.select_k(torch.from_numpy(s), k, select_min=select_min)
     ref = jmatrix.select_k(jnp.asarray(s), k, select_min=select_min)
-    np.testing.assert_array_equal(_np(got[1]), by_position)
-    np.testing.assert_array_equal(_np(ref[1]), minus_zero_first)
-    assert not np.array_equal(_np(got[1]), _np(ref[1]))
-    np.testing.assert_array_equal(_np(got[0]), _np(ref[0]))   # -0.0 == +0.0
-    s0 = s + np.float32(0)
-    _assert_same(tmatrix.select_k(torch.from_numpy(s0), k, select_min=select_min),
-                 jmatrix.select_k(jnp.asarray(s0), k, select_min=select_min))
+    if n < 8192 and k <= 128:
+        ref = select_k_pallas(jnp.asarray(s), k, select_min=select_min, interpret=True)
+        signed = False
+    else:
+        signed = True
+    sign = np.signbit(s).astype(np.int8)
+    zero_key = -sign if select_min else sign
+    want = np.stack([np.lexsort((np.arange(n), zero_key[r] if signed else 0 * sign[r],
+                                 key[r]))[:k] for r in range(2)])
+    np.testing.assert_array_equal(_np(ref[1]), want)
+    _assert_same(got, ref)
+    if signed:   # (raft_tpu's Pallas kernel writes a row's min, of either sign)
+        np.testing.assert_array_equal(np.signbit(_np(got[0])), np.signbit(_np(ref[0])))
+    # the plain version of the kernel (k <= 2048, n <= 8192), and the chunked
+    # tournament asked for by name
+    if n <= 8192:
+        _assert_same(tsk.select_k_torch(torch.from_numpy(s), k, select_min=select_min), ref)
+    else:
+        _assert_same(tmatrix.select_k(torch.from_numpy(s), k, select_min=select_min,
+                                      algo="chunked"), ref)
+
+
+@pytest.mark.parametrize("k", [100, 200])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_stable_signed_zeros_tie_as_raft_tpu_two_key_sort(k, select_min):
+    """raft_tpu's select_k_stable (Pallas up to k 128, a two-key lax.sort
+    past it) holds -0.0 and +0.0 equal at every k: the smallest id wins."""
+    rng = np.random.default_rng(17 + k)
+    s = _zero_heavy(rng, 3, 400, select_min)
+    ids = rng.permutation(400 * 3).reshape(3, 400).astype(np.int32)
+    ids[:, ::7] = -1
+    got = tmatrix.select_k_stable(torch.from_numpy(s), k, select_min=select_min,
+                                  input_indices=torch.from_numpy(ids))
+    ref = jmatrix.select_k_stable(jnp.asarray(s), k, select_min=select_min,
+                                  input_indices=jnp.asarray(ids))
+    _assert_same(got, ref)
+    if k <= 128:
+        _assert_same(got, select_k_pallas(jnp.asarray(s), k, select_min=select_min, stable=True,
+                                          input_indices=jnp.asarray(ids), interpret=True))
+
+
+@pytest.mark.parametrize("metric", ["inner_product", "sqeuclidean"])
+def test_brute_force_past_128_matches_raft_tpu_tiled_on_zero_scores(metric):
+    """Sparse {-1, 0, 1} rows: hundreds of zero products per query, whose
+    fused partial score is -0.0 (-q.x) in the port's ip mode.  Past k 128
+    raft_tpu's brute force is its tiled path (lax.top_k merges); the port's
+    fused path gives its ids and values."""
+    from raft_tpu.neighbors import brute_force as jbf
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import brute_force as tbf
+
+    rng = np.random.default_rng(19)
+    x = (rng.integers(-1, 2, (600, 16)) * (rng.random((600, 16)) < 0.15)).astype(np.float32)
+    q = (rng.integers(-1, 2, (5, 16)) * (rng.random((5, 16)) < 0.3)).astype(np.float32)
+    jv, ji = jbf.knn(x, q, 200, metric=metric)
+    tv, ti = tbf.knn(x, q, 200, metric=metric, res=Resources(device="cpu"))
+    if metric == "inner_product":
+        assert int((np.asarray(jv) == 0).sum()) > 200
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(np.signbit(tv.numpy()), np.signbit(np.asarray(jv)))
 
 
 @pytest.mark.parametrize("select_min", [True, False])
