@@ -381,7 +381,7 @@ def main() -> int:
 
         def spy(mod, attr, key):
             fn = getattr(mod, attr)
-            saved[(mod, attr)] = fn
+            saved.setdefault((mod, attr), fn)
 
             def wrapper(*a, **kw):
                 seen[key].add(a[6] if key == "scan" else a[1])
@@ -390,7 +390,7 @@ def main() -> int:
 
         def timed(mod, attr):
             fn = getattr(mod, attr)
-            saved[(mod, attr)] = fn
+            saved.setdefault((mod, attr), fn)   # the original, under a spy too
 
             def wrapper(*a, **kw):
                 sync()
@@ -404,8 +404,9 @@ def main() -> int:
         spy(scan, "ivf_scan_probe_major", "scan")
         spy(scan, "ivf_scan_query_major", "scan")
         spy(sk, "select_k_kernel", "select_k")
-        for mod, attr in ((ivf_pq, "build"), (ivf_pq, "search"), (cagra, "refine"),
-                          (cagra, "optimize"), (cagra, "_build_entry_points")):
+        # the build's scans (the kk = 258 probe-major legs) inside its search
+        for mod, attr in ((ivf_pq, "build"), (ivf_pq, "search"), (scan, "ivf_scan_probe_major"),
+                          (cagra, "refine"), (cagra, "optimize"), (cagra, "_build_entry_points")):
             timed(mod, attr)
         try:
             yield seen, stage_s
@@ -1400,11 +1401,13 @@ def main() -> int:
     k_b = min(top_b, pv_b.shape[1])
     chunked_ms = cuda_ms(lambda: matrix.select_k(pv_b, k_b, input_indices=pi_b), 5)
     chunked_bound = cost.bound_ms(cost.select_k_work(*pv_b.shape, k_b, with_ids=True))
+    topk_ms = cuda_ms(lambda: torch.topk(pv_b, k_b, dim=1, largest=False), 5)
     wide.append({"shape": f"[{pv_b.shape[0]}, {pv_b.shape[1]}] k={k_b} (build merge)",
                  "path": "matrix.select_k chunked (torch.sort), no kernel", "ms": chunked_ms,
-                 "bound_ms": chunked_bound[0], "bound_by": chunked_bound[1]})
-    print(f"build merge {tuple(pv_b.shape)} k={k_b}: chunked path {chunked_ms:.3f} ms",
-          flush=True)
+                 "bound_ms": chunked_bound[0], "bound_by": chunked_bound[1],
+                 "library_ms": topk_ms})
+    print(f"build merge {tuple(pv_b.shape)} k={k_b}: chunked path {chunked_ms:.3f} ms, "
+          f"torch.topk {topk_ms:.3f} ms", flush=True)
     del args_b, vb, ib, pv_b, pi_b, pair_b
     record("select_k", "raft_tpu_torch/csrc/select_k.cu", "raft_tpu/kernels/select_k.py:168",
            err, ms, plain_ms, cost.select_k_work(cs.shape[0], cs.shape[1], N_PROBES),
@@ -1731,6 +1734,8 @@ def main() -> int:
            cuda_ms(am_library(am_args["8192"]), 20),
            f"[{ARGMIN_ROWS}, 128] x [{KM_CLUSTERS}, 128] (raft_tpu bench/prims.py:215)",
            library_call="torch.addmm(cc, x, c.T, alpha=-2) then .min(dim=1): two calls",
+           center_parts=fa.center_parts(ARGMIN_ROWS, KM_CLUSTERS,
+                                        fa._BLOCKS_PER_SM * kernels.sm_count(0)),
            wide=[wide_entry(f"[{x.shape[0]}, 128] x [{KM_CLUSTERS}, 128] (the k-means assignment)",
                             am_err, lambda: kernels.fused_l2_argmin(*full),
                             lambda: fa.fused_l2_argmin_torch(*full),

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Times the select_k (#1) and fused_knn (#2) kernels of one tree of the
-PyTorch port on one CUDA card, at the shapes PERF.md holds them to, beside
-the PyTorch library call that computes the same function.
+"""Times the redesigned kernels of one tree of the PyTorch port on one CUDA
+card, at the shapes PERF.md holds them to, beside the PyTorch library call
+that computes the same function where there is one: select_k (#1),
+fused_knn (#2), the fused L2 argmin (#7) and the probe-major scan (#3).
 
-    python3 kernel_ab.py [--tree DIR]
+    python3 kernel_ab.py [--tree DIR] [--only select_k,fused_knn,fused_argmin,scan]
 
 ``--tree`` names the directory that holds the ``raft_tpu_torch`` package to
 time (default: this script's checkout), so that a change and its parent are
 timed by the same code on the same card, in turns (parent, change, change,
 parent).  The kernels build from that tree's sources into
 its own build directory.  Inputs: the main path's dataset (synthetic
-sift-128-euclidean rows, seed 0) for fused_knn, seeded normal rows for
-select_k.  Prints the card's name and power limit, then one JSON line per
-shape: the kernel's and the library call's mean ms over CUDA events (for
-select_k also their device time per call, and for fused_knn each of its
-kernels' device time, from the profiler).
+sift-128-euclidean rows, seed 0) for fused_knn, #7 (8,192 and all 1M rows
+against 1,024 rows sampled with seed 0, as ``chip_smoke.py``'s k-means
+centers) and the scans (probe-major inputs of the IVF-Flat index and of
+the IVF-PQ index's bf16 scan cache with f32 products, as ``chip_smoke.py``
+builds them: all 10,000 queries at kk = 10 and 258, the first 1,000 at kk =
+1,000), seeded normal rows for select_k.  Prints the card's name and power
+limit, then one JSON line per shape: the kernel's and the library call's
+mean ms over CUDA events (for select_k also their device time per call, and
+for fused_knn each of its kernels' device time, from the profiler).
 Exits non-zero without a card.
 """
 
@@ -31,7 +36,10 @@ from pathlib import Path
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--only", default="select_k,fused_knn,fused_argmin,scan",
+                    help="comma-separated kernels to time")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
 
@@ -98,7 +106,7 @@ def main() -> int:
                           "library": library, "library_ms": library_ms, **extra}), flush=True)
 
     g = torch.Generator(device=dev).manual_seed(0)
-    for rows, n, k, with_ids, note in ((10000, 258, 129, True, "refine (CAGRA build)"),
+    for rows, n, k, with_ids, note in () if "select_k" not in only else ((10000, 258, 129, True, "refine (CAGRA build)"),
                                        (10000, 1099, 20, False, "IVF coarse selection"),
                                        (512, 64, 1, False, "CAGRA pick_parents"),
                                        (64, 128, 64, False, "filtered CAGRA buffer"),
@@ -119,13 +127,59 @@ def main() -> int:
     q = torch.from_numpy(ds.queries).to(dev)
     xx = (x * x).sum(dim=1)
     del ds
-    for n_q, k, reps in ((256, 10, 5), (256, 129, 5), (1000, 2048, 3)):
+    for n_q, k, reps in () if "fused_knn" not in only else ((256, 10, 5), (256, 129, 5),
+                                                            (1000, 2048, 3)):
         qs = q[:n_q]
         emit("fused_knn", f"q [{n_q}, 128] x [{x.shape[0]}, 128] k={k}",
              cuda_ms(lambda: fk.fused_l2_topk(qs, x, xx, k), reps),
              "torch.topk(torch.cdist)",
              cuda_ms(lambda: torch.topk(torch.cdist(qs, x), k, dim=1, largest=False), reps),
              by_kernel=by_kernel(lambda: fk.fused_l2_topk(qs, x, xx, k)))
+
+    if "fused_argmin" in only:
+        import numpy as np
+
+        from raft_tpu_torch.kernels import fused_argmin as fa
+
+        rows = np.sort(np.random.default_rng(0).choice(x.shape[0], 1024, replace=False))
+        c = x[torch.from_numpy(rows).to(dev)]
+        cc = (c * c).sum(dim=1)
+        for n, reps in ((8192, 20), (x.shape[0], 5)):
+            xs = x[:n]
+            emit("fused_argmin", f"[{n}, 128] x [1024, 128]",
+                 cuda_ms(lambda: kernels.fused_l2_argmin(xs, c, cc), reps),
+                 "torch.addmm(cc, x, c.T, alpha=-2).min(dim=1)",
+                 cuda_ms(lambda: torch.addmm(cc, xs, c.T, alpha=-2).min(dim=1), reps),
+                 # this tree's center parts, where it cuts the centers
+                 parts=(list(fa.center_parts(n, 1024, fa._BLOCKS_PER_SM * kernels.sm_count(0)))
+                        if hasattr(fa, "center_parts") else None))
+
+    if "scan" in only:
+        from raft_tpu_torch.core.resources import Resources
+        from raft_tpu_torch.kernels import ivf_scan as scan
+        from raft_tpu_torch.neighbors import _common, ivf_flat, ivf_pq
+
+        res = Resources(device="cuda")
+        flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=1024, kmeans_n_iters=20,
+                                                   kmeans_trainset_fraction=0.5, seed=0),
+                              x, res=res)
+        pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=1024, pq_dim=64, pq_bits=8,
+                                             kmeans_n_iters=20, kmeans_trainset_fraction=0.5,
+                                             seed=0), x, res=res)
+        for tag, idx, mod, kw in (("float32", flat, ivf_flat, {}),
+                                  ("bfloat16", pq, ivf_pq, ivf_pq.scan_kwargs(pq, "float32"))):
+            # (queries, kk, the k the buckets are sized for, reps): the main
+            # path's buckets at kk 10 and 258, the deep-k phase's at 1,000
+            for n_q, kk, k, reps in ((q.shape[0], 10, 10, 10), (q.shape[0], 258, 10, 5),
+                                     (1000, 1000, 1000, 5)):
+                qs = q[:n_q]
+                _, bucket, _, _ = _common.select_scan_strategy(
+                    "probe_major", n_q, 20, idx.n_lists, idx.list_cap, x.shape[1],
+                    res.workspace_limit_bytes, k=k)
+                a = mod.probe_major_scan_inputs(idx, qs, 20, kk, bucket)[0]
+                emit("ivf_scan_probe_major", f"{tag} rows, B={a[1].shape[0]} G={a[1].shape[1]} "
+                     f"kk={kk} ({n_q} q)", cuda_ms(lambda: scan.ivf_scan_probe_major(
+                         *a, metric="sqeuclidean", **kw), reps), None, None)
     return 0
 
 

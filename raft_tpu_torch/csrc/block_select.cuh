@@ -1,9 +1,10 @@
-// Selection building blocks of the redesigned select_k (#1) and fused_knn
-// (#2) kernels, after RAFT's warp-sort / block-select
-// (matrix/detail/select_warpsort.cuh, select_radix.cuh): keys that order as
-// unsigned integers, bitonic networks in registers (one warp) and in shared
-// memory (one block), and a radix select of the k-th key.  The scans keep
-// topk.cuh's lists; nothing here changes them.
+// Selection building blocks of select_k (#1), fused_knn (#2) and the
+// probe-major scans past kk = 128 (#3 / #4), after RAFT's warp-sort /
+// block-select (matrix/detail/select_warpsort.cuh, select_radix.cuh): keys
+// that order as unsigned integers, bitonic networks in registers (one warp)
+// and in shared memory (one block), a radix select of the k-th key, and the
+// compaction of a candidate array around it.  Query-major and merge_parts
+// keep topk.cuh's lists, as do the scans up to kk = 128.
 //
 // Keys.  A float orders as the unsigned integer `okey`: the sign bit is
 // flipped for a positive value and every bit for a negative one, so that
@@ -127,17 +128,21 @@ __device__ __forceinline__ void warp_merge(Item<kTwo> (&q)[R], const Item<kTwo> 
 
 // -- one block, keys in shared memory ---------------------------------------
 // Sort n (a power of two) items ascending: 64-bit keys, and with kTwo a
-// position that breaks equal keys.  Every thread of the block calls it.
+// position that breaks equal keys; `segs` > 1 sorts that many runs of n
+// items, one after another in `key`, each on its own.  Every thread of the
+// block calls it.
 
 template <bool kTwo>
-__device__ void block_sort(unsigned long long* key, int* pos, int n) {
+__device__ void block_sort(unsigned long long* key, int* pos, int n, int segs = 1) {
   for (int size = 2; size <= n; size *= 2) {
     for (int stride = size / 2; stride > 0; stride /= 2) {
       __syncthreads();
-      for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
+      for (int t = threadIdx.x; t < segs * (n / 2); t += blockDim.x) {
         const int lo = 2 * t - (t & (stride - 1));   // the pair (lo, lo + stride)
         const int hi = lo + stride;
-        const bool asc = (lo & size) == 0;
+        // runs of `size` alternate direction within a segment; the last
+        // merge (size n) sorts every segment ascending
+        const bool asc = size == n || (lo & size) == 0;
         const unsigned long long a = key[lo], b = key[hi];
         bool swap;
         if constexpr (kTwo) {
@@ -225,6 +230,64 @@ __device__ unsigned radix_select(KeyAt key_at, int n, int k, int* hist, int* bel
   }
   *below = k - rank;
   return prefix;
+}
+
+// -- candidate arrays ---------------------------------------------------------
+// A candidate array holds (value, id) entries in the order they were
+// offered.  `slot(e)` gives the addresses of entry e (so that an array may
+// span two buffers).
+
+struct Slot {
+  float* v;
+  int* i;
+};
+
+__device__ __forceinline__ unsigned lanemask_lt(int lane) { return (1u << lane) - 1u; }
+
+// One warp: keep the k smallest (okey, then array position) of the cnt
+// entries of a candidate array, in place and in their order; returns the
+// k-th value (the array's new threshold: a later entry must be below it).
+// (A whole block compacting one array at a time, staged in shared memory,
+// made fused_knn's k = 10 12 % slower: at a small k every row compacts at
+// once after the first tiles, and eight warps do eight rows at a time.)
+template <typename SlotAt>
+__device__ float warp_compact(SlotAt slot, int cnt, int k, int* hist, int lane) {
+  int below;
+  const unsigned kth = radix_select<false>(
+      [&](int e, unsigned& key) {
+        key = okey(*slot(e).v);
+        return true;
+      },
+      cnt, k, hist, &below);
+  const int need_eq = k - below;   // of the entries equal to the k-th, the first need_eq stay
+  int w = 0, eq = 0;
+  for (int e0 = 0; e0 < cnt; e0 += 32) {
+    const int e = e0 + lane;
+    float v = 0.0f;
+    int id = 0;
+    unsigned key = ~0u;
+    if (e < cnt) {
+      const Slot s = slot(e);
+      v = *s.v;
+      id = *s.i;
+      key = okey(v);
+    }
+    const bool is_eq = e < cnt && key == kth;
+    const unsigned eqm = __ballot_sync(0xffffffffu, is_eq);
+    const bool keep =
+        (e < cnt && key < kth) || (is_eq && eq + __popc(eqm & lanemask_lt(lane)) < need_eq);
+    const unsigned km = __ballot_sync(0xffffffffu, keep);
+    __syncwarp();   // the chunk is read before any lane writes (writes go at or below it)
+    if (keep) {
+      const Slot s = slot(w + __popc(km & lanemask_lt(lane)));
+      *s.v = v;
+      *s.i = id;
+    }
+    w += __popc(km);
+    eq += __popc(eqm);
+    __syncwarp();
+  }
+  return okey_value(kth);
 }
 
 }  // namespace rt

@@ -44,102 +44,7 @@ namespace {
 
 constexpr int kWarps = rt::kGemmThreads / 32;
 
-// A stage: dimensions k0 .. k0 + 31 of the block's query rows and of the
-// tile's dataset rows, row-major, each row padded to kRow floats: 16-byte
-// aligned for float4 reads along the dimensions, and the rows tx + 16 j a
-// warp reads at once fall on distinct bank groups.  (The transposed,
-// one-float-a-read layout of tile_gemm.cuh made shared-memory reads, 8 per
-// 16 FMAs, the bound.)
-constexpr int kRow = rt::kBK + 4;
-
-struct Stage {
-  float a[rt::kBM][kRow];
-  float b[rt::kBN][kRow];
-};
-
-// cp.async of `bytes` (4: 0 or 4; 16: 0 .. 16) of src; the rest of the
-// slot is filled with zero.
-template <int kSize>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, int bytes) {
-  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (kSize == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
-                 "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(src),
-                 "r"(bytes));
-}
-
-// Stage dimensions k0 .. k0 + 31 of the block's query rows and of the
-// tile's dataset rows (zeros past the rows and past d), and commit them as
-// one group: four dimensions a copy where rows are 16-byte aligned (kVec),
-// else one.
-template <bool kVec>
-__device__ __forceinline__ void issue_chunk(Stage& st, const float* qa, int q_rows,
-                                            const float* xb, int c_rows, int d, int k0,
-                                            int tid) {
-  constexpr int kPer = kVec ? 4 : 1;   // dimensions a copy
-  constexpr int kCopies = rt::kBK / kPer;
-#pragma unroll
-  for (int s = 0; s < (rt::kBM * kCopies) / rt::kGemmThreads; ++s) {
-    const int idx = tid + s * rt::kGemmThreads;
-    const int r = idx / kCopies;
-    const int kk = kPer * (idx % kCopies);
-    const int k = k0 + kk;
-    const int bytes = k < d ? 4 * min(kPer, d - k) : 0;
-    const int ba = r < q_rows ? bytes : 0;
-    const int bb = r < c_rows ? bytes : 0;
-    cp_async<4 * kPer>(&st.a[r][kk], ba ? qa + (size_t)r * d + k : qa, ba);
-    cp_async<4 * kPer>(&st.b[r][kk], bb ? xb + (size_t)r * d + k : xb, bb);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ unsigned lanemask_lt(int lane) { return (1u << lane) - 1u; }
-
-// One warp: keep the k smallest (okey, then array position) of the cnt
-// entries of a candidate array, in place and in their order; returns the
-// k-th value (the array's new threshold).  (A whole block compacting one
-// array at a time, staged in shared memory, made k = 10 12 % slower: at a
-// small k every row compacts at once after the first tiles, and eight
-// warps do eight rows at a time.)
-__device__ float compact(float* cv, int* ci, int cnt, int k, int* hist, int lane) {
-  int below;
-  const unsigned kth = rt::radix_select<false>(
-      [&](int e, unsigned& key) {
-        key = rt::okey(cv[e]);
-        return true;
-      },
-      cnt, k, hist, &below);
-  const int need_eq = k - below;   // of the entries equal to the k-th, the first need_eq stay
-  int w = 0, eq = 0;
-  for (int e0 = 0; e0 < cnt; e0 += 32) {
-    const int e = e0 + lane;
-    float v = 0.0f;
-    int id = 0;
-    unsigned key = ~0u;
-    if (e < cnt) {
-      v = cv[e];
-      id = ci[e];
-      key = rt::okey(v);
-    }
-    const bool is_eq = e < cnt && key == kth;
-    const unsigned eqm = __ballot_sync(0xffffffffu, is_eq);
-    const bool keep =
-        (e < cnt && key < kth) || (is_eq && eq + __popc(eqm & lanemask_lt(lane)) < need_eq);
-    const unsigned km = __ballot_sync(0xffffffffu, keep);
-    __syncwarp();   // the chunk is read before any lane writes (writes go at or below it)
-    if (keep) {
-      const int pos = w + __popc(km & lanemask_lt(lane));
-      cv[pos] = v;
-      ci[pos] = id;
-    }
-    w += __popc(km);
-    eq += __popc(eqm);
-    __syncwarp();
-  }
-  return rt::okey_value(kth);
-}
+using Stage = rt::Stage<rt::kBM>;
 
 // Candidate arrays: row m of the block, part blockIdx.y, at
 // cand + ((q0 + m) * gridDim.y + blockIdx.y) * cap; counts [n_q][gridDim.y]
@@ -171,6 +76,11 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int c_begin = part * c_chunk;
   const int c_end = min(n, c_begin + c_chunk);
   auto row_base = [&](int m) { return ((size_t)(q0 + m) * splits + part) * cap; };
+  auto row_slots = [&](int m) {
+    float* cv = cand_v + row_base(m);
+    int* ci = cand_i + row_base(m);
+    return [=](int e) { return rt::Slot{cv + e, ci + e}; };
+  };
 
   if (tid < rt::kBM) {
     sthr[tid] = CUDART_INF_F;
@@ -181,7 +91,7 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int nchunks = (d + rt::kBK - 1) / rt::kBK;
   const int tiles = (c_end - c_begin + rt::kBN - 1) / rt::kBN;
   const int total = tiles * nchunks;
-  issue_chunk<kVec>(st[0], qa, q_rows, x + (size_t)c_begin * d, min(rt::kBN, c_end - c_begin),
+  rt::issue_chunk<kVec>(st[0], qa, q_rows, x + (size_t)c_begin * d, min(rt::kBN, c_end - c_begin),
                     d, 0, tid);
   int g = 0;
   for (int t = 0; t < tiles; ++t) {
@@ -196,7 +106,7 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
       if (g + 1 < total) {   // the next chunk, the next tile's first after the last
         const int t1 = (g + 1) / nchunks;
         const int c1 = c_begin + t1 * rt::kBN;
-        issue_chunk<kVec>(st[(g + 1) & 1], qa, q_rows, x + (size_t)c1 * d,
+        rt::issue_chunk<kVec>(st[(g + 1) & 1], qa, q_rows, x + (size_t)c1 * d,
                           min(rt::kBN, c_end - c1), d, ((g + 1) % nchunks) * rt::kBK, tid);
         asm volatile("cp.async.wait_group 1;\n" ::);
       } else {
@@ -278,16 +188,15 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
         const bool n1 = lane + 32 < q_rows && scount[lane + 32] > cap - rt::kBN;
         const unsigned b0 = __ballot_sync(0xffffffffu, n0);
         const unsigned b1 = __ballot_sync(0xffffffffu, n1);
-        if (n0) slist[__popc(b0 & lanemask_lt(lane))] = lane;
-        if (n1) slist[__popc(b0) + __popc(b1 & lanemask_lt(lane))] = lane + 32;
+        if (n0) slist[__popc(b0 & rt::lanemask_lt(lane))] = lane;
+        if (n1) slist[__popc(b0) + __popc(b1 & rt::lanemask_lt(lane))] = lane + 32;
         if (lane == 0) snum = __popc(b0) + __popc(b1);
       }
       __syncthreads();   // every thread has read sflag: it may be cleared
       if (tid == 0) sflag = 0;
       for (int t2 = warp; t2 < snum; t2 += kWarps) {
         const int m = slist[t2];
-        const float thr = compact(cand_v + row_base(m), cand_i + row_base(m), scount[m], k,
-                                  shist[warp], lane);
+        const float thr = rt::warp_compact(row_slots(m), scount[m], k, shist[warp], lane);
         if (lane == 0) {
           sthr[m] = thr;
           scount[m] = k;
@@ -299,7 +208,7 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ x,
   for (int m = warp; m < q_rows; m += kWarps) {
     int cnt = scount[m];
     if (cnt > k) {
-      compact(cand_v + row_base(m), cand_i + row_base(m), cnt, k, shist[warp], lane);
+      rt::warp_compact(row_slots(m), cnt, k, shist[warp], lane);
       cnt = k;
     }
     if (lane == 0) counts[(size_t)(q0 + m) * splits + part] = cnt;
@@ -330,7 +239,7 @@ __device__ __forceinline__ int block_prefix(bool flag, int* sw, int* total) {
     all += sw[w];
   }
   *total = all;
-  return before + __popc(m & lanemask_lt(lane));
+  return before + __popc(m & rt::lanemask_lt(lane));
 }
 
 // One block per query: the k smallest by (score, column) of its parts'

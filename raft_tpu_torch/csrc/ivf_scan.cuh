@@ -70,7 +70,10 @@
 // for the other legs, which these simple kernels do not use (CUDA-core
 // fmaf / __dp4a on a 64 x 64 register tile, tile_gemm.cuh); tiles whose
 // slots are all padding are skipped, and blocks whose queries are all
-// padding exit at once.  Query-major reads P * cap rows for each query with
+// padding exit at once.  Past kk = 128 its fold was the bound (a list
+// insert costs O(kk); the CAGRA build's kk = 258 scan ran at 0.8 % of the
+// FMA bound): candidate arrays and a radix select replace the lists there
+// (pm_walk_select).  Query-major reads P * cap rows for each query with
 // no reuse, so it is bound by device memory bytes: rows stage through
 // shared memory at their stored width (f32, bf16, or int8 packed four to a
 // word) with coalesced loads, one thread scores one row with a single
@@ -86,6 +89,7 @@
 
 #include <type_traits>
 
+#include "block_select.cuh"
 #include "tile_gemm.cuh"
 #include "topk.cuh"
 
@@ -200,42 +204,74 @@ __device__ __forceinline__ float quantize_row(const float* qrow, int d, int* wor
 }
 
 // -- probe-major ----------------------------------------------------------
+// Block (blockIdx.x, blockIdx.y) scans bucket blockIdx.x's list for the
+// bucket's queries kBM blockIdx.y .. + kBM - 1 (q_rows of them), in
+// kBN-slot tiles.  Each query keeps its kk smallest (score, slot).  Up to
+// kk = 128 each query folds its tiles into a sorted list in shared memory
+// (topk.cuh's register shifts, pm_walk_lists).  Past it a list insert
+// costs O(kk) and a survivor of a ~900-row list at kk = 258 is most of the
+// rows (kk (1 + ln(n / kk))), so each query appends what beats its
+// threshold to a candidate array instead (pm_walk_select): the
+// block_select.cuh scheme of fused_knn, O(1) amortised per survivor.
+constexpr int kWarps = rt::kGemmThreads / 32;
 
-// Walk bucket blockIdx.x's list in kBN-slot tiles for the block's qpb <=
-// kBM queries (blockIdx.y): score, mask and fold each tile into the
-// queries' lists lv / li ([qpb][kk], shared), then write the lists out.
-// qpb is kBM up to kk = 349; a wider kk gives a block fewer queries of the
-// bucket, so that their lists fit in shared memory.  A block
-// whose queries are all padding skips the walk, and a tile whose slots are
-// all padding (or all fail the filter) is skipped.  The leg's own parts:
-// `prologue()` runs once before the walk of a live block; `tile_ip(l, c0,
-// c_rows, ip)` sets ip[i][j] to the dot product of the block's query
-// ty + 16 i with slot c0 + tx + 16 j of list l.  Every thread calls both.
-// kFilt: the list's words are staged into `sfilt` (cap_w ints of dynamic
-// shared memory) before the walk.
-template <bool kWide, bool kFilt, typename Prologue, typename TileIp>
-__device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
-                                        const float* __restrict__ q2g,
-                                        const float* __restrict__ y2,
-                                        const int* __restrict__ ids, int G, int cap, int kk,
-                                        int qpb, int metric, Filt filt, int* sfilt, float* lv,
-                                        int* li, float* __restrict__ out_v,
-                                        int* __restrict__ out_i, Prologue&& prologue,
-                                        TileIp&& tile_ip) {
+// The outputs of a probe-major launch [B][G][kk] and, past kk = 128
+// (kWide), its workspace: each output row is the head of its query's
+// candidate array, and ws row [B][G][extra] its tail (extra <= kk, so the
+// workspace is no larger than the outputs); the array's kk smallest are
+// sorted in shared memory, sort_rows queries at a time.
+struct PmOut {
+  float* v;
+  int* i;
+  float* ws_v;
+  int* ws_i;
+  int extra;
+  int sort_rows;
+};
+
+__host__ __device__ inline int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+// Bytes of dynamic shared memory the fold of kk entries takes: the lists
+// [kBM][kk] of (value, id), or past kk = 128 the sort of sort_rows arrays
+// (keys [sort_rows][pow2 >= kk], then values and ids [sort_rows][kk]).
+__host__ __device__ inline size_t fold_smem(bool wide, int kk, int sort_rows) {
+  if (!wide) return (size_t)rt::kBM * kk * (sizeof(float) + sizeof(int));
+  return (size_t)sort_rows * ((size_t)pow2_at_least(kk) * sizeof(unsigned long long) +
+                              (size_t)kk * (sizeof(float) + sizeof(int)));
+}
+
+// The score tiles of the block's list walk: for each tile of slots with a
+// real (passing) row, `tile_ip(l, c0, c_rows, ip)` sets ip[i][j] to the dot
+// product of the block's query ty + 16 i with slot c0 + tx + 16 j of list
+// l, the scores go to s[m][c] (+inf for a padding or failing slot, or a
+// padding query), and `fold(s, sid)` folds them (sid[c]: the slots' ids).
+// A block whose queries are all padding skips the walk, and a tile whose
+// slots are all padding (or all fail the filter) is skipped.
+// `prologue()` runs once before the walk of a live block.  Every thread
+// calls all three.  kFilt: the list's words are staged into `sfilt`
+// (cap_w ints of dynamic shared memory) before the walk.
+template <bool kFilt, typename Prologue, typename TileIp, typename Fold>
+__device__ __forceinline__ void pm_scores(const int* __restrict__ bucket_list,
+                                          const float* __restrict__ q2g,
+                                          const float* __restrict__ y2,
+                                          const int* __restrict__ ids, int G, int cap,
+                                          int metric, Filt filt, int* sfilt,
+                                          Prologue&& prologue, TileIp&& tile_ip, Fold&& fold) {
   __shared__ float s[rt::kBM][rt::kBN + 1];
   __shared__ float sq2[rt::kBM];
   __shared__ float sy2[rt::kBN];
   __shared__ int sid[rt::kBN];
 
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
   const int ty = tid / 16;
   const int tx = tid % 16;
   const int b = blockIdx.x;
-  const int g0 = blockIdx.y * qpb;
-  const int q_rows = min(qpb, G - g0);
-  const size_t out_base = ((size_t)b * G + g0) * kk;
+  const int g0 = blockIdx.y * rt::kBM;
+  const int q_rows = min(rt::kBM, G - g0);
 
   bool live = false;
   if (tid < rt::kBM) {
@@ -243,82 +279,241 @@ __device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
     sq2[tid] = v;
     live = !isinf(v);
   }
-  for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32)
-    rt::list_init(lv + m * kk, li + m * kk, kk, lane);
-  if (__syncthreads_or(live)) {
-    prologue();
-    const int l = bucket_list[b];
-    if constexpr (kFilt) {
-      for (int w = tid; w < filt.cap_w; w += rt::kGemmThreads)
-        sfilt[w] = filt.words[(size_t)l * filt.cap_w + w];
-      __syncthreads();
-    }
-    float ip[4][4];
-    for (int c0 = 0; c0 < cap; c0 += rt::kBN) {
-      const int c_rows = min(rt::kBN, cap - c0);
-      bool valid = false;
-      if (tid < rt::kBN) {
-        int id = tid < c_rows ? ids[(size_t)l * cap + c0 + tid] : -1;
-        if constexpr (kFilt) {
-          if (id >= 0 && !passes(sfilt, c0 + tid)) id = -1;
-        }
-        sid[tid] = id;
-        sy2[tid] = tid < c_rows ? y2[(size_t)l * cap + c0 + tid] : 0.0f;
-        valid = id >= 0;
-      }
-      if (!__syncthreads_or(valid)) continue;
-      tile_ip(l, c0, c_rows, ip);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int m = ty + 16 * i;
-          const float q2 = sq2[m];
-          const bool bad = sid[c] < 0 || isinf(q2);
-          s[m][c] = bad ? CUDART_INF_F : score(metric, ip[i][j], q2, sy2[c]);
-        }
-      }
-      __syncthreads();
-      for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32) {
-        for (int cc = 0; cc < rt::kBN; cc += 32) {
-          const int c = cc + lane;
-          rt::list_offer32<kWide>(s[m][c], sid[c], lv + m * kk, li + m * kk, kk, lane);
-        }
-      }
-      __syncthreads();
-    }
+  if (!__syncthreads_or(live)) return;
+  prologue();
+  const int l = bucket_list[b];
+  if constexpr (kFilt) {
+    for (int w = tid; w < filt.cap_w; w += rt::kGemmThreads)
+      sfilt[w] = filt.words[(size_t)l * filt.cap_w + w];
+    __syncthreads();
   }
-  for (int m = warp; m < q_rows; m += rt::kGemmThreads / 32) {
+  float ip[4][4];
+  for (int c0 = 0; c0 < cap; c0 += rt::kBN) {
+    const int c_rows = min(rt::kBN, cap - c0);
+    bool valid = false;
+    if (tid < rt::kBN) {
+      int id = tid < c_rows ? ids[(size_t)l * cap + c0 + tid] : -1;
+      if constexpr (kFilt) {
+        if (id >= 0 && !passes(sfilt, c0 + tid)) id = -1;
+      }
+      sid[tid] = id;
+      sy2[tid] = tid < c_rows ? y2[(size_t)l * cap + c0 + tid] : 0.0f;
+      valid = id >= 0;
+    }
+    if (!__syncthreads_or(valid)) continue;
+    tile_ip(l, c0, c_rows, ip);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = ty + 16 * i;
+        const float q2 = sq2[m];
+        const bool bad = sid[c] < 0 || isinf(q2);
+        s[m][c] = bad ? CUDART_INF_F : score(metric, ip[i][j], q2, sy2[c]);
+      }
+    }
+    __syncthreads();
+    fold(s, sid);
+    __syncthreads();
+  }
+}
+
+// Up to kk = 128: the queries' lists lv / li ([kBM][kk], shared), written
+// out at the end.
+template <bool kFilt, typename Prologue, typename TileIp>
+__device__ __forceinline__ void pm_walk_lists(const int* __restrict__ bucket_list,
+                                              const float* __restrict__ q2g,
+                                              const float* __restrict__ y2,
+                                              const int* __restrict__ ids, int G, int cap,
+                                              int kk, int metric, Filt filt, int* sfilt,
+                                              void* fold_mem, PmOut out, Prologue&& prologue,
+                                              TileIp&& tile_ip) {
+  float* lv = static_cast<float*>(fold_mem);
+  int* li = reinterpret_cast<int*>(lv + rt::kBM * kk);
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int q_rows = min(rt::kBM, G - (int)blockIdx.y * rt::kBM);
+  const size_t out_base = ((size_t)blockIdx.x * G + blockIdx.y * rt::kBM) * kk;
+
+  for (int m = warp; m < q_rows; m += kWarps) rt::list_init(lv + m * kk, li + m * kk, kk, lane);
+  pm_scores<kFilt>(bucket_list, q2g, y2, ids, G, cap, metric, filt, sfilt, prologue, tile_ip,
+                   [&](const float (*s)[rt::kBN + 1], const int* sid) {
+                     for (int m = warp; m < q_rows; m += kWarps) {
+                       for (int cc = 0; cc < rt::kBN; cc += 32) {
+                         const int c = cc + lane;
+                         rt::list_offer32<false>(s[m][c], sid[c], lv + m * kk, li + m * kk, kk,
+                                                 lane);
+                       }
+                     }
+                   });
+  for (int m = warp; m < q_rows; m += kWarps) {
     for (int p = lane; p < kk; p += 32) {
-      out_v[out_base + (size_t)m * kk + p] = lv[m * kk + p];
-      out_i[out_base + (size_t)m * kk + p] = li[m * kk + p];
+      out.v[out_base + (size_t)m * kk + p] = lv[m * kk + p];
+      out.i[out_base + (size_t)m * kk + p] = li[m * kk + p];
     }
   }
 }
 
+// Past kk = 128: warp w owns queries w, w + 8, ...  A query appends the
+// scores of each tile that are below its threshold (+inf at first) to its
+// candidate array (kk + extra entries: its output row, then its workspace
+// row), in slot order.  When the array may not hold another tile, the warp
+// radix-selects its kk-th key, keeps the kk smallest in place (stable, so
+// that the array stays in slot order and the lower slot wins a tie) and
+// makes that key the threshold; a later score equal to it ranks after all
+// kk and never enters, as with the lists.  At the end every array is cut
+// to kk, and groups of sort_rows queries sort theirs in shared memory
+// (bitonic) by (okey, array position) = (score, slot), the key carrying
+// the position, so that each value comes out as stored (a -0.0 score as
+// -0.0); slots past the count are (+inf, -1).
+template <bool kFilt, typename Prologue, typename TileIp>
+__device__ __forceinline__ void pm_walk_select(const int* __restrict__ bucket_list,
+                                               const float* __restrict__ q2g,
+                                               const float* __restrict__ y2,
+                                               const int* __restrict__ ids, int G, int cap,
+                                               int kk, int metric, Filt filt, int* sfilt,
+                                               void* fold_mem, PmOut out, Prologue&& prologue,
+                                               TileIp&& tile_ip) {
+  __shared__ float sthr[rt::kBM];
+  __shared__ int scnt[rt::kBM];
+  __shared__ int shist[kWarps][258];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int q_rows = min(rt::kBM, G - (int)blockIdx.y * rt::kBM);
+  const size_t row0 = (size_t)blockIdx.x * G + blockIdx.y * rt::kBM;   // of query 0
+  const int entries = kk + out.extra;
+  auto slots = [&](int m) {
+    float* ov = out.v + (row0 + m) * kk;
+    int* oi = out.i + (row0 + m) * kk;
+    float* wv = out.ws_v + (row0 + m) * out.extra;
+    int* wi = out.ws_i + (row0 + m) * out.extra;
+    return [=](int e) {
+      return e < kk ? rt::Slot{ov + e, oi + e} : rt::Slot{wv + (e - kk), wi + (e - kk)};
+    };
+  };
+
+  if (tid < rt::kBM) {
+    sthr[tid] = CUDART_INF_F;
+    scnt[tid] = 0;
+  }
+  pm_scores<kFilt>(
+      bucket_list, q2g, y2, ids, G, cap, metric, filt, sfilt, prologue, tile_ip,
+      [&](const float (*s)[rt::kBN + 1], const int* sid) {
+        for (int m = warp; m < q_rows; m += kWarps) {
+          const float thr = sthr[m];
+          int cnt = scnt[m];
+          const auto at = slots(m);
+          for (int cc = 0; cc < rt::kBN; cc += 32) {
+            const int c = cc + lane;
+            const float v = s[m][c];
+            const bool keep = v < thr;
+            const unsigned km = __ballot_sync(rt::kFull, keep);
+            if (keep) {
+              const rt::Slot sl = at(cnt + __popc(km & rt::lanemask_lt(lane)));
+              *sl.v = v;
+              *sl.i = sid[c];
+            }
+            cnt += __popc(km);
+          }
+          if (cnt > entries - rt::kBN) {   // the next tile might not fit
+            __syncwarp();
+            const float t = rt::warp_compact(at, cnt, kk, shist[warp], lane);
+            cnt = kk;
+            if (lane == 0) sthr[m] = t;
+          }
+          if (lane == 0) scnt[m] = cnt;
+        }
+      });
+  for (int m = warp; m < q_rows; m += kWarps) {
+    if (scnt[m] > kk) {
+      __syncwarp();
+      rt::warp_compact(slots(m), scnt[m], kk, shist[warp], lane);
+      __syncwarp();
+      if (lane == 0) scnt[m] = kk;
+    }
+  }
+  __syncthreads();
+  const int kp = pow2_at_least(kk);
+  auto* skey = static_cast<unsigned long long*>(fold_mem);            // [sort_rows][kp]
+  float* sv = reinterpret_cast<float*>(skey + (size_t)out.sort_rows * kp);   // [sort_rows][kk]
+  int* si = reinterpret_cast<int*>(sv + (size_t)out.sort_rows * kk);        // [sort_rows][kk]
+  for (int m0 = 0; m0 < q_rows; m0 += out.sort_rows) {
+    const int nr = min(out.sort_rows, q_rows - m0);
+    int most = 0;
+    for (int r = 0; r < nr; ++r) most = max(most, scnt[m0 + r]);
+    const int n = pow2_at_least(most);   // every row's count fits in n
+    if (most > 0) {
+      for (int t = tid; t < nr * n; t += rt::kGemmThreads) {
+        const int r = t / n;
+        const int e = t - r * n;
+        unsigned long long key = rt::kPadKey;
+        if (e < scnt[m0 + r]) {   // e < kk: the output row holds it
+          const float v = out.v[(row0 + m0 + r) * kk + e];
+          sv[r * kk + e] = v;
+          si[r * kk + e] = out.i[(row0 + m0 + r) * kk + e];
+          key = (unsigned long long)rt::okey(v) << 32 | (unsigned)e;
+        }
+        skey[t] = key;
+      }
+      rt::block_sort<false>(skey, nullptr, n, nr);
+    }
+    for (int t = tid; t < nr * kk; t += rt::kGemmThreads) {
+      const int r = t / kk;
+      const int p = t - r * kk;
+      float v = CUDART_INF_F;
+      int id = -1;
+      if (p < scnt[m0 + r]) {
+        const int e = (int)(unsigned)skey[r * n + p];
+        v = sv[r * kk + e];
+        id = si[r * kk + e];
+      }
+      out.v[(row0 + m0) * kk + t] = v;
+      out.i[(row0 + m0) * kk + t] = id;
+    }
+    __syncthreads();   // the group's keys are read before the next group's land
+  }
+}
+
+// The fold of a leg: pm_walk_select past kk = 128 (kWide), else the lists.
+template <bool kWide, bool kFilt, typename Prologue, typename TileIp>
+__device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
+                                        const float* __restrict__ q2g,
+                                        const float* __restrict__ y2,
+                                        const int* __restrict__ ids, int G, int cap, int kk,
+                                        int metric, Filt filt, int* sfilt, void* fold_mem,
+                                        PmOut out, Prologue&& prologue, TileIp&& tile_ip) {
+  if constexpr (kWide)
+    pm_walk_select<kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, metric, filt, sfilt, fold_mem,
+                          out, prologue, tile_ip);
+  else
+    pm_walk_lists<kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, metric, filt, sfilt, fold_mem,
+                         out, prologue, tile_ip);
+}
+
 // Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16;
-// kWide = kk > rt::kRegK (topk.cuh); kFilt = filter words; kPaged = rows
-// through the page table `pg` (the tile's rows translated by lanes 0-7 of
-// each warp, rt::load_chunk_rows).
+// kWide = kk > rt::kRegK; kFilt = filter words; kPaged = rows through the
+// page table `pg` (the tile's rows translated by lanes 0-7 of each warp,
+// rt::load_chunk_rows).  Dynamic shared memory: the fold (fold_smem), then
+// the filter words.
 template <typename T, bool kBf16, bool kWide, bool kFilt, bool kPaged>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                    const float* __restrict__ q2g, const T* __restrict__ data,
                    const float* __restrict__ y2, const int* __restrict__ ids,
-                   int G, int cap, int d, int kk, int qpb, int metric, Filt filt, Pages pg,
-                   float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][kk]
-  int* li = reinterpret_cast<int*>(lv + qpb * kk);         // [qpb][kk]
-  int* sfilt = li + qpb * kk;                               // [cap_w] (kFilt)
+                   int G, int cap, int d, int kk, int metric, Filt filt, Pages pg, PmOut out) {
+  extern __shared__ unsigned long long pm_dyn[];   // 8-byte aligned: the sort's keys
+  int* sfilt = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(pm_dyn) +
+                                      fold_smem(kWide, kk, out.sort_rows));   // [cap_w] (kFilt)
   __shared__ rt::GemmSmem gsm;
 
-  const int g0 = blockIdx.y * qpb;
-  const int q_rows = min(qpb, G - g0);
+  const int g0 = blockIdx.y * rt::kBM;
+  const int q_rows = min(rt::kBM, G - g0);
   const float* qa = qg + ((size_t)blockIdx.x * G + g0) * d;
-  pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, filt, sfilt, lv,
-                        li, out_v, out_i, [] {},
+  pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, metric, filt, sfilt, pm_dyn,
+                        out, [] {},
           [&](int l, int c0, int c_rows, float (&ip)[4][4]) {
             if constexpr (kPaged) {
               const int r = 8 * (threadIdx.x / 32) + (threadIdx.x & 7);
@@ -335,19 +530,19 @@ constexpr int kWords = rt::kBK / 4;   // int8 words (4 dimensions) per chunk
 
 // int8 leg: the block's queries are quantised once into shared memory as a
 // transposed [d4][kBM + 1] word array; rows stage kWords words at a time.
+// Dynamic shared memory: the fold (fold_smem), the query words, then the
+// filter words.
 template <bool kWide, bool kFilt, bool kPaged>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                       const float* __restrict__ q2g, const int8_t* __restrict__ data,
                       const float* __restrict__ y2, const int* __restrict__ ids,
-                      int G, int cap, int d, int kk, int qpb, int metric, float scan_scale,
-                      Filt filt, Pages pg, float* __restrict__ out_v,
-                      int* __restrict__ out_i) {
-  extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);          // [qpb][kk]
-  int* li = reinterpret_cast<int*>(lv + qpb * kk);         // [qpb][kk]
-  int* qw = li + qpb * kk;                                  // [d4][kBM + 1]
-  int* sfilt = qw + ((d + 3) / 4) * (rt::kBM + 1);         // [cap_w] (kFilt)
+                      int G, int cap, int d, int kk, int metric, float scan_scale,
+                      Filt filt, Pages pg, PmOut out) {
+  extern __shared__ unsigned long long pm_dyn[];   // 8-byte aligned: the sort's keys
+  int* qw = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(pm_dyn) +
+                                   fold_smem(kWide, kk, out.sort_rows));   // [d4][kBM + 1]
+  int* sfilt = qw + ((d + 3) / 4) * (rt::kBM + 1);                        // [cap_w] (kFilt)
   __shared__ int sb[kWords][rt::kBN + 1];
   __shared__ float srescale[rt::kBM];
 
@@ -356,13 +551,13 @@ probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restri
   const int warp = tid / 32;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int g0 = blockIdx.y * qpb;
-  const int q_rows = min(qpb, G - g0);
+  const int g0 = blockIdx.y * rt::kBM;
+  const int q_rows = min(rt::kBM, G - g0);
   const int d4 = (d + 3) / 4;
   constexpr int kStride = rt::kBM + 1;
 
-  pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, qpb, metric, filt, sfilt, lv,
-                        li, out_v, out_i, [&] {
+  pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, metric, filt, sfilt, pm_dyn,
+                        out, [&] {
             for (int m = warp; m < rt::kBM; m += rt::kGemmThreads / 32) {
               const float* qrow =
                   m < q_rows ? qg + ((size_t)blockIdx.x * G + g0 + m) * d : nullptr;
@@ -671,27 +866,47 @@ inline Filt make_filt(const int* words, const int* fid, int n_lists, int cap_w) 
 // filter words in (0 unfiltered).
 inline size_t filt_smem(const Filt& f) { return (size_t)f.cap_w * sizeof(int); }
 
+// Bytes of shared memory the final sort of a wide fold may take: with the
+// kernels' ~43 KB of static tiles, two blocks an SM.
+constexpr size_t kSortSmem = 48 * 1024;
+
+// The probe-major launch of a leg's kernel: grid (B, G / kBM), the fold's
+// dynamic shared memory then `leg_smem` bytes of the leg's own.  Past kk =
+// 128 (kWide) `out` carries the candidate workspace (extra >= one tile);
+// `args` are the kernel's arguments up to its PmOut.
+template <typename Kernel, typename... Args>
+int launch_pm(Kernel kernel, int B, int G, int kk, size_t leg_smem, PmOut out,
+              cudaStream_t stream, Args... args) {
+  const bool wide = kk > rt::kRegK;
+  if (wide) {
+    const size_t per_row = fold_smem(true, kk, 1);
+    out.sort_rows = (int)(kSortSmem / per_row < 1 ? 1 : kSortSmem / per_row);
+    if (out.sort_rows > rt::kBM) out.sort_rows = rt::kBM;
+    if (out.ws_v == nullptr || out.ws_i == nullptr || out.extra < rt::kBN || out.extra > kk)
+      return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = fold_smem(wide, kk, out.sort_rows) + leg_smem;
+  if (smem > rt::kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(B, (G + rt::kBM - 1) / rt::kBM), rt::kGemmThreads, smem, stream>>>(args..., out);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kBf16>
 int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T* data,
                        const float* y2, const int* ids, int B, int G, int cap, int d,
-                       int kk, int metric, Filt filt, Pages pg, float* out_v, int* out_i,
+                       int kk, int metric, Filt filt, Pages pg, PmOut out,
                        cudaStream_t stream) {
   if (bad_shape(kk, d, cap, G) || bad_pages(pg, cap)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const int qpb = rt::lists_per_block(kk, rt::kBM, filt_smem(filt));
-  if (qpb < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + filt_smem(filt);
   auto kernel =
       pick_leg(kk, filt.words != nullptr, pg.slot != nullptr, [](auto w, auto f, auto p) {
         return probe_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
                                   decltype(p)::value>;
       });
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, (G + qpb - 1) / qpb);
-  kernel<<<grid, rt::kGemmThreads, smem, stream>>>(
-      bl, qg, q2g, data, y2, ids, G, cap, d, kk, qpb, metric, filt, pg, out_v, out_i);
-  return (int)cudaGetLastError();
+  return launch_pm(kernel, B, G, kk, filt_smem(filt), out, stream, bl, qg, q2g, data, y2, ids, G,
+                   cap, d, kk, metric, filt, pg);
 }
 
 // splits > 1 cuts each query's probes into that many contiguous parts, one

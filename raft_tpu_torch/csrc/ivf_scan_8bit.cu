@@ -21,13 +21,13 @@ template <typename T>
 int probe_major_8bit(const int* bucket_list, const float* qg, const float* q2g, const void* data,
                      const float* y2, const int* ids, int B, int G, int cap, int d, int kk,
                      int metric, int bf16_compute, const int* filt, int cap_w,
-                     const int* page_slot, int page_rows, float* out_v, int* out_i,
-                     void* stream) {
+                     const int* page_slot, int page_rows, float* ws_v, int* ws_i,
+                     int ws_extra, float* out_v, int* out_i, void* stream) {
   if (bf16_compute) return (int)cudaErrorInvalidValue;
   return launch_probe_major<T, false>(
       bucket_list, qg, q2g, static_cast<const T*>(data), y2, ids, B, G, cap, d, kk, metric,
-      make_filt(filt, nullptr, 0, cap_w), make_pages(page_slot, page_rows, cap), out_v, out_i,
-      (cudaStream_t)stream);
+      make_filt(filt, nullptr, 0, cap_w), make_pages(page_slot, page_rows, cap),
+      PmOut{out_v, out_i, ws_v, ws_i, ws_extra, 0}, (cudaStream_t)stream);
 }
 
 template <typename T>
@@ -54,10 +54,11 @@ extern "C" int rt_ivf_scan_probe_major_u8(const int* bucket_list, const float* q
                                           const int* ids, int B, int G, int cap, int d, int kk,
                                           int metric, int bf16_compute, const int* filt,
                                           int cap_w, const int* page_slot, int page_rows,
-                                          float* out_v, int* out_i, void* stream) {
+                                          float* ws_v, int* ws_i, int ws_extra, float* out_v,
+                                          int* out_i, void* stream) {
   return probe_major_8bit<uint8_t>(bucket_list, qg, q2g, data, y2, ids, B, G, cap, d, kk,
                                    metric, bf16_compute, filt, cap_w, page_slot, page_rows,
-                                   out_v, out_i, stream);
+                                   ws_v, ws_i, ws_extra, out_v, out_i, stream);
 }
 
 extern "C" int rt_ivf_scan_probe_major_s8(const int* bucket_list, const float* qg,
@@ -65,10 +66,11 @@ extern "C" int rt_ivf_scan_probe_major_s8(const int* bucket_list, const float* q
                                           const int* ids, int B, int G, int cap, int d, int kk,
                                           int metric, int bf16_compute, const int* filt,
                                           int cap_w, const int* page_slot, int page_rows,
-                                          float* out_v, int* out_i, void* stream) {
+                                          float* ws_v, int* ws_i, int ws_extra, float* out_v,
+                                          int* out_i, void* stream) {
   return probe_major_8bit<int8_t>(bucket_list, qg, q2g, data, y2, ids, B, G, cap, d, kk,
                                   metric, bf16_compute, filt, cap_w, page_slot, page_rows,
-                                  out_v, out_i, stream);
+                                  ws_v, ws_i, ws_extra, out_v, out_i, stream);
 }
 
 extern "C" int rt_ivf_scan_query_major_u8(const int* probes, const float* q, const float* q2,

@@ -7,6 +7,8 @@
 // filt: [n_lists][cap_w] pass words, or null for the unfiltered leg.
 // page_slot: the page table [n_lists * cap / page_rows] of a pool of pages
 // passed as `data` ([slots][page_rows][d]), or null for monolithic lists.
+// ws_v / ws_i: past kk = 128, the candidate workspace [B][G][ws_extra]
+// (64 <= ws_extra <= kk; PmOut in ivf_scan.cuh), else null.
 
 extern "C" int rt_ivf_scan_probe_major_bf16(const int* bucket_list, const float* qg,
                                             const float* q2g, const void* data,
@@ -14,16 +16,18 @@ extern "C" int rt_ivf_scan_probe_major_bf16(const int* bucket_list, const float*
                                             int cap, int d, int kk, int metric,
                                             int bf16_compute, const int* filt, int cap_w,
                                             const int* page_slot, int page_rows,
+                                            float* ws_v, int* ws_i, int ws_extra,
                                             float* out_v, int* out_i, void* stream) {
   auto s = (cudaStream_t)stream;
   auto rows = static_cast<const __nv_bfloat16*>(data);
   const Filt f = make_filt(filt, nullptr, 0, cap_w);
   const Pages pg = make_pages(page_slot, page_rows, cap);
+  const PmOut out{out_v, out_i, ws_v, ws_i, ws_extra, 0};
   return bf16_compute
       ? launch_probe_major<__nv_bfloat16, true>(bucket_list, qg, q2g, rows, y2, ids, B, G,
-                                                cap, d, kk, metric, f, pg, out_v, out_i, s)
+                                                cap, d, kk, metric, f, pg, out, s)
       : launch_probe_major<__nv_bfloat16, false>(bucket_list, qg, q2g, rows, y2, ids, B, G,
-                                                 cap, d, kk, metric, f, pg, out_v, out_i, s);
+                                                 cap, d, kk, metric, f, pg, out, s);
 }
 
 // -- C entries: query-major ----------------------------------------------

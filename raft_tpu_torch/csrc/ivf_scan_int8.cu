@@ -7,6 +7,7 @@
 // filt: [n_lists][cap_w] pass words, or null for the unfiltered leg.
 // page_slot: the page table [n_lists * cap / page_rows] of a pool of pages
 // passed as `data` ([slots][page_rows][d]), or null for monolithic lists.
+// ws_v / ws_i / ws_extra: as the f32 entry (ivf_scan_f32.cu).
 
 extern "C" int rt_ivf_scan_probe_major_int8(const int* bucket_list, const float* qg,
                                             const float* q2g, const void* data,
@@ -14,27 +15,22 @@ extern "C" int rt_ivf_scan_probe_major_int8(const int* bucket_list, const float*
                                             int cap, int d, int kk, int metric,
                                             float scan_scale, const int* filt, int cap_w,
                                             const int* page_slot, int page_rows,
+                                            float* ws_v, int* ws_i, int ws_extra,
                                             float* out_v, int* out_i, void* stream) {
   const Pages pg = make_pages(page_slot, page_rows, cap);
   if (bad_shape(kk, d, cap, G) || bad_pages(pg, cap)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const Filt f = make_filt(filt, nullptr, 0, cap_w);
-  const size_t words = (size_t)((d + 3) / 4) * (rt::kBM + 1) * sizeof(int) + filt_smem(f);
-  const int qpb = rt::lists_per_block(kk, rt::kBM, words);
-  if (qpb < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)qpb * kk * (sizeof(float) + sizeof(int)) + words;
+  // the block's quantised queries, then the filter words
+  const size_t leg = (size_t)((d + 3) / 4) * (rt::kBM + 1) * sizeof(int) + filt_smem(f);
   auto kernel = pick_leg(kk, f.words != nullptr, pg.slot != nullptr,
                          [](auto w, auto fl, auto p) {
                            return probe_major_i8_kernel<decltype(w)::value, decltype(fl)::value,
                                                         decltype(p)::value>;
                          });
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, (G + qpb - 1) / qpb);
-  kernel<<<grid, rt::kGemmThreads, smem, (cudaStream_t)stream>>>(
-      bucket_list, qg, q2g, static_cast<const int8_t*>(data), y2, ids, G, cap, d, kk, qpb,
-      metric, scan_scale, f, pg, out_v, out_i);
-  return (int)cudaGetLastError();
+  return launch_pm(kernel, B, G, kk, leg, PmOut{out_v, out_i, ws_v, ws_i, ws_extra, 0},
+                   (cudaStream_t)stream, bucket_list, qg, q2g, static_cast<const int8_t*>(data),
+                   y2, ids, G, cap, d, kk, metric, scan_scale, f, pg);
 }
 
 // -- C entries: query-major ----------------------------------------------

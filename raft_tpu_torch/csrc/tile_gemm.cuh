@@ -1,6 +1,7 @@
 // A 64 x 64 f32 score tile, A rows against B rows, for 256 threads: the
-// matrix product inside the probe-major IVF scan and the fused L2 argmin
-// (fused_knn.cu stages its tiles row-major for float4 reads instead).
+// matrix product inside the probe-major IVF scan.  At the end, the
+// row-major stages that fused_knn.cu and fused_argmin.cu load by cp.async
+// and read as float4.
 //
 // Every dot product is ONE f32 accumulator updated by fmaf in dimension
 // order 0, 1, ..., d-1.  The plain PyTorch versions accumulate in the same
@@ -148,6 +149,58 @@ __device__ __forceinline__ void tile_gemm_rows(const float* A, int a_rows, int l
     load_chunk<float, kBf16>(sm.a, A, a_rows, lda, d, k0, threadIdx.x);
     load_chunk_rows<TB, kBf16>(sm.b, base, mine, b_rows, d, k0, threadIdx.x);
   }, d, sm, acc);
+}
+
+// -- row-major stages, loaded by cp.async ------------------------------------
+// A stage: dimensions k0 .. k0 + 31 of kRows A rows and of kRows B rows,
+// row-major, each row padded to kRow floats: 16-byte aligned for float4
+// reads along the dimensions, and the rows tx + 16 j a warp reads at once
+// fall on distinct bank groups.  (The transposed, one-float-a-read layout
+// above made shared-memory reads, 8 per 16 FMAs, the bound of fused_knn.)
+constexpr int kRow = kBK + 4;
+
+template <int kRows>
+struct Stage {
+  float a[kRows][kRow];
+  float b[kRows][kRow];
+};
+
+// cp.async of `bytes` (4: 0 or 4; 16: 0 .. 16) of src; the rest of the
+// slot is filled with zero.
+template <int kSize>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int bytes) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (kSize == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
+                 "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(src),
+                 "r"(bytes));
+}
+
+// Stage dimensions k0 .. k0 + 31 of the A rows at qa (a_rows of them) and
+// of the B rows at xb (b_rows), zeros past the rows and past d, and commit
+// them as one group: four dimensions a copy where rows are 16-byte aligned
+// (kVec), else one.  Every thread of the kGemmThreads calls it.
+template <bool kVec, int kRows>
+__device__ __forceinline__ void issue_chunk(Stage<kRows>& st, const float* qa, int a_rows,
+                                            const float* xb, int b_rows, int d, int k0,
+                                            int tid) {
+  constexpr int kPer = kVec ? 4 : 1;   // dimensions a copy
+  constexpr int kCopies = kBK / kPer;
+#pragma unroll
+  for (int s = 0; s < (kRows * kCopies) / kGemmThreads; ++s) {
+    const int idx = tid + s * kGemmThreads;
+    const int r = idx / kCopies;
+    const int kk = kPer * (idx % kCopies);
+    const int k = k0 + kk;
+    const int bytes = k < d ? 4 * min(kPer, d - k) : 0;
+    const int ba = r < a_rows ? bytes : 0;
+    const int bb = r < b_rows ? bytes : 0;
+    cp_async<4 * kPer>(&st.a[r][kk], ba ? qa + (size_t)r * d + k : qa, ba);
+    cp_async<4 * kPer>(&st.b[r][kk], bb ? xb + (size_t)r * d + k : xb, bb);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 }  // namespace rt

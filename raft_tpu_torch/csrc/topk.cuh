@@ -21,10 +21,12 @@
 // pick_wide) shifts 32 entries at a time, from its tail down to the
 // insertion point, through one register a lane; its length is a runtime
 // value, so one wide instantiation serves every k in (128, 2048], sized at
-// launch.  A list lives in dynamic shared memory (8 k bytes): a block holds
-// fewer lists as k grows (lists_per_block), 11 of them at k = 2048.  The
-// k <= 128 kernels are separate instantiations, so they keep their register
-// counts (one kernel holding both paths spilled).  raft_tpu's Pallas scans
+// launch.  A list lives in dynamic shared memory (8 k bytes).  The k <= 128
+// kernels are separate instantiations, so they keep their register counts
+// (one kernel holding both paths spilled).  The wide lists serve
+// query-major (one list a block) and merge_parts; the probe-major scans
+// past k = 128 fold with block_select.cuh's candidate arrays instead, and
+// select_k / fused_knn keep none.  raft_tpu's Pallas scans
 // bound kk only by one (G, kk) f32 + int32 VMEM block; kMaxK is this port's
 // own bound, and a launch past it is refused.
 #pragma once
@@ -152,17 +154,6 @@ __device__ __forceinline__ void list_offer_row(const float* cv, const int* cid,
 // Dynamic shared memory a launch may ask for: the 227 KB a block can hold,
 // less room for the kernels' static tiles.
 constexpr size_t kMaxDynamicSmem = 179 * 1024;
-
-// How many of a block's kBM-row tile of queries get a list of k entries
-// (8 k bytes each) when `fixed` bytes of dynamic shared memory are taken:
-// all kBM of them up to k = 349, fewer past it, so that a wide list costs
-// parallelism rather than refusing the launch.  0 when not even one fits.
-static inline int lists_per_block(int k, int max_rows, size_t fixed = 0) {
-  if (fixed >= kMaxDynamicSmem) return 0;
-  const size_t per = (size_t)k * (sizeof(float) + sizeof(int));
-  const size_t fit = (kMaxDynamicSmem - fixed) / per;
-  return (int)(fit < (size_t)max_rows ? fit : (size_t)max_rows);
-}
 
 // Second pass of a kernel that split one row's candidate pool over several
 // blocks: each block left a sorted top-k list of its contiguous part of

@@ -182,13 +182,12 @@ _SIGNATURES = {
     "rt_fused_knn": [_P, _P, _P] + [_I] * 7 + [_P] * 6,
     # probe-major: 6 arrays, (B, G, cap, d, kk, metric), then bf16_compute
     # (float legs) or scan_scale (int8), the filter words (null: unfiltered)
-    # and cap_w, the page table (null: monolithic lists) and page_rows, then
-    # outputs and stream
-    "rt_ivf_scan_probe_major": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
-    "rt_ivf_scan_probe_major_bf16": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
-    "rt_ivf_scan_probe_major_int8": [_P] * 6 + [_I] * 6 + [_F] + [_P, _I] * 2 + [_P] * 3,
-    "rt_ivf_scan_probe_major_u8": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
-    "rt_ivf_scan_probe_major_s8": [_P] * 6 + [_I] * 7 + [_P, _I] * 2 + [_P] * 3,
+    # and cap_w, the page table (null: monolithic lists) and page_rows, the
+    # candidate workspace past kk = 128 (values, ids: null below) and its
+    # entries a row, then outputs and stream
+    **{f"rt_ivf_scan_probe_major{leg}": [_P] * 6 + [_I] * 6 + [_F if leg == "_int8" else _I]
+       + [_P, _I] * 2 + [_P, _P, _I] + [_P] * 3
+       for leg in ("", "_bf16", "_int8", "_u8", "_s8")},
     # query-major: 6 arrays, (Q, P, cap, d, kk, metric, splits), then
     # bf16_compute or scan_scale, the filter words and query_fid (null: none),
     # n_lists and cap_w, the page table and page_rows, then parts, outputs
@@ -203,8 +202,9 @@ _SIGNATURES = {
     # buf_i, explored, (tile, d, deg, width, itopk, ip_mode), the page table
     # (null: dense) and page_rows, outputs and stream
     "rt_cagra_hop": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P, _I] + [_P] * 4,
-    # x, centers, center norms, (n, n_centers, d), outputs and stream
-    "rt_fused_argmin": [_P] * 3 + [_I] * 3 + [_P] * 3,
+    # x, centers, center norms, (n, n_centers, d, centers a part), part
+    # pairs (null: one part), outputs and stream
+    "rt_fused_argmin": [_P] * 3 + [_I] * 4 + [_P] * 5,
 }
 
 
@@ -243,6 +243,23 @@ def grid_splits(blocks: int, max_splits: int, device: torch.device,
     ``per_sm`` blocks per SM."""
     want = -(-per_sm * sm_count(device.index or 0) // max(blocks, 1))
     return max(1, min(max_splits, want))
+
+
+@functools.lru_cache(maxsize=1024)
+def wave_splits(blocks: int, max_splits: int, slots: int, tiles: int = 0) -> int:
+    """Parts to cut each of ``blocks`` blocks' work into (each part one
+    more block) on a card that runs ``slots`` blocks at once: the fewest
+    whose time (whole waves of blocks, each doing 1 / splits of a block's
+    work: a wave begun for a few blocks costs a full one) is within 5 % of
+    the least.  Each part keeps its own partial result, so fewer parts
+    merge less.  ``tiles``: the work is that many tiles, cut into
+    contiguous parts of ceil(tiles / s) tiles, so only the counts
+    ceil(tiles / ceil(tiles / s)) occur."""
+    limit = max(1, min(max_splits, 4 * -(-slots // blocks)))
+    counts = {s if not tiles else -(-tiles // -(-tiles // s)) for s in range(1, limit + 1)}
+    time = {s: -(-blocks * s // slots) / s for s in counts}
+    best = min(time.values())
+    return min(s for s, t in time.items() if t <= 1.05 * best)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -25,11 +25,27 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch import kernels as _k
-from raft_tpu_torch.kernels.toolkit import sequential_dot
+from raft_tpu_torch.kernels.toolkit import cdiv, sequential_dot
 from raft_tpu_torch.ops import cost as _cost
 
 #: score elements the plain version materializes per row block
 _PLAIN_CHUNK_ELEMS = 1 << 26
+#: rows and centers of a block tile of the kernel (csrc/fused_argmin.cu kTile)
+_TILE = 128
+#: blocks an SM holds at once (the kernel's launch bounds)
+_BLOCKS_PER_SM = 2
+
+
+def center_parts(n: int, n_centers: int, slots: int) -> Tuple[int, int]:
+    """(parts, centers a part) of the kernel for ``n`` rows on a card that
+    runs ``slots`` blocks at once: the centers cut into contiguous parts of
+    whole 128-center tiles (the last part may hold fewer centers), as many
+    as make the ceil(n / 128) row tiles fill whole waves
+    (``kernels.wave_splits``, as fused_knn cuts its dataset)."""
+    tiles = cdiv(n_centers, _TILE)
+    parts = _k.wave_splits(cdiv(n, _TILE), tiles, slots, tiles)
+    chunk = cdiv(tiles, parts) * _TILE
+    return cdiv(n_centers, chunk), chunk
 
 
 def _check(x, centers, center_sqnorms):
@@ -65,7 +81,8 @@ def fused_l2_argmin_torch(x: torch.Tensor, centers: torch.Tensor,
 def fused_l2_argmin(x: torch.Tensor, centers: torch.Tensor,
                     center_sqnorms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (partial scores [n] f32, argmin ids [n] int32) through
-    ``csrc/fused_argmin.cu``; CPU tensors take :func:`fused_l2_argmin_torch`."""
+    ``csrc/fused_argmin.cu`` (centers cut into :func:`center_parts`); CPU
+    tensors take :func:`fused_l2_argmin_torch`."""
     _check(x, centers, center_sqnorms)
     if x.device.type == "cpu":
         return fused_l2_argmin_torch(x, centers, center_sqnorms)
@@ -74,12 +91,19 @@ def fused_l2_argmin(x: torch.Tensor, centers: torch.Tensor,
     cc = center_sqnorms.to(torch.float32).contiguous()
     _k.require_cuda("fused_argmin", xf, c, cc)
     n, d = xf.shape
+    parts, chunk = center_parts(n, c.shape[0],
+                                _BLOCKS_PER_SM * _k.sm_count(xf.device.index or 0))
     out_v = torch.empty(n, dtype=torch.float32, device=xf.device)
     out_i = torch.empty(n, dtype=torch.int32, device=xf.device)
+    # each part's (min, argmin) per row, folded by the kernel's second pass
+    part_v = torch.empty((n, parts) if parts > 1 else 0, dtype=torch.float32, device=xf.device)
+    part_i = torch.empty((n, parts) if parts > 1 else 0, dtype=torch.int32, device=xf.device)
     _cost.note("fused_argmin", _cost.fused_argmin_cost(n, c.shape[0], d))
     lib = _k.library()
     _k.count_launch("fused_argmin")
     code = lib.rt_fused_argmin(xf.data_ptr(), c.data_ptr(), cc.data_ptr(), n, c.shape[0], d,
+                               chunk, part_v.data_ptr() if parts > 1 else None,
+                               part_i.data_ptr() if parts > 1 else None,
                                out_v.data_ptr(), out_i.data_ptr(), _k.stream_of(xf))
     _k.check("fused_argmin", code)
     return out_v, out_i

@@ -11,7 +11,6 @@ gives the plain version's result bitwise.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
@@ -28,19 +27,6 @@ _TILE_Q = 64
 _MIN_PART_ROWS = 512
 #: blocks an SM holds at once (the kernel's registers allow two)
 _BLOCKS_PER_SM = 2
-
-
-@functools.lru_cache(maxsize=1024)
-def _splits(blocks: int, max_splits: int, slots: int) -> int:
-    """Parts to cut the dataset into for ``blocks`` query blocks on a card
-    that runs ``slots`` blocks at once: the fewest whose time (whole waves
-    of blocks, each doing 1 / splits of a query block's work: a wave begun
-    for a few blocks costs a full one) is within 5 % of the least.  Each
-    part keeps its own k candidates, so fewer parts select less."""
-    limit = max(1, min(max_splits, 4 * cdiv(slots, blocks)))
-    time = {s: cdiv(blocks * s, slots) / s for s in range(1, limit + 1)}
-    best = min(time.values())
-    return min(s for s, t in time.items() if t <= 1.05 * best)
 
 
 def _check(queries, dataset, dataset_sqnorms, k, mode):
@@ -99,8 +85,8 @@ def fused_l2_topk(
     _k.require_cuda("fused_knn", q, x, xx)
     n_q, d = q.shape
     n = x.shape[0]
-    splits = _splits(cdiv(n_q, _TILE_Q), max(1, n // max(_MIN_PART_ROWS, k)),
-                     _BLOCKS_PER_SM * _k.sm_count(q.device.index or 0))
+    splits = _k.wave_splits(cdiv(n_q, _TILE_Q), max(1, n // max(_MIN_PART_ROWS, k)),
+                            _BLOCKS_PER_SM * _k.sm_count(q.device.index or 0))
     # one candidate array of `cap` slots per (query, part): k kept, and room
     # for a few tiles between compactions
     cap = max(2 * k, k + 256)

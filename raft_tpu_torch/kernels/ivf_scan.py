@@ -68,9 +68,12 @@ from raft_tpu_torch.core.bitset import WORD_BITS, _n_words, pack_bits, unpack_wo
 from raft_tpu_torch.kernels.toolkit import int8_scored_ip, sequential_dot, topk_by_position
 from raft_tpu_torch.store.paged import PagedLists, gather_lists
 
-#: deepest kk (probe-major gives a block fewer queries past kk = 349);
-#: raft_tpu's Pallas scans bound kk only by one (G, kk) f32 + int32 VMEM block
+#: deepest kk; raft_tpu's Pallas scans bound kk only by one (G, kk) f32 +
+#: int32 VMEM block
 MAX_KK = 2048
+#: deepest kk folded into lists (csrc/topk.cuh kRegK); past it probe-major
+#: folds into candidate arrays over a workspace (probe_major_workspace)
+_LIST_KK = 128
 _METRICS = {"sqeuclidean": 0, "euclidean": 0, "inner_product": 1, "cosine": 2}
 #: storage dtype → suffix of its kernel's name (int8: the scaled cache's
 #: leg; raw int8 rows, ``scan_scale=None``, take "_s8")
@@ -108,6 +111,16 @@ def kernel_name(schedule: str, list_data, list_filter=None, query_fid=None,
     paged = "_paged" if isinstance(list_data, PagedLists) else ""
     leg = "" if list_filter is None else "_filt" if query_fid is None else "_fid"
     return f"ivf_scan_{schedule}{storage_leg(list_data.dtype, scan_scale)}{paged}{leg}"
+
+
+def probe_major_workspace(B: int, G: int, kk: int) -> Tuple[int, int, int]:
+    """Shape [B, G, extra] of the probe-major kernel's candidate workspace:
+    past kk = 128 each query's candidate array is its output row (kk
+    entries) and then ``extra`` = kk more: at most one compaction (a
+    warp's radix select, O(kk + extra)) per kk - 63 survivors, and the
+    workspace no larger than the outputs [B, G, kk]; (0, 0, 0) up to kk =
+    128, where the lists in shared memory need none."""
+    return (0, 0, 0) if kk <= _LIST_KK else (B, G, kk)
 
 
 def pack_list_filter(list_index: torch.Tensor, filter_words: torch.Tensor) -> torch.Tensor:
@@ -265,7 +278,7 @@ def _launch(name, schedule, leg, tensors, args, out_shape, kk):
     ``leg``, the storage type (``rt_ivf_scan_<schedule>[_bf16|_int8|_u8|_s8]``:
     one entry serves a storage type's unfiltered, filter and paged legs)
     with the pointers of ``tensors``, then ``args`` (ints, the scale,
-    filter, page-table and scratch pointers), outputs and stream."""
+    filter, page-table and workspace pointers), outputs and stream."""
     _k.require_cuda(name, *tensors)
     dev = tensors[0].device
     out_v = torch.empty(out_shape + (kk,), dtype=torch.float32, device=dev)
@@ -373,11 +386,16 @@ def ivf_scan_probe_major(
     )]
     filt = None if list_filter is None else list_filter.contiguous()
     words, _, _, cap_w = _filter_args(filt, None, dev, L, cap)
+    ws_shape = probe_major_workspace(B, G, kk)
+    ws_v = torch.empty(ws_shape, dtype=torch.float32, device=dev)
+    ws_i = torch.empty(ws_shape, dtype=torch.int32, device=dev)
+    wide = ws_shape[-1] > 0
     return _launch(
         kernel_name("probe_major", list_data, filt, scan_scale=scan_scale), "probe_major",
         storage_leg(list_data.dtype, scan_scale), tensors,
         (B, G, cap, d, kk, _METRICS[metric], _leg_arg(list_data, scan_dtype, scan_scale),
-         words, cap_w, *pages),
+         words, cap_w, *pages, ws_v.data_ptr() if wide else None,
+         ws_i.data_ptr() if wide else None, ws_shape[-1]),
         (B, G), kk,
     )
 

@@ -107,3 +107,35 @@ def test_work_counts_what_the_inputs_need():
     assert w.bytes_accessed == (8192 + 1024) * 128 * 4 + 1024 * 4 + 8192 * 8
     ms, by = tcost.bound_ms(tcost.fused_argmin_work(1_000_000, 1024, 128))
     assert by == "operations" and ms == pytest.approx(3.9126, rel=1e-4)
+
+
+@pytest.mark.parametrize("n,n_centers,slots", [(8192, 1024, 264), (1_000_000, 1024, 264),
+                                               (1100, 300, 264), (5, 1, 264), (70, 129, 264),
+                                               (129, 2500, 264), (8191, 1029, 228),
+                                               (40_000, 1000, 132)])
+def test_center_parts_cover_every_center_once_in_whole_waves(n, n_centers, slots):
+    """Kernel #7's part picker: contiguous parts of whole 128-center tiles
+    that cover every center once, as many as make the row tiles' blocks
+    fill whole waves (within 5 % of the best count); raft_tpu's prims shape
+    (8,192 rows) takes four parts on the H100's 264 block slots, one wave,
+    and the k-means assignment of 1M rows one part."""
+    parts, chunk = targmin.center_parts(n, n_centers, slots)
+    assert chunk % 128 == 0 and parts >= 1
+    bounds = [(p * chunk, min(n_centers, (p + 1) * chunk)) for p in range(parts)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n_centers
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    row_tiles = -(-n // 128)
+    tiles = -(-n_centers // 128)
+
+    def waves_per_part(s):   # whole waves of blocks, each doing 1 / s of a row tile's work
+        return -(-row_tiles * s // slots) / s
+
+    # the counts contiguous whole-tile parts can take, up to four blocks a slot
+    limit = min(tiles, 4 * -(-slots // row_tiles))
+    best = min(waves_per_part(-(-tiles // -(-tiles // s))) for s in range(1, limit + 1))
+    assert waves_per_part(parts) <= 1.05 * best
+    if (n, n_centers, slots) == (8192, 1024, 264):
+        assert parts == 4 and parts * row_tiles <= slots
+    if n == 1_000_000:
+        assert parts == 1

@@ -223,6 +223,22 @@ def test_scan_envelope():
                                    args[4], args[5], 4)
 
 
+@pytest.mark.parametrize("B,G,kk", [(1880, 256, 10), (1880, 256, 128), (1880, 256, 129),
+                                    (1880, 256, 258), (1, 1, 258), (3, 70, 1000),
+                                    (20, 40, 2048)])
+def test_probe_major_workspace_is_no_larger_than_the_outputs(B, G, kk):
+    """Past kk = 128 each (bucket, query) of a probe-major launch has a
+    candidate array of its output row and a workspace row: room for a
+    64-slot tile beyond kk, and never more bytes than the outputs [B, G,
+    kk]; up to kk = 128 the lists need no workspace."""
+    shape = tscan.probe_major_workspace(B, G, kk)
+    if kk <= 128:
+        assert shape == (0, 0, 0)
+        return
+    assert shape[:2] == (B, G) and 64 <= shape[2] <= kk
+    assert np.prod(shape) <= B * G * kk
+
+
 def _scan_work(itemsize=4, compute="float32"):
     _, _, _, ids = _lists(3)
     rows = torch.from_numpy((ids >= 0).sum(1))

@@ -922,6 +922,20 @@ def _run_leg(cuda, schedule, args, kw, scan_dtype="highest", paged_rows=None):
     return got, want, name, {n: c for n, c in kernels.launch_counts().items() if c}
 
 
+def _pad_to_pages(args, kw, page_rows):
+    """Scan inputs with the lists' capacity padded up to a multiple of
+    ``page_rows`` (padding slots, id -1), as paginate_index pads them."""
+    cap2 = -(-args[3].shape[1] // page_rows) * page_rows
+    pad = cap2 - args[3].shape[1]
+    args = (*args[:3], torch.nn.functional.pad(args[3], (0, 0, 0, pad)),
+            torch.nn.functional.pad(args[4], (0, pad)),
+            torch.nn.functional.pad(args[5], (0, pad), value=-1), *args[6:])
+    if "list_filter" in kw:
+        lf = kw["list_filter"]
+        kw = dict(kw, list_filter=torch.nn.functional.pad(lf, (0, -(-cap2 // 32) - lf.shape[-1])))
+    return args, kw
+
+
 _DEEP_LEGS = [  # (dtype, raw, scan_dtype, paged page rows)
     (torch.float32, False, "highest", None), (torch.bfloat16, False, "float32", None),
     (torch.bfloat16, False, "bfloat16", None), (torch.int8, False, "float32", None),
@@ -944,20 +958,52 @@ def test_deep_k_scan_legs_match_plain_bitwise(cuda, schedule, leg, dtype, raw, s
     split their probes, so the merge runs at kk too."""
     g = torch.Generator().manual_seed(31)
     args, kw = _deep_inputs(schedule, dtype, raw, kk, g, leg)
-    if paged is not None:
-        # the lists' capacity must be a page multiple: pad kk + 96 up
-        cap2 = -(-args[3].shape[1] // paged) * paged
-        pad = cap2 - args[3].shape[1]
-        args = (*args[:3], torch.nn.functional.pad(args[3], (0, 0, 0, pad)),
-                torch.nn.functional.pad(args[4], (0, pad)),
-                torch.nn.functional.pad(args[5], (0, pad), value=-1), kk)
-        if "list_filter" in kw:
-            lf = kw["list_filter"]
-            kw["list_filter"] = torch.nn.functional.pad(lf, (0, -(-cap2 // 32) - lf.shape[-1]))
+    if paged is not None:   # the lists' capacity must be a page multiple: pad kk + 96 up
+        args, kw = _pad_to_pages(args, kw, paged)
     got, want, name, counts = _run_leg(cuda, schedule, args, kw, scan_dtype, paged)
     assert counts == {name: 1} and got[0].shape[-1] == kk
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert bool(torch.isfinite(got[0][..., kk - 1]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [129, 258, 349, 350, 1000])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+@pytest.mark.parametrize("leg", [None, "filt"])
+@pytest.mark.parametrize("dtype,raw,scan_dtype,paged", _DEEP_LEGS)
+def test_deep_kk_probe_major_fold_matches_plain_bitwise(cuda, leg, dtype, raw, scan_dtype, paged,
+                                                        metric, kk):
+    """The probe-major fold past kk = 128 (candidate arrays, radix-select
+    compaction, a final bitonic sort) on every storage leg, filtered and
+    paged, at the CAGRA build's kk = 258 and around it: bitwise its plain
+    version, values compared by their bits (a -0.0 score stays -0.0).  List
+    0 holds fewer real rows than kk (+inf / -1 tails), list 1 repeats one
+    row ten times (the slot decides the ties), list 2 holds zero rows (at
+    the inner product their scores are -0.0, tied with +0.0)."""
+    g = torch.Generator().manual_seed(37)
+    args, kw = _deep_inputs("probe_major", dtype, raw, kk, g, leg)
+    bl, qg, q2g, data, y2, ids, _ = args
+    bl = bl.clone()
+    bl[:3] = torch.tensor([0, 1, 2], dtype=torch.int32)
+    data, ids = data.clone(), ids.clone()
+    ids[0, kk // 3:] = -1
+    data[1, 10:20] = data[1, 3]
+    data[2, :30] = 0
+    vals = data.float() * (1.0 if kw["scan_scale"] is None
+                           else torch.tensor(kw["scan_scale"], dtype=torch.float32))
+    y2 = torch.where(ids >= 0, (vals * vals).sum(-1), torch.zeros(()))
+    args = (bl, qg, q2g, data, y2, ids, kk)
+    kw["metric"] = metric
+    if paged is not None:
+        args, kw = _pad_to_pages(args, kw, paged)
+    got, want, name, counts = _run_leg(cuda, "probe_major", args, kw, scan_dtype, paged)
+    assert counts == {name: 1} and got[0].shape == (8, 40, kk)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert bool((got[1][0] == -1).any()) and bool(torch.isfinite(got[0][..., kk - 1]).any())
+    if metric == "inner_product":   # list 2's zero rows scored -0.0
+        zero = got[0][2] == 0
+        assert bool((zero & torch.signbit(got[0][2])).any())
 
 
 @pytest.mark.cuda
@@ -1054,11 +1100,14 @@ def test_select_k_and_fused_knn_past_512_match_plain(cuda, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,n_centers,d", [(1100, 300, 40), (8192, 1024, 128), (5, 1, 3),
-                                           (70, 129, 64)])
+                                           (70, 129, 64), (8191, 1029, 128), (1000, 1000, 64),
+                                           (2000, 1300, 30), (129, 2500, 32), (300, 777, 30)])
 def test_fused_argmin_kernel_matches_plain_bitwise(cuda, n, n_centers, d):
     """Kernel #7 against its plain version on the card: scores and ids
-    bitwise, with duplicate centers (a tie the first must win), a +inf
-    norm (a center that never wins) and rows past any multiple of 64."""
+    bitwise, with duplicate centers (a tie the first must win, within a
+    part and across parts), a +inf norm (a center that never wins), rows
+    and centers off the 128 x 128 tile, d off the float4 stages (d = 30:
+    one float a copy), and shapes cut into several center parts."""
     from raft_tpu_torch.kernels import fused_argmin
 
     g = torch.Generator().manual_seed(36)
@@ -1067,6 +1116,11 @@ def test_fused_argmin_kernel_matches_plain_bitwise(cuda, n, n_centers, d):
     if n_centers > 2:
         c[n_centers - 1] = c[n_centers // 2]          # a duplicate, later index
         x[0] = c[n_centers // 2]
+    parts, chunk = fused_argmin.center_parts(
+        n, n_centers, fused_argmin._BLOCKS_PER_SM * kernels.sm_count(cuda.index or 0))
+    if parts > 1:   # a duplicate of a center of the first part, first in the last part
+        c[(parts - 1) * chunk] = c[5]
+        x[1] = c[5]
     cc = (c * c).sum(1)
     if n_centers > 3:
         cc[1] = float("inf")
@@ -1082,8 +1136,27 @@ def test_fused_argmin_kernel_matches_plain_bitwise(cuda, n, n_centers, d):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if n_centers > 2:
         assert int(got[1][0]) == n_centers // 2      # the first of the duplicates
+    if parts > 1:
+        assert int(got[1][1]) == 5
     if n_centers > 3:
         assert not bool((got[1] == 1).any())         # the +inf center never wins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_centers", [(8192, 1024), (300, 129), (70, 5)])
+def test_fused_argmin_kernel_rows_of_infinite_scores(cuda, n, n_centers):
+    """Every center's norm +inf: every row's scores are +inf, and the
+    kernel keeps (+inf, 0) as its plain version (and the TPU kernel's
+    initial block) does, across parts too."""
+    from raft_tpu_torch.kernels import fused_argmin
+
+    g = torch.Generator().manual_seed(38)
+    x, c = torch.randn(n, 64, generator=g), torch.randn(n_centers, 64, generator=g)
+    cc = torch.full((n_centers,), float("inf"))
+    want = fused_argmin.fused_l2_argmin_torch(x, c, cc)
+    got = kernels.fused_l2_argmin(x.to(cuda), c.to(cuda), cc.to(cuda))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert bool(torch.isinf(got[0]).all()) and not bool(got[1].any())
 
 
 @pytest.mark.cuda
