@@ -26,18 +26,22 @@ then drives the port's main paths at the scale of sift-128-euclidean
    stage, with the graph's invariants (no -1, no self edge, no repeated
    edge in a row); CAGRA search (``SearchParams()``: itopk 64, width 1, 16
    entry centres), k=10, on all 10,000 queries and on 20 batches of 64,
-   one hop kernel launch per hop of every query tile;
+   one walk launch (``cagra_traverse``: every hop of a query tile) per
+   tile and no hop launch; then the walk driven hop by hop through the
+   public pieces to hop 3 of the first tile, whose single hop
+   (``cagra_fused_hop``, raft_tpu's hop kernel) runs once;
 6. reproducibility: two k-means fits of the builds' trainset with one seed
    give bitwise-equal centers, and two predicts equal labels;
 7. recall@10 of every search against the oracle, and of the same searches
    with every kernel replaced by its plain PyTorch version (also at
    n_probes=2, and for CAGRA at itopk 16 / 4 hops, where recall is below 1);
 8. each kernel against its plain version on the inputs the main path gave
-   it: select_k, the bf16 / int8 scan legs and the CAGRA hop (f32 and bf16
-   rows) bitwise, the others within rtol 1e-5 / atol 1e-4 with ids equal
+   it: select_k, the bf16 / int8 scan legs, the CAGRA hop and the CAGRA
+   walk of the first query tile (f32 and bf16 rows, dense and paged)
+   bitwise, the others within rtol 1e-5 / atol 1e-4 with ids equal
    on >= 99.9% of slots, also at the widened k the CAGRA build needs (k=129
    for select_k and fused_knn, kk=258 for probe-major, and select_k at
-   CAGRA's per-hop and filtered shapes on the device clock); times of kernel,
+   the filtered CAGRA search's shapes on the device clock); times of kernel,
    plain version and (as a yardstick only) one PyTorch library call; the
    bound of each from the work its inputs need (``raft_tpu_torch.ops.cost``);
 9. filtered search (numpy filters from seed 0 over the 1M ids: ``pass50``
@@ -62,7 +66,8 @@ then drives the port's main paths at the scale of sift-128-euclidean
    the refined search, brute force on 1,000 queries, CAGRA on 10,000 and
    20 x 64 queries and pass50 on 64 — and must be bitwise equal to the
    monolithic search, on the paged legs only (``*_paged*``,
-   ``cagra_fused_hop_paged``, one hop launch per hop of every tile); an
+   ``cagra_traverse_paged``, one walk launch per tile; the paged hop once,
+   hop by hop); an
    IVF-Flat pool of a quarter of the pages serves 200 queries in batches
    of 8 (bitwise equal, with misses and evictions; per batch the wall, the
    monolithic wall and the admission's upload rate); a budget of half the
@@ -90,7 +95,9 @@ then drives the port's main paths at the scale of sift-128-euclidean
    over budget (a quarter of the pages, batches of 8, bitwise), and each
    paged 8-bit leg against its plain version and its unpaged kernel;
 13. deep k: IVF-Flat at k=1,000 on both schedules and brute force at
-   k=2,048 on 1,000 queries;
+   k=2,048 on 1,000 queries, and a 64-query batch at k=1,000 (its probes
+   split over blocks and merged past k = 128) equal to the same queries of
+   the 1,000-query search;
 14. four threads, each on its own CUDA stream, searching the over-budget
    IVF-Flat index: bitwise the single-thread results;
 15. where the time of each search goes: warm wall per search and, under
@@ -450,25 +457,57 @@ def main() -> int:
     def cagra_search(sp=cagra_sp, index=cg):
         return lambda qb, k: cagra.search(sp, index, qb, k, res=res)
 
-    def expected_hops(n_q, sp=cagra_sp):
-        _, max_iter, tile = cagra.search_plan(sp, cg, n_q, K, res)
-        return -(-n_q // tile) * max_iter
+    def expected_tiles(n_q, sp=cagra_sp):
+        _, _, tile = cagra.search_plan(sp, cg, n_q, K, res)
+        return -(-n_q // tile)
+
+    def walk_launches(ph, n_tiles, paged=""):
+        """One walk launch a query tile, no hop launch and no per-hop
+        select_k (seeds, seed buffer and result: at most two a tile and one
+        for the entry points)."""
+        c = phase_launches[ph]
+        walks = c[f"cagra_traverse{paged}"]
+        check(walks == n_tiles and c["cagra_fused_hop"] == c["cagra_fused_hop_paged"] == 0
+              and c["select_k"] <= 3 * n_tiles,
+              f"{ph}: {walks} cagra_traverse{paged} launches = query tiles {n_tiles}, no hop "
+              f"launch, select_k {c['select_k']} <= 3 a tile")
 
     with phase("cagra_search"):
         outputs["cagra"] = cagra_search()(q, K)
     check(kernels.consume_kernel_path() == "cuda", "cagra search routed to cuda")
-    hops = phase_launches["cagra_search"]["cagra_fused_hop"]
-    check(hops == expected_hops(q.shape[0]),
-          f"cagra search: {hops} hop launches = tiles x max_iter {expected_hops(q.shape[0])}")
+    walk_launches("cagra_search", expected_tiles(q.shape[0]))
     with phase("cagra_search_batches"):
         v_b, i_b, walls = batches(cagra_search(), K)
     outputs["cagra batches"] = (v_b, i_b)
     check(kernels.consume_kernel_path() == "cuda", "cagra batches routed to cuda")
-    hops = phase_launches["cagra_search_batches"]["cagra_fused_hop"]
-    check(hops == QM_BATCHES * expected_hops(QM_BATCH),
-          f"cagra batches: {hops} hop launches = {QM_BATCHES} x tiles x max_iter")
+    walk_launches("cagra_search_batches", QM_BATCHES * expected_tiles(QM_BATCH))
     print(f"cagra per batch ms median {float(np.median(walls)):.3f} "
           f"min {min(walls):.3f} max {max(walls):.3f}", flush=True)
+    metric = "sqeuclidean"
+
+    # raft_tpu's single-hop function (kernels.cagra_traverse.cagra_fused_hop):
+    # a walk driven hop by hop through the public pieces, to hop CAPTURE_HOP
+    # of the first query tile (its inputs are held to the plain hop below)
+    def capture_hop(index, n_q, dataset=None):
+        """The hop's inputs at hop CAPTURE_HOP, rows read from ``dataset``
+        (default: the index's own; a PagedRows for the paged leg)."""
+        ds = index.dataset if dataset is None else dataset
+        itopk, _, tile = cagra.search_plan(cagra_sp, index, n_q, K, res)
+        qs = q[:min(n_q, tile)]
+        seeds = cagra.make_seed_ids(cagra_sp, index, qs, K, itopk=itopk)
+        buf = cagra.traverse_init(ds, qs, seeds, itopk, metric)
+        buf_d, buf_i, explored = cagra.traverse_steps(
+            ds, index.graph, qs, *buf, steps=CAPTURE_HOP - 1,
+            width=cagra_sp.search_width, metric=metric)
+        parents, explored = cagra.pick_parents(buf_d, buf_i, explored, cagra_sp.search_width)
+        return (ds, index.graph, qs, parents, buf_d, buf_i, explored)
+
+    with phase("cagra_hop"):
+        hop_args = capture_hop(cg, q.shape[0])
+        hop_out = ct.cagra_fused_hop(*hop_args, metric=metric)
+    check(phase_launches["cagra_hop"]["cagra_fused_hop"] == 1
+          and phase_launches["cagra_hop"]["cagra_traverse"] == 1,
+          "cagra hop by hop: one walk launch to hop 2, then one hop launch")
 
     # -- main path: filtered search -------------------------------------------
     n_rows = x.shape[0]
@@ -569,8 +608,9 @@ def main() -> int:
         check(kernels.consume_kernel_path() == "cuda", f"{ph} routed to cuda")
         for leg in dict.fromkeys(leg for spec in specs for leg in spec[4]):
             check(phase_launches[ph][leg] > 0, f"{ph} launched {leg}")
-    check(phase_launches["filt_cagra"]["cagra_fused_hop"] == 0,
-          "filtered CAGRA keeps the hop kernel off filtered traffic, as raft_tpu does")
+    check(phase_launches["filt_cagra"]["cagra_fused_hop"] == 0
+          and phase_launches["filt_cagra"]["cagra_traverse"] == 0,
+          "filtered CAGRA keeps the hop and walk kernels off filtered traffic, as raft_tpu does")
     # -- main path: paged storage ---------------------------------------------
     # second indexes made from the same tensors (copy.copy), paginated in
     # place: the monolithic indexes above stay as they are
@@ -677,11 +717,11 @@ def main() -> int:
     cagra_pass50_64 = cagra_filtered(q[:QM_BATCH], filters["pass50"])()
     paged_checks += [
         ("paged_cagra", "cagra", lambda: cagra.search(cagra_sp, p_cg, q, K, res=res),
-         outputs["cagra"], ["cagra_fused_hop_paged"]),
+         outputs["cagra"], ["cagra_traverse_paged"]),
         ("paged_cagra", "cagra batches",
          lambda: batches(lambda qb, k: cagra.search(cagra_sp, p_cg, qb, k, res=res), K)[:2],
-         outputs["cagra batches"], ["cagra_fused_hop_paged"]),
-        ("paged_cagra", "cagra pass50 64 q",
+         outputs["cagra batches"], ["cagra_traverse_paged"]),
+        ("paged_cagra_filtered", "cagra pass50 64 q",
          lambda: cagra.search(cagra_sp, p_cg, q[:QM_BATCH], K, res=res, **filters["pass50"]),
          cagra_pass50_64, ["select_k"]),
     ]
@@ -700,10 +740,20 @@ def main() -> int:
     r_mono = recall_at_k(outputs["ivf_pq probe-major + refine"][1], gt_i, K)
     r_paged = recall_at_k(p_refined()[1], gt_i, K)
     check(r_paged == r_mono, f"paged refined recall@10 {r_paged:.5f} == unpaged {r_mono:.5f}")
-    hops = phase_launches["paged_cagra"]["cagra_fused_hop_paged"]
-    want_hops = expected_hops(q.shape[0]) + QM_BATCHES * expected_hops(QM_BATCH)
-    check(hops == want_hops and phase_launches["paged_cagra"]["cagra_fused_hop"] == 0,
-          f"paged cagra: {hops} paged hop launches = tiles x max_iter {want_hops}, none dense")
+    walk_launches("paged_cagra", expected_tiles(q.shape[0])
+                  + QM_BATCHES * expected_tiles(QM_BATCH), "_paged")
+    check(phase_launches["paged_cagra"]["cagra_traverse"] == 0, "paged cagra: no dense walk")
+
+    def paged_view(idx):
+        pool, page_slot = idx.paged.view()
+        return PagedRows(pool, page_slot, idx.size)
+
+    with phase("paged_cagra_hop"):
+        hop_p = capture_hop(p_cg, q.shape[0], paged_view(p_cg))
+        hop_p_out = ct.cagra_fused_hop(*hop_p, metric=metric)
+    check(phase_launches["paged_cagra_hop"]["cagra_fused_hop_paged"] == 1
+          and phase_launches["paged_cagra_hop"]["cagra_traverse_paged"] == 1,
+          "paged cagra hop by hop: one paged walk launch, then one paged hop launch")
 
     # over budget: a quarter of the pages, served 8 queries at a time
     n_pages = flat_pager.n_pages
@@ -1038,8 +1088,17 @@ def main() -> int:
                                                                    strategy=strategy),
                                              index, dq, DEEP_IVF_K, res=res)
             check(kernels.consume_kernel_path() == "cuda", f"deep k {strategy} stamped cuda")
+        # a serving batch at deep k: its probes split over blocks and merged
+        # past k = 128 (merge_parts' radix select)
+        deep_batch = ivf_flat.search(ivf_flat.SearchParams(n_probes=N_PROBES,
+                                                           strategy="query_major"),
+                                     index, q[:QM_BATCH], DEEP_IVF_K, res=res)
         deep["brute_force"] = brute_force.knn(x, dq, DEEP_BF_K, res=res)
         check(kernels.consume_kernel_path() == "cuda", "deep k brute force stamped cuda")
+    check(torch.equal(deep_batch[0], deep["query_major"][0][:QM_BATCH])
+          and torch.equal(deep_batch[1], deep["query_major"][1][:QM_BATCH]),
+          f"deep k: a {QM_BATCH}-query batch (split and merged) equals the same queries "
+          f"of the {DEEP_QUERIES}-query search")
     for name, kk_ in (("ivf_scan_probe_major", DEEP_IVF_K), ("ivf_scan_query_major", DEEP_IVF_K),
                       ("fused_knn", DEEP_BF_K)):
         check(phase_launches["deep_k"][name] > 0, f"deep k launched {name} (k {kk_})")
@@ -1175,16 +1234,16 @@ def main() -> int:
     @contextlib.contextmanager
     def plain_versions():
         saved = (sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major,
-                 cagra.cagra_fused_hop)
+                 cagra.cagra_traverse_steps)
         sk.select_k_kernel = lambda *a, **kw: sk.select_k_torch(*a, **kw)
         scan.ivf_scan_probe_major = scan.ivf_scan_probe_major_torch
         scan.ivf_scan_query_major = scan.ivf_scan_query_major_torch
-        cagra.cagra_fused_hop = ct.cagra_fused_hop_torch
+        cagra.cagra_traverse_steps = ct.cagra_traverse_steps_torch
         try:
             yield
         finally:
             (sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major,
-             cagra.cagra_fused_hop) = saved
+             cagra.cagra_traverse_steps) = saved
 
     def recalls(n_probes):
         """recall@K of every main-path search at ``n_probes``, by name."""
@@ -1344,7 +1403,6 @@ def main() -> int:
                 "plain_ms": cuda_ms(plain_fn, reps[1]), "bound_ms": bound, "bound_by": by,
                 "library_ms": cuda_ms(library_fn, reps[0]) if library_fn else None}
 
-    metric = "sqeuclidean"
     # select_k: the coarse selection of the probe-major search
     cs = _common.coarse_scores(q, index.centers, metric)
     kv, ki = sk.select_k_kernel(cs, N_PROBES)
@@ -1700,6 +1758,19 @@ def main() -> int:
             lambda: kern(*args_), lambda: plain_fn(*args_),
             cost.scan_work(probes_d, rows_d, index.dim, out_rows, kk_), reps=(5, 1)))
     del args_d
+    # the deep-k serving batch: its probes in parts, merged past k = 128
+    args_s = ivf_flat.query_major_scan_inputs(index, q[:QM_BATCH], N_PROBES, DEEP_IVF_K)
+    kk_ = args_s[-1]
+    n_parts = scan.query_major_parts(N_PROBES, kernels.grid_splits(
+        QM_BATCH, N_PROBES, dev, per_sm=scan.QM_PER_SM))[1]
+    check(n_parts > 1, f"deep k serving batch: {n_parts} parts")
+    add_wide("ivf_scan_query_major", wide_entry(
+        f"{QM_BATCH} q, kk={kk_}, each query's probes in {n_parts} parts (merge_parts)",
+        bitwise(f"ivf_scan_query_major {QM_BATCH} q kk={kk_} in {n_parts} parts",
+                *scan.ivf_scan_query_major(*args_s), *scan.ivf_scan_query_major_torch(*args_s)),
+        lambda: scan.ivf_scan_query_major(*args_s), lambda: scan.ivf_scan_query_major_torch(*args_s),
+        cost.scan_work(args_s[0], rows_d, index.dim, QM_BATCH, kk_), reps=(10, 1)))
+    del args_s
     kv, ki = fk.fused_l2_topk(dq, x, xx, DEEP_BF_K)
     pv, pi = fk.fused_l2_topk_torch(dq, x, xx, DEEP_BF_K)
     add_wide("fused_knn", wide_entry(
@@ -1750,21 +1821,8 @@ def main() -> int:
     del am_args, full, x_am
 
     # the CAGRA hop: the inputs of hop CAPTURE_HOP of the first query tile
-    # (f32 rows, and a bf16 copy of the dataset), and of a 64-query batch
-    def capture_hop(index, n_q, dataset=None):
-        """The hop's inputs at hop CAPTURE_HOP, rows read from ``dataset``
-        (default: the index's own; a PagedRows for the paged leg)."""
-        ds = index.dataset if dataset is None else dataset
-        itopk, _, tile = cagra.search_plan(cagra_sp, index, n_q, K, res)
-        qs = q[:min(n_q, tile)]
-        seeds = cagra.make_seed_ids(cagra_sp, index, qs, K, itopk=itopk)
-        buf = cagra.traverse_init(ds, qs, seeds, itopk, metric)
-        buf_d, buf_i, explored = cagra.traverse_steps(
-            ds, index.graph, qs, *buf, steps=CAPTURE_HOP - 1,
-            width=cagra_sp.search_width, metric=metric)
-        parents, explored = cagra.pick_parents(buf_d, buf_i, explored, cagra_sp.search_width)
-        return (ds, index.graph, qs, parents, buf_d, buf_i, explored)
-
+    # (the main path's capture; f32 rows, and a bf16 copy of the dataset),
+    # and of a 64-query batch
     def hop_check(tag, args):
         got = ct.cagra_fused_hop(*args, metric=metric)
         want = ct.cagra_fused_hop_torch(*args, metric=metric)
@@ -1774,21 +1832,26 @@ def main() -> int:
         return max_err(got[0], want[0])
 
     def hop_work(args):
+        """The hop's bound from the rows it really reads (repeats and ids
+        already in the buffer go unread), counted by the plain version."""
         paged = isinstance(args[0], PagedRows)
-        fn = cost.cagra_traverse_paged_work if paged else cost.cagra_traverse_work
         rows = args[0].pool if paged else args[0]
-        return fn(args[3], args[1].shape[1], args[0].shape[1], args[4].shape[1],
-                  itemsize=rows.element_size())
+        live, fetched = ct.cagra_hop_reads(*args, metric=metric)
+        return cost.cagra_hop_work(live, fetched, args[1].shape[1], args[0].shape[1],
+                                   args[4].shape[1], itemsize=rows.element_size(), paged=paged,
+                                   width=args[3].shape[1])
 
-    hop_args = capture_hop(cg, q.shape[0])
     err = hop_check(f"tile {hop_args[2].shape[0]} f32", hop_args)
+    check(all(torch.equal(a, b) for a, b in zip(hop_out, ct.cagra_fused_hop(*hop_args,
+                                                                          metric=metric))),
+          "cagra hop: the main path's launch gave the same buffers again")
     cg_bf16 = cagra.Index(cg.metric, cg.dataset.to(torch.bfloat16), cg.graph, cg.entry_centers,
                           cg.entry_ids)
     hop_bf = capture_hop(cg_bf16, q.shape[0])
     err = max(err, hop_check(f"tile {hop_bf[2].shape[0]} bf16 rows", hop_bf))
     hop_small = capture_hop(cg, QM_BATCH)
     err = max(err, hop_check(f"tile {QM_BATCH} f32", hop_small))
-    hop_ms = device_ms(lambda: ct.cagra_fused_hop(*hop_args, metric=metric), "cagra_hop_kernel")
+    hop_ms = device_ms(lambda: ct.cagra_fused_hop(*hop_args, metric=metric), "cagra_walk_kernel")
     hop_plain = cuda_ms(lambda: ct.cagra_fused_hop_torch(*hop_args, metric=metric), 3)
     tile, itopk = hop_args[4].shape
     also = [wide_entry(f"tile {t}, itopk {a[4].shape[1]}, {tag}", err,
@@ -1800,21 +1863,19 @@ def main() -> int:
     for entry, a in zip(also, (hop_bf, hop_small)):
         entry.pop("library_ms")
         entry["wall_ms"] = entry["ms"]
-        entry["ms"] = device_ms(lambda: ct.cagra_fused_hop(*a, metric=metric), "cagra_hop_kernel")
+        entry["ms"] = device_ms(lambda: ct.cagra_fused_hop(*a, metric=metric), "cagra_walk_kernel")
     record("cagra_fused_hop", "raft_tpu_torch/csrc/cagra_hop.cu",
            "raft_tpu/kernels/cagra_traverse.py:278", err, hop_ms, hop_plain, hop_work(hop_args),
            cost.cagra_traverse_cost(tile, cagra_sp.search_width, cg.graph_degree, cg.dim, itopk),
            None, f"tile {tile}, width {cagra_sp.search_width}, deg {cg.graph_degree}, "
            f"d {cg.dim}, itopk {itopk}, f32 rows (hop {CAPTURE_HOP})", also=also,
            wall_ms=cuda_ms(lambda: ct.cagra_fused_hop(*hop_args, metric=metric), 50))
-    # select_k at CAGRA's own shapes, from hop CAPTURE_HOP's buffers: the
-    # per-hop parent pick ([tile, itopk], k = width; the buffer stands in for
-    # its explored-masked copy), and the filtered body's buffer fold ([64,
-    # 2 itopk], k = itopk) and result fold ([64, k + itopk], k).  Launches
-    # this short are timed on the device (profiler), the wall beside it
+    # select_k at the filtered CAGRA search's own shapes, from hop
+    # CAPTURE_HOP's buffers: the filtered body's buffer fold ([64, 2 itopk],
+    # k = itopk) and result fold ([64, k + itopk], k).  Launches this short
+    # are timed on the device (profiler), the wall beside it
     nxt = ct.cagra_fused_hop(*hop_small, metric=metric)
     for tag, rows_, k_ in (
-            ("parent pick", hop_args[4], cagra_sp.search_width),
             ("filtered buffer", torch.cat([hop_small[4], nxt[0]], dim=1), hop_small[4].shape[1]),
             ("filtered result", torch.cat([hop_small[4][:, :K], nxt[0]], dim=1), K)):
         bound_, by_ = cost.bound_ms(cost.select_k_work(rows_.shape[0], rows_.shape[1], k_))
@@ -1831,12 +1892,10 @@ def main() -> int:
     # #8's paged leg: the same capture on the paginated index (rows through
     # its identity-pinned pool; a paginated bf16 copy for the bf16 rows),
     # beside the dense leg on the same inputs
-    def paged_view(idx):
-        pool, page_slot = idx.paged.view()
-        return PagedRows(pool, page_slot, idx.size)
-
     p_cg_bf16, _ = paginate(cg_bf16, "paged_cagra_bf16")
-    hop_p = capture_hop(p_cg, q.shape[0], paged_view(p_cg))
+    check(all(torch.equal(a, b) for a, b in zip(hop_p_out, ct.cagra_fused_hop(*hop_p,
+                                                                            metric=metric))),
+          "paged cagra hop: the main path's launch gave the same buffers again")
     hop_pbf = capture_hop(p_cg_bf16, q.shape[0], paged_view(p_cg_bf16))
     err = hop_check(f"tile {hop_p[2].shape[0]} f32, paged", hop_p)
     err = max(err, hop_check(f"tile {hop_pbf[2].shape[0]} bf16 rows, paged", hop_pbf))
@@ -1847,7 +1906,7 @@ def main() -> int:
                 *ct.cagra_fused_hop(*dense_args, metric=metric)[:2],
                 what="the dense leg on the same inputs")
         unpaged[tag] = device_ms(lambda: ct.cagra_fused_hop(*dense_args, metric=metric),
-                                 "cagra_hop_kernel")
+                                 "cagra_walk_kernel")
     also = [wide_entry(f"tile {hop_pbf[2].shape[0]}, itopk {hop_pbf[4].shape[1]}, bf16 rows",
                        err, lambda: ct.cagra_fused_hop(*hop_pbf, metric=metric),
                        lambda: ct.cagra_fused_hop_torch(*hop_pbf, metric=metric),
@@ -1855,18 +1914,100 @@ def main() -> int:
     also[0].pop("library_ms")
     also[0]["wall_ms"] = also[0]["ms"]
     also[0]["ms"] = device_ms(lambda: ct.cagra_fused_hop(*hop_pbf, metric=metric),
-                              "cagra_hop_kernel")
+                              "cagra_walk_kernel")
     also[0]["unpaged_ms"] = unpaged["bf16"]
     tile, itopk = hop_p[4].shape
     record("cagra_fused_hop_paged", "raft_tpu_torch/csrc/cagra_hop.cu",
            "raft_tpu/kernels/cagra_traverse.py:180", err,
-           device_ms(lambda: ct.cagra_fused_hop(*hop_p, metric=metric), "cagra_hop_kernel"),
+           device_ms(lambda: ct.cagra_fused_hop(*hop_p, metric=metric), "cagra_walk_kernel"),
            cuda_ms(lambda: ct.cagra_fused_hop_torch(*hop_p, metric=metric), 3), hop_work(hop_p),
            cost.cagra_traverse_cost(tile, cagra_sp.search_width, cg.graph_degree, cg.dim, itopk),
            None, f"tile {tile}, width {cagra_sp.search_width}, deg {cg.graph_degree}, "
            f"d {cg.dim}, itopk {itopk}, f32 rows in {p_cg.paged.n_pages} pages of {PAGE_ROWS} "
            f"(hop {CAPTURE_HOP})", also=also, unpaged_ms=unpaged["f32"],
            wall_ms=cuda_ms(lambda: ct.cagra_fused_hop(*hop_p, metric=metric), 50))
+
+    # #8 as one launch: the whole walk of the first query tile (its seed
+    # buffer, max_iter hops) and of a 64-query batch, f32 and bf16 rows,
+    # dense and through the pinned pools' page tables, against the plain
+    # loop of pick and hop on the same inputs
+    _, walk_steps, _ = cagra.search_plan(cagra_sp, cg, q.shape[0], K, res)
+
+    def capture_walk(index, n_q, dataset=None):
+        ds = index.dataset if dataset is None else dataset
+        itopk, _, tile = cagra.search_plan(cagra_sp, index, n_q, K, res)
+        qs = q[:min(n_q, tile)]
+        seeds = cagra.make_seed_ids(cagra_sp, index, qs, K, itopk=itopk)
+        return (ds, index.graph, qs, *cagra.traverse_init(ds, qs, seeds, itopk, metric))
+
+    def walk_fn(a, plain=False):
+        fn = ct.cagra_traverse_steps_torch if plain else ct.cagra_traverse_steps
+        return lambda: fn(*a, steps=walk_steps, width=cagra_sp.search_width, metric=metric)
+
+    def walk_check(tag, a):
+        """The walk against its plain version: ((live parents, fetched
+        rows), max abs err)."""
+        got, want = walk_fn(a)(), walk_fn(a, plain=True)()
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+              and all(torch.equal(x, y) for x, y in zip(got[1:], want[1:])),
+              f"cagra walk {tag}: values (by their bits), ids, explored flags, live parents "
+              "and fetched rows equal to the plain loop of pick and hop")
+        check(not torch.equal(got[1], a[4]), f"cagra walk {tag} changed the buffer")
+        return got[3:5], max_err(got[0], want[0])
+
+    def walk_work(a, reads):
+        """The walk's bound from the rows it really read (its own counts)."""
+        paged = isinstance(a[0], PagedRows)
+        rows = a[0].pool if paged else a[0]
+        return cost.cagra_hop_work(*reads, a[1].shape[1], a[0].shape[1], a[3].shape[1],
+                                   itemsize=rows.element_size(), paged=paged)
+
+    def walk_raft_cost(a):
+        c = cost.cagra_traverse_cost(a[2].shape[0], cagra_sp.search_width, a[1].shape[1],
+                                     a[0].shape[1], a[3].shape[1])
+        return dataclasses.replace(c, flops=c.flops * walk_steps,
+                                   bytes_accessed=c.bytes_accessed * walk_steps)
+
+    def walk_entry(tag, a):
+        reads, err_ = walk_check(tag, a)
+        bound_, by_ = cost.bound_ms(walk_work(a, reads))
+        return {"shape": f"tile {a[2].shape[0]}, itopk {a[3].shape[1]}, {tag}",
+                "max_abs_err": err_, "ms": device_ms(walk_fn(a), "cagra_walk_kernel", reps=10),
+                "wall_ms": cuda_ms(walk_fn(a), 10), "plain_ms": cuda_ms(walk_fn(a, True), 1),
+                "bound_ms": bound_, "bound_by": by_, "live_parents": int(reads[0].sum()),
+                "fetched_rows": int(reads[1].sum())}
+
+    for name, replaces, a, others, dense_rows in (
+            ("cagra_traverse", "raft_tpu/kernels/cagra_traverse.py:278", capture_walk(cg, q.shape[0]),
+             [("bf16 rows", capture_walk(cg_bf16, q.shape[0])),
+              ("f32 rows", capture_walk(cg, QM_BATCH))], None),
+            ("cagra_traverse_paged", "raft_tpu/kernels/cagra_traverse.py:180",
+             capture_walk(p_cg, q.shape[0], paged_view(p_cg)),
+             [("bf16 rows, paged", capture_walk(p_cg_bf16, q.shape[0], paged_view(p_cg_bf16)))],
+             cg.dataset)):
+        main_e = walk_entry(f"f32 rows, {walk_steps} hops", a)
+        extra = {}
+        if dense_rows is not None:
+            dense_args = (dense_rows,) + a[1:]
+            got_p, got_d = walk_fn(a)(), walk_fn(dense_args)()
+            check(all(torch.equal(x, y) for x, y in zip(got_p, got_d)),
+                  "cagra walk, paged: bitwise the dense walk on the same inputs")
+            extra["unpaged_ms"] = device_ms(walk_fn(dense_args), "cagra_walk_kernel", reps=10)
+        reads, _ = walk_check(f"{name} recorded", a)
+        record(name, "raft_tpu_torch/csrc/cagra_hop.cu", replaces, main_e["max_abs_err"],
+               main_e["ms"], main_e["plain_ms"], walk_work(a, reads), walk_raft_cost(a), None,
+               f"tile {a[2].shape[0]}, width {cagra_sp.search_width}, deg {cg.graph_degree}, "
+               f"d {cg.dim}, itopk {a[3].shape[1]}, {walk_steps} hops, f32 rows"
+               + (f" in {p_cg.paged.n_pages} pages of {PAGE_ROWS}" if dense_rows is not None
+                  else ""),
+               also=[walk_entry(tag, o) for tag, o in others], wall_ms=main_e["wall_ms"],
+               live_parents=main_e["live_parents"], fetched_rows=main_e["fetched_rows"],
+               **extra)
+        r8 = results[-1]
+        print(f"{name}: {r8['ms']:.4f} ms device, bound {r8['bound_ms']:.4f} ms "
+              f"({r8['bound_by']}), {100 * r8['bound_ms'] / r8['ms']:.1f} % of bound, "
+              f"{r8['live_parents']} live parents, {r8['fetched_rows']} rows read; "
+              f"plain {r8['plain_ms']:.1f} ms", flush=True)
     del hop_args, hop_bf, hop_small, cg_bf16, hop_p, hop_pbf, p_cg_bf16
 
     # -- where the time of a search goes ------------------------------------

@@ -2,9 +2,10 @@
 """Times the redesigned kernels of one tree of the PyTorch port on one CUDA
 card, at the shapes PERF.md holds them to, beside the PyTorch library call
 that computes the same function where there is one: select_k (#1),
-fused_knn (#2), the fused L2 argmin (#7) and the probe-major scan (#3).
+fused_knn (#2), the fused L2 argmin (#7), the probe-major scan (#3), the
+query-major scan (#5) and the CAGRA search whose walk is #8.
 
-    python3 kernel_ab.py [--tree DIR] [--only select_k,fused_knn,fused_argmin,scan]
+    python3 kernel_ab.py [--tree DIR] [--only select_k,fused_knn,fused_argmin,scan,qm,cagra]
 
 ``--tree`` names the directory that holds the ``raft_tpu_torch`` package to
 time (default: this script's checkout), so that a change and its parent are
@@ -16,11 +17,21 @@ against 1,024 rows sampled with seed 0, as ``chip_smoke.py``'s k-means
 centers) and the scans (probe-major inputs of the IVF-Flat index and of
 the IVF-PQ index's bf16 scan cache with f32 products, as ``chip_smoke.py``
 builds them: all 10,000 queries at kk = 10 and 258, the first 1,000 at kk =
-1,000), seeded normal rows for select_k.  Prints the card's name and power
-limit, then one JSON line per shape: the kernel's and the library call's
-mean ms over CUDA events (for select_k also their device time per call, and
-for fused_knn each of its kernels' device time, from the profiler).
-Exits non-zero without a card.
+1,000), seeded normal rows for select_k.  ``qm``: the query-major scan on
+the main path's serving batch (the first 64 queries, 20 probes, kk = 10)
+over the IVF-Flat lists (f32), the IVF-PQ bf16 cache (bf16 and f32
+products) and IVF-Flat over the rows x 16 rounded to uint8, and at kk =
+1,000 on the same 64 and on the first 1,000 queries (f32); on a tree that
+names its blocks an SM (``QM_PER_SM``) also the f32 legs at other splits
+of the probes.
+``cagra``: the CAGRA index at raft's defaults, searched (itopk 64, k = 10)
+for all 10,000 queries and for the first 64: the warm wall (median of 5,
+synchronised) and, from one profiled window, the device time by kernel and
+the busy share.  Prints the card's name and power limit, then one JSON
+line per shape: the kernel's and the library call's mean ms over CUDA
+events (for select_k and the query-major scan also their device time per
+call, and for fused_knn each of its kernels' device time, from the
+profiler).  Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ from pathlib import Path
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
-    ap.add_argument("--only", default="select_k,fused_knn,fused_argmin,scan",
+    ap.add_argument("--only", default="select_k,fused_knn,fused_argmin,scan,qm,cagra",
                     help="comma-separated kernels to time")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -154,18 +165,32 @@ def main() -> int:
                  parts=(list(fa.center_parts(n, 1024, fa._BLOCKS_PER_SM * kernels.sm_count(0)))
                         if hasattr(fa, "center_parts") else None))
 
-    if "scan" in only:
-        from raft_tpu_torch.core.resources import Resources
-        from raft_tpu_torch.kernels import ivf_scan as scan
-        from raft_tpu_torch.neighbors import _common, ivf_flat, ivf_pq
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.kernels import ivf_scan as scan
+    from raft_tpu_torch.neighbors import _common, ivf_flat, ivf_pq
 
-        res = Resources(device="cuda")
-        flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=1024, kmeans_n_iters=20,
-                                                   kmeans_trainset_fraction=0.5, seed=0),
-                              x, res=res)
-        pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=1024, pq_dim=64, pq_bits=8,
-                                             kmeans_n_iters=20, kmeans_trainset_fraction=0.5,
-                                             seed=0), x, res=res)
+    res = Resources(device="cuda")
+    flat_params = ivf_flat.IndexParams(n_lists=1024, kmeans_n_iters=20,
+                                       kmeans_trainset_fraction=0.5, seed=0)
+    built = {}
+
+    def index(name):
+        """The main path's indexes, built once."""
+        if name not in built:
+            if name == "flat":
+                built[name] = ivf_flat.build(flat_params, x, res=res)
+            elif name == "pq":
+                built[name] = ivf_pq.build(ivf_pq.IndexParams(
+                    n_lists=1024, pq_dim=64, pq_bits=8, kmeans_n_iters=20,
+                    kmeans_trainset_fraction=0.5, seed=0), x, res=res)
+            else:   # IVF-Flat over the rows x 16 rounded to uint8 (chip_smoke's)
+                built[name] = ivf_flat.build(
+                    flat_params, torch.clamp(torch.round(x * 16.0), 0, 255).to(torch.uint8),
+                    res=res)
+        return built[name]
+
+    if "scan" in only:
+        flat, pq = index("flat"), index("pq")
         for tag, idx, mod, kw in (("float32", flat, ivf_flat, {}),
                                   ("bfloat16", pq, ivf_pq, ivf_pq.scan_kwargs(pq, "float32"))):
             # (queries, kk, the k the buckets are sized for, reps): the main
@@ -180,6 +205,68 @@ def main() -> int:
                 emit("ivf_scan_probe_major", f"{tag} rows, B={a[1].shape[0]} G={a[1].shape[1]} "
                      f"kk={kk} ({n_q} q)", cuda_ms(lambda: scan.ivf_scan_probe_major(
                          *a, metric="sqeuclidean", **kw), reps), None, None)
+
+    if "qm" in only:
+        q_u8 = torch.clamp(torch.round(q * 16.0), 0, 255)
+        legs = (("float32 rows", "flat", ivf_flat, q, {}),
+                ("bfloat16 rows, bfloat16 products", "pq", ivf_pq, q,
+                 ivf_pq.scan_kwargs(index("pq"), "bfloat16")),
+                ("bfloat16 rows, float32 products", "pq", ivf_pq, q,
+                 ivf_pq.scan_kwargs(index("pq"), "float32")),
+                ("uint8 rows", "u8", ivf_flat, q_u8, {"scan_scale": None}))
+        for tag, name, mod, qs_all, kw in legs:
+            for n_q, kk, reps in ((64, 10, 50), (64, 1000, 20), (1000, 1000, 5)):
+                if kk == 1000 and name != "flat":
+                    continue
+                a = mod.query_major_scan_inputs(index(name), qs_all[:n_q], 20, kk)
+                fn = lambda a=a, kw=kw: scan.ivf_scan_query_major(*a, metric="sqeuclidean", **kw)
+                extra = {}
+                if name == "flat" and hasattr(scan, "QM_PER_SM"):
+                    grid_splits = kernels.grid_splits
+                    for per_sm in (2, 4, 8, 16):
+                        sp = grid_splits(n_q, 20, dev, per_sm=per_sm)
+                        kernels.grid_splits = lambda *_, sp=sp, **__: sp
+                        extra[f"per_sm {per_sm} ({sp} splits)"] = device_ms(fn, reps=reps)
+                    kernels.grid_splits = grid_splits
+                emit("ivf_scan_query_major", f"{tag}, Q={n_q} P=20 kk={kk}",
+                     cuda_ms(fn, reps), None, None, device_ms=device_ms(fn, reps=20), **extra)
+
+    if "cagra" in only:
+        from torch.profiler import ProfilerActivity, profile
+
+        from raft_tpu_torch.neighbors import cagra
+
+        t = time.perf_counter()
+        cg = cagra.build(cagra.IndexParams(), x, res=res)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        sp = cagra.SearchParams()
+        for n_q in (q.shape[0], 64):
+            qs = q[:n_q]
+            fn = lambda qs=qs: cagra.search(sp, cg, qs, 10, res=res)
+            fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                window = (time.perf_counter() - t0) * 1e3
+            by = {}
+            for e in prof.events():
+                if e.device_type.name == "CUDA":
+                    by[e.name[:60]] = by.get(e.name[:60], 0.0) + e.device_time_total / 1e3 / 5
+            busy = sum(by.values())
+            emit("cagra.search", f"{n_q} q, itopk 64, k=10", sorted(walls)[2], None, None,
+                 walls=walls, device_busy_ms=busy, device_busy_share=busy * 5 / window,
+                 top_device_ms=sorted(by.items(), key=lambda kv: -kv[1])[:6],
+                 build_s=build_s)
     return 0
 
 

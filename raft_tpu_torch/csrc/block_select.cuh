@@ -1,10 +1,12 @@
-// Selection building blocks of select_k (#1), fused_knn (#2) and the
-// probe-major scans past kk = 128 (#3 / #4), after RAFT's warp-sort /
-// block-select (matrix/detail/select_warpsort.cuh, select_radix.cuh): keys
-// that order as unsigned integers, bitonic networks in registers (one warp)
-// and in shared memory (one block), a radix select of the k-th key, and the
-// compaction of a candidate array around it.  Query-major and merge_parts
-// keep topk.cuh's lists, as do the scans up to kk = 128.
+// Selection building blocks of select_k (#1), fused_knn (#2), the
+// probe-major scans past kk = 128 (#3 / #4), the query-major scans (#5 /
+// #6) and merge_parts past k = 128, after RAFT's warp-sort / block-select
+// (matrix/detail/select_warpsort.cuh, select_radix.cuh): keys that order as
+// unsigned integers, bitonic networks in registers (one warp) and in shared
+// memory (one block), a radix select of the k-th key, and the compaction of
+// a candidate array around it (by one warp, or by the whole block).
+// Probe-major up to kk = 128 keeps topk.cuh's lists, as do merge_parts up to
+// k = 128 and the single CAGRA hop.
 //
 // Keys.  A float orders as the unsigned integer `okey`: the sign bit is
 // flipped for a positive value and every bit for a negative one, so that
@@ -21,6 +23,13 @@
 namespace rt {
 
 constexpr unsigned long long kPadKey = ~0ull;   // above every real key
+constexpr int kMaxWarps = 32;                   // warps a block may have
+
+__host__ __device__ inline int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
 
 __device__ __forceinline__ unsigned okey_signed(float v) {
   if (v != v) return 0xffc00000u;                // NaN: above +inf (0xff800000)
@@ -288,6 +297,202 @@ __device__ float warp_compact(SlotAt slot, int cnt, int k, int* hist, int lane) 
     __syncwarp();
   }
   return okey_value(kth);
+}
+
+// -- candidate arrays of a whole block ---------------------------------------
+// One array per block (query-major holds one query a block; merge_parts one
+// row), so the whole block appends, compacts and sorts it: no warp waits at
+// a barrier while another folds.
+
+// This thread's rank among the threads before it (in thread order) whose
+// `keep` is set; *total: all of them.  One __syncthreads; `wc` [2][kMaxWarps]
+// ints, `parity` flipped by the call so that the next call writes the other
+// half while a slow thread may still read this one.
+__device__ __forceinline__ int block_rank(bool keep, int* wc, int& parity, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const unsigned m = __ballot_sync(0xffffffffu, keep);
+  int* w = wc + parity * kMaxWarps;
+  parity ^= 1;
+  if (lane == 0) w[warp] = __popc(m);
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int i = 0; i < nw; ++i) {
+    const int c = w[i];
+    before += i < warp ? c : 0;
+    all += c;
+  }
+  *total = all;
+  return before + __popc(m & lanemask_lt(lane));
+}
+
+// Of the n entries `at(e)` gives, keep those whose okey is below kth and the
+// first need_eq equal to it, in their order: kept entry w goes to `to(w)`.
+// Returns the count kept.  In place (to == at) is allowed: a round reads
+// blockDim.x entries into registers before its sync and writes at or below
+// them after it.  `wc` [2][2][kMaxWarps] ints and `parity` as block_rank.
+// Ends with a __syncthreads, so the kept entries can be read at once.
+template <typename At, typename To>
+__device__ int block_keep(At at, To to, int n, unsigned kth, int need_eq, int* wc, int& parity) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int kept = 0, eq_seen = 0;
+  for (int e0 = 0; e0 < n; e0 += blockDim.x) {
+    const int e = e0 + threadIdx.x;
+    float v = 0.0f;
+    int id = 0;
+    unsigned key = ~0u;
+    if (e < n) {
+      const Slot s = at(e);
+      v = *s.v;
+      id = *s.i;
+      key = okey(v);
+    }
+    const bool lt = e < n && key < kth;
+    const bool eq = e < n && key == kth;
+    const unsigned ltm = __ballot_sync(0xffffffffu, lt);
+    const unsigned eqm = __ballot_sync(0xffffffffu, eq);
+    int* w = wc + parity * 2 * kMaxWarps;
+    parity ^= 1;
+    if (lane == 0) {
+      w[warp] = __popc(ltm);
+      w[kMaxWarps + warp] = __popc(eqm);
+    }
+    __syncthreads();
+    // warp i keeps its lt entries and the first equal ones while the
+    // budget lasts, in warp order
+    int eq_before = eq_seen, pos = kept, round = 0;
+    for (int i = 0; i < nw; ++i) {
+      const int li = w[i], ei = w[kMaxWarps + i];
+      const int take = min(max(need_eq - eq_before, 0), ei);
+      if (i < warp) {
+        pos += li + take;
+      }
+      if (i == warp) {
+        const int my_eq = eq_before + __popc(eqm & lanemask_lt(lane));
+        const bool keep = lt || (eq && my_eq < need_eq);
+        const unsigned km = __ballot_sync(0xffffffffu, keep);
+        if (keep) {
+          const Slot s = to(pos + __popc(km & lanemask_lt(lane)));
+          *s.v = v;
+          *s.i = id;
+        }
+      }
+      eq_before += ei;
+      round += li + take;
+    }
+    kept += round;
+    eq_seen = eq_before;
+  }
+  __syncthreads();
+  return kept;
+}
+
+// Sort the n entries (cv[e], ci[e]) of a candidate array in shared memory
+// by (okey, e) and write the first k to out_v / out_i, (+inf, -1) past n.
+// `keys`: pow2_at_least(n) 64-bit keys of shared memory.  Each value comes
+// out as stored (a -0.0 as -0.0).  Out of line: it runs once a block.
+static __device__ __noinline__ void block_sort_write(const float* cv, const int* ci, int n,
+                                                     int k, unsigned long long* keys,
+                                                     float* __restrict__ out_v,
+                                                     int* __restrict__ out_i) {
+  const int np = pow2_at_least(max(n, 1));
+  for (int t = threadIdx.x; t < np; t += blockDim.x)
+    keys[t] = t < n ? (unsigned long long)okey(cv[t]) << 32 | (unsigned)t : kPadKey;
+  block_sort<false>(keys, nullptr, np);
+  for (int p = threadIdx.x; p < k; p += blockDim.x) {
+    float v = CUDART_INF_F;
+    int id = -1;
+    if (p < n) {
+      const int e = (int)(unsigned)keys[p];
+      v = cv[e];
+      id = ci[e];
+    }
+    out_v[p] = v;
+    out_i[p] = id;
+  }
+}
+
+// Keep the k smallest (okey, position) of a candidate array of cnt > k
+// entries in shared memory (values cv, ids ci), in place and in their
+// order; returns the k-th value (the new threshold).  `hist`: 258 ints,
+// `wc`: block_keep's (a call starts at parity 0: the previous one ended
+// at a barrier).  Out of line: a compaction is rare (one per ~kk
+// survivors).
+static __device__ __noinline__ float block_compact(float* cv, int* ci, int cnt, int k, int* hist,
+                                                   int* wc) {
+  int parity = 0;
+  __syncthreads();   // the array's last appends are visible
+  int below;
+  const unsigned kth = radix_select<true>(
+      [&](int e, unsigned& key) {
+        key = okey(cv[e]);
+        return true;
+      },
+      cnt, k, hist, &below);
+  auto slot = [&](int e) { return Slot{cv + e, ci + e}; };
+  block_keep(slot, slot, cnt, kth, k - below, wc, parity);
+  return okey_value(kth);
+}
+
+// -- merge_parts past k = 128 ------------------------------------------------
+// Row r's n_cand candidates are `splits` sorted parts of k (value, id),
+// parts in pool order.  The row's k smallest by (value, position in the
+// row) = (value, part, position in the part), the order the lists' merge
+// keeps: a radix select of the k-th key over the row's finite values (a
+// part's +inf tail never enters, as a list never admits +inf), the
+// entries below it and the first equal ones compacted in order into shared
+// memory, then one sort.  One block a row.  Dynamic shared memory:
+// merge_select_smem(k).
+constexpr int kMergeThreads = 256;
+
+__host__ __device__ inline size_t merge_select_smem(int k) {
+  return (size_t)pow2_at_least(k) * sizeof(unsigned long long) +
+         (size_t)k * (sizeof(float) + sizeof(int));
+}
+
+static __global__ void __launch_bounds__(kMergeThreads)
+merge_select_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
+                    int n_cand, int k, float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ unsigned long long ms_dyn[];
+  unsigned long long* keys = ms_dyn;                            // [pow2 >= k]
+  float* cv = reinterpret_cast<float*>(keys + pow2_at_least(k));   // [k]
+  int* ci = reinterpret_cast<int*>(cv + k);                        // [k]
+  __shared__ int hist[258];
+  __shared__ int wc[4 * kMaxWarps];
+  __shared__ int s_finite;
+  int parity = 0;
+  const size_t row = blockIdx.x;
+  const float* pv = part_v + row * n_cand;
+  const int* pi = part_i + row * n_cand;
+
+  if (threadIdx.x == 0) s_finite = 0;
+  __syncthreads();
+  int own = 0;
+  for (int e = threadIdx.x; e < n_cand; e += blockDim.x) own += pv[e] < CUDART_INF_F ? 1 : 0;
+  own = __reduce_add_sync(0xffffffffu, own);
+  if ((threadIdx.x & 31) == 0) atomicAdd(&s_finite, own);
+  __syncthreads();
+  const int finite = s_finite;
+  unsigned kth = okey(CUDART_INF_F);   // every finite entry is below it
+  int need_eq = 0;
+  if (finite > k) {
+    int below;
+    kth = radix_select<true>(
+        [&](int e, unsigned& key) {
+          const float v = pv[e];
+          key = okey(v);
+          return v < CUDART_INF_F;
+        },
+        n_cand, k, hist, &below);
+    need_eq = k - below;
+  }
+  const int cnt = block_keep(
+      [&](int e) { return Slot{const_cast<float*>(pv + e), const_cast<int*>(pi + e)}; },
+      [&](int w) { return Slot{cv + w, ci + w}; }, n_cand, kth, need_eq, wc, parity);
+  block_sort_write(cv, ci, cnt, k, keys, out_v + row * k, out_i + row * k);
 }
 
 }  // namespace rt

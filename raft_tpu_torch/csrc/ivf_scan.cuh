@@ -58,7 +58,7 @@
 // straddle pages (page_rows need only be a multiple of 8), so each row's
 // index is translated on its own, once a tile: one row a thread, passed
 // across the warp by shuffle to the lanes that load it (rt::lane_value),
-// or, in query-major's int8 loader, the thread's own eight rows.  The
+// or, in query-major, kept in the tile's ring slot for the copies.  The
 // paged loaders are a template flag (kPaged) of each kernel, so that the
 // monolithic instantiations compile as before: kernels whose monolithic
 // lists went through the translated loaders (on a null table) ran up to
@@ -74,12 +74,12 @@
 // insert costs O(kk); the CAGRA build's kk = 258 scan ran at 0.8 % of the
 // FMA bound): candidate arrays and a radix select replace the lists there
 // (pm_walk_select).  Query-major reads P * cap rows for each query with
-// no reuse, so it is bound by device memory bytes: rows stage through
-// shared memory at their stored width (f32, bf16, or int8 packed four to a
-// word) with coalesced loads, one thread scores one row with a single
-// accumulator, and warp 0 folds the 256 scores of a tile into the list
-// (topk.cuh).  A small batch splits each query's probes over several blocks
-// and merges their lists.
+// no reuse, so it is bound by device memory bytes: rows stream through a
+// two-stage cp.async ring at their stored width, one thread scores one row
+// with a single accumulator, and the whole block folds each tile into a
+// candidate array (block_select.cuh; see the query-major section).  A small
+// batch splits each query's probes over several blocks and merges their
+// parts (merge_parts).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -127,16 +127,22 @@ __device__ __forceinline__ bool passes(const int* list_words, int slot) {
   return ((list_words[slot >> 5] >> (slot & 31)) & 1) != 0;
 }
 
-// The kernel of a leg for lists of kk entries, filtered or not, paged or
-// not: `pick(w, f, p)` returns it for kWide = decltype(w)::value, kFilt =
-// decltype(f)::value and kPaged = decltype(p)::value.
+// The kernel of a leg, filtered or not, paged or not: `pick(f, p)` returns
+// it for kFilt = decltype(f)::value and kPaged = decltype(p)::value.
+template <typename Pick>
+static inline auto pick_fp(bool filtered, bool paged, Pick pick) {
+  auto with = [&](auto f) {
+    return paged ? pick(f, std::true_type{}) : pick(f, std::false_type{});
+  };
+  return filtered ? with(std::true_type{}) : with(std::false_type{});
+}
+
+// The same for lists of kk entries: `pick(w, f, p)` with kWide =
+// decltype(w)::value (probe-major's fold past kk = 128).
 template <typename Pick>
 static inline auto pick_leg(int kk, bool filtered, bool paged, Pick pick) {
   return rt::pick_wide(kk, [&](auto w) {
-    auto with = [&](auto f) {
-      return paged ? pick(w, f, std::true_type{}) : pick(w, f, std::false_type{});
-    };
-    return filtered ? with(std::true_type{}) : with(std::false_type{});
+    return pick_fp(filtered, paged, [&](auto f, auto p) { return pick(w, f, p); });
   });
 }
 
@@ -229,18 +235,12 @@ struct PmOut {
   int sort_rows;
 };
 
-__host__ __device__ inline int pow2_at_least(int v) {
-  int p = 1;
-  while (p < v) p *= 2;
-  return p;
-}
-
 // Bytes of dynamic shared memory the fold of kk entries takes: the lists
 // [kBM][kk] of (value, id), or past kk = 128 the sort of sort_rows arrays
 // (keys [sort_rows][pow2 >= kk], then values and ids [sort_rows][kk]).
 __host__ __device__ inline size_t fold_smem(bool wide, int kk, int sort_rows) {
   if (!wide) return (size_t)rt::kBM * kk * (sizeof(float) + sizeof(int));
-  return (size_t)sort_rows * ((size_t)pow2_at_least(kk) * sizeof(unsigned long long) +
+  return (size_t)sort_rows * ((size_t)rt::pow2_at_least(kk) * sizeof(unsigned long long) +
                               (size_t)kk * (sizeof(float) + sizeof(int)));
 }
 
@@ -436,7 +436,7 @@ __device__ __forceinline__ void pm_walk_select(const int* __restrict__ bucket_li
     }
   }
   __syncthreads();
-  const int kp = pow2_at_least(kk);
+  const int kp = rt::pow2_at_least(kk);
   auto* skey = static_cast<unsigned long long*>(fold_mem);            // [sort_rows][kp]
   float* sv = reinterpret_cast<float*>(skey + (size_t)out.sort_rows * kp);   // [sort_rows][kk]
   int* si = reinterpret_cast<int*>(sv + (size_t)out.sort_rows * kk);        // [sort_rows][kk]
@@ -444,7 +444,7 @@ __device__ __forceinline__ void pm_walk_select(const int* __restrict__ bucket_li
     const int nr = min(out.sort_rows, q_rows - m0);
     int most = 0;
     for (int r = 0; r < nr; ++r) most = max(most, scnt[m0 + r]);
-    const int n = pow2_at_least(most);   // every row's count fits in n
+    const int n = rt::pow2_at_least(most);   // every row's count fits in n
     if (most > 0) {
       for (int t = tid; t < nr * n; t += rt::kGemmThreads) {
         const int r = t / n;
@@ -619,218 +619,333 @@ probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restri
 }
 
 // -- query-major ----------------------------------------------------------
+// One block scans one query's part of its probed lists, [p_begin, p_end),
+// in tiles of kQmRows slots, one row a thread.  It is bound by device-memory
+// bytes, so the design keeps copies in flight and every warp busy:
+//  - each tile's rows stage kQmChunk bytes at a time through a ring of
+//    kQmStages stages by cp.async (16-byte copies where rows are 16-byte
+//    aligned, rt::stage16), the next stage streaming in while the block
+//    scores the current one; a thread reads its row back as 16-byte words
+//    (row stride an odd number of 16-byte words: no bank conflicts) and
+//    converts where it reads (bf16, u8 / s8 -> f32; int8 words to __dp4a);
+//  - a tile's ids, norms, pass bits and (paged) row indices are loaded a
+//    tile ahead into registers, and only its real, passing rows are copied;
+//    a tile with none is skipped;
+//  - the fold is the block_select.cuh scheme at every kk: at a tile's end
+//    every thread holding a score below the threshold appends it to the
+//    query's candidate array in shared memory, in slot order (block_rank);
+//    when the array may not hold another tile, the block radix-selects its
+//    kk-th key, keeps the kk smallest in place and makes that key the
+//    threshold; at the end one sort by (okey, array position) =
+//    (score, p * cap + slot).
+// The dot product of a row is one accumulator in dimension order (fmaf, or
+// __dp4a on int8 words), so values are bitwise the plain version's.
+constexpr int kQmRows = 256;                  // slots a tile, one a thread
+constexpr int kQmChunk = 128;                 // bytes of each row a stage
+constexpr int kQmSegs = kQmChunk / 16;        // 16-byte copies a row a stage
+constexpr int kQmStride = kQmChunk + 16;      // 9 16-byte words: LDS.128 conflict-free
+constexpr int kQmStages = 2;
+constexpr int kQmStageBytes = kQmRows * kQmStride;
+constexpr int kQmMaxExtra = 1024;
 
-constexpr int kQmRows = 256;   // rows scored per tile, one per thread
-constexpr int kQmBK = 32;      // dimensions staged per chunk
-constexpr int kQmWords = kQmBK / 4;
+// Candidate array entries past kk: at least one tile, at most kk (one
+// compaction per kk - 255 survivors or fewer) and kQmMaxExtra, so that at
+// kk = 2048 two blocks still fit an SM.
+__host__ __device__ inline int qm_extra(int kk) {
+  return kk < kQmRows ? kQmRows : (kk < kQmMaxExtra ? kk : kQmMaxExtra);
+}
 
-// Staged row tile of one storage type, row stride padded to an odd number
-// of words so that thread t reading row t hits its own bank.
-template <typename T> struct QmTile;
-template <> struct QmTile<float> { float x[kQmRows][kQmBK + 1]; };
-template <> struct QmTile<__nv_bfloat16> { __nv_bfloat16 x[kQmRows][kQmBK + 2]; };
-// 33-byte rows: thread t's byte falls in bank (33 t / 4) % 32, distinct
-// across a warp
-template <> struct QmTile<int8_t> { int8_t x[kQmRows][kQmBK + 1]; };
-template <> struct QmTile<uint8_t> { uint8_t x[kQmRows][kQmBK + 1]; };
+// One ring slot: a tile's rows.
+struct QmMeta {
+  long long row[kQmRows];   // index in the row array; -1: padding or failing
+  int id[kQmRows];
+  float y2[kQmRows];
+};
 
-// Walk the block's part of the query's pool, probes [p_begin, p_end), in
-// 256-row tiles: score, mask and fold each tile.  `tile_ip(l, c0, c_rows)`
-// is the leg's own part: it stages the tile's rows of list l and returns
-// this thread's dot product with row c0 + tid.  Every thread calls it.
-// kFilt: the query's plane of pass words (see the note at the top).
-template <bool kWide, bool kFilt, typename ScoreTile>
-__device__ __forceinline__ void qm_walk(const int* __restrict__ probes, const float* __restrict__ y2,
-                                        const int* __restrict__ ids, int qi, int P, int cap,
-                                        int p_begin, int p_end, float q2, int metric, int kk,
-                                        Filt filt, float* lv, int* li, float* sv, int* sid,
-                                        ScoreTile&& tile_ip) {
+// Dynamic shared memory of a query-major block: the stages (after the walk,
+// the final sort's keys), the ring of tiles, the candidate array (values,
+// ids), then the query (d floats, or d4 int8 words).
+__host__ __device__ inline size_t qm_smem(int kk, int d, bool i8) {
+  return (size_t)kQmStages * kQmStageBytes + kQmStages * sizeof(QmMeta) +
+         (size_t)(kk + qm_extra(kk)) * (sizeof(float) + sizeof(int)) +
+         (size_t)(i8 ? (d + 3) / 4 : d) * 4;
+}
+
+// Value e of a 16-byte word of T values, as f32 (exact: a bf16 is the high
+// half of its f32, as __bfloat162float makes it).
+template <typename T>
+__device__ __forceinline__ float qm_elem(const uint4& w, int e) {
+  const int byte = e * (int)sizeof(T);
+  const unsigned word = byte < 4 ? w.x : byte < 8 ? w.y : byte < 12 ? w.z : w.w;
+  const int sh = (byte & 3) * 8;
+  if constexpr (std::is_same<T, float>::value) return __uint_as_float(word);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __uint_as_float(((word >> sh) & 0xffffu) << 16);
+  else if constexpr (std::is_same<T, uint8_t>::value) return (float)((word >> sh) & 0xffu);
+  else return (float)(int8_t)((word >> sh) & 0xffu);
+}
+
+// A float leg's dot product: T = f32, bf16, uint8 or int8 rows, converted
+// to f32 where read; kBf16 rounds them to bf16 (sq already is).
+template <typename T, bool kBf16>
+struct QmFloatLeg {
+  const float* sq;
+  int d;
+  float acc;
+
+  __device__ __forceinline__ void chunk(const unsigned char* row, int c) {
+    constexpr int kPer = 16 / (int)sizeof(T);
+    constexpr int kEpc = kQmChunk / (int)sizeof(T);
+    const int k0 = c * kEpc;
+    if (c == 0) acc = 0.0f;
+    const bool full = k0 + kEpc <= d;
+#pragma unroll
+    for (int s = 0; s < kQmSegs; ++s) {
+      const uint4 w = *reinterpret_cast<const uint4*>(row + 16 * s);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int k = k0 + s * kPer + e;
+        if (full || k < d) {
+          const float y = qm_elem<T>(w, e);
+          acc = fmaf(sq[k], kBf16 ? rt::round_bf16(y) : y, acc);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ float ip() const { return acc; }
+};
+
+// The int8 cache's leg: the query quantised into words qw [d4]; the sum of
+// int8 products is exact in int32, rescaled once.
+struct QmI8Leg {
+  const int* qw;
+  int d4;
+  float rescale;
+  int acc;
+
+  __device__ __forceinline__ void chunk(const unsigned char* row, int c) {
+    constexpr int kWpc = kQmChunk / 4;
+    const int w0 = c * kWpc;
+    if (c == 0) acc = 0;
+    const bool full = w0 + kWpc <= d4;
+#pragma unroll
+    for (int s = 0; s < kQmSegs; ++s) {
+      const int4 w = *reinterpret_cast<const int4*>(row + 16 * s);
+      const int x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = w0 + 4 * s + j;
+        if (full || k < d4) acc = __dp4a(qw[k], x[j], acc);
+      }
+    }
+  }
+  __device__ __forceinline__ float ip() const { return __fmul_rn((float)acc, rescale); }
+};
+
+// The walk and fold of a query-major block (see above); every thread calls
+// it.  Writes the block's kk entries at out_v / out_i.
+template <typename T, bool kFilt, bool kPaged, typename Leg>
+__device__ __forceinline__ void qm_scan(const int* __restrict__ probes, const T* __restrict__ data,
+                                        const float* __restrict__ y2g,
+                                        const int* __restrict__ ids, int qi, int P, int cap, int d,
+                                        int kk, int metric, float q2, int p_begin, int p_end,
+                                        Filt filt, Pages pg, unsigned char* smem, Leg& leg,
+                                        float* __restrict__ out_v, int* __restrict__ out_i) {
+  __shared__ int hist[258];
+  __shared__ int wc_rank[2 * rt::kMaxWarps];
+  __shared__ int wc_keep[4 * rt::kMaxWarps];
+  int par_rank = 0;
+
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
+  unsigned char* stages = smem;
+  QmMeta* meta = reinterpret_cast<QmMeta*>(stages + kQmStages * kQmStageBytes);
+  float* cv = reinterpret_cast<float*>(meta + kQmStages);
+  int* ci = reinterpret_cast<int*>(cv + kk + qm_extra(kk));
+  const int limit = kk + qm_extra(kk) - kQmRows;   // compact past it
+
   const int* plane = nullptr;
   if constexpr (kFilt)
     plane = filt.words +
             (size_t)(filt.fid != nullptr ? filt.fid[qi] : 0) * filt.n_lists * filt.cap_w;
-  for (int p = p_begin; p < p_end; ++p) {
-    const int l = probes[(size_t)qi * P + p];
-    for (int c0 = 0; c0 < cap; c0 += kQmRows) {
-      const int c_rows = min(kQmRows, cap - c0);
-      int id = tid < c_rows ? ids[(size_t)l * cap + c0 + tid] : -1;
-      if constexpr (kFilt) {
-        if (id >= 0 && !passes(plane + (size_t)l * filt.cap_w, c0 + tid)) id = -1;
+  const int rb = d * (int)sizeof(T);
+  const int n_chunks = (rb + kQmChunk - 1) / kQmChunk;
+  const int vec = rt::stage_vec(data, (size_t)rb);
+  const unsigned char* bytes = reinterpret_cast<const unsigned char*>(data);
+
+  // this thread's slot of the next tile to look at (np, nc0), loaded ahead
+  int np = p_begin, nc0 = 0;
+  int pf_id = -1;
+  float pf_y2 = 0.0f;
+  long long pf_row = -1;
+  auto prefetch = [&]() {
+    pf_id = -1;
+    pf_y2 = 0.0f;
+    pf_row = -1;
+    if (np >= p_end) return;
+    const int l = probes[(size_t)qi * P + np];
+    const int c = nc0 + tid;
+    if (c >= cap) return;
+    int id = ids[(size_t)l * cap + c];
+    if constexpr (kFilt) {
+      if (id >= 0 && !passes(plane + (size_t)l * filt.cap_w, c)) id = -1;
+    }
+    pf_id = id;
+    pf_y2 = y2g[(size_t)l * cap + c];
+    if (id >= 0) {
+      if constexpr (kPaged) pf_row = (long long)row_index(pg, l, cap, c);
+      else pf_row = (long long)l * cap + c;
+    }
+  };
+  auto advance = [&]() {
+    nc0 += kQmRows;
+    if (nc0 >= cap) {
+      nc0 = 0;
+      ++np;
+    }
+  };
+
+  int tiles = 0;            // tiles taken into the ring
+  int chunk = n_chunks;     // next chunk of the newest tile to issue
+  int issued = 0;           // steps (tile, chunk) issued
+  // Issue the next step's copies into stage issued % kQmStages; false when
+  // the walk is over.  Uniform over the block.
+  auto issue = [&]() -> bool {
+    if (chunk == n_chunks) {
+      for (;;) {
+        if (np >= p_end) return false;
+        const bool any = __syncthreads_or(pf_id >= 0);
+        if (any) {
+          QmMeta& m = meta[tiles % kQmStages];
+          m.row[tid] = pf_row;
+          m.id[tid] = pf_id;
+          m.y2[tid] = pf_y2;
+          ++tiles;
+          chunk = 0;
+          advance();
+          prefetch();
+          __syncthreads();
+          break;
+        }
+        advance();
+        prefetch();
       }
-      if (!__syncthreads_or(id >= 0)) continue;
-      const float ip = tile_ip(l, c0, c_rows);
-      const float y = tid < c_rows ? y2[(size_t)l * cap + c0 + tid] : 0.0f;
-      sv[tid] = id < 0 ? CUDART_INF_F : score(metric, ip, q2, y);
-      sid[tid] = id;
+    }
+    const QmMeta& m = meta[(tiles - 1) % kQmStages];
+    unsigned char* st = stages + (issued % kQmStages) * kQmStageBytes;
+    const int seg = tid % kQmSegs;
+    const int off = chunk * kQmChunk + 16 * seg;
+#pragma unroll
+    for (int j = 0; j < kQmRows * kQmSegs / kQmRows; ++j) {
+      const int r = tid / kQmSegs + j * (kQmRows / kQmSegs);
+      const long long row = m.row[r];
+      rt::stage16(st + r * kQmStride + 16 * seg,
+                  row >= 0 ? bytes + (size_t)row * rb : nullptr, off, rb, vec, data);
+    }
+    ++chunk;
+    ++issued;
+    return true;
+  };
+
+  float thr = CUDART_INF_F;
+  int cnt = 0;
+  if (!isinf(q2)) {
+    prefetch();
+    for (int s = 0; s < kQmStages; ++s) {
+      issue();
+      rt::cp_async_commit();
+    }
+    for (int i = 0; i < issued; ++i) {
+      rt::cp_async_wait<kQmStages - 1>();
       __syncthreads();
-      if (tid < 32) rt::list_offer_row<kWide>(sv, sid, c_rows, lv, li, kk, lane);
+      const int c = i % n_chunks;
+      const QmMeta& m = meta[(i / n_chunks) % kQmStages];
+      const int id = m.id[tid];
+      if (id >= 0) leg.chunk(stages + (i % kQmStages) * kQmStageBytes + tid * kQmStride, c);
+      if (c == n_chunks - 1) {   // the tile's end: append what beats the threshold
+        const float v = id < 0 ? CUDART_INF_F : score(metric, leg.ip(), q2, m.y2[tid]);
+        const bool keep = v < thr;
+        int total;
+        const int pos = rt::block_rank(keep, wc_rank, par_rank, &total);
+        if (keep) {
+          cv[cnt + pos] = v;
+          ci[cnt + pos] = id;
+        }
+        cnt += total;
+        if (cnt > limit) {
+          thr = rt::block_compact(cv, ci, cnt, kk, hist, wc_keep);
+          cnt = kk;
+        }
+      }
+      __syncthreads();   // the stage is read before its next copies land
+      issue();
+      rt::cp_async_commit();
+    }
+    rt::cp_async_wait<0>();
+    if (cnt > kk) {
+      rt::block_compact(cv, ci, cnt, kk, hist, wc_keep);
+      cnt = kk;
     }
   }
+  __syncthreads();   // the stages are free: the sort's keys go there
+  rt::block_sort_write(cv, ci, cnt, kk, reinterpret_cast<unsigned long long*>(stages), out_v,
+                       out_i);
 }
 
-__device__ __forceinline__ void qm_write(const float* lv, const int* li, int qi, int kk,
-                                         float* __restrict__ out_v, int* __restrict__ out_i) {
-  __syncthreads();
-  const size_t out_base = (size_t)qi * gridDim.y * kk + (size_t)blockIdx.y * kk;
-  for (int p = threadIdx.x; p < kk; p += kQmRows) {
-    out_v[out_base + p] = lv[p];
-    out_i[out_base + p] = li[p];
-  }
+// The output row of block (qi, part): [Q][parts][kk].
+__device__ __forceinline__ size_t qm_out(int qi, int kk) {
+  return ((size_t)qi * gridDim.y + blockIdx.y) * kk;
 }
 
-// Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16;
-// kPaged: rows through the page table `pg`, warp w loading rows 32 w ..
-// 32 w + 31 of the tile, each translated by the thread that scores it.
-template <typename T, bool kBf16, bool kWide, bool kFilt, bool kPaged>
-__global__ void __launch_bounds__(kQmRows)
+// Float legs: T = float, __nv_bfloat16, uint8_t or int8_t rows; kBf16 =
+// lut_dtype bfloat16; kFilt = filter words; kPaged = rows through the page
+// table `pg`, each row translated once a tile (row_index) by the thread
+// that owns its slot.
+template <typename T, bool kBf16, bool kFilt, bool kPaged>
+__global__ void __launch_bounds__(kQmRows, 2)
 query_major_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                    const float* __restrict__ q2v, const T* __restrict__ data,
                    const float* __restrict__ y2, const int* __restrict__ ids,
                    int P, int cap, int d, int kk, int metric, int p_chunk, Filt filt,
                    Pages pg, float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);   // [kk]
-  int* li = reinterpret_cast<int*>(lv + kk);        // [kk]
-  float* sq = reinterpret_cast<float*>(li + kk);    // [d]
-  __shared__ QmTile<T> xs;
-  __shared__ float sv[kQmRows];
-  __shared__ int sid[kQmRows];
-
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char qm_dyn[];
+  float* sq = reinterpret_cast<float*>(qm_dyn + qm_smem(kk, d, false)) - d;   // [d]
   const int qi = blockIdx.x;
-  const float q2 = q2v[qi];
-
-  if (tid < 32) rt::list_init(lv, li, kk, tid);
-  for (int k = tid; k < d; k += kQmRows) {
+  for (int k = threadIdx.x; k < d; k += kQmRows) {
     const float v = q[(size_t)qi * d + k];
     sq[k] = kBf16 ? rt::round_bf16(v) : v;
   }
   __syncthreads();
-
+  QmFloatLeg<T, kBf16> leg{sq, d, 0.0f};
   const int p_begin = blockIdx.y * p_chunk;
-  const int p_end = min(P, p_begin + p_chunk);
-  if (!isinf(q2)) {
-    qm_walk<kWide, kFilt>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, filt, lv,
-                          li, sv, sid, [&](int l, int c0, int c_rows) {
-              const T* rows = data + ((size_t)l * cap + c0) * d;
-              const int lane = tid % 32;
-              const int r0 = 32 * (tid / 32);
-              size_t mine = 0;   // kPaged: the index of this thread's row c0 + tid
-              if constexpr (kPaged) {
-                if (tid < c_rows) mine = row_index(pg, l, cap, c0 + tid);
-              }
-              float acc = 0.0f;
-              for (int k0 = 0; k0 < d; k0 += kQmBK) {
-                __syncthreads();
-                if constexpr (kPaged) {
-                  // the warp's 32 rows, eight at a time: indices, loads, stores
-                  const int k = k0 + lane;
-                  for (int s0 = 0; s0 < 32; s0 += 8) {
-                    size_t row[8];
-                    T v[8];
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) row[j] = rt::lane_value(mine, s0 + j);
-#pragma unroll
-                    for (int j = 0; j < 8; ++j)
-                      v[j] = (r0 + s0 + j < c_rows && k < d) ? __ldg(data + row[j] * d + k)
-                                                              : T(0.0f);
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) xs.x[r0 + s0 + j][lane] = v[j];
-                  }
-                } else {
-#pragma unroll 4
-                  for (int s = 0; s < kQmBK; ++s) {
-                    const int idx = tid + s * kQmRows;
-                    const int r = idx / kQmBK;
-                    const int k2 = idx % kQmBK;
-                    const int k = k0 + k2;
-                    xs.x[r][k2] = (r < c_rows && k < d) ? rows[(size_t)r * d + k] : T(0.0f);
-                  }
-                }
-                __syncthreads();
-                const int kn = min(kQmBK, d - k0);
-                for (int k2 = 0; k2 < kn; ++k2) {
-                  const float y = rt::as_f32(xs.x[tid][k2]);
-                  acc = fmaf(sq[k0 + k2], kBf16 ? rt::round_bf16(y) : y, acc);
-                }
-              }
-              return acc;
-            });
-  }
-  qm_write(lv, li, qi, kk, out_v, out_i);
+  qm_scan<T, kFilt, kPaged>(probes, data, y2, ids, qi, P, cap, d, kk, metric, q2v[qi], p_begin,
+                            min(P, p_begin + p_chunk), filt, pg, qm_dyn, leg,
+                            out_v + qm_out(qi, kk), out_i + qm_out(qi, kk));
 }
 
-// int8 leg: the query is quantised once into shared memory words; rows
-// stage as words, kQmWords per row per chunk.  kPaged: rows through the
-// page table `pg`, each thread translating once a tile the eight rows it
-// loads.
-template <bool kWide, bool kFilt, bool kPaged>
-__global__ void __launch_bounds__(kQmRows)
+// int8 leg: the query is quantised once into shared memory words.
+template <bool kFilt, bool kPaged>
+__global__ void __launch_bounds__(kQmRows, 2)
 query_major_i8_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                       const float* __restrict__ q2v, const int8_t* __restrict__ data,
                       const float* __restrict__ y2, const int* __restrict__ ids,
                       int P, int cap, int d, int kk, int metric, int p_chunk, Filt filt,
                       Pages pg, float scan_scale, float* __restrict__ out_v,
                       int* __restrict__ out_i) {
-  extern __shared__ unsigned char smem_raw[];
-  float* lv = reinterpret_cast<float*>(smem_raw);   // [kk]
-  int* li = reinterpret_cast<int*>(lv + kk);        // [kk]
-  int* qw = li + kk;                                // [d4]
-  __shared__ int xw[kQmRows][kQmWords + 1];
-  __shared__ float sv[kQmRows];
-  __shared__ int sid[kQmRows];
-  __shared__ float s_rescale;
-
-  const int tid = threadIdx.x;
-  const int qi = blockIdx.x;
-  const float q2 = q2v[qi];
+  extern __shared__ __align__(16) unsigned char qm_dyn[];
   const int d4 = (d + 3) / 4;
-
-  if (tid < 32) {
-    rt::list_init(lv, li, kk, tid);
-    const float sq = quantize_row(q + (size_t)qi * d, d, qw, 1, 0, tid);
-    if (tid == 0) s_rescale = __fmul_rn(sq, scan_scale);
+  int* qw = reinterpret_cast<int*>(qm_dyn + qm_smem(kk, d, true)) - d4;   // [d4]
+  __shared__ float s_rescale;
+  const int qi = blockIdx.x;
+  if (threadIdx.x < 32) {
+    const float sq = quantize_row(q + (size_t)qi * d, d, qw, 1, 0, threadIdx.x);
+    if (threadIdx.x == 0) s_rescale = __fmul_rn(sq, scan_scale);
   }
   __syncthreads();
-  const float rescale = s_rescale;
-
+  QmI8Leg leg{qw, d4, s_rescale, 0};
   const int p_begin = blockIdx.y * p_chunk;
-  const int p_end = min(P, p_begin + p_chunk);
-  if (!isinf(q2)) {
-    qm_walk<kWide, kFilt>(probes, y2, ids, qi, P, cap, p_begin, p_end, q2, metric, kk, filt, lv,
-                          li, sv, sid, [&](int l, int c0, int c_rows) {
-              const int8_t* rows = data + ((size_t)l * cap + c0) * d;
-              size_t prow[kQmWords];   // kPaged: rows tid / 8 + 32 s, translated
-              if constexpr (kPaged) {
-#pragma unroll
-                for (int s = 0; s < kQmWords; ++s) {
-                  const int r = (tid + s * kQmRows) / kQmWords;
-                  prow[s] = r < c_rows ? row_index(pg, l, cap, c0 + r) : 0;
-                }
-              }
-              int acc = 0;
-              for (int w0 = 0; w0 < d4; w0 += kQmWords) {
-                __syncthreads();
-#pragma unroll
-                for (int s = 0; s < kQmWords; ++s) {
-                  const int idx = tid + s * kQmRows;
-                  const int r = idx / kQmWords;
-                  const int w = idx % kQmWords;
-                  if constexpr (kPaged)
-                    xw[r][w] = load_word(data + prow[s] * d, r < c_rows, d, w0 + w);
-                  else
-                    xw[r][w] = load_word(rows + (size_t)r * d, r < c_rows, d, w0 + w);
-                }
-                __syncthreads();
-                const int wn = min(kQmWords, d4 - w0);
-                for (int w = 0; w < wn; ++w) acc = __dp4a(qw[w0 + w], xw[tid][w], acc);
-              }
-              return __fmul_rn((float)acc, rescale);
-            });
-  }
-  qm_write(lv, li, qi, kk, out_v, out_i);
+  qm_scan<int8_t, kFilt, kPaged>(probes, data, y2, ids, qi, P, cap, d, kk, metric, q2v[qi],
+                                 p_begin, min(P, p_begin + p_chunk), filt, pg, qm_dyn, leg,
+                                 out_v + qm_out(qi, kk), out_i + qm_out(qi, kk));
 }
 
 // -- launchers ------------------------------------------------------------
@@ -911,7 +1026,7 @@ int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T
 
 // splits > 1 cuts each query's probes into that many contiguous parts, one
 // grid column each (so a serving batch of 64 queries still fills the card);
-// their lists land in part_v / part_i [Q, splits * kk] and merge_parts
+// their kk entries land in part_v / part_i [Q, splits * kk] and merge_parts
 // folds them in probe order.
 template <typename Kernel, typename Row, typename... Extra>
 int launch_query_major(Kernel kernel, size_t smem, const int* probes, const float* q,
@@ -936,14 +1051,12 @@ int launch_query_major(Kernel kernel, size_t smem, const int* probes, const floa
   return (int)rt::merge_parts(part_v, part_i, Q, splits * kk, kk, out_v, out_i, stream);
 }
 
-// The query-major kernel of a float leg for lists of kk entries.
+// The query-major kernel of a float leg (T = f32, bf16, uint8 or int8 rows).
 template <typename T, bool kBf16>
-auto qm_float_kernel(int kk, const Filt& filt, const Pages& pg) {
-  return pick_leg(kk, filt.words != nullptr, pg.slot != nullptr,
-                  [](auto w, auto f, auto p) {
-                    return query_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
-                                              decltype(p)::value>;
-                  });
+auto qm_float_kernel(const Filt& filt, const Pages& pg) {
+  return pick_fp(filt.words != nullptr, pg.slot != nullptr, [](auto f, auto p) {
+    return query_major_kernel<T, kBf16, decltype(f)::value, decltype(p)::value>;
+  });
 }
 
 template <typename T>
@@ -951,12 +1064,12 @@ int float_query_major(const int* probes, const float* q, const float* q2, const 
                       const float* y2, const int* ids, int Q, int P, int cap, int d, int kk,
                       int metric, int splits, int bf16_compute, Filt filt, Pages pg,
                       float* part_v, int* part_i, float* out_v, int* out_i, cudaStream_t s) {
-  const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) + (size_t)d * sizeof(float);
+  const size_t smem = qm_smem(kk, d, false);
   return bf16_compute
-      ? launch_query_major(qm_float_kernel<T, true>(kk, filt, pg), smem, probes, q, q2, data, y2,
+      ? launch_query_major(qm_float_kernel<T, true>(filt, pg), smem, probes, q, q2, data, y2,
                            ids, Q, P, cap, d, kk, metric, splits, filt, pg, part_v, part_i,
                            out_v, out_i, s)
-      : launch_query_major(qm_float_kernel<T, false>(kk, filt, pg), smem, probes, q, q2, data, y2,
+      : launch_query_major(qm_float_kernel<T, false>(filt, pg), smem, probes, q, q2, data, y2,
                            ids, Q, P, cap, d, kk, metric, splits, filt, pg, part_v, part_i,
                            out_v, out_i, s);
 }

@@ -39,8 +39,7 @@ int query_major_8bit(const int* probes, const float* q, const float* q2, const v
   if (bf16_compute) return (int)cudaErrorInvalidValue;
   const Filt f = make_filt(filt, fid, n_lists, cap_w);
   const Pages pg = make_pages(page_slot, page_rows, cap);
-  const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) + (size_t)d * sizeof(float);
-  return launch_query_major(qm_float_kernel<T, false>(kk, f, pg), smem, probes, q, q2,
+  return launch_query_major(qm_float_kernel<T, false>(f, pg), qm_smem(kk, d, false), probes, q, q2,
                             static_cast<const T*>(data), y2, ids, Q, P, cap, d, kk, metric,
                             splits, f, pg, part_v, part_i, out_v, out_i, (cudaStream_t)stream);
 }

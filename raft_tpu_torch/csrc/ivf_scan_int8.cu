@@ -46,16 +46,12 @@ extern "C" int rt_ivf_scan_query_major_int8(const int* probes, const float* q,
                                             int n_lists, int cap_w, const int* page_slot,
                                             int page_rows, float* part_v, int* part_i,
                                             float* out_v, int* out_i, void* stream) {
-  const size_t smem = (size_t)kk * (sizeof(float) + sizeof(int)) +
-                      (size_t)((d + 3) / 4) * sizeof(int);
   const Filt f = make_filt(filt, fid, n_lists, cap_w);
   const Pages pg = make_pages(page_slot, page_rows, cap);
-  auto kernel = pick_leg(kk, f.words != nullptr, pg.slot != nullptr,
-                         [](auto w, auto fl, auto p) {
-                           return query_major_i8_kernel<decltype(w)::value, decltype(fl)::value,
-                                                        decltype(p)::value>;
-                         });
-  return launch_query_major(kernel, smem, probes, q, q2,
+  auto kernel = pick_fp(f.words != nullptr, pg.slot != nullptr, [](auto fl, auto p) {
+    return query_major_i8_kernel<decltype(fl)::value, decltype(p)::value>;
+  });
+  return launch_query_major(kernel, qm_smem(kk, d, true), probes, q, q2,
                             static_cast<const int8_t*>(data), y2, ids, Q, P, cap, d, kk,
                             metric, splits, f, pg, part_v, part_i, out_v, out_i,
                             (cudaStream_t)stream, scan_scale);

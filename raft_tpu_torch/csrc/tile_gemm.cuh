@@ -178,6 +178,63 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src, int bytes
                  "r"(bytes));
 }
 
+// The widest copy a row array admits: 16 bytes when every row starts
+// 16-byte aligned (row bytes a multiple of 16 and the array aligned), 4
+// when 4-byte aligned, else 1.
+__host__ __device__ inline int stage_vec(const void* base, size_t row_bytes) {
+  const size_t a = (size_t)base;
+  if (row_bytes % 16 == 0 && a % 16 == 0) return 16;
+  if (row_bytes % 4 == 0 && a % 4 == 0) return 4;
+  return 1;
+}
+
+// Bytes off .. off + 15 of a row of rb bytes (nullptr: zeros) by byte loads,
+// stored at once: rows of no 4-byte alignment, kept out of line so that the
+// loaders' common paths stay small.
+static __device__ __noinline__ void stage16_bytes(unsigned char* dst, const unsigned char* row,
+                                                  int off, int rb) {
+  union {
+    uint4 w;
+    unsigned char b[16];
+  } u;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) u.b[j] = (row != nullptr && off + j < rb) ? row[off + j] : 0;
+  *reinterpret_cast<uint4*>(dst) = u.w;
+}
+
+// Stage bytes off .. off + 15 of a row of rb bytes at `row` (nullptr: a row
+// not read) into 16-byte aligned shared memory, zeros past the row: one
+// cp.async at vec 16, four at vec 4 (both complete at the caller's
+// cp.async wait), or byte loads at vec 1, stored at once.  `any`: a valid
+// global address of the array, read by no copy.
+__device__ __forceinline__ void stage16(unsigned char* dst, const unsigned char* row, int off,
+                                        int rb, int vec, const void* any) {
+  if (vec == 16) {
+    const bool ok = row != nullptr && off < rb;
+    cp_async<16>(reinterpret_cast<float*>(dst),
+                 static_cast<const float*>(ok ? static_cast<const void*>(row + off) : any),
+                 ok ? 16 : 0);
+  } else if (vec == 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = off + 4 * j;
+      const bool ok = row != nullptr && o < rb;
+      cp_async<4>(reinterpret_cast<float*>(dst + 4 * j),
+                  static_cast<const float*>(ok ? static_cast<const void*>(row + o) : any),
+                  ok ? 4 : 0);
+    }
+  } else {
+    stage16_bytes(dst, row, off, rb);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
 // Stage dimensions k0 .. k0 + 31 of the A rows at qa (a_rows of them) and
 // of the B rows at xb (b_rows), zeros past the rows and past d, and commit
 // them as one group: four dimensions a copy where rows are 16-byte aligned

@@ -23,10 +23,11 @@
 // value, so one wide instantiation serves every k in (128, 2048], sized at
 // launch.  A list lives in dynamic shared memory (8 k bytes).  The k <= 128
 // kernels are separate instantiations, so they keep their register counts
-// (one kernel holding both paths spilled).  The wide lists serve
-// query-major (one list a block) and merge_parts; the probe-major scans
-// past k = 128 fold with block_select.cuh's candidate arrays instead, and
-// select_k / fused_knn keep none.  raft_tpu's Pallas scans
+// (one kernel holding both paths spilled).  The wide lists serve the single
+// CAGRA hop past itopk = 128; the probe-major scans past k = 128, the
+// query-major scans at every k and merge_parts past k = 128 fold with
+// block_select.cuh's candidate arrays instead, and select_k / fused_knn
+// keep none.  raft_tpu's Pallas scans
 // bound kk only by one (G, kk) f32 + int32 VMEM block; kMaxK is this port's
 // own bound, and a launch past it is refused.
 #pragma once
@@ -35,6 +36,8 @@
 #include <math_constants.h>
 
 #include <type_traits>
+
+#include "block_select.cuh"
 
 namespace rt {
 
@@ -160,10 +163,12 @@ constexpr size_t kMaxDynamicSmem = 179 * 1024;
 // the pool, parts in pool order, so offering the lists' entries in part
 // order is offering candidates in (value, position) order within a part
 // and part order across parts — the merge keeps exactly the k smallest by
-// (value, position).  One warp per row; rows of n_cand candidates.
+// (value, position).  Up to k = 128 one warp a row folds them into a list;
+// past it an insert costs O(k), so one block a row radix-selects and sorts
+// them (block_select.cuh merge_select_kernel, the same order).  Rows of
+// n_cand candidates.
 constexpr int kMergeWarps = 4;
 
-template <bool kWide>
 static __global__ void __launch_bounds__(32 * kMergeWarps)
 merge_parts_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
                    int rows, int n_cand, int k, float* __restrict__ out_v,
@@ -176,8 +181,8 @@ merge_parts_kernel(const float* __restrict__ part_v, const int* __restrict__ par
   const int row = blockIdx.x * kMergeWarps + warp;
   if (row >= rows) return;
   list_init(lv, li, k, lane);
-  list_offer_row<kWide>(part_v + (size_t)row * n_cand, part_i + (size_t)row * n_cand, n_cand,
-                 lv, li, k, lane);
+  list_offer_row<false>(part_v + (size_t)row * n_cand, part_i + (size_t)row * n_cand, n_cand,
+                        lv, li, k, lane);
   for (int p = lane; p < k; p += 32) {
     out_v[(size_t)row * k + p] = lv[p];
     out_i[(size_t)row * k + p] = li[p];
@@ -187,14 +192,19 @@ merge_parts_kernel(const float* __restrict__ part_v, const int* __restrict__ par
 static inline cudaError_t merge_parts(const float* part_v, const int* part_i, int rows,
                                       int n_cand, int k, float* out_v, int* out_i,
                                       cudaStream_t stream) {
+  if (rows == 0) return cudaSuccess;
+  if (k > kRegK) {
+    const size_t smem = merge_select_smem(k);
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    merge_select_kernel<<<rows, kMergeThreads, smem, stream>>>(part_v, part_i, n_cand, k, out_v,
+                                                                out_i);
+    return cudaGetLastError();
+  }
   const int blocks = (rows + kMergeWarps - 1) / kMergeWarps;
   const size_t smem = (size_t)kMergeWarps * k * (sizeof(float) + sizeof(int));
-  auto kernel = pick_wide(k, [](auto w) { return merge_parts_kernel<decltype(w)::value>; });
-  // past k = 768 the four lists take more than 48 KB: opt in
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, 32 * kMergeWarps, smem, stream>>>(
+  merge_parts_kernel<<<blocks, 32 * kMergeWarps, smem, stream>>>(
       part_v, part_i, rows, n_cand, k, out_v, out_i);
   return cudaGetLastError();
 }

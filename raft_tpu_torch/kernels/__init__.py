@@ -76,6 +76,9 @@ KERNELS = (
                              ("query_major", ("", "_filt", "_fid")))
       for dtype in ("_u8", "_s8") for paged in ("", "_paged") for leg in legs),
     "fused_argmin",
+    # a CAGRA tile's whole walk in one launch (dense rows, and rows through
+    # a page table)
+    "cagra_traverse", "cagra_traverse_paged",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
@@ -202,6 +205,9 @@ _SIGNATURES = {
     # buf_i, explored, (tile, d, deg, width, itopk, ip_mode), the page table
     # (null: dense) and page_rows, outputs and stream
     "rt_cagra_hop": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P, _I] + [_P] * 4,
+    # as rt_cagra_hop without the parents, then steps; outputs, the live
+    # parents and fetched rows of a query's walk, and stream
+    "rt_cagra_traverse": [_P, _I] + [_P] * 5 + [_I] * 7 + [_P, _I] + [_P] * 6,
     # x, centers, center norms, (n, n_centers, d, centers a part), part
     # pairs (null: one part), outputs and stream
     "rt_fused_argmin": [_P] * 3 + [_I] * 4 + [_P] * 5,

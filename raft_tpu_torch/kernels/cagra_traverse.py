@@ -1,8 +1,18 @@
-"""One CAGRA beam-search hop: ``csrc/cagra_hop.cu`` and its plain version
-(counterpart of ``raft_tpu.kernels.cagra_traverse``: the dense leg, and the
-paged leg ``_hop_kernel_paged`` for a ``store.PagedRows`` dataset, whose
-rows are read through the page table; launch counts ``cagra_fused_hop`` and
-``cagra_fused_hop_paged``).
+"""The CAGRA beam search's hops: ``csrc/cagra_hop.cu`` and the plain
+versions (counterpart of ``raft_tpu.kernels.cagra_traverse``: the dense
+leg, and the paged leg ``_hop_kernel_paged`` for a ``store.PagedRows``
+dataset, whose rows are read through the page table).
+
+- :func:`cagra_fused_hop`: one hop (raft_tpu's ``cagra_fused_hop``; launch
+  counts ``cagra_fused_hop`` and ``cagra_fused_hop_paged``);
+- :func:`cagra_traverse_steps`: a tile's whole walk, ``steps`` hops each
+  picking its parents (:func:`pick_parents`) then hopping, in one launch
+  (launch counts ``cagra_traverse`` and ``cagra_traverse_paged``); raft_tpu
+  runs the same loop inside one jit (``neighbors.cagra.traverse_steps``).
+  Its plain version is that loop over the plain pick and hop.
+
+Both launch one kernel, the walk's; the single hop is its one-hop case
+with the parents given.
 
 A hop takes each query's ``width`` parents (−1: none) and folds their
 neighbour lists into the query's candidate buffer ``(buf_d, buf_i,
@@ -26,6 +36,7 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch import kernels as _k
+from raft_tpu_torch.kernels.select_k import select_k_torch
 from raft_tpu_torch.kernels.toolkit import fold_topk, sequential_dot
 from raft_tpu_torch.store.paged import PagedRows
 
@@ -59,9 +70,11 @@ def _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric):
                          f"{dataset.page_rows} rows cannot hold {n} rows")
     if graph.ndim != 2 or graph.shape[0] != n:
         raise ValueError(f"graph {tuple(graph.shape)} vs dataset {tuple(dataset.shape)}")
-    if queries.shape != (tile, d) or parents.ndim != 2 or parents.shape[0] != tile:
+    if queries.shape != (tile, d) or (parents is not None and (
+            parents.ndim != 2 or parents.shape[0] != tile)):
         raise ValueError(
-            f"queries {tuple(queries.shape)} / parents {tuple(parents.shape)} vs "
+            f"queries {tuple(queries.shape)} / parents "
+            f"{None if parents is None else tuple(parents.shape)} vs "
             f"buffer [{tile}, {itopk}] and d={d}")
     if buf_i.shape != (tile, itopk) or explored.shape != (tile, itopk):
         raise ValueError("buf_d, buf_i and explored must share one [tile, itopk] shape")
@@ -80,6 +93,41 @@ def _sqnorm(rows: torch.Tensor) -> torch.Tensor:
     return sequential_dot(rows[..., None, :], rows[..., None, :])[..., 0, 0]
 
 
+def _hop_torch(dataset, graph, queries, parents, buf_d, buf_i, explored, metric):
+    """The plain hop; returns ``(buf_d, buf_i, explored, live, fetched)``,
+    live and fetched [tile] int32 the live parents a query had and the
+    candidate rows they needed (those not dropped as -1, a repeat or an id
+    already in the buffer)."""
+    tile, itopk = buf_d.shape
+    n, deg = graph.shape
+    q = queries.to(torch.float32)
+    q2 = _sqnorm(q)[:, None]
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=q.device)
+    earlier = torch.triu(torch.ones((deg, deg), dtype=torch.bool, device=q.device), 1)
+    md, mi = buf_d.to(torch.float32), buf_i.to(torch.int32)
+    live = (parents >= 0).sum(dim=1, dtype=torch.int32)
+    fetched = torch.zeros_like(live)
+    for w in range(parents.shape[1]):
+        pid = parents[:, w:w + 1].to(torch.int64)
+        cand = graph[pid[:, 0].clamp(0, n - 1)].to(torch.int32)               # [t, deg]
+        cand = torch.where(pid < 0, torch.full_like(cand, -1), cand)
+        rows = gather_rows(dataset, cand)                                      # [t, deg, d]
+        ip = sequential_dot(q[:, None, :], rows)[:, 0, :]
+        if metric == "inner_product":
+            cd = -ip
+        else:
+            cd = torch.clamp((q2 + _sqnorm(rows)) - 2.0 * ip, min=0.0)
+        in_buf = (cand[:, :, None] == mi[:, None, :]).any(dim=2)
+        dup = ((cand[:, :, None] == cand[:, None, :]) & earlier).any(dim=1)
+        bad = (cand < 0) | (pid < 0) | in_buf | dup
+        fetched += (~bad).sum(dim=1, dtype=torch.int32)
+        cd = torch.where(bad, inf, cd)
+        md, mi = fold_topk(md, mi, cd, torch.where(bad, torch.full_like(cand, -1), cand), itopk)
+        mi = torch.where(torch.isfinite(md), mi, torch.full_like(mi, -1))
+    hit = ((mi[:, :, None] == buf_i[:, None, :]) & explored[:, None, :]).any(dim=2)
+    return md, mi, hit | ~torch.isfinite(md), live, fetched
+
+
 def cagra_fused_hop_torch(
     dataset,                  # [n, d] f32 / bf16, or PagedRows
     graph: torch.Tensor,      # [n, deg] int32
@@ -94,31 +142,18 @@ def cagra_fused_hop_torch(
     """Plain version: the kernel's per-parent fold in tensor operations
     (any itopk)."""
     _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
-    tile, itopk = buf_d.shape
-    n, deg = graph.shape
-    q = queries.to(torch.float32)
-    q2 = _sqnorm(q)[:, None]
-    inf = torch.full((), float("inf"), dtype=torch.float32, device=q.device)
-    earlier = torch.triu(torch.ones((deg, deg), dtype=torch.bool, device=q.device), 1)
-    md, mi = buf_d.to(torch.float32), buf_i.to(torch.int32)
-    for w in range(parents.shape[1]):
-        pid = parents[:, w:w + 1].to(torch.int64)
-        cand = graph[pid[:, 0].clamp(0, n - 1)].to(torch.int32)               # [t, deg]
-        cand = torch.where(pid < 0, torch.full_like(cand, -1), cand)
-        rows = gather_rows(dataset, cand)                                      # [t, deg, d]
-        ip = sequential_dot(q[:, None, :], rows)[:, 0, :]
-        if metric == "inner_product":
-            cd = -ip
-        else:
-            cd = torch.clamp((q2 + _sqnorm(rows)) - 2.0 * ip, min=0.0)
-        in_buf = (cand[:, :, None] == mi[:, None, :]).any(dim=2)
-        dup = ((cand[:, :, None] == cand[:, None, :]) & earlier).any(dim=1)
-        bad = (cand < 0) | (pid < 0) | in_buf | dup
-        cd = torch.where(bad, inf, cd)
-        md, mi = fold_topk(md, mi, cd, torch.where(bad, torch.full_like(cand, -1), cand), itopk)
-        mi = torch.where(torch.isfinite(md), mi, torch.full_like(mi, -1))
-    hit = ((mi[:, :, None] == buf_i[:, None, :]) & explored[:, None, :]).any(dim=2)
-    return md, mi, hit | ~torch.isfinite(md)
+    return _hop_torch(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)[:3]
+
+
+def cagra_hop_reads(dataset, graph, queries, parents, buf_d, buf_i, explored, *,
+                    metric: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What one hop (arguments as :func:`cagra_fused_hop_torch`) really
+    reads: ``(live, fetched)`` [tile] int32, each query's live parents and
+    the candidate rows they need (a candidate that is -1, repeats an
+    earlier slot of its list or already sits in the buffer is dropped
+    unread), from the plain version; for ``ops.cost.cagra_hop_work``."""
+    _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
+    return _hop_torch(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)[3:]
 
 
 def cagra_fused_hop(
@@ -174,3 +209,101 @@ def cagra_fused_hop(
     )
     _k.check(name, code)
     return out_d, out_i, out_e
+
+
+def pick_parents(buf_d: torch.Tensor, buf_i: torch.Tensor, explored: torch.Tensor,
+                 width: int, *, select=select_k_torch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``width`` best unexplored finite slots of each buffer (``select``,
+    the lowest slot winning a tie; default the plain select_k), marked
+    explored: (parents [tile, width] int32, -1 where the frontier ran out;
+    explored)."""
+    inf = torch.full((), float("inf"), device=buf_d.device)
+    front_d = torch.where(explored | ~torch.isfinite(buf_d), inf, buf_d)
+    _, ppos = select(front_d, width, select_min=True)
+    ppos = ppos.long()
+    parents = torch.gather(buf_i, 1, ppos)
+    parents = torch.where(torch.gather(front_d, 1, ppos) < inf, parents,
+                          torch.full_like(parents, -1))
+    return parents.to(torch.int32), explored.scatter(1, ppos, True)
+
+
+def cagra_traverse_steps_torch(dataset, graph, queries, buf_d, buf_i, explored, *, steps: int,
+                               width: int, metric: str):
+    """Plain version: ``steps`` times :func:`pick_parents` then
+    :func:`cagra_fused_hop_torch`.  Returns ``(buf_d, buf_i, explored,
+    live, fetched)``, live and fetched [tile] int32 the parents each query's
+    walk had (a hop past the frontier's end has none and changes nothing)
+    and the candidate rows they needed (:func:`cagra_hop_reads`)."""
+    _check(dataset, graph, queries, None, buf_d, buf_i, explored, metric)
+    live = torch.zeros(buf_d.shape[0], dtype=torch.int32, device=buf_d.device)
+    fetched = torch.zeros_like(live)
+    for _ in range(steps):
+        parents, explored = pick_parents(buf_d, buf_i, explored, width)
+        buf_d, buf_i, explored, hop_live, hop_fetched = _hop_torch(
+            dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
+        live += hop_live
+        fetched += hop_fetched
+    return buf_d, buf_i, explored, live, fetched
+
+
+def cagra_traverse_steps(
+    dataset,                  # [n, d] f32 / bf16, or PagedRows
+    graph: torch.Tensor,      # [n, deg] int32
+    queries: torch.Tensor,    # [tile, d] f32
+    buf_d: torch.Tensor,      # [tile, itopk] f32, ascending, +inf empty slots
+    buf_i: torch.Tensor,      # [tile, itopk] int32, -1 at +inf slots, finite ids distinct
+    explored: torch.Tensor,   # [tile, itopk] bool
+    *,
+    steps: int,
+    width: int,
+    metric: str,
+):
+    """``steps`` hops of a tile's walk (arguments as
+    :func:`cagra_traverse_steps_torch`); returns ``(buf_d, buf_i, explored,
+    live, fetched)``.  CUDA tensors go through ``csrc/cagra_hop.cu``
+    ``rt_cagra_traverse``, one launch for the whole walk (a ``PagedRows``
+    dataset through its paged rows), CPU tensors take the plain version; the
+    call stamps ``kernel_path`` "cuda" or "torch".  Raises outside
+    :func:`traverse_supported` on the card."""
+    _check(dataset, graph, queries, None, buf_d, buf_i, explored, metric)
+    if dataset.device.type == "cpu":
+        _k.stamp_kernel_path("torch")
+        return cagra_traverse_steps_torch(dataset, graph, queries, buf_d, buf_i, explored,
+                                          steps=steps, width=width, metric=metric)
+    tile, itopk = buf_d.shape
+    if not traverse_supported(dataset, itopk):
+        raise ValueError(f"cagra walk kernel serves itopk<={MAX_ITOPK}, got {itopk}")
+    if not 0 < width <= itopk or steps < 0:
+        raise ValueError(f"cagra walk kernel serves 0 < width <= itopk and steps >= 0, "
+                         f"got width={width}, steps={steps}")
+    n, d = dataset.shape
+    paged = isinstance(dataset, PagedRows)
+    name = "cagra_traverse_paged" if paged else "cagra_traverse"
+    x = dataset.pool if paged else dataset.contiguous()
+    tensors = [x] + [t.contiguous() for t in (
+        graph.to(torch.int32), queries.to(torch.float32), buf_d.to(torch.float32),
+        buf_i.to(torch.int32), explored.to(torch.bool))]
+    if paged:
+        if dataset.page_slot.dtype != torch.int32:
+            raise ValueError(f"page table must be int32, got {dataset.page_slot.dtype}")
+        tensors.append(dataset.page_slot)
+    _k.require_cuda(name, *tensors)
+    g, qf, bd, bi, be = tensors[1:6]
+    out_d = torch.empty_like(bd)
+    out_i = torch.empty_like(bi)
+    out_e = torch.empty_like(be)
+    live = torch.empty(tile, dtype=torch.int32, device=bd.device)
+    fetched = torch.empty_like(live)
+    lib = _k.library()
+    _k.stamp_kernel_path("cuda")
+    _k.count_launch(name)
+    code = lib.rt_cagra_traverse(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), qf.data_ptr(),
+        bd.data_ptr(), bi.data_ptr(), be.data_ptr(), tile, d, g.shape[1], width, itopk,
+        int(metric == "inner_product"), steps,
+        dataset.page_slot.data_ptr() if paged else None, dataset.page_rows if paged else 0,
+        out_d.data_ptr(), out_i.data_ptr(), out_e.data_ptr(), live.data_ptr(), fetched.data_ptr(),
+        _k.stream_of(x),
+    )
+    _k.check(name, code)
+    return out_d, out_i, out_e, live, fetched

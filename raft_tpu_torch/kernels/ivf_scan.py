@@ -71,8 +71,9 @@ from raft_tpu_torch.store.paged import PagedLists, gather_lists
 #: deepest kk; raft_tpu's Pallas scans bound kk only by one (G, kk) f32 +
 #: int32 VMEM block
 MAX_KK = 2048
-#: deepest kk folded into lists (csrc/topk.cuh kRegK); past it probe-major
-#: folds into candidate arrays over a workspace (probe_major_workspace)
+#: deepest kk probe-major folds into lists (csrc/topk.cuh kRegK); past it
+#: it folds into candidate arrays over a workspace (probe_major_workspace).
+#: Query-major folds into a candidate array in shared memory at every kk
 _LIST_KK = 128
 _METRICS = {"sqeuclidean": 0, "euclidean": 0, "inner_product": 1, "cosine": 2}
 #: storage dtype → suffix of its kernel's name (int8: the scaled cache's
@@ -84,6 +85,12 @@ _RAW8 = ("_u8", "_s8")
 SCAN_DTYPES = ("float32", "highest", "bfloat16")
 #: score elements the plain versions materialize per chunk
 _PLAIN_CHUNK_ELEMS = 1 << 26
+#: query-major blocks a small batch's probes are split for, per SM
+#: (``kernels.grid_splits``): an SM holds 2 (256 threads with ~84 KB of
+#: shared memory at kk = 10, ~107 KB at kk = 2048, __launch_bounds__(256,
+#: 2)), and two waves of them even out lists of unequal length; more parts
+#: gain little at small kk and pay for their merge at deep kk
+QM_PER_SM = 4
 
 
 def scan_supported(metric: str, list_data, kk: int) -> bool:
@@ -242,6 +249,23 @@ def ivf_scan_probe_major_torch(bucket_list, q_gathered, q2_gathered, list_data,
         vs.append(v)
         is_.append(torch.gather(ids.expand_as(sc), -1, pos))
     return _finish(torch.cat(vs), torch.cat(is_).to(torch.int32))
+
+
+def query_major_parts(P: int, splits: int) -> Tuple[int, int]:
+    """(probes a part, parts) when each query's P probes are cut into
+    ``splits`` contiguous parts, as the kernel's launcher cuts them."""
+    chunk = -(-P // max(1, splits))
+    return chunk, -(-P // chunk)
+
+
+def merge_parts_torch(part_v: torch.Tensor, part_i: torch.Tensor, kk: int):
+    """Plain version of the kernels' second pass (``csrc/topk.cuh``
+    merge_parts): rows of parts [Q, parts * kk], each part a sorted top-kk
+    of a contiguous piece of the row's pool, parts in pool order → the kk
+    smallest by (value, part, position in the part), which is (value,
+    position in the pool); a +inf entry never enters (id -1)."""
+    v, pos = _topk(part_v, kk)
+    return _finish(v, torch.gather(part_i, -1, pos))
 
 
 def ivf_scan_query_major_torch(probes, q, q2, list_data, list_y2, list_index,
@@ -416,7 +440,10 @@ def ivf_scan_query_major(
     query_fid: Optional[torch.Tensor] = None,     # [Q] int32 — each query's plane
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vals [Q, kk], ids [Q, kk]) score partials through
-    ``csrc/ivf_scan.cu``; CPU tensors take the plain version."""
+    ``csrc/ivf_scan.cu``; CPU tensors take the plain version.  A small
+    batch's probes are cut into parts (:func:`query_major_parts`, one block
+    each, merged after as :func:`merge_parts_torch` does) so that it fills
+    the card."""
     _check(metric, list_data, list_y2, list_index, kk, scan_dtype, scan_scale)
     _check_filter(list_filter, query_fid, list_index, probes.shape[0])
     if list_data.device.type == "cpu":
@@ -435,7 +462,8 @@ def ivf_scan_query_major(
     )]
     filt = None if list_filter is None else list_filter.contiguous()
     fid = None if query_fid is None else query_fid.to(torch.int32).contiguous()
-    splits = _k.grid_splits(Q, P, dev)
+    splits = query_major_parts(P, _k.grid_splits(Q, P, dev,
+                                                 per_sm=QM_PER_SM))[1]
     part_shape = (Q, splits * kk) if splits > 1 else (0,)
     part_v = torch.empty(part_shape, dtype=torch.float32, device=dev)
     part_i = torch.empty(part_shape, dtype=torch.int32, device=dev)

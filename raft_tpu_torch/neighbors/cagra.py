@@ -14,12 +14,13 @@ backend the same way), IVF-PQ above.
 Search: per query tile, a seed buffer from the entry points and random
 rows (:func:`make_seed_ids`, :func:`traverse_init`), then exactly
 ``max_iter`` hops (:func:`traverse_steps`): each picks the ``search_width``
-best unexplored parents with ``select_k`` and runs one
-``kernels.cagra_traverse.cagra_fused_hop`` — the CUDA kernel on the card,
-its plain version for CPU tensors.  raft_tpu's loop stops early once no
-query of the tile has an unexplored finite slot; every further hop is a
-no-op, so the fixed trip count gives the same results with no host
-synchronisation inside the loop.
+best unexplored parents and runs one hop.  On the card the whole walk of a
+tile is one launch (``kernels.cagra_traverse.cagra_traverse_steps``, the
+``cagra_traverse`` kernel); CPU tensors take its plain version, the loop of
+:func:`pick_parents` and ``cagra_fused_hop_torch``.  raft_tpu's loop stops
+early once no query of the tile has an unexplored finite slot; every
+further hop is a no-op, so the fixed trip count gives the same results (the
+kernel stops a query's walk where its frontier ends).
 
 Filtered search (``sample_filter`` / ``deleted_mask``) is raft_tpu's XLA
 body (``cagra.py:572-737``), as raft_tpu keeps its fused hop off filtered
@@ -61,7 +62,8 @@ from raft_tpu_torch.core.bitset import RowFilter
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.kernels import stamp_kernel_path
-from raft_tpu_torch.kernels.cagra_traverse import cagra_fused_hop, gather_rows
+from raft_tpu_torch.kernels import cagra_traverse as _ct
+from raft_tpu_torch.kernels.cagra_traverse import cagra_traverse_steps, gather_rows
 from raft_tpu_torch.neighbors import brute_force, ivf_pq, nn_descent
 from raft_tpu_torch.neighbors._common import (
     invalid_mask,
@@ -440,15 +442,15 @@ def traverse_init(dataset, queries: torch.Tensor, seed_ids: torch.Tensor,
 def traverse_steps(dataset, graph: torch.Tensor, queries: torch.Tensor,
                    buf_d: torch.Tensor, buf_i: torch.Tensor, explored: torch.Tensor,
                    steps: int, width: int, metric: str):
-    """``steps`` beam-search hops over ``(buf_d, buf_i, explored)``: each
-    picks parents (:func:`pick_parents`) and runs :func:`cagra_fused_hop`.  A hop whose frontier is exhausted changes
-    nothing, so any trip count past the frontier is safe.  Returns
-    ``(buf_d, buf_i, explored)``."""
-    for _ in range(steps):
-        parents, explored = pick_parents(buf_d, buf_i, explored, width)
-        buf_d, buf_i, explored = cagra_fused_hop(dataset, graph, queries, parents, buf_d,
-                                                 buf_i, explored, metric=metric)
-    return buf_d, buf_i, explored
+    """``steps`` beam-search hops over ``(buf_d, buf_i, explored)``, each
+    picking parents (:func:`pick_parents`) and hopping: one
+    ``cagra_traverse`` launch on the card, the plain loop for CPU tensors
+    (``kernels.cagra_traverse.cagra_traverse_steps``, which stamps
+    ``kernel_path``).  A hop whose frontier is exhausted changes nothing, so
+    any trip count past the frontier is safe.  Returns ``(buf_d, buf_i,
+    explored)``."""
+    return cagra_traverse_steps(dataset, graph, queries, buf_d, buf_i, explored, steps=steps,
+                                width=width, metric=metric)[:3]
 
 
 def pick_parents(buf_d: torch.Tensor, buf_i: torch.Tensor, explored: torch.Tensor,
@@ -456,14 +458,7 @@ def pick_parents(buf_d: torch.Tensor, buf_i: torch.Tensor, explored: torch.Tenso
     """The ``width`` best unexplored finite slots of each buffer (``select_k``,
     the lowest slot winning a tie), marked explored: (parents [tile, width]
     int32, -1 where the frontier ran out; explored)."""
-    inf = torch.full((), float("inf"), device=buf_d.device)
-    front_d = torch.where(explored | ~torch.isfinite(buf_d), inf, buf_d)
-    _, ppos = select_k(front_d, width, select_min=True)
-    ppos = ppos.long()
-    parents = torch.gather(buf_i, 1, ppos)
-    parents = torch.where(torch.gather(front_d, 1, ppos) < inf, parents,
-                          torch.full_like(parents, -1))
-    return parents, explored.scatter(1, ppos, True)
+    return _ct.pick_parents(buf_d, buf_i, explored, width, select=select_k)
 
 
 def filtered_itopk(itopk: int, n: int, pass_filter) -> int:

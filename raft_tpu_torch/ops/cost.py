@@ -155,19 +155,26 @@ def scan_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int,
     return KernelCost(int(pair_rows * 2 * d), int(bytes_accessed), compute)
 
 
-def cagra_traverse_work(parents: torch.Tensor, deg: int, d: int, itopk: int, *,
-                        itemsize: int = 4) -> KernelCost:
-    """One CAGRA hop over ``parents`` [tile, width] (-1: no parent), live
-    parents only: each live parent's graph row (deg int32) and its deg
-    neighbour rows at the dataset's stored width read once, 4·deg·d flops
-    (q·v and |v|^2); each query row (d f32) and parent slot read once, and
-    the [tile, itopk] buffer (f32 value, int32 id, one flag byte) read and
+def cagra_hop_work(live: torch.Tensor, fetched: torch.Tensor, deg: int, d: int, itopk: int, *,
+                   itemsize: int = 4, paged: bool = False, width: int = 0) -> KernelCost:
+    """CAGRA hops over a tile of queries in one launch, one hop from
+    ``width`` given parents or a whole walk (``width`` 0: the launch picks
+    the parents), from what the launch really read: ``live`` [tile] each
+    query's live parents and ``fetched`` [tile] the candidate rows they
+    needed (a candidate that is -1, repeats an earlier slot of its list or
+    already sits in the buffer is dropped unread; ``kernels.cagra_traverse``
+    returns both).  Each live parent's graph row (deg int32) and each
+    fetched row at the dataset's stored width (paged: and its int32
+    page-table entry) read once, 4·d flops a fetched row (q·v and |v|^2);
+    each query row (d f32) and its given parent ids read once, and the
+    [tile, itopk] buffer (f32 value, int32 id, one flag byte) read and
     written once."""
-    tile, width = parents.shape
-    live = int((parents >= 0).sum())
-    bytes_accessed = (live * deg * (d * itemsize + 4) + tile * (d * 4 + width * 4)
-                      + 2 * tile * itopk * 9)
-    return KernelCost(int(live * 4 * deg * d), int(bytes_accessed))
+    tile = int(live.shape[0])
+    n_live = int(live.long().sum())
+    n_rows = int(fetched.long().sum())
+    bytes_accessed = (n_live * deg * 4 + n_rows * (d * itemsize + (4 if paged else 0))
+                      + tile * (d + width) * 4 + 2 * tile * itopk * 9)
+    return KernelCost(int(n_rows * 4 * d), int(bytes_accessed))
 
 
 def scan_paged_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int, out_rows: int,
@@ -179,15 +186,6 @@ def scan_paged_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int, out_r
     w = scan_work(probes, list_rows, d, out_rows, kk, **kw)
     return dataclasses.replace(w, bytes_accessed=w.bytes_accessed
                                + 4 * int(blocks) * int(pages_per_list))
-
-
-def cagra_traverse_paged_work(parents: torch.Tensor, deg: int, d: int, itopk: int, *,
-                              itemsize: int = 4) -> KernelCost:
-    """The paged hop: :func:`cagra_traverse_work` plus one int32 page-table
-    read per candidate of each live parent."""
-    w = cagra_traverse_work(parents, deg, d, itopk, itemsize=itemsize)
-    live = int((parents >= 0).sum())
-    return dataclasses.replace(w, bytes_accessed=w.bytes_accessed + 4 * live * deg)
 
 
 def bound_ms(cost: KernelCost) -> tuple:

@@ -1,8 +1,10 @@
 """Port parity: the CAGRA hop of ``raft_tpu_torch`` (plain version) against
 raft_tpu's Pallas ``cagra_fused_hop`` in interpret mode, from identical
-inputs; the fixed trip count of the port's search against raft_tpu's early
-stop.  The hop kernel against its plain version on the card is in
-``test_torch_package.py`` (the card's machine has no JAX)."""
+inputs; the plain multi-hop walk against raft_tpu's ``traverse_steps`` (its
+XLA body and its fused Pallas hop); the fixed trip count of the port's
+search against raft_tpu's early stop.  The hop and walk kernels against
+their plain versions on the card are in ``test_torch_package.py`` (the
+card's machine has no JAX)."""
 
 import numpy as np
 import pytest
@@ -68,12 +70,43 @@ def test_hop_rejects_what_it_does_not_serve():
 
 
 def test_hop_work_counts_live_parents():
-    parents = torch.tensor([[3, -1], [-1, -1], [7, 2]], dtype=torch.int32)
-    w = cost.cagra_traverse_work(parents, 64, 128, 32, itemsize=2)
-    assert w.flops == 3 * 4 * 64 * 128
-    assert w.bytes_accessed == 3 * 64 * (128 * 2 + 4) + 3 * (128 * 4 + 2 * 4) + 2 * 3 * 32 * 9
+    live = torch.tensor([1, 0, 2], dtype=torch.int32)
+    fetched = torch.tensor([50, 0, 101], dtype=torch.int32)
+    w = cost.cagra_hop_work(live, fetched, 64, 128, 32, itemsize=2, width=2)
+    assert w.flops == 151 * 4 * 128
+    assert w.bytes_accessed == (3 * 64 * 4 + 151 * 128 * 2 + 3 * (128 + 2) * 4
+                                + 2 * 3 * 32 * 9)
+    paged = cost.cagra_hop_work(live, fetched, 64, 128, 32, itemsize=2, width=2, paged=True)
+    assert paged.bytes_accessed == w.bytes_accessed + 151 * 4
     raft = cost.cagra_traverse_cost(3, 2, 64, 128, 32, itemsize=2)
     assert raft.flops > w.flops and raft.bytes_accessed > w.bytes_accessed
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_hop_reads_count_the_rows_it_needs(width):
+    """The rows a hop reads: per live parent, the distinct real ids of its
+    list that are not already in the buffer (with one parent, counted here
+    by sets; with two, each parent's list against the buffer the first one
+    left)."""
+    x, graph, q, parents, buf_d, buf_i, explored = hop_inputs(6, "sqeuclidean", width=width)
+    live, fetched = ct.cagra_hop_reads(x, graph, q, parents, buf_d, buf_i, explored,
+                                       metric="sqeuclidean")
+    assert torch.equal(live, (parents >= 0).sum(dim=1, dtype=torch.int32))
+    # the graph repeats an id in every list: no live parent reads all deg rows
+    assert bool((fetched < live * graph.shape[1])[live > 0].all())
+    assert bool((fetched[live == 0] == 0).all())
+    b_i = buf_i
+    for w in range(width):
+        one = parents[:, w:w + 1]
+        want = torch.tensor([0 if p < 0 else len(set(graph[p].tolist()) - {-1} - set(row.tolist()))
+                             for p, row in zip(one[:, 0].tolist(), b_i)], dtype=torch.int32)
+        got = ct.cagra_hop_reads(x, graph, q, one, buf_d, b_i, explored,
+                                 metric="sqeuclidean")[1]
+        assert torch.equal(got, want)
+        buf_d, b_i, explored = ct.cagra_fused_hop_torch(x, graph, q, one, buf_d, b_i, explored,
+                                                        metric="sqeuclidean")
+        fetched = fetched - got
+    assert bool((fetched == 0).all())
 
 
 def test_fixed_trip_count_equals_raft_early_stop(monkeypatch):
@@ -106,3 +139,110 @@ def test_fixed_trip_count_equals_raft_early_stop(monkeypatch):
                                     steps=32, width=1, metric="sqeuclidean")
     assert all(torch.equal(a, b) for a, b in zip(after8, after40))
     assert (ti >= 0).all() and (ti // group == torch.from_numpy(start)[:, None] // group).all()
+
+
+def _walk_inputs(seed, metric, itopk, dtype, exhaust):
+    """A tile's seed buffer and the rows it walks, from a numpy seed.  With
+    ``exhaust`` the graph links rows only within groups of 8 and each
+    query is seeded inside one group, so its frontier runs out after at
+    most 8 hops; otherwise a random graph with a repeated id in every list
+    and ~5 % missing neighbours (-1)."""
+    rng = np.random.default_rng(seed)
+    n, d, deg, tile = 400, 16, 8, 6
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((tile, d)).astype(np.float32)
+    if exhaust:
+        base = (np.arange(n) // 8 * 8)[:, None]
+        graph = (base + (np.arange(n)[:, None] + 1 + np.arange(deg)[None, :]) % 8)
+        start = rng.integers(0, n // 8, tile)[:, None] * 8
+        seeds = start + rng.integers(0, 8, (tile, itopk + 8))
+    else:
+        graph = rng.integers(0, n, (n, deg))
+        graph[:, -1] = graph[:, 0]
+        graph[rng.random((n, deg)) < 0.05] = -1
+        seeds = rng.integers(0, n, (tile, itopk + 8))
+    graph, seeds = graph.astype(np.int32), seeds.astype(np.int32)
+    tx = torch.from_numpy(x).to(dtype)
+    buf = tcagra.traverse_init(tx, torch.from_numpy(q), torch.from_numpy(seeds), itopk, metric)
+    return tx, torch.from_numpy(graph), torch.from_numpy(q), buf
+
+
+@pytest.mark.parametrize("exhaust", [False, True])
+@pytest.mark.parametrize("itopk", [16, 129])
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("metric,dtype", [("sqeuclidean", torch.float32),
+                                          ("inner_product", torch.float32),
+                                          ("sqeuclidean", torch.bfloat16)])
+def test_walk_matches_raft_traverse_steps(metric, dtype, width, itopk, exhaust):
+    """The plain walk (``cagra_traverse_steps``, the loop of pick and hop)
+    against raft_tpu's ``traverse_steps`` on its XLA body and on its fused
+    Pallas hop (interpret mode), from one seed buffer: ids and explored
+    flags equal, values within rtol 1e-5 / atol 1e-4 (the two sum |v|^2 in
+    other orders)."""
+    from raft_tpu.neighbors.cagra import traverse_steps as j_steps
+
+    steps = 12
+    x, graph, q, buf = _walk_inputs(11, metric, itopk, dtype, exhaust)
+    got = ct.cagra_traverse_steps(x, graph, q, *buf, steps=steps, width=width, metric=metric)
+    assert kernels.consume_kernel_path() == "torch"
+    jx = jnp.asarray(x.float().numpy())
+    if dtype == torch.bfloat16:
+        jx = jx.astype(jnp.bfloat16)
+    j_args = [jnp.asarray(t.numpy()) for t in (graph, q, *buf)]
+    for fused in (False, True):
+        ref = j_steps(jx, *j_args, steps=steps, width=width, metric=metric, fused=fused)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-4)
+    live, fetched = got[3], got[4]
+    assert live.dtype == fetched.dtype == torch.int32 and bool((live > 0).all())
+    assert bool((live <= steps * width).all())
+    assert bool((fetched < live * graph.shape[1]).all())
+    if exhaust:   # every frontier ran out before the last hop
+        assert bool((live < steps).all()) and bool(got[2].all())
+    else:
+        assert bool((fetched > 0).all())
+
+
+def test_walk_is_the_loop_of_pick_and_hop():
+    """The plain walk against the hop-by-hop loop of neighbors.cagra."""
+    x, graph, q, buf = _walk_inputs(12, "sqeuclidean", 32, torch.float32, False)
+    got = ct.cagra_traverse_steps_torch(x, graph, q, *buf, steps=5, width=2, metric="sqeuclidean")
+    b = buf
+    live = fetched = 0
+    for _ in range(5):
+        parents, explored = tcagra.pick_parents(b[0], b[1], b[2], 2)
+        reads = ct.cagra_hop_reads(x, graph, q, parents, b[0], b[1], explored,
+                                   metric="sqeuclidean")
+        live, fetched = live + reads[0], fetched + reads[1]
+        b = ct.cagra_fused_hop_torch(x, graph, q, parents, b[0], b[1], explored,
+                                     metric="sqeuclidean")
+    assert all(torch.equal(a, c) for a, c in zip(got[:3], b))
+    assert torch.equal(got[3], live) and torch.equal(got[4], fetched)
+
+
+def test_walk_work_counts_the_hops_each_query_ran():
+    """The walk's bound from the plain walk's own counts: the graph row of
+    every live parent of every hop, and only the rows those hops needed."""
+    x, graph, q, buf = _walk_inputs(14, "sqeuclidean", 32, torch.float32, False)
+    _, _, _, live, fetched = ct.cagra_traverse_steps_torch(x, graph, q, *buf, steps=12, width=2,
+                                                           metric="sqeuclidean")
+    deg, d = graph.shape[1], x.shape[1]
+    w = cost.cagra_hop_work(live, fetched, deg, d, 32)
+    n_live, n_rows = int(live.sum()), int(fetched.sum())
+    assert 0 < n_rows < n_live * deg   # repeats and ids already in the buffer go unread
+    assert w.flops == n_rows * 4 * d
+    assert w.bytes_accessed == (n_live * deg * 4 + n_rows * d * 4 + q.shape[0] * d * 4
+                                + 2 * q.shape[0] * 32 * 9)
+    # the walk of one hop from given parents is the single hop's work
+    hop = cost.cagra_hop_work(live, fetched, deg, d, 32, width=1)
+    assert hop.bytes_accessed == w.bytes_accessed + q.shape[0] * 4
+
+
+def test_walk_rejects_what_it_does_not_serve():
+    x, graph, q, buf = _walk_inputs(13, "sqeuclidean", 16, torch.float32, False)
+    with pytest.raises(ValueError):
+        ct.cagra_traverse_steps(x.to(torch.float16), graph, q, *buf, steps=2, width=1,
+                                metric="sqeuclidean")
+    with pytest.raises(ValueError):
+        ct.cagra_traverse_steps(x, graph, q[:3], *buf, steps=2, width=1, metric="sqeuclidean")

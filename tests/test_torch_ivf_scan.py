@@ -299,3 +299,50 @@ def test_ivf_flat_search_past_512_matches_raft_tpu(k, strategy, tmp_path):
                          res=Resources(device="cpu"))
     assert tv.shape == (9, k)
     assert_topk_match(tv, ti, jv, ji)
+
+
+# kk past 128 with the probes cut into parts, as a small batch runs on the
+# card: each part's top-kk, then the merge (merge_parts past k = 128 is a
+# radix select + sort on the card); lists shorter than kk give +inf tails
+@pytest.mark.parametrize("kk,splits", [(150, 2), (150, 3), (200, 5), (10, 3)])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_query_major_split_parts_equal_unsplit_and_pallas(metric, kk, splits):
+    rng, data, y2, ids = _lists(7, 64)
+    data[1, 10:20] = data[1, 0]          # repeated rows: ties broken by position
+    data[2, :6] = 0.0                    # zero rows: inner product scores -0.0
+    y2 = np.where(ids >= 0, (data * data).sum(-1), 0.0).astype(np.float32)
+    Q, P = 11, 5
+    probes = np.stack([rng.permutation(L)[:P] for _ in range(Q)]).astype(np.int32)
+    q = rng.standard_normal((Q, D)).astype(np.float32)
+    q2 = (q * q).sum(-1).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (probes, q, q2, data, y2, ids)]
+    whole = tscan.ivf_scan_query_major(*args, kk, metric=metric)
+    chunk, n_parts = tscan.query_major_parts(P, splits)
+    assert n_parts > 1
+    outs = [tscan.ivf_scan_query_major(args[0][:, s:s + chunk], *args[1:], kk, metric=metric)
+            for s in range(0, P, chunk)]
+    parts = tscan.merge_parts_torch(torch.cat([o[0] for o in outs], dim=1),
+                                    torch.cat([o[1] for o in outs], dim=1), kk)
+    assert torch.equal(parts[0].view(torch.int32), whole[0].view(torch.int32))
+    assert torch.equal(parts[1], whole[1])
+    assert bool(torch.isinf(whole[0][:, -1]).all()) == (kk > P * 64 - 25)
+    pad = (-Q) % 8
+    ref = j_query_major(
+        jnp.asarray(np.pad(probes, ((0, pad), (0, 0)))),
+        jnp.asarray(np.pad(q, ((0, pad), (0, 0)))),
+        jnp.asarray(np.pad(q2, (0, pad), constant_values=np.inf)),
+        *(jnp.asarray(a) for a in (data, y2, ids)), kk, metric=metric, interpret=True)
+    assert_topk_match(*parts, np.asarray(ref[0])[:Q], np.asarray(ref[1])[:Q])
+
+
+def test_merge_parts_plain_keeps_value_then_pool_order():
+    """Two sorted parts of 4 with ties across them and +inf tails: the
+    earlier part wins a tie, +inf never enters."""
+    inf = float("inf")
+    pv = torch.tensor([[0.0, 1.0, 2.0, inf, -0.0, 1.0, 1.5, inf]])
+    pi = torch.tensor([[10, 11, 12, -1, 20, 21, 22, -1]], dtype=torch.int32)
+    v, i = tscan.merge_parts_torch(pv, pi, 6)
+    assert v[0].tolist() == [0.0, 0.0, 1.0, 1.0, 1.5, 2.0]
+    assert i.tolist() == [[10, 20, 11, 21, 22, 12]]
+    v, i = tscan.merge_parts_torch(pv, pi, 8)
+    assert i[0, 6:].tolist() == [-1, -1] and bool(torch.isinf(v[0, 6:]).all())

@@ -164,7 +164,8 @@ def test_launch_counts_reset_and_read():
                     assert suffix in name and name in kernels.KERNELS
                     kernels.count_launch(name)
     counts = kernels.launch_counts()
-    assert len(kernels.KERNELS) == 55 and "cagra_fused_hop_paged" in kernels.KERNELS
+    assert len(kernels.KERNELS) == 57 and "cagra_fused_hop_paged" in kernels.KERNELS
+    assert "cagra_traverse" in kernels.KERNELS and "cagra_traverse_paged" in kernels.KERNELS
     assert "fused_argmin" in kernels.KERNELS
     assert all(counts[n] == 1 for n in kernels.KERNELS if n.startswith("ivf_scan"))
     kernels.reset_launch_counts()
@@ -502,10 +503,13 @@ _PQ_FIELDS = ("metric", "codebook_kind", "pq_bits", "centers", "centers_rot", "r
 @pytest.mark.parametrize("metric,dtype,itopk,width", [
     ("sqeuclidean", torch.float32, 64, 1), ("inner_product", torch.float32, 64, 2),
     ("sqeuclidean", torch.bfloat16, 32, 2), ("sqeuclidean", torch.float32, 512, 1),
+    ("inner_product", torch.float32, 64, 40),
 ])
 def test_cagra_hop_kernel_matches_plain_bitwise(cuda, metric, dtype, itopk, width):
-    """The hop kernel against its plain version on the card: values, ids and
-    explored flags bitwise equal (fmaf in dimension order on both sides)."""
+    """The hop kernel (the walk's kernel, one hop from given parents)
+    against its plain version on the card: values, ids and explored flags
+    bitwise equal (fmaf in dimension order on both sides), at a width past
+    one warp of parents too."""
     x, *rest = hop_inputs(9, metric, n=4000, d=128, deg=64, tile=300, itopk=itopk, width=width)
     on_card = [x.to(dtype).to(cuda)] + [a.to(cuda) for a in rest]
     want = cagra_traverse.cagra_fused_hop_torch(*on_card, metric=metric)
@@ -521,9 +525,9 @@ def test_cagra_hop_kernel_matches_plain_bitwise(cuda, metric, dtype, itopk, widt
 
 @pytest.mark.cuda
 def test_cagra_search_on_the_card_matches_the_cpu(cuda):
-    """A CAGRA search on the card (hop and select_k kernels, one hop launch
-    per hop of every tile) agrees with the CPU's plain versions given one
-    set of seed ids: ids on >= 99% of slots."""
+    """A CAGRA search on the card (walk and select_k kernels, one walk
+    launch per tile, no hop launch) agrees with the CPU's plain versions
+    given one set of seed ids: ids on >= 99% of slots."""
     rng = np.random.default_rng(8)
     x = rng.standard_normal((3000, 32)).astype(np.float32)
     q = rng.standard_normal((100, 32)).astype(np.float32)
@@ -540,7 +544,8 @@ def test_cagra_search_on_the_card_matches_the_cpu(cuda):
     v, i = cagra.search(sp, idx, q, 10, seed_ids=seeds)
     assert kernels.consume_kernel_path() == "cuda"
     _, max_iter, tile = cagra.search_plan(sp, idx, 100, 10)
-    assert tile == 40 and kernels.launch_counts()["cagra_fused_hop"] == 3 * max_iter
+    counts = kernels.launch_counts()
+    assert tile == 40 and counts["cagra_traverse"] == 3 and counts["cagra_fused_hop"] == 0
     pv, pi = cagra.search(sp, host, q, 10, seed_ids=seeds, res=cpu)
     assert (i.cpu() == pi).float().mean() >= 0.99
     torch.testing.assert_close(v.cpu(), pv, rtol=1e-5, atol=1e-4)
@@ -846,7 +851,7 @@ def test_paged_searches_on_the_card_match_monolithic(cuda):
     sp = cagra.SearchParams(itopk_size=32)
     kernels.reset_launch_counts()
     assert same(cagra.search(sp, pcg, q, 10, res=res), cagra.search(sp, cg, q, 10, res=res))
-    assert kernels.launch_counts()["cagra_fused_hop_paged"] > 0
+    assert kernels.launch_counts()["cagra_traverse_paged"] > 0
     assert same(cagra.search(sp, pcg, q, 10, res=res, sample_filter=keep),
                 cagra.search(sp, cg, q, 10, res=res, sample_filter=keep))
 
@@ -1237,3 +1242,195 @@ def test_threads_on_their_own_streams_search_one_paged_index(cuda):
         for i, v, ids in per:
             assert torch.equal(v, want[i][0].cpu()) and torch.equal(ids, want[i][1].cpu())
     assert tiered.evictions > 0
+
+
+# -- query-major (#5 / #6) and the CAGRA walk (#8), redesigned -----------------
+
+#: query-major storage legs: (rows dtype, scan_dtype, scan_scale)
+_QM_LEGS = {
+    "f32": (torch.float32, "float32", 1.0), "f32_bf16c": (torch.float32, "bfloat16", 1.0),
+    "bf16": (torch.bfloat16, "float32", 1.0), "bf16_bf16c": (torch.bfloat16, "bfloat16", 1.0),
+    "int8": (torch.int8, "float32", 0.0173), "u8": (torch.uint8, "float32", None),
+    "s8": (torch.int8, "float32", None),
+}
+
+
+def _qm_inputs(leg, filt, g, *, L=16, cap=320, real=250, d=64, Q=9, P=10):
+    """Query-major card inputs: 16 lists of 320 slots (250 real; 5 pages of
+    64), list 1 repeating one row 11 times (ties by position), list 2 with 6
+    zero rows (-0.0 inner-product scores), query 0 probing list 2 only, so
+    that up to 2,500 real rows face kk = 2048.  ``filt`` None, "filt" (one
+    plane passing ~40 %) or "fid" (5 planes and each query's plane)."""
+    from raft_tpu_torch.core.bitset import Bitset
+
+    dtype, scan_dtype, scale = _QM_LEGS[leg]
+    if dtype in (torch.int8, torch.uint8):
+        lo, hi = (0, 256) if dtype == torch.uint8 else (-127, 128)
+        data = torch.randint(lo, hi, (L, cap, d), generator=g).to(dtype)
+    else:
+        data = torch.randn(L, cap, d, generator=g).to(dtype)
+    data[1, 10:20] = data[1, 0]
+    data[2, :6] = 0
+    vals = data.float() * (torch.tensor(scale, dtype=torch.float32) if leg == "int8" else 1.0)
+    ids = torch.arange(L * cap, dtype=torch.int32).reshape(L, cap)
+    ids[:, real:] = -1
+    y2 = torch.where(ids >= 0, (vals * vals).sum(-1), torch.zeros(()))
+    probes = torch.randint(0, L, (Q, P), generator=g, dtype=torch.int32)
+    probes[0] = 2
+    q = torch.randn(Q, d, generator=g)
+    kw = dict(scan_dtype=scan_dtype, scan_scale=scale)
+    if filt is not None:
+        planes = 1 if filt == "filt" else 5
+        masks = torch.rand(planes, L * cap, generator=g) < 0.4
+        table = torch.stack([ivf_scan.pack_list_filter(ids, Bitset.from_mask(m, device="cpu").words)
+                             for m in masks])
+        kw["list_filter"] = table[0] if filt == "filt" else table
+        if filt == "fid":
+            kw["query_fid"] = torch.randint(0, planes, (Q,), generator=g, dtype=torch.int32)
+    return (probes, q, (q * q).sum(1), data, y2, ids), kw
+
+
+def _bits_equal(a, b):
+    return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("kk", [10, 129, 1000, 2048])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("filt", [None, "filt", "fid"])
+@pytest.mark.parametrize("leg", list(_QM_LEGS))
+def test_query_major_redesign_matches_plain_bitwise(cuda, leg, filt, paged, kk, splits,
+                                                   monkeypatch):
+    """Every query-major leg (#5, and #6 = the "fid" leg) against its plain
+    version on the card, values by their bits: each storage type and
+    product, unfiltered / one plane / each query's plane, monolithic and
+    through a scattered page table, at kk 10 to 2048 (past the rows a
+    filtered query has), one part and three parts merged (merge_parts past
+    k = 128 is the radix-select merge)."""
+    from _torch_parity import paged_lists
+
+    g = torch.Generator().manual_seed(40)
+    args, kw = _qm_inputs(leg, filt, g)
+    card = [a.to(cuda) for a in args]
+    if paged:
+        card[3] = _on(paged_lists(args[3], 64, 41), cuda)
+    kw_card = {n: a.to(cuda) if torch.is_tensor(a) else a for n, a in kw.items()}
+    name = ivf_scan.kernel_name("query_major", card[3], kw_card.get("list_filter"),
+                                kw_card.get("query_fid"), kw["scan_scale"])
+    monkeypatch.setattr(kernels, "grid_splits", lambda *a, **kw: splits)
+    for metric in ("sqeuclidean", "inner_product"):
+        want = ivf_scan.ivf_scan_query_major_torch(*card, kk, metric=metric, **kw_card)
+        kernels.reset_launch_counts()
+        got = ivf_scan.ivf_scan_query_major(*card, kk, metric=metric, **kw_card)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in kernels.launch_counts().items() if c} == {name: 1}
+        assert _bits_equal(got, want), (metric, name)
+        assert bool(torch.isfinite(got[0][:, 0]).all())
+    if kk == 2048 and filt is not None:   # fewer passing rows than kk: +inf / -1 tails
+        assert bool((got[1][:, -1] == -1).all())
+
+
+def _walk_inputs_card(seed, metric, itopk, exhaust):
+    """Walk inputs: 4,000 rows of d 128.  Unless ``exhaust``, a random graph
+    of degree 64 with a repeated id in every list and ~5 % missing
+    neighbours; with ``exhaust``, degree 16 within groups of 32 rows and
+    each query seeded inside one group, so every frontier runs out early."""
+    rng = np.random.default_rng(seed)
+    n, d, tile = 4000, 128, 64
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((tile, d)).astype(np.float32))
+    if exhaust:
+        deg = 16
+        base = (np.arange(n) // 32 * 32)[:, None]
+        graph = base + (np.arange(n)[:, None] + 1 + np.arange(deg)[None, :]) % 32
+        seeds = (rng.integers(0, n // 32, tile)[:, None] * 32
+                 + rng.integers(0, 32, (tile, itopk + 8)))
+    else:
+        deg = 64
+        graph = rng.integers(0, n, (n, deg))
+        graph[:, -1] = graph[:, 0]
+        graph[rng.random((n, deg)) < 0.05] = -1
+        seeds = rng.integers(0, n, (tile, itopk + 8))
+    graph = torch.from_numpy(graph.astype(np.int32))
+    buf = cagra.traverse_init(x, q, torch.from_numpy(seeds.astype(np.int32)), itopk, metric)
+    return x, graph, q, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exhaust", [False, True])
+@pytest.mark.parametrize("width,itopk", [(w, i) for w in (1, 2, 4) for i in (16, 64, 129, 512)]
+                         + [(w, i) for w in (33, 64) for i in (129, 512)])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True])
+def test_walk_kernel_matches_plain_bitwise(cuda, paged, dtype, metric, width, itopk, exhaust):
+    """#8 as one launch (``cagra_traverse_steps``) against the hop-by-hop
+    loop of the plain pick and hop on the card: values by their bits, ids,
+    explored flags, live-parent and fetched-row counts equal, dense and
+    through a scattered page table, at widths past one warp of parents;
+    ``exhaust``: frontiers that run out early."""
+    from _torch_parity import paged_rows
+
+    x, graph, q, buf = _walk_inputs_card(50, metric, itopk, exhaust)
+    x = x.to(dtype)
+    rest = [a.to(cuda) for a in (graph, q, *buf)]
+    rows = _on(paged_rows(x, 64, 51), cuda) if paged else x.to(cuda)
+    steps = 40 if exhaust else 12
+    want = cagra_traverse.cagra_traverse_steps_torch(rows, *rest, steps=steps, width=width,
+                                                     metric=metric)
+    kernels.reset_launch_counts()
+    got = cagra_traverse.cagra_traverse_steps(rows, *rest, steps=steps, width=width,
+                                              metric=metric)
+    torch.cuda.synchronize()
+    name = "cagra_traverse_paged" if paged else "cagra_traverse"
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {name: 1}
+    assert kernels.consume_kernel_path() == "cuda"
+    assert _bits_equal(got[:2], want[:2])
+    assert all(torch.equal(got[j], want[j]) for j in (2, 3, 4))
+    assert bool((got[4] < got[3] * graph.shape[1]).all())
+    if exhaust:
+        assert bool((got[3] < steps * width).all()) and bool(got[2].all())
+    else:
+        assert not torch.equal(got[1], rest[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 40])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cagra_search_is_bitwise_its_plain_versions(cuda, paged, width, monkeypatch):
+    """neighbors.cagra.search on the card: one walk launch per query tile and
+    no hop or per-hop select_k launch; results bitwise the same search with
+    every kernel replaced by its plain version, at two parents a hop and at
+    more than one warp holds."""
+    import copy
+
+    from raft_tpu_torch.neighbors import cagra as ncagra
+    from raft_tpu_torch.store import paginate_index
+
+    rng = np.random.default_rng(52)
+    x = rng.standard_normal((5000, 48)).astype(np.float32)
+    q = rng.standard_normal((230, 48)).astype(np.float32)
+    res = Resources(device="cuda")
+    idx = cagra.build(cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16,
+                                        build_algo="brute_force"), x, res=res)
+    if paged:
+        idx = copy.copy(idx)
+        paginate_index(idx, page_rows=64, budget=None)
+    sp = cagra.SearchParams(itopk_size=64, search_width=width, max_queries=100)
+    _, max_iter, tile = cagra.search_plan(sp, idx, q.shape[0], 10)
+    kernels.reset_launch_counts()
+    got = cagra.search(sp, idx, q, 10, res=res)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    tiles = -(-q.shape[0] // tile)
+    walk = "cagra_traverse_paged" if paged else "cagra_traverse"
+    assert counts[walk] == tiles and counts["cagra_fused_hop"] == counts["cagra_fused_hop_paged"] == 0
+    assert counts["select_k"] <= 2 * tiles + 1 < max_iter
+    monkeypatch.setattr(ncagra, "cagra_traverse_steps", cagra_traverse.cagra_traverse_steps_torch)
+    monkeypatch.setattr(select_k, "select_k_kernel",
+                        lambda *a, **kw: select_k.select_k_torch(*a, **kw))
+    kernels.reset_launch_counts()
+    want = cagra.search(sp, idx, q, 10, res=res)
+    assert sum(kernels.launch_counts().values()) == 0
+    assert _bits_equal(got, want)
