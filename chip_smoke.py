@@ -100,8 +100,23 @@ then drives the port's main paths at the scale of sift-128-euclidean
    the 1,000-query search;
 14. four threads, each on its own CUDA stream, searching the over-budget
    IVF-Flat index: bitwise the single-thread results;
-15. where the time of each search goes: warm wall per search and, under
-   ``torch.profiler``, device time by kernel and the device's busy share.
+15. CAGRA over the uint8 rows of 12 at raft's defaults (kept 1 byte a
+   value; the IVF-PQ graph build), and the same graph over the int8 rows:
+   10,000 queries each on the walk's uint8 / int8 legs, recall@10 against
+   the uint8 oracle, paginated copies (pinned, bitwise the dense search),
+   a hop by hop capture; later the same searches on the plain versions,
+   the first tile's walk on both legs, dense and paged, and the single hop
+   on 8-bit rows, each bitwise its plain version;
+16. where the time of each search goes: warm wall per search and, under
+   ``torch.profiler``, device time by kernel and the device's busy share;
+17. raft_tpu's BASELINE ladder (``raft_tpu_torch.bench.ladder``, configs
+   1-4 at scale 1.0): every config passes, on the card, with its launches;
+18. the harness end to end: ``python -m raft_tpu_torch.bench --scale 0.01``
+   in a subprocess (a row per algorithm with recall, QPS, build time and
+   device time) and one ``bench.prims`` case of each family;
+19. ``brute_force.make_batch_k_query`` batches bitwise ``brute_force.search``
+   at the same k, and IVF-PQ at the ladder's config 4 with bf16 internal
+   distances (plain ops) against f32 (the scan kernel), both refined.
 
 Launch counts are set to 0 before each phase of the main paths and read
 after it.  Prints the card, JSON lines of the over-budget batches, the
@@ -117,8 +132,11 @@ import copy
 import dataclasses
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -173,6 +191,11 @@ U8_SCALE = 16.0
 DEEP_QUERIES, DEEP_IVF_K, DEEP_BF_K = 1000, 1000, 2048
 #: threads searching the over-budget IVF-Flat index, and their batches
 THREADS, THREAD_QUERIES = 4, 256
+#: IVF-PQ at the ladder's config 4: how far the refined recall with bf16
+#: internal distances may fall from the f32 one (bf16 scores carry 8 bits,
+#: so candidates near the k' = 40 cut reorder; the refine to k = 10 takes
+#: most of that back)
+PQ_BF16_TOL = 0.01
 
 
 def main() -> int:
@@ -185,7 +208,8 @@ def main() -> int:
 
     import numpy as np
 
-    from raft_tpu_torch import datasets, distance, kernels
+    from raft_tpu_torch import distance, kernels
+    from raft_tpu_torch.bench import datasets
     from raft_tpu_torch.cluster import kmeans, kmeans_balanced
     from raft_tpu_torch.core.bitset import Bitset, RowFilter
     from raft_tpu_torch.core.resources import Resources, as_f32
@@ -240,7 +264,10 @@ def main() -> int:
               if e.device_type.name == "CUDA" and (kernel_name is None or kernel_name in e.name)]
         if kernel_name is None:   # every kernel the call launches
             return sum(us) / 1e3 / reps
-        return sum(us) / 1e3 / reps if len(us) == reps else float("nan")
+        if len(us) != reps:
+            print(f"device_ms: {len(us)} device events of {kernel_name} for {reps} calls; "
+                  "their mean is taken", flush=True)
+        return sum(us) / 1e3 / len(us) if us else float("nan")
 
     # -- the card and the kernels -------------------------------------------
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
@@ -488,12 +515,13 @@ def main() -> int:
     # raft_tpu's single-hop function (kernels.cagra_traverse.cagra_fused_hop):
     # a walk driven hop by hop through the public pieces, to hop CAPTURE_HOP
     # of the first query tile (its inputs are held to the plain hop below)
-    def capture_hop(index, n_q, dataset=None):
+    def capture_hop(index, n_q, dataset=None, queries=None):
         """The hop's inputs at hop CAPTURE_HOP, rows read from ``dataset``
-        (default: the index's own; a PagedRows for the paged leg)."""
+        (default: the index's own; a PagedRows for the paged leg), for the
+        first tile of ``queries`` (default: the main queries)."""
         ds = index.dataset if dataset is None else dataset
         itopk, _, tile = cagra.search_plan(cagra_sp, index, n_q, K, res)
-        qs = q[:min(n_q, tile)]
+        qs = (q if queries is None else queries)[:min(n_q, tile)]
         seeds = cagra.make_seed_ids(cagra_sp, index, qs, K, itopk=itopk)
         buf = cagra.traverse_init(ds, qs, seeds, itopk, metric)
         buf_d, buf_i, explored = cagra.traverse_steps(
@@ -1146,6 +1174,56 @@ def main() -> int:
           f"pager {json.dumps(over_pager.stats())}", flush=True)
     del t_want, t_out
 
+    # -- main path: CAGRA over 8-bit rows (BIGANN's uint8) -----------------------
+    # raft's defaults over the uint8 rows of the 8-bit IVF-Flat phases: the
+    # index keeps 1 byte a value and the walk reads the rows on the hop
+    # kernel's uint8 leg; the same graph over the rows shifted to int8 (every
+    # L2 distance as it was) serves the int8 leg
+    with phase("cagra_u8_build"):
+        cg8 = cagra.build(cagra_params, x_u8, res=res)
+    g8 = cg8.graph
+    g8_sorted = torch.sort(g8, dim=1).values
+    check(cg8.dataset.dtype == torch.uint8 and cg8.dataset.element_size() == 1
+          and tuple(g8.shape) == (x.shape[0], cagra_params.graph_degree)
+          and bool((g8 >= 0).all()) and bool((g8 < x.shape[0]).all())
+          and bool((g8 != torch.arange(x.shape[0], device=dev)[:, None]).all())
+          and bool((g8_sorted[:, 1:] != g8_sorted[:, :-1]).all()),
+          f"cagra uint8: rows kept as uint8, graph {tuple(g8.shape)} with no -1, self edge or "
+          "repeated edge")
+    check(phase_launches["cagra_u8_build"]["ivf_scan_probe_major_bf16"] > 0
+          and phase_launches["cagra_u8_build"]["select_k"] > 0
+          and phase_launches["cagra_u8_build"]["fused_knn"] > 0,
+          "cagra uint8 build ran the IVF-PQ graph build, refine and entry points on their kernels")
+    del g8_sorted
+    q_s8 = q_u8 - 128
+    cg_s8 = cagra.Index(cg8.metric, rows8["s8"][0], g8, cg8.entry_centers - 128, cg8.entry_ids)
+    out_cg8 = {}
+    with phase("cagra_u8_search"):
+        out_cg8["u8"] = cagra.search(cagra_sp, cg8, q_u8, K, res=res)
+    walk_launches("cagra_u8_search", expected_tiles(q.shape[0]))
+    with phase("cagra_s8_search"):
+        out_cg8["s8"] = cagra.search(cagra_sp, cg_s8, q_s8, K, res=res)
+    walk_launches("cagra_s8_search", expected_tiles(q.shape[0]))
+    for tag in ("u8", "s8"):
+        r = recall_at_k(out_cg8[tag][1], gt8_i, K)
+        out_cg8[f"{tag} recall"] = r
+        check(r >= CAGRA_RECALL, f"cagra {tag} recall@{K} {r:.5f} >= {CAGRA_RECALL} against the "
+              "uint8 oracle")
+    p_cg8 = {}
+    for tag, idx_ in (("u8", cg8), ("s8", cg_s8)):
+        p_cg8[tag], _ = paginate(idx_, f"paged_cagra_{tag}")
+        qs8 = q_u8 if tag == "u8" else q_s8
+        with phase(f"paged_cagra_{tag}"):
+            got8 = cagra.search(cagra_sp, p_cg8[tag], qs8, K, res=res)
+        check(same(got8, out_cg8[tag]), f"paged cagra {tag}: bitwise the dense search")
+        walk_launches(f"paged_cagra_{tag}", expected_tiles(q.shape[0]), "_paged")
+    with phase("cagra_u8_hop"):
+        hop8_args = capture_hop(cg8, q.shape[0], queries=q_u8)
+        hop8_out = ct.cagra_fused_hop(*hop8_args, metric=metric)
+    check(phase_launches["cagra_u8_hop"]["cagra_fused_hop"] == 1,
+          "cagra uint8 hop by hop: one hop launch")
+    del got8
+
     main_launches = {
         name: sum(p[name] for p in phase_launches.values()) for name in kernels.KERNELS
     }
@@ -1343,6 +1421,13 @@ def main() -> int:
                 out[f"ivf_flat {tag} probe-major n_probes={tag_p}"] = recall_at_k(i_pm, gt8_i, K)
                 out[f"ivf_flat {tag} query-major n_probes={tag_p}"] = recall_at_k(
                     i_qm, gt8_i[:i_qm.shape[0]], K)
+        # CAGRA over uint8 / int8 rows on its first CAGRA_SUBSET queries
+        for tag, idx_c, qs_c in (("u8", cg8, q_u8), ("s8", cg_s8, q_s8)):
+            for sp_, tag_s in ((cagra_sp, "itopk 64"),
+                               (cagra.SearchParams(**CAGRA_LOW), "itopk 16, 4 hops")):
+                i_c = cagra.search(sp_, idx_c, qs_c[:CAGRA_SUBSET], K, res=res)[1]
+                out[f"cagra {tag} {tag_s}, {CAGRA_SUBSET} queries"] = recall_at_k(
+                    i_c, gt8_i[:CAGRA_SUBSET], K)
         return out
 
     kernel8 = recalls8()
@@ -1358,6 +1443,8 @@ def main() -> int:
               "plain path")
     check(min(r for n, r in kernel8.items() if f"={LOW_PROBES}" in n) < 0.95,
           f"8-bit IVF-Flat recall at n_probes={LOW_PROBES} is below 0.95 (the comparison can fail)")
+    check(min(r for n, r in kernel8.items() if "4 hops" in n) < 0.95,
+          "cagra 8-bit low-effort recall is below 0.95 (the comparison can fail)")
     print(json.dumps({"recall_kernel_vs_plain": recall_table}), flush=True)
 
     # -- kernels against their plain versions -------------------------------
@@ -1933,10 +2020,10 @@ def main() -> int:
     # loop of pick and hop on the same inputs
     _, walk_steps, _ = cagra.search_plan(cagra_sp, cg, q.shape[0], K, res)
 
-    def capture_walk(index, n_q, dataset=None):
+    def capture_walk(index, n_q, dataset=None, queries=None):
         ds = index.dataset if dataset is None else dataset
         itopk, _, tile = cagra.search_plan(cagra_sp, index, n_q, K, res)
-        qs = q[:min(n_q, tile)]
+        qs = (q if queries is None else queries)[:min(n_q, tile)]
         seeds = cagra.make_seed_ids(cagra_sp, index, qs, K, itopk=itopk)
         return (ds, index.graph, qs, *cagra.traverse_init(ds, qs, seeds, itopk, metric))
 
@@ -2010,6 +2097,67 @@ def main() -> int:
               f"plain {r8['plain_ms']:.1f} ms", flush=True)
     del hop_args, hop_bf, hop_small, cg_bf16, hop_p, hop_pbf, p_cg_bf16
 
+    # #8's 8-bit legs: the uint8 and int8 walks of the first query tile,
+    # dense and through the pinned pools' page tables, and the single hop on
+    # uint8 / int8 rows (dense and paged), each against its plain version
+    def record_leg(name, launches, replaces, entry, raft_cost, shape):
+        results.append({
+            "name": name, "route": "cuda", "source": "raft_tpu_torch/csrc/cagra_hop.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": entry["max_abs_err"],
+            "ms": entry["ms"], "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"], "library_ms": None, "shape": shape,
+            "raft_formula_bound_ms": cost.bound_ms(raft_cost)[0],
+            **{k_: v_ for k_, v_ in entry.items() if k_ not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape")}})
+        r8 = results[-1]
+        print(f"{name}: {r8['ms']:.4f} ms device, bound {r8['bound_ms']:.4f} ms "
+              f"({r8['bound_by']}), {100 * r8['bound_ms'] / r8['ms']:.1f} % of bound; "
+              f"plain {r8['plain_ms']:.1f} ms; {launches} launches on the main path", flush=True)
+
+    for tag, idx_, qs8 in (("u8", cg8, q_u8), ("s8", cg_s8, q_s8)):
+        for paged_ in (False, True):
+            pidx = p_cg8[tag]
+            a = (capture_walk(pidx, q.shape[0], paged_view(pidx), queries=qs8) if paged_
+                 else capture_walk(idx_, q.shape[0], queries=qs8))
+            e = walk_entry(f"{tag} rows{', paged' if paged_ else ''}, {walk_steps} hops", a)
+            if paged_:
+                dense_args = (idx_.dataset,) + a[1:]
+                check(all(torch.equal(x_, y_) for x_, y_ in zip(walk_fn(a)(),
+                                                                walk_fn(dense_args)())),
+                      f"cagra walk {tag}, paged: bitwise the dense walk on the same inputs")
+                e["unpaged_ms"] = device_ms(walk_fn(dense_args), "cagra_walk_kernel", reps=10)
+            ph = f"paged_cagra_{tag}" if paged_ else f"cagra_{tag}_search"
+            walk_name = "cagra_traverse_paged" if paged_ else "cagra_traverse"
+            record_leg(f"{walk_name}[{tag}]", phase_launches[ph][walk_name],
+                       "raft_tpu/kernels/cagra_traverse.py:180" if paged_
+                       else "raft_tpu/kernels/cagra_traverse.py:278", e, walk_raft_cost(a),
+                       e["shape"])
+        hop_a = hop8_args if tag == "u8" else capture_hop(cg_s8, q.shape[0], queries=q_s8)
+        hop_pa = capture_hop(p_cg8[tag], q.shape[0], paged_view(p_cg8[tag]), queries=qs8)
+        err8 = max(hop_check(f"{tag} rows", hop_a), hop_check(f"{tag} rows, paged", hop_pa))
+        bitwise(f"cagra hop {tag}, paged leg", *ct.cagra_fused_hop(*hop_pa, metric=metric)[:2],
+                *ct.cagra_fused_hop(*((idx_.dataset,) + hop_pa[1:]), metric=metric)[:2],
+                what="the dense leg on the same inputs")
+        if tag == "u8":
+            check(all(torch.equal(a_, b_) for a_, b_ in zip(
+                hop8_out, ct.cagra_fused_hop(*hop8_args, metric=metric))),
+                  "cagra uint8 hop: the main path's launch gave the same buffers again")
+            bound8, by8 = cost.bound_ms(hop_work(hop_a))
+            tile8, itopk8 = hop_a[4].shape
+            record_leg("cagra_fused_hop[u8]", phase_launches["cagra_u8_hop"]["cagra_fused_hop"],
+                       "raft_tpu/kernels/cagra_traverse.py:278", {
+                           "max_abs_err": err8,
+                           "ms": device_ms(lambda: ct.cagra_fused_hop(*hop_a, metric=metric),
+                                           "cagra_walk_kernel"),
+                           "plain_ms": cuda_ms(lambda: ct.cagra_fused_hop_torch(
+                               *hop_a, metric=metric), 3),
+                           "bound_ms": bound8, "bound_by": by8},
+                       cost.cagra_traverse_cost(tile8, cagra_sp.search_width, cg8.graph_degree,
+                                                cg8.dim, itopk8),
+                       f"tile {tile8}, width {cagra_sp.search_width}, deg {cg8.graph_degree}, "
+                       f"d {cg8.dim}, itopk {itopk8}, uint8 rows (hop {CAPTURE_HOP})")
+    del hop8_args, hop8_out, p_cg8
+
     # -- where the time of a search goes ------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -2074,16 +2222,122 @@ def main() -> int:
                      for b in range(0, 2 * OVER_BUDGET_QUERIES, OVER_BUDGET_BATCH)][-1]),
         f"paged_cagra_{QM_BATCH}q": profile_search(
             lambda: cagra.search(cagra_sp, p_cg, q[:QM_BATCH], K, res=res)),
+        "cagra_u8_10000q": profile_search(lambda: cagra.search(cagra_sp, cg8, q_u8, K, res=res)),
     }
     for name, prof_out in profiles.items():
         check(prof_out["device_busy_ms"] > 0, f"profile of {name} saw device time")
     print(json.dumps({"profile": profiles}), flush=True)
+
+    # The harness's phases run after the profile phase and every kernel
+    # timing above, so that those are taken in the state a process without
+    # them would be in (the harness opens its own profiler windows); each
+    # phase checks its own launches.
+    # -- raft_tpu's BASELINE ladder, configs 1-4 at scale 1.0 ---------
+    from raft_tpu_torch.bench import ladder
+
+    with phase("ladder"):
+        ladder_recs = ladder.run(Resources(device="cuda", workspace_limit_bytes=1 << 30),
+                                 "1,2,3,4", 1.0)
+    for rec in ladder_recs:
+        check(rec["pass"] is True and rec["kernel_path"] == "cuda"
+              and rec["device"]["name"] == torch.cuda.get_device_name(0)
+              and rec["device"]["power_limit"],
+              f"ladder {rec['config']}: pass, kernel_path cuda, on {rec['device']['name']} "
+              f"at {rec['device']['power_limit']}")
+    pl = phase_launches["ladder"]
+    check(pl["select_k"] > 0 and pl["fused_knn"] > 0 and pl["cagra_traverse"] > 0
+          and pl["ivf_scan_probe_major"] > 0 and pl["ivf_scan_probe_major_bf16"] > 0,
+          "ladder launched select_k, fused_knn, the probe-major scans (f32, bf16) and the walk")
+
+    # -- main path: the harness end to end, and one primitive of each family -----
+    from raft_tpu_torch.bench import prims
+
+    bench_dir = tempfile.mkdtemp(prefix="raft_tpu_torch_bench_")
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "raft_tpu_torch.bench", "--dataset",
+                          "sift-128-euclidean", "--scale", "0.01", "--out", bench_dir],
+                         capture_output=True, text=True, timeout=600)
+    print(cli.stdout[-3000:], flush=True)
+    rows_json, rows_csv = [], []
+    if cli.returncode == 0:
+        with open(os.path.join(bench_dir, "sift-128-euclidean.json")) as fh:
+            rows_json = json.load(fh)
+        with open(os.path.join(bench_dir, "sift-128-euclidean.csv")) as fh:
+            rows_csv = fh.read().splitlines()[1:]
+    shutil.rmtree(bench_dir, ignore_errors=True)
+    algos = {r["algo"] for r in rows_json}
+    short_rows = [{key: r[key] for key in ("algo", "search_param", "recall", "qps",
+                                           "build_time_s", "device_time_s")}
+                  for r in rows_json if not (r["recall"] > 0 and r["qps"] > 0
+                                             and r["build_time_s"] >= 0 and r["device_time_s"])]
+    check(cli.returncode == 0 and algos == {"raft_tpu_brute_force", "raft_tpu_ivf_flat",
+                                            "raft_tpu_ivf_pq", "raft_tpu_cagra"}
+          and len(rows_csv) == len(rows_json) and not short_rows,
+          f"python -m raft_tpu_torch.bench --scale 0.01: rc {cli.returncode}, {len(rows_json)} "
+          f"rows ({len(rows_csv)} in the CSV) over {sorted(algos)} with recall, QPS, build time "
+          f"and device time, in {time.perf_counter() - t0:.1f} s"
+          f"{f'; rows short of one: {short_rows}' if short_rows else ''}"
+          f"{cli.stderr[-2000:] if cli.returncode else ''}")
+    with phase("prims"):
+        prim_rows = [row for f in ("select_k/4096x2048/k10", "select_k_ab/1024x4096/k10/topk",
+                                   "pairwise/sqeuclidean", "ivf_scan_ab/100kx96/p32/probe_major",
+                                   "bf_knn_ab", "fused_l2_nn")
+                     for row in prims.run(f, res=res)]
+    check(len(prim_rows) == 6 and all(r["seconds"] > 0 and r["device"]["power_limit"]
+                                      for r in prim_rows),
+          f"prims: one case of each family timed ({[r['name'] for r in prim_rows]})")
+
+    # -- main path: batched brute force, and bf16 internal distances in IVF-PQ ---
+    bf_idx = brute_force.build(x, res=res)
+    with phase("batch_k_query"):
+        bkq = brute_force.make_batch_k_query(bf_idx, q[:1000], K, res=res)
+        bk_batches = []
+        for o in (0, K, 3 * K, 7 * K):   # each batch beside the k it was cut from
+            bk_batches.append((bkq.batch(o, K), bkq._cached_k))
+    ok_bk = True
+    for b, k_cut in bk_batches:
+        v_, i_ = brute_force.search(bf_idx, q[:1000], k_cut, res=res)
+        ok_bk &= torch.equal(b.distances(), v_[:, b.offset:b.offset + b.size]) and torch.equal(
+            b.indices(), i_[:, b.offset:b.offset + b.size])
+    check(ok_bk and bkq._cached_k == 8 * K and phase_launches["batch_k_query"]["fused_knn"] > 0,
+          f"make_batch_k_query: batches at offsets 0..{7 * K} (k grown to {bkq._cached_k}) "
+          "bitwise brute_force.search at the same k, on fused_knn")
+    del bf_idx, bkq, bk_batches
+    # raft_tpu's ladder config 4 (100k x 96, n_lists 1024, pq_dim 48, bf16
+    # products, k' = 4 k refined): f32 against bf16 internal distances
+    l4_c, l4_x = ladder._blobs(100_000, 96, 1000, 4)
+    rng_l4 = np.random.default_rng(5)
+    l4_q = torch.from_numpy(l4_c[rng_l4.integers(0, 1000, 10_000)] + rng_l4.standard_normal(
+        (10_000, 96)).astype(np.float32) * 0.35).to(dev)
+    l4_x = torch.from_numpy(l4_x).to(dev)
+    l4_gt = brute_force.knn(l4_x, l4_q, K, res=res)[1]
+    l4_pq = ivf_pq.build(ivf_pq.IndexParams(n_lists=1024, pq_dim=48, kmeans_n_iters=10), l4_x,
+                         res=res)
+    l4_r = {}
+    for internal in ("float32", "bfloat16"):
+        with phase(f"pq_internal_{internal}"):
+            l4_sp = ivf_pq.SearchParams(n_probes=32, lut_dtype="bfloat16",
+                                        internal_distance_dtype=internal)
+            cand = ivf_pq.search(l4_sp, l4_pq, l4_q, 4 * K, res=res)[1]
+            l4_r[internal] = recall_at_k(refine(l4_x, l4_q, cand, K, res=res)[1], l4_gt, K)
+    check(phase_launches["pq_internal_bfloat16"]["ivf_scan_probe_major_bf16"] == 0
+          and phase_launches["pq_internal_float32"]["ivf_scan_probe_major_bf16"] > 0,
+          "bf16 internal distances on plain ops (no scan kernel), f32 on the bf16 scan")
+    check(abs(l4_r["bfloat16"] - l4_r["float32"]) <= PQ_BF16_TOL and l4_r["bfloat16"] >= 0.9,
+          f"ladder config 4 IVF-PQ refined recall@{K}: bf16 internal {l4_r['bfloat16']:.5f} "
+          f"within {PQ_BF16_TOL} of f32 internal {l4_r['float32']:.5f}")
+    del l4_x, l4_q, l4_pq, l4_gt, cand
+
 
     for name in kernels.KERNELS:
         check(main_launches[name] > 0, f"{name} launched {main_launches[name]} times on the main path")
     print(f"phase launches: {json.dumps(phase_launches)}", flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+    nums = [v for r in results for e in [r] + r.get("also", []) for v in e.values()
+            if isinstance(v, float)]
+    check(all(np.isfinite(v) for v in nums), f"every number of the kernels line is finite "
+          f"({sum(not np.isfinite(v) for v in nums)} of {len(nums)} are not)")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
         return 1

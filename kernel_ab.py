@@ -59,7 +59,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    from raft_tpu_torch import datasets, kernels
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.bench import datasets
     from raft_tpu_torch.kernels import fused_knn as fk
     from raft_tpu_torch.kernels import select_k as sk
 

@@ -6,7 +6,10 @@
 // one kernel below.
 //
 // Replaces raft_tpu/kernels/cagra_traverse.py cagra_fused_hop / _hop_kernel
-// (the dense-dataset leg) and _hop_kernel_paged (the paged leg: the rows sit
+// (the dense-dataset leg, f32 or bf16 rows; uint8 / int8 rows, which
+// raft_tpu walks in its XLA body, are legs of the same kernel here, each
+// value converted exactly to f32 as it is read from the staged row) and
+// _hop_kernel_paged (the paged leg: the rows sit
 // in a pool of pages [slots][page_rows][d] behind a page table, and row id
 // is row id % page_rows of pool slot page_slot[id / page_rows]; a -1 entry,
 // a page not resident, reads slot 0, as raft_tpu's kernel clamps it).  The
@@ -97,13 +100,15 @@ inline size_t walk_smem(int d, int deg, int width, int itopk, int stride, int gr
          (size_t)itopk * 3;
 }
 
-// Value e of a 16-byte word of T values, as f32 (exact).
+// Value e of a 16-byte word of T values, as f32 (exact: an 8-bit value
+// through rt::as_f32, the staging conversion of the raw 8-bit scans).
 template <typename T>
 __device__ __forceinline__ float walk_elem(const uint4& w, int e) {
   const int byte = e * (int)sizeof(T);
   const unsigned word = byte < 4 ? w.x : byte < 8 ? w.y : byte < 12 ? w.z : w.w;
   if constexpr (sizeof(T) == 4) return __uint_as_float(word);
-  else return __uint_as_float(((word >> ((byte & 3) * 8)) & 0xffffu) << 16);
+  else if constexpr (sizeof(T) == 2) return __uint_as_float(((word >> ((byte & 3) * 8)) & 0xffffu) << 16);
+  else return rt::as_f32(static_cast<T>((word >> ((byte & 3) * 8)) & 0xffu));
 }
 
 // Number of the first n values of a sorted array below v (kUpper: at or
@@ -405,25 +410,32 @@ int launch_walk(const T* data, const int* graph, const float* queries, const int
   return (int)cudaGetLastError();
 }
 
+// The row type's code: 0 f32, 1 bf16, 2 uint8, 3 int8.
 template <typename... A>
-int launch_either(const void* data, int bf16, A... args) {
-  return bf16 ? launch_walk(static_cast<const __nv_bfloat16*>(data), args...)
-              : launch_walk(static_cast<const float*>(data), args...);
+int launch_either(const void* data, int dtype, A... args) {
+  switch (dtype) {
+    case 0: return launch_walk(static_cast<const float*>(data), args...);
+    case 1: return launch_walk(static_cast<const __nv_bfloat16*>(data), args...);
+    case 2: return launch_walk(static_cast<const uint8_t*>(data), args...);
+    case 3: return launch_walk(static_cast<const int8_t*>(data), args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dataset [n, d] f32 (bf16 != 0: bf16) — or, with a page table page_slot
-// [n_pages] int32 (null: dense), the pool of pages [slots][page_rows][d] —
+// dataset [n, d] of the type `dtype` names (0 f32, 1 bf16, 2 uint8, 3 int8)
+// — or, with a page table page_slot [n_pages] int32 (null: dense), the pool
+// of pages [slots][page_rows][d] —
 // graph [n, deg] int32, queries [tile, d] f32, parents [tile, width] int32,
 // buffers [tile, itopk] (f32 values, int32 ids, uint8 flags); outputs of
 // the same shapes.
-extern "C" int rt_cagra_hop(const void* data, int bf16, const int* graph, const float* queries,
+extern "C" int rt_cagra_hop(const void* data, int dtype, const int* graph, const float* queries,
                             const int* parents, const float* buf_d, const int* buf_i,
                             const void* explored, int tile, int d, int deg, int width,
                             int itopk, int ip_mode, const int* page_slot, int page_rows,
                             float* out_d, int* out_i, void* out_e, void* stream) {
-  return launch_either(data, bf16, graph, queries, parents, buf_d, buf_i,
+  return launch_either(data, dtype, graph, queries, parents, buf_d, buf_i,
                        static_cast<const uint8_t*>(explored), tile, d, deg, width, itopk,
                        ip_mode, 1, page_slot, page_rows, out_d, out_i,
                        static_cast<uint8_t*>(out_e), (int*)nullptr, (int*)nullptr,
@@ -436,13 +448,13 @@ extern "C" int rt_cagra_hop(const void* data, int bf16, const int* graph, const 
 // `steps`; live and fetched [tile] int32 receive the live parents each
 // query's walk ran and the candidate rows it read (the work it really did,
 // for the bound).
-extern "C" int rt_cagra_traverse(const void* data, int bf16, const int* graph,
+extern "C" int rt_cagra_traverse(const void* data, int dtype, const int* graph,
                                  const float* queries, const float* buf_d, const int* buf_i,
                                  const void* explored, int tile, int d, int deg, int width,
                                  int itopk, int ip_mode, int steps, const int* page_slot,
                                  int page_rows, float* out_d, int* out_i, void* out_e, int* live,
                                  int* fetched, void* stream) {
-  return launch_either(data, bf16, graph, queries, (const int*)nullptr, buf_d, buf_i,
+  return launch_either(data, dtype, graph, queries, (const int*)nullptr, buf_d, buf_i,
                        static_cast<const uint8_t*>(explored), tile, d, deg, width, itopk,
                        ip_mode, steps, page_slot, page_rows, out_d, out_i,
                        static_cast<uint8_t*>(out_e), live, fetched, (cudaStream_t)stream);

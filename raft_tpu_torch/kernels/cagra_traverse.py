@@ -18,15 +18,19 @@ A hop takes each query's ``width`` parents (−1: none) and folds their
 neighbour lists into the query's candidate buffer ``(buf_d, buf_i,
 explored)`` [tile, itopk], sorted ascending with id −1 at every +inf slot.
 Per parent, in order: score the neighbour rows (squared L2 or −q·v, every
-dot product one f32 sum in dimension order, ``toolkit.sequential_dot``);
+dot product one f32 sum in dimension order, ``toolkit.sequential_dot``,
+over the rows converted exactly to f32: f32, bf16, uint8 or int8 rows);
 score +inf a negative id, a missing parent, an id already in the live
 merged buffer, and a repeat of an earlier slot of the same list; fold into
 the buffer by (value, position), residents first (``toolkit.fold_topk``);
 set the id of every +inf slot to −1.  A slot of the result is explored when
 its id was explored in the input buffer, or when its value is +inf.
 
-raft_tpu's Pallas hop computes the same function; its |v|^2 goes through a
-ones-contraction, so the two differ only in summation order.
+raft_tpu's Pallas hop computes the same function on f32 / bf16 rows; its
+|v|^2 goes through a ones-contraction, so the two differ only in summation
+order.  raft_tpu walks 8-bit rows in its XLA body (the rows of each hop
+cast to f32); the port's kernel has 8-bit legs, counted under the same
+launch names as the f32 and bf16 rows.
 """
 
 from __future__ import annotations
@@ -43,12 +47,13 @@ from raft_tpu_torch.store.paged import PagedRows
 #: widest candidate buffer the hop kernel serves (raft_tpu's MAX_ITOPK)
 MAX_ITOPK = 512
 _METRICS = ("sqeuclidean", "euclidean", "inner_product")
-_DATASET_DTYPES = (torch.float32, torch.bfloat16)
+#: the row types of the hop kernel, and each one's code in the C entries
+_DATASET_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.int8: 3}
 
 
 def traverse_supported(dataset, itopk: int) -> bool:
-    """Routing gate of the hop kernel: a dense f32 or bf16 dataset, or a
-    ``PagedRows`` of them, and ``0 < itopk <= 512``."""
+    """Routing gate of the hop kernel: a dense f32, bf16, uint8 or int8
+    dataset, or a ``PagedRows`` of one, and ``0 < itopk <= 512``."""
     return (
         isinstance(dataset, (torch.Tensor, PagedRows))
         and dataset.dtype in _DATASET_DTYPES
@@ -61,7 +66,7 @@ def _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric):
         raise ValueError(f"cagra hop metric must be one of {_METRICS}, got {metric!r}")
     if (not isinstance(dataset, (torch.Tensor, PagedRows))
             or dataset.dtype not in _DATASET_DTYPES):
-        raise ValueError(f"cagra hop serves f32/bf16 datasets, dense or paged, got "
+        raise ValueError(f"cagra hop serves f32/bf16/uint8/int8 datasets, dense or paged, got "
                          f"{getattr(dataset, 'dtype', type(dataset))}")
     tile, itopk = buf_d.shape
     n, d = dataset.shape
@@ -129,7 +134,7 @@ def _hop_torch(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
 
 
 def cagra_fused_hop_torch(
-    dataset,                  # [n, d] f32 / bf16, or PagedRows
+    dataset,                  # [n, d] f32 / bf16 / uint8 / int8, or PagedRows
     graph: torch.Tensor,      # [n, deg] int32
     queries: torch.Tensor,    # [tile, d] f32
     parents: torch.Tensor,    # [tile, width] int32, -1 = no parent
@@ -201,7 +206,7 @@ def cagra_fused_hop(
     _k.stamp_kernel_path("cuda")
     _k.count_launch(name)
     code = lib.rt_cagra_hop(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), qf.data_ptr(),
+        x.data_ptr(), _DATASET_DTYPES[x.dtype], g.data_ptr(), qf.data_ptr(),
         par.data_ptr(), bd.data_ptr(), bi.data_ptr(), be.data_ptr(), tile, d, g.shape[1],
         par.shape[1], itopk, int(metric == "inner_product"),
         dataset.page_slot.data_ptr() if paged else None, dataset.page_rows if paged else 0,
@@ -247,7 +252,7 @@ def cagra_traverse_steps_torch(dataset, graph, queries, buf_d, buf_i, explored, 
 
 
 def cagra_traverse_steps(
-    dataset,                  # [n, d] f32 / bf16, or PagedRows
+    dataset,                  # [n, d] f32 / bf16 / uint8 / int8, or PagedRows
     graph: torch.Tensor,      # [n, deg] int32
     queries: torch.Tensor,    # [tile, d] f32
     buf_d: torch.Tensor,      # [tile, itopk] f32, ascending, +inf empty slots
@@ -298,7 +303,7 @@ def cagra_traverse_steps(
     _k.stamp_kernel_path("cuda")
     _k.count_launch(name)
     code = lib.rt_cagra_traverse(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), qf.data_ptr(),
+        x.data_ptr(), _DATASET_DTYPES[x.dtype], g.data_ptr(), qf.data_ptr(),
         bd.data_ptr(), bi.data_ptr(), be.data_ptr(), tile, d, g.shape[1], width, itopk,
         int(metric == "inner_product"), steps,
         dataset.page_slot.data_ptr() if paged else None, dataset.page_rows if paged else 0,

@@ -22,7 +22,9 @@ Routing, with no switch:
 
 ``Index`` keeps the dataset in its input dtype (f32, bf16, int8, uint8),
 and ``save`` / ``load`` read and write raft_tpu's format, so an index saved
-by either package loads in the other.
+by either package loads in the other.  ``make_batch_k_query`` serves
+neighbours in batches of growing k over one query set (searches at a
+doubling k); ``EffortSpec`` is the identity effort spec.
 
 A paged index (``store.paginate_index``; ``dataset`` is then a host
 tensor) scans every row each call, so ``search`` pins the whole payload in
@@ -32,7 +34,8 @@ passes the flat pool view to ``knn``: bitwise the dense rows.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import ClassVar, Optional, Tuple
 
 import torch
 
@@ -158,6 +161,28 @@ def _tiled_knn(queries: torch.Tensor, dataset: torch.Tensor, k: int, metric: str
     return torch.cat(vs), torch.cat(is_)
 
 
+@dataclass(frozen=True)
+class EffortSpec:
+    """The identity effort spec (raft_tpu's): exact search has no effort
+    knob, so every level is the same full effort.  It lets the effort
+    machinery treat the four backends alike."""
+
+    backend: ClassVar[str] = "brute_force"
+
+    @classmethod
+    def from_params(cls, params=None, **extra) -> "EffortSpec":
+        return cls()
+
+    def apply(self, params=None):
+        return params
+
+    def degraded(self, level: int) -> "EffortSpec":
+        return self
+
+    def knobs(self):
+        return {}
+
+
 class Index:
     """Brute-force index: the dataset (in its input dtype) and its metric."""
 
@@ -194,6 +219,83 @@ def search(index: Index, queries, k: int, *, sample_filter=None,
         dataset = pool.reshape((-1,) + tuple(pool.shape[2:]))[: index.size]
     return knn(dataset, queries, k, metric=index.metric,
                sample_filter=sample_filter, deleted_mask=deleted_mask, res=res)
+
+
+class Batch:
+    """One batch of a :class:`BatchKQuery`: neighbours ``[offset, offset +
+    size)`` of every query, nearest first."""
+
+    def __init__(self, distances: torch.Tensor, indices: torch.Tensor, offset: int):
+        self._distances = distances
+        self._indices = indices
+        self.offset = offset
+
+    def distances(self) -> torch.Tensor:
+        return self._distances
+
+    def indices(self) -> torch.Tensor:
+        return self._indices
+
+    @property
+    def size(self) -> int:
+        return self._indices.shape[1]
+
+
+class BatchKQuery:
+    """Queries of growing k over a brute-force index: batch 0 holds each
+    query's nearest ``batch_size`` neighbours, batch 1 the next
+    ``batch_size``, and so on, with no final k chosen up front (raft_tpu's
+    ``BatchKQuery``).  The result of one :func:`search` at a cached k is
+    kept; a batch past it searches again at ``max(offset + size, 2 x
+    cached, 2 x batch_size)`` (the reference's doubling rule), so b batches
+    cost O(log b) searches.  On the card each is a fused_knn search, which
+    serves k up to 2048."""
+
+    def __init__(self, index: Index, queries, batch_size: int, *,
+                 res: Optional[Resources] = None):
+        validation.check_positive(batch_size, "batch_size")
+        self.index = index
+        self.queries = queries
+        self.batch_size = int(batch_size)
+        self._res = res
+        self._cached_k = 0
+        self._vals: Optional[torch.Tensor] = None
+        self._ids: Optional[torch.Tensor] = None
+
+    def _ensure(self, upto: int) -> None:
+        upto = min(upto, self.index.size)
+        if upto <= self._cached_k:
+            return
+        want = min(self.index.size, max(upto, 2 * self._cached_k, 2 * self.batch_size))
+        self._vals, self._ids = search(self.index, self.queries, want, res=self._res)
+        self._cached_k = want
+
+    def batch(self, offset: int, size: int) -> Batch:
+        """Neighbours ``[offset, offset + size)`` of every query (cut at the
+        index size)."""
+        validation.expects(offset >= 0, f"offset must be >= 0, got {offset}")
+        size = max(0, min(size, self.index.size - offset))
+        if size == 0:
+            dev = ensure(self._res).device
+            n_q = self.queries.shape[0]
+            return Batch(torch.zeros((n_q, 0), dtype=torch.float32, device=dev),
+                         torch.zeros((n_q, 0), dtype=torch.int32, device=dev), offset)
+        self._ensure(offset + size)
+        return Batch(self._vals[:, offset:offset + size], self._ids[:, offset:offset + size],
+                     offset)
+
+    def __iter__(self):
+        offset = 0
+        while offset < self.index.size:
+            b = self.batch(offset, self.batch_size)
+            yield b
+            offset += b.size
+
+
+def make_batch_k_query(index: Index, queries, batch_size: int, *,
+                       res: Optional[Resources] = None) -> BatchKQuery:
+    """A :class:`BatchKQuery` over ``index`` (raft_tpu's ``make_batch_k_query``)."""
+    return BatchKQuery(index, queries, batch_size, res=res)
 
 
 def save(filename: str, index: Index) -> None:

@@ -1,5 +1,5 @@
 """CAGRA: graph index, build + batched beam search (counterpart of
-``raft_tpu.neighbors.cagra``; dense f32 / bf16 datasets).
+``raft_tpu.neighbors.cagra``; dense f32 / bf16 / int8 / uint8 datasets).
 
 Build: a kNN graph of ``intermediate_graph_degree`` neighbours per row —
 IVF-PQ search of every row for ``gpu_top_k = 2 (inter + 1)`` candidates,
@@ -43,15 +43,24 @@ is smaller) and reads rows through a ``store.PagedRows`` page table — the
 hop's paged leg unfiltered, ``PagedRows.decode`` in :func:`traverse_init`
 and the filtered body — bitwise equal to the dense search.
 
-Not in this slice (``NotImplementedError``, ROADMAP Queue 2): int8 / uint8 datasets, ``compress``
-and VPQ datasets, ``EffortSpec``, the NN-descent builds;
-hnsw export and the sharded graph mode are not ported either.
+int8 / uint8 datasets (BIGANN's rows are uint8) stay 1 byte a value in the
+index, as in raft_tpu: the graph build reads them as its brute-force and
+IVF-PQ stages read any rows (an f32 copy inside ``brute_force.knn``; the
+IVF-PQ build, its searches and the refine convert tiles of rows), and the
+walk reads 8-bit rows on the hop kernel's 8-bit legs, each value converted
+exactly to f32 where it is staged.
+
+``EffortSpec`` holds the search's effort knobs (``itopk_size``,
+``search_width``).  Not ported (``NotImplementedError``, ROADMAP Queue 1):
+``compress`` and VPQ datasets, the NN-descent builds; hnsw export and the
+sharded graph mode are not ported either.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import replace as dc_replace
+from typing import ClassVar, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +68,7 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.bitset import RowFilter
-from raft_tpu_torch.core.resources import Resources, as_f32, ensure
+from raft_tpu_torch.core.resources import Resources, as_f32, ensure, from_numpy
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.kernels import stamp_kernel_path
 from raft_tpu_torch.kernels import cagra_traverse as _ct
@@ -82,7 +91,6 @@ _ROADMAP = "ROADMAP Queue 2, CAGRA leftovers"
 #: names raft_tpu's cagra module has that the port does not serve yet
 _NOT_PORTED = {
     "compress": "VPQ-compressed CAGRA datasets",
-    "EffortSpec": "CAGRA's EffortSpec (the serving layer's effort knobs)",
 }
 
 
@@ -130,8 +138,40 @@ class SearchParams:
     num_entry_centers: int = 16
 
 
+@dataclass(frozen=True)
+class EffortSpec:
+    """The search-effort knobs of CAGRA (raft_tpu's ``EffortSpec``; see
+    ``ivf_flat.EffortSpec``): the buffer ``itopk_size`` and the parents a
+    hop ``search_width``.  Stepping down moves ``itopk_size`` only."""
+
+    itopk_size: int = 64
+    search_width: int = 1
+
+    backend: ClassVar[str] = "cagra"
+
+    @classmethod
+    def from_params(cls, params: Optional[SearchParams] = None, **extra) -> "EffortSpec":
+        base = params if params is not None else SearchParams()
+        return cls(itopk_size=int(base.itopk_size), search_width=int(base.search_width))
+
+    def apply(self, params: Optional[SearchParams] = None) -> SearchParams:
+        base = params if params is not None else SearchParams()
+        return dc_replace(base, itopk_size=int(self.itopk_size),
+                          search_width=int(self.search_width))
+
+    def degraded(self, level: int) -> "EffortSpec":
+        """``level`` notches down: ``itopk_size`` halved per level (at least 32)."""
+        if level <= 0:
+            return self
+        return EffortSpec(itopk_size=max(32, int(self.itopk_size) >> int(level)),
+                          search_width=int(self.search_width))
+
+    def knobs(self):
+        return {"itopk_size": int(self.itopk_size), "search_width": int(self.search_width)}
+
+
 class Index:
-    """Dataset [n, d] (f32 or bf16), graph [n, degree] int32, and the
+    """Dataset [n, d] (f32, bf16, int8 or uint8), graph [n, degree] int32, and the
     optional entry-point table: centres [c, d] f32 and the id of the
     dataset row nearest each."""
 
@@ -160,17 +200,14 @@ class Index:
 
 
 def _as_dataset(dataset, device: torch.device) -> torch.Tensor:
-    """The dataset as the index keeps it: bf16 stays bf16, f32 / f64 become
-    f32; int8 / uint8 and other types raise."""
-    t = torch.from_numpy(np.ascontiguousarray(dataset)) if isinstance(dataset, np.ndarray) \
-        else torch.as_tensor(dataset)
-    if t.dtype == torch.bfloat16:
+    """The dataset as the index keeps it, in its own dtype (raft_tpu keeps
+    f32 / bf16 / int8 / uint8 rows; the search converts gathered rows only):
+    f64 becomes f32, other types raise."""
+    t = from_numpy(dataset) if isinstance(dataset, np.ndarray) else torch.as_tensor(dataset)
+    if t.dtype in (torch.bfloat16, torch.int8, torch.uint8, torch.float32):
         return t.to(device)
-    if t.dtype in (torch.float32, torch.float64):
+    if t.dtype == torch.float64:
         return t.to(device=device, dtype=torch.float32)
-    if t.dtype in (torch.int8, torch.uint8):
-        raise NotImplementedError(
-            f"int8 / uint8 CAGRA datasets are not ported yet ({_ROADMAP})")
     raise NotImplementedError(f"CAGRA datasets of {t.dtype} are not ported ({_ROADMAP})")
 
 

@@ -29,7 +29,8 @@ monolithic search; ``extend`` refuses a paged index, as raft_tpu's does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import replace as dc_replace
+from typing import ClassVar, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +77,40 @@ class IndexParams:
 class SearchParams:
     n_probes: int = 20
     strategy: str = "auto"  # auto | query_major | probe_major
+
+
+@dataclass(frozen=True)
+class EffortSpec:
+    """The search-effort knobs of IVF-Flat (raft_tpu's ``EffortSpec``): what
+    the serving layer and the bench move.  ``n_probes`` acts through
+    :class:`SearchParams`; ``refine_ratio`` is the bench's offline
+    multiplier (search ``k x ratio`` candidates, refine exactly).  Pure host
+    values."""
+
+    n_probes: int = 20
+    refine_ratio: int = 1
+
+    backend: ClassVar[str] = "ivf_flat"
+
+    @classmethod
+    def from_params(cls, params: Optional[SearchParams] = None, **extra) -> "EffortSpec":
+        base = params if params is not None else SearchParams()
+        return cls(n_probes=int(base.n_probes), refine_ratio=int(extra.get("refine_ratio", 1)))
+
+    def apply(self, params: Optional[SearchParams] = None) -> SearchParams:
+        """``params`` (default: the defaults) with this spec's online knobs."""
+        base = params if params is not None else SearchParams()
+        return dc_replace(base, n_probes=int(self.n_probes))
+
+    def degraded(self, level: int) -> "EffortSpec":
+        """``level`` notches down: ``n_probes`` halved per level (at least
+        1), refine dropped."""
+        if level <= 0:
+            return self
+        return EffortSpec(n_probes=max(1, int(self.n_probes) >> int(level)), refine_ratio=1)
+
+    def knobs(self):
+        return {"n_probes": int(self.n_probes), "refine_ratio": int(self.refine_ratio)}
 
 
 class Index:

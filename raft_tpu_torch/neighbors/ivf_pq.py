@@ -23,16 +23,17 @@ raft_tpu's file format, so an index saved by either package loads in the
 other; the scan cache is derived state, rebuilt from the codes on load.
 
 Filtered search (``sample_filter`` / ``deleted_mask``) rides the scans'
-filter legs (``_common.scan_search``).  Not in this slice (it raises
-``NotImplementedError``): ``internal_distance_dtype="bfloat16"``.  On the
-card a search serves k up to 2048 (the scan kernels' envelope) and raises
-past it.
+filter legs (``_common.scan_search``).  ``internal_distance_dtype=
+"bfloat16"`` is raft_tpu's XLA leg, which it keeps off its Pallas scans
+(they sum in f32): plain PyTorch ops on the card, in raft_tpu's dtypes
+(:func:`_search_bf16_distance`).  On the card a kernel search serves k up
+to 2048 (the scan kernels' envelope) and raises past it.
 Paged storage (``store.paginate_index``): the scan cache moves to host pages
 behind a device pool at ``index.paged`` (``list_data`` and the codes are then
 host tensors at the page-aligned capacity), and ``search`` reads it through
 the page table on the paged legs of the same kernels, bitwise equal to the
 monolithic search; ``extend`` refuses a paged index, as raft_tpu's does.
-``EffortSpec`` and the sharded build's unsplit layout are not ported.
+The sharded build's unsplit layout is not ported.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ from __future__ import annotations
 import math
 import warnings
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import replace as dc_replace
+from typing import ClassVar, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +50,7 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import validation
+from raft_tpu_torch.core.bitset import RowFilter
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.neighbors import _common
@@ -60,8 +63,10 @@ from raft_tpu_torch.neighbors._common import (
     subsample_trainset,
     unpack_lists,
 )
-from raft_tpu_torch.kernels.toolkit import true_div
-from raft_tpu_torch.ops.matrix import segment_sum
+from raft_tpu_torch.kernels import stamp_kernel_path
+from raft_tpu_torch.kernels.toolkit import int8_scored_ip, true_div
+from raft_tpu_torch.ops.matrix import segment_sum, select_k
+from raft_tpu_torch.store.paged import gather_lists
 
 _SERIALIZATION_VERSION = 1
 
@@ -104,8 +109,44 @@ class IndexParams:
 class SearchParams:
     n_probes: int = 20
     lut_dtype: str = "float32"                 # float32 | bfloat16 products
-    internal_distance_dtype: str = "float32"   # bfloat16: not in this slice
+    internal_distance_dtype: str = "float32"   # float32 | bfloat16 (plain ops)
     strategy: str = "auto"                     # auto | query_major | probe_major
+
+
+@dataclass(frozen=True)
+class EffortSpec:
+    """The search-effort knobs of IVF-PQ (raft_tpu's ``EffortSpec``; see
+    ``ivf_flat.EffortSpec``): ``n_probes`` and ``lut_dtype`` act through
+    :class:`SearchParams`, ``refine_ratio`` is the bench's exact-refine
+    multiplier."""
+
+    n_probes: int = 20
+    refine_ratio: int = 1
+    lut_dtype: str = "float32"
+
+    backend: ClassVar[str] = "ivf_pq"
+
+    @classmethod
+    def from_params(cls, params: Optional[SearchParams] = None, **extra) -> "EffortSpec":
+        base = params if params is not None else SearchParams()
+        return cls(n_probes=int(base.n_probes), refine_ratio=int(extra.get("refine_ratio", 1)),
+                   lut_dtype=str(base.lut_dtype))
+
+    def apply(self, params: Optional[SearchParams] = None) -> SearchParams:
+        base = params if params is not None else SearchParams()
+        return dc_replace(base, n_probes=int(self.n_probes), lut_dtype=str(self.lut_dtype))
+
+    def degraded(self, level: int) -> "EffortSpec":
+        """``level`` notches down: ``n_probes`` halved per level (at least
+        1), bf16 products from level 2, refine dropped."""
+        if level <= 0:
+            return self
+        return EffortSpec(n_probes=max(1, int(self.n_probes) >> int(level)), refine_ratio=1,
+                          lut_dtype="bfloat16" if level >= 2 else str(self.lut_dtype))
+
+    def knobs(self):
+        return {"n_probes": int(self.n_probes), "refine_ratio": int(self.refine_ratio),
+                "lut_dtype": str(self.lut_dtype)}
 
 
 def _auto_pq_dim(dim: int) -> int:
@@ -625,10 +666,8 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     distances.  Id -1 appears only when the probed lists hold fewer than k
     rows (distance +inf).  ``sample_filter`` / ``deleted_mask``: as
     ``ivf_flat.search``."""
-    if params.internal_distance_dtype != "float32":
-        raise NotImplementedError(
-            "internal_distance_dtype='bfloat16' is not in this slice of the port: "
-            "every scan kernel sums in f32")
+    validation.check_in(params.internal_distance_dtype, ("float32", "bfloat16"),
+                        "internal_distance_dtype")
     validation.check_in(params.lut_dtype, ("float32", "bfloat16"), "lut_dtype")
     validation.check_in(params.strategy, ("auto", "query_major", "probe_major"), "strategy")
     res = ensure(res)
@@ -644,12 +683,80 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
             f"{n_probes}*{index.list_cap}; raise n_probes")
     metric = DISTANCE_TYPES[index.metric]
     with _common.search_lists(index, queries, metric, n_probes, index.list_y2) as lists:
+        if params.internal_distance_dtype == "bfloat16":
+            v, i = _search_bf16_distance(index, queries, int(k), n_probes, metric, lists,
+                                         params.lut_dtype, pass_filter, res.workspace_rows)
+            return _common.postprocess(v, metric), i
         v, i = _common.scan_search(
             queries, int(k), n_probes, params.strategy, index.centers, lists, metric,
             lambda qt: _rotate(index, qt), scan_kwargs(index, params.lut_dtype),
             res.workspace_limit_bytes, pass_filter,
         )
     return _common.postprocess(v, metric), i
+
+
+def _search_bf16_distance(index: Index, queries: torch.Tensor, k: int, n_probes: int,
+                          metric: str, lists, lut_dtype: str, pass_filter, workspace_rows):
+    """A search with ``internal_distance_dtype="bfloat16"``: raft_tpu's XLA
+    body (``_search_jit``), which raft_tpu keeps off its Pallas scans, in
+    plain PyTorch ops on the lists' device.  Per query tile: coarse select,
+    the probed rows gathered, ``ip = q_rot . y`` summed in f32, then the
+    score in raft_tpu's dtypes: for a float cache ``ip`` (of bf16 inputs
+    when ``lut_dtype`` is bf16) is rounded to bf16 and ``y2 - 2 ip + q2``
+    runs in bf16 with ``y2`` and ``q2`` rounded to bf16, each operation
+    rounding; for the int8 cache ``ip`` stays f32 (raft_tpu's
+    ``int8_scored_ip``), so the sum promotes to f32 after ``y2`` and ``q2``
+    are rounded; inner product is ``-ip``.  Then the filter mask (+inf, id
+    -1) and ``select_k`` over every probed slot.  Both schedules rank these
+    same scores; raft_tpu's probe-major merge can order ties otherwise.
+    Returns raw scores and ids."""
+    data, list_y2, list_index = lists
+    dev = data.device
+    per_row = isinstance(pass_filter, RowFilter)
+    words = None if pass_filter is None else pass_filter.words.to(dev)
+    if per_row:
+        validation.expects(words.shape[0] == queries.shape[0],
+                           f"row filter has {words.shape[0]} rows for {queries.shape[0]} queries")
+    int8 = data.dtype == torch.int8
+    cap = data.shape[1]
+    itemsize = 1 if int8 else (2 if lut_dtype == "bfloat16" else 4)
+    per_q = n_probes * cap * (index.rot_dim * itemsize + 12)
+    tile = int(min(max(queries.shape[0], 1), workspace_rows(per_q, cap=1024)))
+    bf16 = torch.bfloat16
+    stamp_kernel_path("torch")
+    vs, is_ = [], []
+    for s in range(0, queries.shape[0], tile):
+        qt = queries[s:s + tile]
+        probes = _common.coarse_select(qt, index.centers, metric, n_probes).long()
+        qr = _rotate(index, qt)                                              # [t, rot]
+        dec = gather_lists(data, probes)                                     # [t, p, cap, rot]
+        ids = list_index[probes]                                             # [t, p, cap]
+        if int8:
+            ip = int8_scored_ip(qr[:, None, None, :], dec, index.scan_scale)[:, :, 0, :]
+        else:
+            qs = qr.to(bf16).to(torch.float32) if lut_dtype == "bfloat16" else qr
+            rows = dec.to(torch.float32)
+            if lut_dtype == "bfloat16":
+                rows = rows.to(bf16).to(torch.float32)
+            ip = torch.einsum("td,tpcd->tpc", qs, rows).to(bf16)
+        if metric == "inner_product":
+            scores = (-ip).to(torch.float32)
+        else:
+            q2 = (qr * qr).sum(dim=1).to(bf16)
+            scores = (list_y2[probes].to(bf16) - 2.0 * ip + q2[:, None, None]).to(torch.float32)
+        fw = None if words is None else (words[s:s + tile] if per_row else words)
+        invalid = (_common.invalid_mask_rows(ids, fw) if per_row
+                   else _common.invalid_mask(ids, fw))
+        scores = torch.where(invalid, torch.full_like(scores, float("inf")), scores)
+        ids = torch.where(invalid, torch.full_like(ids, -1), ids)
+        v, i = select_k(scores.reshape(qt.shape[0], -1), k, select_min=True,
+                        input_indices=ids.reshape(qt.shape[0], -1))
+        vs.append(v)
+        is_.append(i)
+    if not vs:
+        return (torch.zeros((0, k), dtype=torch.float32, device=dev),
+                torch.zeros((0, k), dtype=torch.int32, device=dev))
+    return torch.cat(vs), torch.cat(is_)
 
 
 def _pack_bits(codes: np.ndarray, pq_bits: int) -> np.ndarray:

@@ -2,7 +2,8 @@
 ``raft_tpu.neighbors.refine``).
 
 The device path works on query tiles: a gather of each query's candidate
-rows, a batched f32 dot (``torch`` ops, as raft_tpu leaves it to XLA),
+rows (converted to f32 a tile at a time: an 8-bit or bf16 dataset is never
+copied whole), a batched f32 dot (``torch`` ops, as raft_tpu leaves it to XLA),
 then the ported select_k with the candidate ids as its payload (the
 select_k kernel for CUDA tensors).  ``host=True`` is raft_tpu's numpy
 path.  Negative candidate ids score +inf.
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.resources import Resources, as_f32, ensure
+from raft_tpu_torch.core.resources import Resources, as_f32, ensure, to_device
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.neighbors._common import postprocess
 from raft_tpu_torch.ops.matrix import select_k
@@ -57,14 +58,14 @@ def refine(dataset, queries, candidates, k: int, *, metric: str = "sqeuclidean",
         return _refine_host(as_np(dataset), as_np(queries),
                             as_np(candidates).astype(np.int32), k, canonical)
     dev = ensure(res).device
-    x = as_f32(dataset, dev)
+    x = to_device(dataset, dev)   # its own dtype: a tile of rows is converted at a time
     q = as_f32(queries, dev)
     cand = torch.as_tensor(candidates).to(device=dev, dtype=torch.int32)
     tile = _refine_query_tile(cand.shape[0], cand.shape[1], x.shape[1])
     vs, is_ = [], []
     for s in range(0, cand.shape[0], tile):
         c = cand[s:s + tile]
-        rows = x[c.long().clamp(0, x.shape[0] - 1)]                       # [t, k', d]
+        rows = x[c.long().clamp(0, x.shape[0] - 1)].to(torch.float32)     # [t, k', d]
         dist = _distances(q[s:s + tile], rows, canonical)
         dist = torch.where(c < 0, torch.full_like(dist, float("inf")), dist)
         v, i = select_k(dist, k, select_min=True, input_indices=c)

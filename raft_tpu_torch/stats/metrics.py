@@ -1,4 +1,5 @@
-"""Recall (counterpart of ``raft_tpu.stats.metrics.recall_at_k``)."""
+"""Recall (counterpart of ``raft_tpu.stats.metrics`` ``recall_at_k`` and
+``neighborhood_recall``)."""
 
 from __future__ import annotations
 
@@ -27,3 +28,13 @@ def recall_at_k(indices, ref_indices, k: Optional[int] = None) -> float:
         return 0.0
     match = (ids[:, :, None] == ref[:, None, :]).any(axis=1)
     return float((match & valid).sum() / valid.sum())
+
+
+def neighborhood_recall(indices, ref_indices) -> float:
+    """Share of the reference slots whose id appears anywhere in the same row
+    of ``indices`` (raft_tpu's ``neighborhood_recall``: the mean over every
+    slot of ``ref_indices``, padding included)."""
+    ids = torch.as_tensor(indices)
+    ref = torch.as_tensor(ref_indices).to(ids.device)
+    match = (ids[:, :, None] == ref[:, None, :]).any(dim=1)
+    return float(match.to(torch.float32).mean())

@@ -66,7 +66,9 @@ def test_hop_rejects_what_it_does_not_serve():
         ct.cagra_fused_hop(x, args[0], args[1][:3], *args[2:], metric="sqeuclidean")
     assert ct.traverse_supported(torch.zeros(2, 2, dtype=torch.bfloat16), 512)
     assert not ct.traverse_supported(torch.zeros(2, 2), 513)
-    assert not ct.traverse_supported(torch.zeros(2, 2, dtype=torch.int8), 64)
+    assert ct.traverse_supported(torch.zeros(2, 2, dtype=torch.int8), 64)
+    assert ct.traverse_supported(torch.zeros(2, 2, dtype=torch.uint8), 64)
+    assert not ct.traverse_supported(torch.zeros(2, 2, dtype=torch.float16), 64)
 
 
 def test_hop_work_counts_live_parents():
@@ -246,3 +248,35 @@ def test_walk_rejects_what_it_does_not_serve():
                                 metric="sqeuclidean")
     with pytest.raises(ValueError):
         ct.cagra_traverse_steps(x, graph, q[:3], *buf, steps=2, width=1, metric="sqeuclidean")
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_8bit_walk_and_hop_are_the_f32_ones_on_upcast_rows(dtype, metric, paged):
+    """The plain walk and hop over uint8 / int8 rows are bitwise the f32
+    ones over the same rows converted to f32 (values, ids, flags, live
+    parents, fetched rows), dense and through a scattered page table."""
+    from _torch_parity import paged_rows
+
+    x, graph, q, buf = _walk_inputs(21, metric, 32, torch.float32, False)
+    rng = np.random.default_rng(22)
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+    x8 = torch.from_numpy(rng.integers(lo, hi, tuple(x.shape))).to(dtype)
+    rows8, rows32 = x8, x8.to(torch.float32)
+    if paged:
+        rows8, rows32 = paged_rows(x8, 16, 23), paged_rows(x8.to(torch.float32), 16, 23)
+    buf = tcagra.traverse_init(rows32, q, torch.from_numpy(
+        rng.integers(0, x.shape[0], (q.shape[0], 40)).astype(np.int32)), 32, metric)
+    got = ct.cagra_traverse_steps(rows8, graph, q, *buf, steps=6, width=2, metric=metric)
+    want = ct.cagra_traverse_steps(rows32, graph, q, *buf, steps=6, width=2, metric=metric)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    assert not torch.equal(got[1], buf[1])
+    parents, explored = ct.pick_parents(*buf, 2)
+    h8 = ct.cagra_fused_hop(rows8, graph, q, parents, buf[0], buf[1], explored, metric=metric)
+    h32 = ct.cagra_fused_hop(rows32, graph, q, parents, buf[0], buf[1], explored, metric=metric)
+    assert all(torch.equal(a, b) for a, b in zip(h8, h32))
+    seeds = buf[1][:, :20]
+    assert all(torch.equal(a, b) for a, b in zip(tcagra.traverse_init(rows8, q, seeds, 8, metric),
+                                                 tcagra.traverse_init(rows32, q, seeds, 8, metric)))

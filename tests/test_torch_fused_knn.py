@@ -77,3 +77,31 @@ def test_knn_rejects_out_of_slice_inputs():
     idx = tbf.build(x, metric="inner_product", res=CPU)
     v, i = tbf.search(idx, q, 3, res=CPU)
     assert (np.diff(v.numpy(), axis=1) <= 0).all()  # largest products first
+
+
+@pytest.mark.parametrize("batch_size", [3, 16])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_batch_k_query_matches_raft(batch_size, metric):
+    """``make_batch_k_query`` against raft_tpu's on the same index: each
+    batch's values within rtol 1e-5 and ids equal away from near-ties,
+    batches of growing k cut from one search at the cached k (bitwise that
+    search's slice), and the iteration ends at the index size."""
+    x, q = _data(90, 12, 7, 11)
+    tq = tbf.make_batch_k_query(tbf.build(x, metric=metric, res=CPU), torch.from_numpy(q),
+                                batch_size, res=CPU)
+    jq = jbf.make_batch_k_query(jbf.build(jnp.asarray(x), metric=metric), jnp.asarray(q),
+                                batch_size)
+    t_batches, j_batches = list(tq), list(jq)
+    assert [b.offset for b in t_batches] == [b.offset for b in j_batches]
+    assert [b.size for b in t_batches] == [b.size for b in j_batches]
+    assert sum(b.size for b in t_batches) == 90
+    for tb, jb in zip(t_batches, j_batches):
+        assert_topk_match(tb.distances(), tb.indices(), jb.distances(), jb.indices(),
+                          rtol=1e-5, atol=1e-4)
+    # a batch inside the cached k is the slice of one search at that k
+    b = tq.batch(1, 2)
+    v, i = tbf.search(tq.index, torch.from_numpy(q), tq._cached_k, res=CPU)
+    assert torch.equal(b.indices(), i[:, 1:3]) and torch.equal(b.distances(), v[:, 1:3])
+    assert tq.batch(90, 5).size == 0 and tq.batch(88, 5).size == 2
+    with pytest.raises(Exception):
+        tbf.make_batch_k_query(tq.index, torch.from_numpy(q), 0, res=CPU)

@@ -217,8 +217,78 @@ def test_out_of_slice_options_raise(data):
     idx = tpq.build(tpq.IndexParams(**BUILD), x[:1000], res=CPU)
     with pytest.raises(TypeError, match="Bitset"):   # filters are Bitsets / RowFilters
         tpq.search(tpq.SearchParams(), idx, q[:4], 3, sample_filter=object(), res=CPU)
-    with pytest.raises(NotImplementedError):
-        tpq.search(tpq.SearchParams(internal_distance_dtype="bfloat16"), idx, q[:4], 3,
+    # bf16 internal distances are served (test_bf16_internal_distance_matches_raft);
+    # another internal type is refused
+    with pytest.raises(ValueError):
+        tpq.search(tpq.SearchParams(internal_distance_dtype="float16"), idx, q[:4], 3,
                    res=CPU)
     with pytest.raises(ValueError):
         tpq.build(tpq.IndexParams(metric="cosine", **BUILD), x[:1000], res=CPU)
+
+
+@pytest.mark.parametrize("strategy", ["query_major", "probe_major"])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_bf16_internal_distance_matches_raft(data, dtype, metric, lut_dtype, strategy,
+                                             tmp_path):
+    """``internal_distance_dtype="bfloat16"`` against raft_tpu's XLA leg on a
+    raft_tpu-built, saved and loaded index: the scores round to bf16 at the
+    same points, so on the float caches values and ids are bitwise
+    raft_tpu's.  On the int8 cache the product stays f32 and the two
+    packages rescale it in another order: values within rtol 1e-5, ids
+    equal away from near-ties (bf16 scores tie often: the gap is one bf16
+    step of the scores' scale)."""
+    x, q = data
+    jidx = _raft_index(x, metric=metric, dtype=dtype)
+    tidx = _to_port(jidx, tmp_path)
+    kw = dict(n_probes=8, lut_dtype=lut_dtype, internal_distance_dtype="bfloat16",
+              strategy=strategy)
+    jv, ji = jpq.search(jpq.SearchParams(**kw), jidx, q[:200], 10)
+    tv, ti = tpq.search(tpq.SearchParams(**kw), tidx, q[:200], 10, res=CPU)
+    assert kernels.consume_kernel_path() == "torch"
+    if dtype == "int8":
+        assert_topk_match(tv, ti, jv, ji, rtol=1e-5, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    # bf16 scores are coarser than f32 ones, so the f32 search differs,
+    # except int8 inner products: -ip stays f32 there, in raft_tpu too
+    fv, _ = tpq.search(tpq.SearchParams(n_probes=8, lut_dtype=lut_dtype), tidx, q[:200], 10,
+                       res=CPU)
+    assert torch.equal(fv, tv) == (dtype == "int8" and metric == "inner_product")
+
+
+def test_bf16_internal_distance_filters_and_pages(data, tmp_path):
+    """The bf16 leg honours Bitset and RowFilter filters (ids pass, as
+    raft_tpu's) and reads a paged index through its page table (bitwise
+    the monolithic search)."""
+    import copy
+
+    from raft_tpu.core.bitset import Bitset as JBitset
+    from raft_tpu_torch.core.bitset import Bitset, RowFilter
+    from raft_tpu_torch.store import paginate_index
+
+    x, q = data
+    jidx = _raft_index(x)
+    tidx = _to_port(jidx, tmp_path)
+    rng = np.random.default_rng(9)
+    keep = rng.random(N) < 0.3
+    sp = dict(n_probes=8, internal_distance_dtype="bfloat16")
+    jbits = JBitset.from_mask(keep)
+    bits = Bitset.from_numpy(np.asarray(jbits.words), N, device="cpu")
+    jv, ji = jpq.search(jpq.SearchParams(**sp), jidx, q[:64], 10, sample_filter=jbits)
+    tv, ti = tpq.search(tpq.SearchParams(**sp), tidx, q[:64], 10, sample_filter=bits, res=CPU)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert keep[ti.numpy()[ti.numpy() >= 0]].all()
+    masks = rng.random((64, N)) < 0.5
+    rows = RowFilter.from_mask_rows(torch.from_numpy(masks))
+    _, ri = tpq.search(tpq.SearchParams(**sp), tidx, q[:64], 10, sample_filter=rows, res=CPU)
+    ri = ri.numpy()
+    assert all(masks[r][ri[r][ri[r] >= 0]].all() for r in range(64))
+    paged = copy.copy(tidx)
+    paginate_index(paged, page_rows=8, budget=None)
+    for a, b in zip(tpq.search(tpq.SearchParams(**sp), paged, q[:64], 10, res=CPU),
+                    tpq.search(tpq.SearchParams(**sp), tidx, q[:64], 10, res=CPU)):
+        assert torch.equal(a, b)

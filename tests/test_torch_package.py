@@ -1434,3 +1434,129 @@ def test_cagra_search_is_bitwise_its_plain_versions(cuda, paged, width, monkeypa
     want = cagra.search(sp, idx, q, 10, res=res)
     assert sum(kernels.launch_counts().values()) == 0
     assert _bits_equal(got, want)
+
+
+def test_import_check_covers_the_bench():
+    bench = [p for p in PORT_FILES if "bench" in p.relative_to(REPO).parts]
+    assert {p.name for p in bench} >= {"datasets.py", "device_time.py", "runner.py", "export.py",
+                                       "conf.py", "ladder.py", "prims.py", "__main__.py"}
+    assert not [m for p in bench for m in _imported_modules(p) if _forbidden(m)]
+
+
+def _rows8(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows of the same shape as ``x`` holding seeded 8-bit values."""
+    g = torch.Generator().manual_seed(61)
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+    return torch.randint(lo, hi, tuple(x.shape), generator=g).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,itopk", [(1, 16), (1, 64), (4, 129), (33, 512)])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+@pytest.mark.parametrize("paged", [False, True])
+def test_walk_kernel_8bit_legs_match_plain_bitwise(cuda, paged, dtype, metric, width, itopk):
+    """#8's 8-bit legs (uint8 / int8 rows, each value converted exactly to
+    f32 where it is staged), dense and through a scattered page table,
+    against the plain loop of pick and hop on the card: values by their
+    bits, ids, flags, live parents and fetched rows; under the launch
+    names of the f32 and bf16 rows."""
+    from _torch_parity import paged_rows
+
+    x, graph, q, _ = _walk_inputs_card(62, metric, itopk, False)
+    x8 = _rows8(x, dtype)
+    rng = np.random.default_rng(63)
+    seeds = torch.from_numpy(rng.integers(0, x.shape[0], (q.shape[0], itopk + 8)).astype(np.int32))
+    buf = cagra.traverse_init(x8, q, seeds, itopk, metric)
+    rest = [a.to(cuda) for a in (graph, q, *buf)]
+    rows = _on(paged_rows(x8, 64, 64), cuda) if paged else x8.to(cuda)
+    want = cagra_traverse.cagra_traverse_steps_torch(rows, *rest, steps=12, width=width,
+                                                     metric=metric)
+    kernels.reset_launch_counts()
+    got = cagra_traverse.cagra_traverse_steps(rows, *rest, steps=12, width=width, metric=metric)
+    torch.cuda.synchronize()
+    name = "cagra_traverse_paged" if paged else "cagra_traverse"
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {name: 1}
+    assert _bits_equal(got[:2], want[:2])
+    assert all(torch.equal(got[j], want[j]) for j in (2, 3, 4))
+    assert not torch.equal(got[1], rest[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+@pytest.mark.parametrize("paged", [False, True])
+def test_hop_kernel_8bit_legs_match_plain_bitwise(cuda, paged, dtype, metric):
+    """The single hop (``rt_cagra_hop``) on 8-bit rows, dense and paged:
+    bitwise its plain version, and the paged leg bitwise the dense one."""
+    from _torch_parity import paged_rows
+
+    x, graph, q, *_ = hop_inputs(9, metric, n=4000, d=128, deg=64, tile=300, itopk=64, width=2)
+    x8 = _rows8(x, dtype)
+    seeds = np.random.default_rng(67).integers(0, x.shape[0], (q.shape[0], 72))
+    buf = cagra.traverse_init(x8, q, torch.from_numpy(seeds.astype(np.int32)), 64, metric)
+    parents, explored = cagra_traverse.pick_parents(*buf, 2)
+    rest = [a.to(cuda) for a in (graph, q, parents, buf[0], buf[1], explored)]
+    rows = _on(paged_rows(x8, 8, 65), cuda) if paged else x8.to(cuda)
+    want = cagra_traverse.cagra_fused_hop_torch(rows, *rest, metric=metric)
+    kernels.reset_launch_counts()
+    got = cagra_traverse.cagra_fused_hop(rows, *rest, metric=metric)
+    torch.cuda.synchronize()
+    name = "cagra_fused_hop_paged" if paged else "cagra_fused_hop"
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {name: 1}
+    dense = cagra_traverse.cagra_fused_hop(x8.to(cuda), *rest, metric=metric)
+    for a, b, c in zip(got, want, dense):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert not torch.equal(got[1], rest[4])
+
+
+@pytest.mark.cuda
+def test_cagra_8bit_search_on_the_card_is_bitwise_its_plain_versions(cuda, monkeypatch):
+    """A uint8 CAGRA index built on the card keeps 1 byte a value; its search
+    runs one walk launch per tile and is bitwise the same search with every
+    kernel replaced by its plain version."""
+    rng = np.random.default_rng(66)
+    x = rng.integers(0, 256, (5000, 48)).astype(np.uint8)
+    q = rng.integers(0, 256, (230, 48)).astype(np.float32)
+    res = Resources(device="cuda")
+    idx = cagra.build(cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16), x,
+                      res=res)
+    assert idx.dataset.dtype == torch.uint8 and idx.dataset.is_cuda
+    sp = cagra.SearchParams(itopk_size=64, max_queries=100)
+    kernels.reset_launch_counts()
+    got = cagra.search(sp, idx, q, 10, res=res)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["cagra_traverse"] == 3
+    from raft_tpu_torch.neighbors import cagra as ncagra
+
+    monkeypatch.setattr(ncagra, "cagra_traverse_steps", cagra_traverse.cagra_traverse_steps_torch)
+    monkeypatch.setattr(select_k, "select_k_kernel",
+                        lambda *a, **kw: select_k.select_k_torch(*a, **kw))
+    want = cagra.search(sp, idx, q, 10, res=res)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_measure_device_time_is_busy_time_within_the_wall(cuda):
+    """``bench.device_time.measure_device_time`` on the card: a positive busy
+    time, no larger than the wall time of the same call."""
+    import time
+
+    from raft_tpu_torch.bench.device_time import card, measure_device_time
+
+    x = torch.randn(20000, 128, device=cuda)
+    q = torch.randn(2000, 128, device=cuda)
+    res = Resources(device="cuda")
+    brute_force.knn(x, q, 10, res=res)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    brute_force.knn(x, q, 10, res=res)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = measure_device_time(lambda a, b: brute_force.knn(a, b, 10, res=res), x, q)
+    assert busy is not None and 0 < busy
+    t0 = time.perf_counter()
+    busy2 = measure_device_time(lambda a, b: brute_force.knn(a, b, 10, res=res), x, q)
+    assert busy2 <= time.perf_counter() - t0
+    info = card(cuda)
+    assert info["name"] == torch.cuda.get_device_name(0) and info["power_limit"]
