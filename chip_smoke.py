@@ -113,10 +113,37 @@ then drives the port's main paths at the scale of sift-128-euclidean
    1-4 at scale 1.0): every config passes, on the card, with its launches;
 18. the harness end to end: ``python -m raft_tpu_torch.bench --scale 0.01``
    in a subprocess (a row per algorithm with recall, QPS, build time and
-   device time) and one ``bench.prims`` case of each family;
+   device time), the rows ``raft_tpu_cagra_vpq`` and ``hnswlib_format`` on
+   the same dataset in this process, and one ``bench.prims`` case of each
+   family;
 19. ``brute_force.make_batch_k_query`` batches bitwise ``brute_force.search``
    at the same k, and IVF-PQ at the ladder's config 4 with bf16 internal
-   distances (plain ops) against f32 (the scan kernel), both refined.
+   distances (plain ops) against f32 (the scan kernel), both refined;
+20. NN-descent: CAGRA with ``build_algo="nn_descent"`` at raft's defaults
+   over all rows (tiles sized by a 1 GiB workspace):
+   build time by stage, the iterations and their updates, the graph's
+   invariants, recall@10 of the walk over it against the oracle (beside the
+   IVF-PQ-built graph's), kNN graph recall@10 on 1,000 sampled rows, the
+   merge's select_k launches and one tile's merge held bitwise to the plain
+   select_k (its time joins the kernels line); then over the first
+   ``ND_BATCH_ROWS`` rows two seeded in-memory builds bitwise equal, and
+   ``"nn_descent_batch"`` over those rows as a host array (clusters of <=
+   65,536 rows): time, peak device memory below the in-memory build's over
+   the same rows, kNN graph recall@10 on 1,000 sampled rows;
+21. VPQ: ``cagra.compress`` of phase 5's index at ``VpqParams()``, its
+   compression ratio, 1,000 queries on the plain walk (kernel_path "torch")
+   bitwise the plain walk over the decoded rows, recall@10 >= 0.5, and a
+   save / load round trip in raft_tpu's format;
+22. hnsw: phase 5's index written in hnswlib's layout (a temporary
+   directory, removed after), its size and time, loaded back (base-layer
+   links equal to the graph), and searched at ef 64 on 10,000 queries, one
+   walk launch a tile, recall@10 >= 0.9;
+23. obs: the 64-query IVF-Flat search's warm wall with spans on and off
+   (interleaved; overhead < 5 %), a span series in ``obs.to_prometheus()``
+   for every entry point the phases called, the kernel-build counter against
+   the sources this process built, the over-budget store's page counters
+   against its own, and ``obs.analyze_callable`` of the 10,000-query
+   IVF-Flat search against the sum of its noted work (roofline share <= 1).
 
 Launch counts are set to 0 before each phase of the main paths and read
 after it.  Prints the card, JSON lines of the over-budget batches, the
@@ -132,6 +159,7 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -196,6 +224,22 @@ THREADS, THREAD_QUERIES = 4, 256
 #: so candidates near the k' = 40 cut reorder; the refine to k = 10 takes
 #: most of that back)
 PQ_BF16_TOL = 0.01
+#: NN-descent (phase 20): the in-memory build runs over all main rows; the
+#: second seeded build (the bitwise check) and the batch build with the
+#: in-memory peak it is held under run over the first ND_BATCH_ROWS (the
+#: batch build over 1M rows takes ~420 s on an H100, past the 150 s rule);
+#: the workspace its tiles are sized by, the batch build's cluster cap
+#: (raft_tpu's default) and the rows sampled for graph recall
+ND_BATCH_ROWS = 250_000
+ND_WORKSPACE = 1 << 30
+ND_CLUSTER_ROWS = 65_536
+ND_SAMPLE = 1000
+#: VPQ (phase 21): queries searched and the recall floor that catches a
+#: broken decode; hnsw (phase 22): ef and its recall floor
+VPQ_QUERIES, VPQ_RECALL = 1000, 0.5
+HNSW_EF, HNSW_RECALL = 64, 0.9
+#: obs (phase 23): interleaved rounds of the span-overhead A/B and its limit
+OBS_ROUNDS, OBS_OVERHEAD = 300, 0.05
 
 
 def main() -> int:
@@ -210,6 +254,7 @@ def main() -> int:
 
     from raft_tpu_torch import distance, kernels
     from raft_tpu_torch.bench import datasets
+    from raft_tpu_torch.bench.device_time import is_device_work, measure_device_time
     from raft_tpu_torch.cluster import kmeans, kmeans_balanced
     from raft_tpu_torch.core.bitset import Bitset, RowFilter
     from raft_tpu_torch.core.resources import Resources, as_f32
@@ -261,7 +306,7 @@ def main() -> int:
                 fn()
             sync()
         us = [e.device_time_total for e in prof.events()
-              if e.device_type.name == "CUDA" and (kernel_name is None or kernel_name in e.name)]
+              if is_device_work(e) and (kernel_name is None or kernel_name in e.name)]
         if kernel_name is None:   # every kernel the call launches
             return sum(us) / 1e3 / reps
         if len(us) != reps:
@@ -278,6 +323,7 @@ def main() -> int:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t = time.perf_counter()
+    prebuilt = (kernels.BUILD_DIR / f"libraft_tpu_torch_{kernels._sources_digest()}.so").exists()
     lib_path = kernels.build(verbose=True)
     kernels.library()
     print(f"kernels built+loaded in {time.perf_counter() - t:.1f} s: {lib_path.name}", flush=True)
@@ -2183,7 +2229,7 @@ def main() -> int:
             window_ms = (time.perf_counter() - t0) * 1e3
         by_kernel = {}
         for evt in prof.events():
-            if evt.device_type.name == "CUDA":
+            if is_device_work(evt):
                 by_kernel[evt.name] = (by_kernel.get(evt.name, 0.0)
                                        + evt.device_time_total / 1e3 / PROFILE_REPS)
         busy = sum(by_kernel.values())
@@ -2286,7 +2332,33 @@ def main() -> int:
     check(len(prim_rows) == 6 and all(r["seconds"] > 0 and r["device"]["power_limit"]
                                       for r in prim_rows),
           f"prims: one case of each family timed ({[r['name'] for r in prim_rows]})")
-
+    # the harness's rows that raised before slice 11, on the same dataset
+    # through the CLI: the CAGRA graph through an hnswlib file, and CAGRA
+    # over VPQ codes (the plain walk)
+    bench_dir = tempfile.mkdtemp(prefix="raft_tpu_torch_bench_")
+    new_algos = ["hnswlib_format", "raft_tpu_cagra_vpq"]
+    bp = {"graph_degree": 32, "intermediate_graph_degree": 64}
+    with open(os.path.join(bench_dir, "config.json"), "w") as fh:
+        json.dump({"algos": [{"name": "hnswlib_format", "build_param": bp,
+                              "search_params": [{"ef": 64}]},
+                             {"name": "raft_tpu_cagra_vpq", "build_param": bp,
+                              "search_params": [{"itopk_size": 64}]}]}, fh)
+    cli = subprocess.run([sys.executable, "-m", "raft_tpu_torch.bench", "--dataset",
+                          "sift-128-euclidean", "--scale", "0.01", "--config",
+                          os.path.join(bench_dir, "config.json"), "--out", bench_dir],
+                         capture_output=True, text=True, timeout=600)
+    new_rows = []
+    if cli.returncode == 0:
+        with open(os.path.join(bench_dir, "sift-128-euclidean.json")) as fh:
+            new_rows = json.load(fh)
+    shutil.rmtree(bench_dir, ignore_errors=True)
+    for r in new_rows:
+        print(json.dumps(r), flush=True)
+    check(cli.returncode == 0 and [r["algo"] for r in new_rows] == new_algos
+          and all(r["recall"] > 0.5 and r["qps"] > 0 and r["build_time_s"] >= 0
+                  and r["device_time_s"] for r in new_rows),
+          f"harness rows {new_algos} with recall > 0.5, QPS, build time and device time"
+          f"{cli.stderr[-2000:] if cli.returncode else ''}")
     # -- main path: batched brute force, and bf16 internal distances in IVF-PQ ---
     bf_idx = brute_force.build(x, res=res)
     with phase("batch_k_query"):
@@ -2327,6 +2399,354 @@ def main() -> int:
           f"ladder config 4 IVF-PQ refined recall@{K}: bf16 internal {l4_r['bfloat16']:.5f} "
           f"within {PQ_BF16_TOL} of f32 internal {l4_r['float32']:.5f}")
     del l4_x, l4_q, l4_pq, l4_gt, cand
+
+    # -- phase 20: CAGRA's NN-descent builds (in memory and out of core) -------
+    from raft_tpu_torch.neighbors import hnsw, nn_descent, vpq_dataset
+
+    nd_res = Resources(device="cuda", workspace_limit_bytes=ND_WORKSPACE)
+    n_nd = x.shape[0]
+    nd_inter = min(cagra_params.intermediate_graph_degree, n_nd - 1)
+    nd_k = min(n_nd - 1, max(nd_inter + nd_inter // 2, nd_inter + 8))   # cagra.build's rule
+    nd_c = min(nd_k, 16) * (nd_k + 1)                                  # sample * k + sample
+    kept = {}
+
+    @contextlib.contextmanager
+    def nd_spy(fn_name):
+        """While the block runs: keep what ``nn_descent.<fn_name>`` returns
+        (the kNN graph and its updates per iteration), its synchronised time
+        and the peak device memory it allocated above what was held before
+        it, the synchronised time of the graph's optimisation and of the
+        entry points, and the inputs of the first merge select_k (rows of
+        k + c candidates with their ids)."""
+        saved = [(nn_descent, fn_name), (cagra, "optimize"), (cagra, "_build_entry_points"),
+                 (sk, "select_k_kernel")]
+        saved = [(m, a, getattr(m, a)) for m, a in saved]
+
+        def timed(fn, key):
+            def wrapper(*a, **kw):
+                sync()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sync()
+                kept[f"{key}_s"] = kept.get(f"{key}_s", 0.0) + time.perf_counter() - t0
+                if key == fn_name:
+                    kept[key] = out
+                    kept["peak"] = torch.cuda.max_memory_allocated() - held
+                return out
+            return wrapper
+
+        select = saved[3][2]
+
+        def first_merge(*a, **kw):
+            scores, k = a[0], a[1]
+            if ("merge" not in kept and k == nd_k and scores.shape[1] == nd_k + nd_c
+                    and kw.get("input_indices") is not None):
+                kept["merge"] = (scores.clone(), kw["input_indices"].clone(), kw)
+            return select(*a, **kw)
+
+        for m, a, fn in saved[:3]:
+            setattr(m, a, timed(fn, a))
+        sk.select_k_kernel = first_merge
+        try:
+            yield
+        finally:
+            for m, a, fn in saved:
+                setattr(m, a, fn)
+
+    def nd_build(algo, data, ph=None):
+        """A CAGRA build with ``build_algo``: (index, seconds, the peak device
+        memory it allocated above what was held before it)."""
+        sync()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with (phase(ph) if ph else contextlib.nullcontext()):
+            idx = cagra.build(cagra.IndexParams(build_algo=algo), data, res=nd_res)
+        sync()
+        return idx, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - held
+
+    def knn_graph_recall(data, graphs):
+        """kNN graph recall@K of each graph in ``graphs`` on ND_SAMPLE rows
+        of ``data`` sampled with SEED, against their exact K nearest other
+        rows."""
+        sample = torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+            data.shape[0], ND_SAMPLE, replace=False))).to(dev)
+        exact = brute_force.knn(data, data[sample], K + 1, res=res)[1]
+        self_col = exact == sample[:, None].to(exact.dtype)
+        exact = torch.gather(exact, 1, torch.sort(self_col.to(torch.uint8), dim=1,
+                                                  stable=True).indices)[:, :K]
+        return {name: recall_at_k(gr.to(dev)[sample][:, :K], exact, K)
+                for name, gr in graphs.items()}
+
+    # the in-memory build over all rows
+    kept.clear()
+    with nd_spy("build"):
+        nd_idx, nd_secs, nd_peak = nd_build("nn_descent", x, "nn_descent_build")
+    nd_knn, nd_stages, merge_in = kept["build"], dict(kept), kept.get("merge")
+    nd_knn_peak = kept["peak"]
+    nd_stages = {key: v for key, v in nd_stages.items() if key.endswith("_s")}
+    nd_tile = nn_descent._tile_rows(nd_res, n_nd, nd_c, x.shape[1])
+    nd_tiles = -(-n_nd // nd_tile)
+    print(f"nn_descent build of {n_nd} rows: {nd_secs:.2f} s, stages (synchronised) "
+          f"{json.dumps(nd_stages)}; {len(nd_knn.updates)} iterations, updates "
+          f"{nd_knn.updates}; k {nd_k}, candidates a row {nd_c}, tile {nd_tile} rows "
+          f"({nd_tiles} tiles); peak device memory above the held: NN-descent "
+          f"{nd_knn_peak / 2**30:.2f} GiB, the whole CAGRA build {nd_peak / 2**30:.2f} GiB"
+          f"{'' if nd_secs <= 150 else '; OVER 150 s'}", flush=True)
+    ndl = phase_launches["nn_descent_build"]
+    check(ndl["select_k"] >= nd_tiles * (len(nd_knn.updates) + 1) and merge_in is not None,
+          f"nn_descent merge: {ndl['select_k']} select_k launches >= {nd_tiles} tiles x "
+          f"({len(nd_knn.updates)} iterations + the starting graph), at rows of {nd_k} + {nd_c}")
+    g = nd_idx.graph
+    g_sorted = torch.sort(g, dim=1).values
+    check(tuple(g.shape) == (n_nd, cagra_params.graph_degree) and g.dtype == torch.int32
+          and bool((g >= 0).all()) and bool((g < n_nd).all())
+          and bool((g != torch.arange(n_nd, device=dev)[:, None]).all())
+          and bool((g_sorted[:, 1:] != g_sorted[:, :-1]).all()),
+          f"nn_descent cagra graph {tuple(g.shape)} int32: no -1, no self edge, no repeated edge")
+    del g_sorted
+    with phase("nn_descent_search"):
+        _, nd_ids = cagra.search(cagra_sp, nd_idx, q, K, res=res)
+    walk_launches("nn_descent_search", expected_tiles(q.shape[0]))
+    nd_recall = recall_at_k(nd_ids, gt_i, K)
+    check(nd_recall >= CAGRA_RECALL,
+          f"recall@{K} of the walk over the NN-descent graph {nd_recall:.5f} >= {CAGRA_RECALL} "
+          f"(the IVF-PQ-built graph: {recall['cagra']:.5f})")
+    graph_recall = knn_graph_recall(x, {"nn_descent": nd_knn.graph})
+    print(f"kNN graph recall@{K} on {ND_SAMPLE} sampled rows of {n_nd}: "
+          f"{json.dumps(graph_recall)}", flush=True)
+    # one tile's merge select_k against its plain version, and its time
+    if merge_in is not None:
+        m_sc, m_ids, m_kw = merge_in
+        m_kw = {key: v for key, v in m_kw.items() if key != "input_indices"}
+        mk = sk.select_k_kernel(m_sc, nd_k, input_indices=m_ids, **m_kw)
+        mp = sk.select_k_torch(m_sc, nd_k, input_indices=m_ids, **m_kw)
+        entry = wide_entry(
+            f"[{m_sc.shape[0]}, {m_sc.shape[1]}] k={nd_k} with ids (NN-descent merge, one tile)",
+            bitwise(f"nn_descent merge select_k {tuple(m_sc.shape)} k={nd_k}", *mk, *mp),
+            lambda: sk.select_k_kernel(m_sc, nd_k, input_indices=m_ids, **m_kw),
+            lambda: sk.select_k_torch(m_sc, nd_k, input_indices=m_ids, **m_kw),
+            cost.select_k_work(*m_sc.shape, nd_k, with_ids=True),
+            lambda: torch.topk(m_sc, nd_k, dim=1, largest=False), reps=(20, 2))
+        entry["launches"] = ndl["select_k"]
+        next(r for r in results if r["name"] == "select_k").setdefault("wide", []).append(entry)
+        print(f"nn_descent merge select_k: {json.dumps(entry)}", flush=True)
+    del nd_idx, nd_knn, merge_in, nd_ids, g
+    kept.clear()
+    # over the first ND_BATCH_ROWS rows: two seeded in-memory builds, then the
+    # out-of-core build over those rows as a host array
+    x_nd = x[:ND_BATCH_ROWS]
+    n_bt = x_nd.shape[0]
+    gt_nd = gt_i if n_bt == n_nd else brute_force.knn(x_nd, q, K, res=res)[1]
+    with nd_spy("build"):
+        nd_a, nd_secs_a, _ = nd_build("nn_descent", x_nd)
+    nd_a_knn, nd_a_peak = kept["build"], kept["peak"]
+    kept.clear()
+    with nd_spy("build"):
+        nd_b, nd_secs_b, _ = nd_build("nn_descent", x_nd)
+    check(torch.equal(nd_b.graph, nd_a.graph)
+          and torch.equal(kept["build"].graph, nd_a_knn.graph),
+          f"two NN-descent builds of {n_bt} rows, one seed: kNN and CAGRA graphs bitwise "
+          f"equal ({nd_secs_a:.2f} s, {nd_secs_b:.2f} s; {len(nd_a_knn.updates)} iterations)")
+    del nd_a, nd_b
+    x_host = x_nd.cpu().numpy()
+    kept.clear()
+    with nd_spy("build_batch"):
+        nb_idx, nb_secs, nb_peak = nd_build("nn_descent_batch", x_host, "nn_descent_batch")
+    nb_knn, nb_knn_peak = kept["build_batch"], kept["peak"]
+    print(f"nn_descent_batch build of {n_bt} rows (clusters of <= {ND_CLUSTER_ROWS} rows): "
+          f"{nb_secs:.2f} s, stages {json.dumps({k_: v for k_, v in kept.items() if k_.endswith('_s')})}, "
+          f"peak device memory above the held: NN-descent {nb_knn_peak / 2**30:.2f} GiB, the "
+          f"whole CAGRA build {nb_peak / 2**30:.2f} GiB"
+          f"{'' if nb_secs <= 150 else '; OVER 150 s'}", flush=True)
+    check(nb_knn_peak < nd_a_peak,
+          f"nn_descent.build_batch peak device memory {nb_knn_peak / 2**30:.2f} GiB < "
+          f"nn_descent.build's {nd_a_peak / 2**30:.2f} GiB over the same {n_bt} rows")
+    graph_recall = knn_graph_recall(x_nd, {"nn_descent": nd_a_knn.graph,
+                                           "nn_descent_batch": nb_knn.graph})
+    with phase("nn_descent_batch_search"):
+        _, nb_ids = cagra.search(cagra_sp, nb_idx, q, K, res=res)
+    print(f"kNN graph recall@{K} on {ND_SAMPLE} sampled rows of {n_bt}: "
+          f"{json.dumps(graph_recall)}; walk recall@{K} over the batch-built graph "
+          f"{recall_at_k(nb_ids, gt_nd, K):.5f}", flush=True)
+    check(graph_recall["nn_descent_batch"] >= 0.9,
+          f"nn_descent_batch kNN graph recall@{K} {graph_recall['nn_descent_batch']:.5f} >= 0.9 "
+          f"on {ND_SAMPLE} sampled rows")
+    del nb_idx, nd_a_knn, nb_knn, x_host, kept["build_batch"]
+
+    # -- phase 21: VPQ-compressed CAGRA ---------------------------------------
+    def plain_walk(dataset, index, queries, seeds):
+        """cagra.search's plain path over ``dataset``: the seed buffer, the
+        plain walk (no kernel), the best K of the buffer."""
+        itopk, max_iter, tile = cagra.search_plan(cagra_sp, index, queries.shape[0], K, res)
+        out = []
+        for s0 in range(0, queries.shape[0], tile):
+            qs = queries[s0:s0 + tile]
+            buf = cagra.traverse_init(dataset, qs, seeds[s0:s0 + tile], itopk, metric)
+            bd, bi = ct.cagra_traverse_steps_torch(dataset, index.graph, qs, *buf, steps=max_iter,
+                                                   width=cagra_sp.search_width, metric=metric)[:2]
+            v, i = matrix.select_k(bd, K, select_min=True, input_indices=bi)
+            out.append(torch.where(torch.isfinite(v), i, torch.full_like(i, -1)))
+        return torch.cat(out)
+
+    sync()
+    t0 = time.perf_counter()
+    with phase("vpq_compress"):
+        vpq_idx = cagra.compress(cg, res=res)
+    vpq_s = time.perf_counter() - t0
+    vds = vpq_idx.dataset
+    ratio = vpq_dataset.compression_ratio(vds)
+    qv = q[:VPQ_QUERIES]
+    seeds_v = cagra.make_seed_ids(cagra_sp, vpq_idx, qv, K)
+    kernels.consume_kernel_path()
+    t0 = time.perf_counter()
+    with phase("vpq_search"):
+        _, vpq_ids = cagra.search(cagra_sp, vpq_idx, qv, K, res=res, seed_ids=seeds_v)
+    vpq_wall = time.perf_counter() - t0
+    check(kernels.consume_kernel_path() == "torch", "VPQ search stamped kernel_path torch")
+    dense = vds.decode(torch.arange(vds.shape[0], device=dev))
+
+    class DecodedRows:
+        """Dense rows read by the plain walk's decode-on-gather path, as it
+        reads a VPQ dataset's."""
+
+        shape = dense.shape
+
+        @staticmethod
+        def decode(ids):
+            return dense[ids.long().clamp(0, dense.shape[0] - 1)]
+
+    check(torch.equal(vpq_ids, plain_walk(DecodedRows(), vpq_idx, qv, seeds_v)),
+          f"VPQ search of {VPQ_QUERIES} queries: ids bitwise the plain walk over the decoded rows")
+    vpq_recall = recall_at_k(vpq_ids, gt_i[:VPQ_QUERIES], K)
+    vpq_busy = measure_device_time(
+        lambda: cagra.search(cagra_sp, vpq_idx, qv, K, res=res, seed_ids=seeds_v)) or math.nan
+    print(f"vpq: compress {vpq_s:.2f} s, ratio {ratio:.3f}, vq centres "
+          f"{vds.vq_centers.shape[0]}, pq_dim {vds.pq_dim}, search of {VPQ_QUERIES} queries "
+          f"{vpq_wall * 1e3:.1f} ms (device busy {vpq_busy * 1e3:.2f} ms, share "
+          f"{vpq_busy / vpq_wall:.3f}), recall@{K} {vpq_recall:.5f}, mean |decoded - row| "
+          f"{float((dense - x).norm(dim=1).mean()):.4f}", flush=True)
+    del dense
+    check(vpq_recall >= VPQ_RECALL, f"VPQ recall@{K} {vpq_recall:.5f} >= {VPQ_RECALL}")
+    vdir = tempfile.mkdtemp(prefix="raft_tpu_torch_vpq_")
+    try:
+        vpath = os.path.join(vdir, "cagra_vpq.idx")
+        cagra.save(vpath, vpq_idx)
+        back = cagra.load(vpath, res=res)
+        ids_probe = torch.randint(0, vds.shape[0], (4096,), device=dev)
+        _, back_ids = cagra.search(cagra_sp, back, qv, K, res=res, seed_ids=seeds_v)
+        check(isinstance(back.dataset, vpq_dataset.VpqDataset)
+              and torch.equal(back.dataset.decode(ids_probe), vds.decode(ids_probe))
+              and torch.equal(back_ids, vpq_ids),
+              "VPQ save / load round trip in raft_tpu's format: decode and search equal")
+        del back
+    finally:
+        shutil.rmtree(vdir, ignore_errors=True)
+    del vpq_idx, vds
+
+    # -- phase 22: hnswlib export, load and search of phase 5's index ----------
+    hdir = tempfile.mkdtemp(prefix="raft_tpu_torch_hnsw_")
+    try:
+        hpath = os.path.join(hdir, "cagra.hnsw")
+        t0 = time.perf_counter()
+        with phase("hnsw_export"):
+            hnsw.serialize_to_hnswlib(hpath, cg, res=res)
+        h_write = time.perf_counter() - t0
+        h_size = os.path.getsize(hpath)
+        t0 = time.perf_counter()
+        with phase("hnsw_load"):
+            h_idx = hnsw.load(hpath, cg.dim, res=res)
+        h_read = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(hdir, ignore_errors=True)
+    check(phase_launches["hnsw_export"]["fused_knn"] > 0,
+          "hnsw export: the upper levels' kNN launched fused_knn")
+    check(torch.equal(h_idx.graph, cg.graph) and torch.equal(h_idx.dataset, cg.dataset),
+          "hnsw load: base-layer links equal index.graph, rows equal the dataset")
+    t0 = time.perf_counter()
+    with phase("hnsw_search"):
+        _, h_ids = hnsw.search(h_idx, q, K, ef=HNSW_EF, res=res)
+    sync()
+    h_wall = time.perf_counter() - t0
+    h_tiles = -(-q.shape[0] // cagra.search_plan(cagra.SearchParams(itopk_size=HNSW_EF), h_idx,
+                                                 q.shape[0], K, res)[2])
+    hl = phase_launches["hnsw_search"]
+    check(hl["cagra_traverse"] == h_tiles and hl["cagra_fused_hop"] == 0,
+          f"hnsw search: {hl['cagra_traverse']} cagra_traverse launches = query tiles {h_tiles}")
+    h_recall = recall_at_k(h_ids, gt_i, K)
+    h_busy = measure_device_time(lambda: hnsw.search(h_idx, q, K, ef=HNSW_EF, res=res)) or math.nan
+    print(f"hnsw: file {h_size / 2**20:.1f} MiB written in {h_write:.2f} s, loaded in "
+          f"{h_read:.2f} s ({h_idx.entry_ids.shape[0]} upper-level entry points); search of "
+          f"{q.shape[0]} queries at ef {HNSW_EF} {h_wall * 1e3:.1f} ms (device busy "
+          f"{h_busy * 1e3:.2f} ms, share {h_busy / h_wall:.3f}), recall@{K} {h_recall:.5f}",
+          flush=True)
+    check(h_recall >= HNSW_RECALL, f"hnsw search recall@{K} {h_recall:.5f} >= {HNSW_RECALL}")
+    del h_idx
+
+    # -- phase 23: the observability substrate ------------------------------------
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.obs import spans as obs_spans
+
+    q64 = q[:QM_BATCH]
+    for _ in range(20):
+        ivf_flat.search(sp, index, q64, K, res=res)
+    sync()
+    walls = {True: [], False: []}
+    for r in range(OBS_ROUNDS):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            obs_spans.set_enabled(on)
+            t0 = time.perf_counter()
+            ivf_flat.search(sp, index, q64, K, res=res)
+            sync()
+            walls[on].append(time.perf_counter() - t0)
+    obs_spans.set_enabled(True)
+    on_ms, off_ms = (float(np.median(walls[v])) * 1e3 for v in (True, False))
+    overhead = on_ms / off_ms - 1.0
+    print(f"span overhead, {QM_BATCH}-query IVF-Flat search, median of {OBS_ROUNDS} "
+          f"interleaved calls: spans on {on_ms:.4f} ms, off {off_ms:.4f} ms "
+          f"({overhead * 100:+.2f} %)", flush=True)
+    check(overhead < OBS_OVERHEAD, f"span overhead {overhead * 100:+.2f} % < "
+          f"{OBS_OVERHEAD * 100:.0f} % of the {off_ms:.4f} ms disabled wall")
+    prom = obs.to_prometheus()
+    called = ("ivf_flat.build", "ivf_flat.search", "ivf_flat.save", "ivf_flat.load",
+              "ivf_pq.build", "ivf_pq.search", "refine.refine", "brute_force.knn",
+              "brute_force.build", "brute_force.search", "cagra.build", "cagra.search",
+              "cagra.optimize", "cagra.compress", "cagra.save", "cagra.load",
+              "nn_descent.build", "nn_descent.build_batch", "vpq_dataset.build",
+              "hnsw.serialize_to_hnswlib", "hnsw.load", "hnsw.search", "kmeans.fit",
+              "kmeans.predict", "kmeans_balanced.fit", "kmeans_balanced.predict",
+              "pairwise.pairwise_distance", "fused_nn.fused_l2_nn", "matrix.select_k",
+              "store.pager.ensure")
+    missing = [name for name in called if f'raft_tpu_span_seconds_count{{span="{name}"}}' not in prom]
+    check(not missing, f"to_prometheus has a span series of each of {len(called)} entry points "
+          f"the phases called{f' (missing: {missing})' if missing else ''}")
+    reg = obs.default_registry()
+    builds = sum(reg.counter("raft_tpu_kernel_builds_total").collect().values())
+    loads = reg.counter("raft_tpu_kernel_library_total").collect()
+    n_sources = 0 if prebuilt else len(list(kernels.CSRC.glob("*.cu")))
+    check(builds == n_sources and sum(loads.values()) == 1,
+          f"kernel builds counted {builds:.0f} = sources this process built {n_sources}; "
+          f"library loads {dict((dict(k_)['result'], v) for k_, v in loads.items())}")
+    page = {key: reg.counter(f"raft_tpu_page_{key}_total").value(index=over_pager.name)
+            for key in ("hits", "misses", "evictions")}
+    check(page == {"hits": over_pager.hits, "misses": over_pager.misses,
+                   "evictions": over_pager.evictions},
+          f"over-budget IVF-Flat: registry page counters {page} equal the store's own")
+    with cost.capture() as notes:
+        ivf_flat.search(sp, index, q, K, res=res)
+    rep = obs.analyze_callable(lambda: ivf_flat.search(sp, index, q, K, res=res))
+    total = cost.noted_total(notes)
+    rep_d = rep.to_dict() if rep is not None else {}
+    print(f"analyze_callable, {q.shape[0]}-query IVF-Flat search: {json.dumps(rep_d)}; "
+          f"noted {[n_ for n_, _ in notes]}", flush=True)
+    check(total is not None and rep_d.get("flops") == total.flops
+          and rep_d.get("bytes_accessed") == total.bytes_accessed
+          and 0 < rep_d.get("utilization", 0.0) <= 1,
+          f"analyze_callable: flops {rep_d.get('flops')} and bytes {rep_d.get('bytes_accessed')} "
+          f"= the sum of {len(notes)} noted KernelCosts; roofline share "
+          f"{rep_d.get('utilization')} <= 1")
 
 
     for name in kernels.KERNELS:

@@ -6,6 +6,7 @@ fused_knn (#2), the fused L2 argmin (#7), the probe-major scan (#3), the
 query-major scan (#5) and the CAGRA search whose walk is #8.
 
     python3 kernel_ab.py [--tree DIR] [--only select_k,fused_knn,fused_argmin,scan,qm,cagra]
+    python3 kernel_ab.py --tree DIR --only host64 --index-dir DIR2
 
 ``--tree`` names the directory that holds the ``raft_tpu_torch`` package to
 time (default: this script's checkout), so that a change and its parent are
@@ -27,28 +28,48 @@ of the probes.
 ``cagra``: the CAGRA index at raft's defaults, searched (itopk 64, k = 10)
 for all 10,000 queries and for the first 64: the warm wall (median of 5,
 synchronised) and, from one profiled window, the device time by kernel and
-the busy share.  Prints the card's name and power limit, then one JSON
-line per shape: the kernel's and the library call's mean ms over CUDA
-events (for select_k and the query-major scan also their device time per
-call, and for fused_knn each of its kernels' device time, from the
-profiler).  Exits non-zero without a card.
+the busy share.  ``host64`` (not in the default set): the host cost of the
+serving batch, the first 64 queries through ``cagra.search`` (itopk 64) and
+``ivf_flat.search`` (20 probes), k = 10: the median over 200 warm calls
+of the synchronised wall and of the time until the call returns; on a
+tree with ``obs`` also both with its spans disabled.  With ``--index-dir``
+the first run saves its two indexes there and every later run loads them,
+so that runs of two trees in turns search the same indexes.  Prints the
+card's name and power limit, then one JSON line per shape: the kernel's
+and the library call's mean ms over CUDA events (for select_k and the
+query-major scan also their device time per call, and for fused_knn each
+of its kernels' device time, from the profiler).  Exits non-zero
+without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+#: host64: warm calls timed in each process
+HOST_CALLS = 200
+
+
+def _device_work(e) -> bool:
+    """A profiler event of work on the card: a device event that is not one
+    of the port's ``raft_tpu.<label>`` trace ranges (annotations spanning a
+    call, gaps included; a tree older than those ranges has none)."""
+    return e.device_type.name == "CUDA" and not e.name.startswith("raft_tpu.")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--only", default="select_k,fused_knn,fused_argmin,scan,qm,cagra",
-                    help="comma-separated kernels to time")
+                    help="comma-separated kernels to time (and host64)")
+    ap.add_argument("--index-dir", default=None,
+                    help="host64: where its indexes are saved by the first run and loaded")
     args = ap.parse_args()
     only = set(args.only.split(","))
     tree = Path(args.tree).resolve()
@@ -96,7 +117,7 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         return sum(e.device_time_total for e in prof.events()
-                   if e.device_type.name == "CUDA") / 1e3 / reps
+                   if _device_work(e)) / 1e3 / reps
 
     def by_kernel(fn):
         """Device ms of each kernel one call of ``fn`` launches (profiler)."""
@@ -109,7 +130,7 @@ def main() -> int:
             torch.cuda.synchronize()
         out = {}
         for e in prof.events():
-            if e.device_type.name == "CUDA":
+            if _device_work(e):
                 out[e.name[:60]] = out.get(e.name[:60], 0.0) + e.device_time_total / 1e3
         return out
 
@@ -261,13 +282,66 @@ def main() -> int:
                 window = (time.perf_counter() - t0) * 1e3
             by = {}
             for e in prof.events():
-                if e.device_type.name == "CUDA":
+                if _device_work(e):
                     by[e.name[:60]] = by.get(e.name[:60], 0.0) + e.device_time_total / 1e3 / 5
             busy = sum(by.values())
             emit("cagra.search", f"{n_q} q, itopk 64, k=10", sorted(walls)[2], None, None,
                  walls=walls, device_busy_ms=busy, device_busy_share=busy * 5 / window,
                  top_device_ms=sorted(by.items(), key=lambda kv: -kv[1])[:6],
                  build_s=build_s)
+    if "host64" in only:
+        from raft_tpu_torch.neighbors import cagra
+
+        try:
+            from raft_tpu_torch.obs import spans as obs_spans
+        except ImportError:     # a tree older than obs
+            obs_spans = None
+        idx_dir = Path(args.index_dir) if args.index_dir else None
+
+        def cached(name, mod, make):
+            path = idx_dir / f"{name}.idx" if idx_dir else None
+            if path is not None and path.exists():
+                return mod.load(str(path), res=res)
+            idx = make()
+            if path is not None:
+                idx_dir.mkdir(parents=True, exist_ok=True)
+                mod.save(str(path), idx)
+            return idx
+
+        cg = cached("cagra", cagra, lambda: cagra.build(cagra.IndexParams(), x, res=res))
+        fl = cached("ivf_flat", ivf_flat, lambda: index("flat"))
+        qs = q[:64]
+        cagra_sp, flat_sp = cagra.SearchParams(), ivf_flat.SearchParams(n_probes=20)
+
+        def per_call(fn):
+            """Median ms of the synchronised wall and of the time until the
+            call returns, over HOST_CALLS warm calls."""
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            walls, hosts = [], []
+            for _ in range(HOST_CALLS):
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                hosts.append((t1 - t0) * 1e3)
+            return statistics.median(walls), statistics.median(hosts)
+
+        for kernel, shape, fn in (
+                ("cagra.search", "64 q, itopk 64, k=10",
+                 lambda: cagra.search(cagra_sp, cg, qs, 10, res=res)),
+                ("ivf_flat.search", "64 q, n_probes 20, k=10",
+                 lambda: ivf_flat.search(flat_sp, fl, qs, 10, res=res))):
+            wall, host = per_call(fn)
+            extra = {}
+            if obs_spans is not None:
+                was = obs_spans.enabled()
+                obs_spans.set_enabled(False)
+                extra["spans_off_ms"], extra["spans_off_host_ms"] = per_call(fn)
+                obs_spans.set_enabled(was)
+            emit(kernel, shape, wall, None, None, host_ms=host, calls=HOST_CALLS, **extra)
     return 0
 
 

@@ -211,8 +211,9 @@ def translate(conf: Dict[str, Any], *, algo_filter: Optional[set] = None
                 skipped.append(f"{ename}: ggnn is CUDA-only; the graph "
                                "family maps to raft_tpu_cagra entries")
             elif algo == "hnswlib":
-                skipped.append(f"{ename}: hnswlib is not ported yet "
-                               "(ROADMAP Queue 1 item 3)")
+                skipped.append(f"{ename}: no hnswlib where the card is; the native "
+                               "engine that benches exported indexes (hnsw_native) is not "
+                               "ported yet (ROADMAP Queue 1 item 6)")
             else:
                 skipped.append(f"{ename}: unknown algo {algo!r}")
         except KeyError as e:  # a param the mapper requires is missing

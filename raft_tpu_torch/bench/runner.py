@@ -10,10 +10,10 @@ and loaded before any timer starts (raft_tpu's counterpart is a warmed
 jit): build times exclude the kernels' ``nvcc`` build.
 
 Wrappers of modules the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item: ``CagraVpqANN``,
-``HnswANN``, ``HnswNativeANN`` (Queue 1 item 3), ``BallCoverANN`` (item 6),
-the ``cpp/`` engines (``_NativeANN``: a C binding, item 6) and
-``SklearnANN`` (no scikit-learn where the card is).
+``NotImplementedError`` naming their ROADMAP item: ``HnswNativeANN``
+(``hnsw.load_native``, Queue 1 item 6), ``BallCoverANN`` (item 6), the
+``cpp/`` engines (``_NativeANN``: a C binding, item 6) and ``SklearnANN``
+(no scikit-learn where the card is).
 """
 
 from __future__ import annotations
@@ -161,9 +161,8 @@ class CagraANN(ANN):
 
         self._mod = cagra
         bp = dict(self.build_param)
-        if bp.pop("compress", False):
-            raise NotImplementedError("VPQ-compressed CAGRA is not ported yet "
-                                      "(ROADMAP Queue 1 item 3)")
+        # "compress": True benches the VPQ-compressed dataset (decode on gather)
+        compress = bp.pop("compress", False)
         # "dataset_dtype": "bfloat16" stores the walk's rows in bf16; the
         # graph is built (and cached) from the rows as given
         ds_dtype = bp.pop("dataset_dtype", None)
@@ -189,6 +188,8 @@ class CagraANN(ANN):
         if ds_dtype:
             index = cagra.Index(base.metric, base.dataset.to(getattr(torch, ds_dtype)),
                                 base.graph, base.entry_centers, base.entry_ids)
+        if compress:
+            index = cagra.compress(index, res=self.res)
         self._index = index
         self._sp = cagra.SearchParams()
 
@@ -203,13 +204,13 @@ class CagraANN(ANN):
 
 
 class CagraVpqANN(CagraANN):
-    """CAGRA over a VPQ-compressed dataset: not ported yet."""
+    """CAGRA over a VPQ-compressed dataset (decode on gather, the plain walk)."""
 
     name = "raft_tpu_cagra_vpq"
 
     def build(self, dataset):
-        raise NotImplementedError("raft_tpu_cagra_vpq: VPQ datasets and cagra.compress are "
-                                  "not ported yet (ROADMAP Queue 1 item 3)")
+        self.build_param = {**self.build_param, "compress": True}
+        super().build(dataset)
 
 
 class CagraBf16ANN(CagraANN):
@@ -277,13 +278,56 @@ class SklearnANN(_NotPortedANN):
     why = "scikit-learn is not installed where the card is"
 
 
-class HnswANN(_NotPortedANN):
+class HnswANN(ANN):
+    """hnswlib-format comparator: the CAGRA graph built here, exported in
+    hnswlib's binary layout, loaded back and searched on the CAGRA walk
+    (``neighbors.hnsw``; stock hnswlib is not installed where the card is)."""
+
     name = "hnswlib_format"
-    why = "neighbors.hnsw is not ported yet (ROADMAP Queue 1 item 3)"
+
+    def _export(self, dataset):
+        """Build the CAGRA graph (no entry-point table: the hnswlib layout
+        keeps only rows and graph) and write the interchange file."""
+        import tempfile
+
+        from raft_tpu_torch.neighbors import cagra, hnsw
+
+        self._hnsw = hnsw
+        self._dim = dataset.shape[1]
+        params = cagra.IndexParams(metric=self.metric, **{"entry_points": 0, **self.build_param})
+        built = cagra.build(params, dataset, res=self.res)
+        fd, self._path = tempfile.mkstemp(suffix=".hnsw")
+        os.close(fd)
+        hnsw.serialize_to_hnswlib(self._path, built, res=self.res)
+
+    def build(self, dataset):
+        self._export(dataset)
+        self._index = self._hnsw.load(self._path, self._dim, metric=self.metric, res=self.res)
+        self._ef = 64
+
+    def __del__(self):
+        path = getattr(self, "_path", None)
+        if path and os.path.exists(path):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+    def set_search_param(self, param):
+        self._ef = int(param.get("ef", 64))
+
+    def search(self, queries, k):
+        return self._hnsw.search(self._index, queries, k, ef=self._ef, res=self.res)
+
+    def save(self, path):
+        import shutil
+
+        shutil.copy(self._path, path)
 
 
-class HnswNativeANN(HnswANN):
+class HnswNativeANN(_NotPortedANN):
     name = "hnsw_native"
+    why = "neighbors.hnsw.load_native: the native C++ core is not ported yet (ROADMAP Queue 1 item 6)"
 
 
 class _NativeANN(_NotPortedANN):

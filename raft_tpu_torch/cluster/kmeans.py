@@ -35,6 +35,7 @@ import torch
 
 from raft_tpu_torch.cluster.kmeans_balanced import _update, draw_rows
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure, to_device
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.fused_nn import _fused_nn
 from raft_tpu_torch.distance.pairwise import distance_matrix_tile
 
@@ -65,6 +66,7 @@ def _assign(x: torch.Tensor, centers: torch.Tensor,
     return _fused_nn(x, centers, "sqeuclidean", tile if tile > 0 else max(x.shape[0], 1))
 
 
+@traced("kmeans.plus_plus_init")
 def kmeans_plus_plus_init(gen: torch.Generator, x, n_clusters: int,
                           weights=None) -> torch.Tensor:
     """kmeans++ seeding: each next center drawn ∝ weight × the squared
@@ -86,6 +88,7 @@ def kmeans_plus_plus_init(gen: torch.Generator, x, n_clusters: int,
     return centers
 
 
+@traced("kmeans.compute_new_centroids")
 def compute_new_centroids(x, centroids, labels=None, weights=None, *,
                           res: Optional[Resources] = None) -> torch.Tensor:
     """One centroid-update step (pylibraft's ``compute_new_centroids``)."""
@@ -117,6 +120,7 @@ def _lloyd(x, centers, weights, max_iter: int, tol: float, spherical: bool, tile
     return centers, (weights * best).sum(), it
 
 
+@traced("kmeans.fit")
 def fit(params: KMeansParams, x, sample_weights=None, *, init_centers=None,
         history: Optional[List[float]] = None,
         res: Optional[Resources] = None) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -160,6 +164,7 @@ def fit(params: KMeansParams, x, sample_weights=None, *, init_centers=None,
     return best
 
 
+@traced("kmeans.predict")
 def predict(centroids, x, *, metric: str = "sqeuclidean", batch_samples: int = 1 << 15,
             res: Optional[Resources] = None) -> torch.Tensor:
     """Nearest-centroid labels [n] int32."""
@@ -170,6 +175,7 @@ def predict(centroids, x, *, metric: str = "sqeuclidean", batch_samples: int = 1
     return _assign(x, c, batch_samples)[1]
 
 
+@traced("kmeans.fit_predict")
 def fit_predict(params: KMeansParams, x, sample_weights=None, *,
                 res: Optional[Resources] = None):
     """(centroids, labels, inertia, n_iter)."""
@@ -179,12 +185,14 @@ def fit_predict(params: KMeansParams, x, sample_weights=None, *,
     return centroids, labels, inertia, n_iter
 
 
+@traced("kmeans.transform")
 def transform(centroids, x, *, res: Optional[Resources] = None) -> torch.Tensor:
     """Squared distances [n, k] of every row to every centroid."""
     dev = ensure(res).device
     return distance_matrix_tile(as_f32(x, dev), as_f32(centroids, dev), "sqeuclidean")
 
 
+@traced("kmeans.cluster_cost")
 def cluster_cost(x, centroids, *, batch_samples: int = 1 << 15,
                  res: Optional[Resources] = None) -> torch.Tensor:
     """Total inertia: the sum of each row's squared distance to its nearest

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.resources import Resources, ensure
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.pairwise import argmin_tile_rows, tiled_argmin
 from raft_tpu_torch.ops.matrix import segment_sum
 
@@ -49,6 +50,7 @@ def _inner(metric: str) -> str:
     return "inner_product" if metric == "inner_product" else "sqeuclidean"
 
 
+@traced("kmeans_balanced.predict")
 def predict(centers, x, *, metric: str = "sqeuclidean",
             res: Optional[Resources] = None) -> torch.Tensor:
     """Labels [n] int32 of the nearest center under the training metric."""
@@ -148,6 +150,7 @@ def _fit_flat(gen, x, n_clusters: int, n_iters: int, weights, metric: str,
     return centers
 
 
+@traced("kmeans_balanced.fit")
 def fit(params: KMeansBalancedParams, x, n_clusters: int, *,
         res: Optional[Resources] = None) -> torch.Tensor:
     """Train ``n_clusters`` balanced centers: flat below

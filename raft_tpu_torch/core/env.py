@@ -7,6 +7,13 @@ accessors of ``raft_tpu.core.env`` it needs, with raft_tpu's semantics).
   (default 1024).
 - ``RAFT_TPU_PAGE_PREFETCH_DEPTH``: the bounded prefetch queue of a
   ``store.TieredStore`` (default 2).
+- ``RAFT_TPU_OBS_DISABLED``: spans off from import (``obs.set_enabled``).
+- ``RAFT_TPU_SPAN_RING``: recent root spans kept (default 512).
+- ``RAFT_TPU_SLOW_QUERY_MS``: the slow-query threshold (default 250).
+- ``RAFT_TPU_EVENTS_RING``: recent bus events kept (default 256).
+- ``RAFT_TPU_DISABLE_PROFILER``: ``core.trace.profile`` captures nothing.
+- ``RAFT_TPU_PEAK_FLOPS`` / ``RAFT_TPU_PEAK_BW``: the peaks ``obs.cost``
+  takes a roofline share against (default: the H100's, ``ops.cost``).
 """
 
 from __future__ import annotations
@@ -24,3 +31,26 @@ def env_int(name: str, default: Optional[int] = None) -> Optional[int]:
         return int(value)
     except ValueError:
         raise ValueError(f"{name}={value!r} is not an integer") from None
+
+
+_FALSY = frozenset({"", "0", "false", "no", "off"})
+
+
+def env_float(name: str, default: Optional[float] = None) -> Optional[float]:
+    """``float(os.environ[name])``; unset or blank reads as ``default``."""
+    value = os.environ.get(name)
+    if value is None or not value.strip():
+        return default
+    try:
+        return float(value)
+    except ValueError:
+        raise ValueError(f"{name}={value!r} is not a number") from None
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    """Unset reads as ``default``; "", "0", "false", "no" and "off" (any
+    case) read as False, anything else as True."""
+    value = os.environ.get(name)
+    if value is None:
+        return default
+    return value.strip().lower() not in _FALSY

@@ -70,11 +70,23 @@ def from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _note_copy(t: torch.Tensor, device) -> None:
+    """Count a host↔device copy in ``obs.device_events`` (nothing for a
+    copy that stays on one side)."""
+    device = torch.device(device)
+    if (t.device.type == "cpu") != (device.type == "cpu"):
+        from raft_tpu_torch.obs import device_events
+
+        device_events.record_copy(t.device, device, t.numel() * t.element_size())
+
+
 def to_device(x, device: torch.device) -> torch.Tensor:
     """A numpy array or tensor as a tensor on ``device``, keeping its dtype."""
     if isinstance(x, np.ndarray):
         x = from_numpy(x)
-    return torch.as_tensor(x).to(device=device)
+    x = torch.as_tensor(x)
+    _note_copy(x, device)
+    return x.to(device=device)
 
 
 def as_f32(x, device: torch.device) -> torch.Tensor:
@@ -82,4 +94,14 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
     it already is one)."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return torch.as_tensor(x).to(device=device, dtype=torch.float32)
+    x = torch.as_tensor(x)
+    _note_copy(x, device)
+    return x.to(device=device, dtype=torch.float32)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host (bf16 as f32: numpy has no
+    bf16)."""
+    _note_copy(t, "cpu")
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.resources import Resources, ensure, to_device
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.pairwise import distance_matrix_tile
 
 _L2 = ("euclidean", "l2", "sqeuclidean")
@@ -45,6 +46,7 @@ def _fused_nn(x: torch.Tensor, y: torch.Tensor, metric: str, tile_rows: int, adj
     return vals, idx
 
 
+@traced("fused_nn.fused_l2_nn")
 def fused_l2_nn(x, y, *, sqrt: bool = False,
                 res: Optional[Resources] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(min_dist [m], argmin [m] int32) of the squared L2 distance from each
@@ -55,11 +57,13 @@ def fused_l2_nn(x, y, *, sqrt: bool = False,
     return (torch.sqrt(vals) if sqrt else vals), idx
 
 
+@traced("fused_nn.fused_l2_nn_argmin")
 def fused_l2_nn_argmin(x, y, *, res: Optional[Resources] = None) -> torch.Tensor:
     """Argmin only (pylibraft's ``fused_l2_nn_argmin``)."""
     return fused_l2_nn(x, y, res=res)[1]
 
 
+@traced("fused_nn.fused_distance_nn_argmin")
 def fused_distance_nn_argmin(x, y, *, metric: str = "sqeuclidean",
                              res: Optional[Resources] = None) -> torch.Tensor:
     """Fused 1-NN argmin for L2 or cosine (pylibraft's
@@ -73,6 +77,7 @@ def fused_distance_nn_argmin(x, y, *, metric: str = "sqeuclidean",
     return _fused_nn(x, y, "cosine", _tile_rows_for(res, y.shape[0], x.shape[0]))[1]
 
 
+@traced("fused_nn.masked_l2_nn_argmin")
 def masked_l2_nn_argmin(x, y, adj, group_idxs=None, *,
                         res: Optional[Resources] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked fused L2 1-NN: rows of x match only the allowed columns of y

@@ -24,6 +24,7 @@ import torch
 
 from raft_tpu_torch.core import validation
 from raft_tpu_torch.core.resources import Resources, ensure, to_device
+from raft_tpu_torch.core.trace import traced
 
 # Metric name → canonical key (pylibraft's accepted names).
 DISTANCE_TYPES = {
@@ -225,6 +226,7 @@ def tiled_argmin(x: torch.Tensor, centers: torch.Tensor, metric: str,
     return out
 
 
+@traced("pairwise.pairwise_distance")
 def pairwise_distance(x, y=None, *, metric: str = "euclidean", p: float = 2.0,
                       res: Optional[Resources] = None) -> torch.Tensor:
     """Full [m, n] pairwise distance matrix (f32, on the resources'

@@ -10,7 +10,12 @@
 - :func:`library`: builds ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into
   one shared library under ``_build/`` (keyed on a hash of the sources, so
   an edit rebuilds) and loads it with ``ctypes``.  Nothing is built or
-  loaded at import: the CPU tests import every module.
+  loaded at import: the CPU tests import every module.  Each source's
+  compile and the library's load are counted in ``obs.device_events``
+  (families ``backend_compile`` and ``cache_hit`` / ``cache_miss``).
+- :data:`TRACE_NAMES`: the CUDA kernel each counted launch runs once, as
+  ``torch.profiler`` names it (``bench.device_time`` holds a traced window
+  to the launches made in it).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -101,6 +108,28 @@ def reset_launch_counts() -> None:
             _launches[name] = 0
 
 
+#: (launch-count prefix, part of the CUDA kernel's name in a profiler trace):
+#: each counted launch runs its C entry once, and the entry launches that
+#: kernel exactly once (besides helpers such as merges and final passes)
+TRACE_NAMES = (
+    ("select_k", "select_k_"),              # select_k_warp_kernel / _sort_kernel
+    ("fused_knn", "fused_knn_kernel"),
+    ("ivf_scan_probe_major", "probe_major_"),
+    ("ivf_scan_query_major", "query_major_"),
+    ("cagra_", "cagra_walk_kernel"),        # the hop and the walk
+    ("fused_argmin", "fused_argmin_kernel"),
+)
+
+
+def trace_name(launch: str) -> str:
+    """The part of the CUDA kernel's name that one counted ``launch`` puts
+    in a profiler trace."""
+    for prefix, name in TRACE_NAMES:
+        if launch.startswith(prefix):
+            return name
+    raise KeyError(f"no trace name for launch {launch!r}")
+
+
 # ---------------------------------------------------------------------------
 # build + load
 
@@ -143,22 +172,28 @@ def build(verbose: bool = False) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
-    procs = []
-    objs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{src.stem}_{os.getpid()}.o"
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )))
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{src.stem}_{os.getpid()}.o" for src in srcs]
+
+    def compile_one(src, obj):
+        """One source's nvcc run and its own wall seconds (the sources
+        compile side by side, one thread waiting on each)."""
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(srcs))) as pool:
+        done = list(pool.map(compile_one, srcs, objs))
+    from raft_tpu_torch.obs import device_events
+
     failed = []
-    for src, proc in procs:
-        log, _ = proc.communicate()
-        if verbose and log:
-            print(f"[nvcc {src.name}]\n{log}", flush=True)
+    for src, (proc, seconds) in zip(srcs, done):
+        device_events.record("backend_compile", seconds=seconds)
+        if verbose and proc.stdout:
+            print(f"[nvcc {src.name}]\n{proc.stdout}", flush=True)
         if proc.returncode != 0:
-            failed.append(f"{src.name}:\n{log}")
+            failed.append(f"{src.name}:\n{proc.stdout}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -219,7 +254,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
+            from raft_tpu_torch.obs import device_events
+
+            built = (BUILD_DIR / f"libraft_tpu_torch_{_sources_digest()}.so").exists()
             lib = ctypes.CDLL(str(build()))
+            device_events.record("cache_hit" if built else "cache_miss")
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -42,6 +42,7 @@ import torch
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.kernels.select_k import select_k_torch
 from raft_tpu_torch.kernels.toolkit import fold_topk, sequential_dot
+from raft_tpu_torch.ops import cost as _cost
 from raft_tpu_torch.store.paged import PagedRows
 
 #: widest candidate buffer the hop kernel serves (raft_tpu's MAX_ITOPK)
@@ -64,8 +65,7 @@ def traverse_supported(dataset, itopk: int) -> bool:
 def _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric):
     if metric not in _METRICS:
         raise ValueError(f"cagra hop metric must be one of {_METRICS}, got {metric!r}")
-    if (not isinstance(dataset, (torch.Tensor, PagedRows))
-            or dataset.dtype not in _DATASET_DTYPES):
+    if isinstance(dataset, (torch.Tensor, PagedRows)) and dataset.dtype not in _DATASET_DTYPES:
         raise ValueError(f"cagra hop serves f32/bf16/uint8/int8 datasets, dense or paged, got "
                          f"{getattr(dataset, 'dtype', type(dataset))}")
     tile, itopk = buf_d.shape
@@ -86,9 +86,10 @@ def _check(dataset, graph, queries, parents, buf_d, buf_i, explored, metric):
 
 
 def gather_rows(dataset, ids: torch.Tensor) -> torch.Tensor:
-    """f32 rows of ``ids`` (clipped to [0, n)), from a dense dataset or
-    through a ``PagedRows`` page table."""
-    if isinstance(dataset, PagedRows):
+    """f32 rows of ``ids`` (clipped to [0, n)), from a dense dataset, or by
+    the ``decode(ids)`` of a ``PagedRows`` page table or a compressed
+    dataset (``neighbors.vpq_dataset.VpqDataset``: the plain versions only)."""
+    if not isinstance(dataset, torch.Tensor):
         return dataset.decode(ids)
     return dataset[ids.long().clamp(0, dataset.shape[0] - 1)].to(torch.float32)
 
@@ -102,11 +103,15 @@ def _hop_torch(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
     """The plain hop; returns ``(buf_d, buf_i, explored, live, fetched)``,
     live and fetched [tile] int32 the live parents a query had and the
     candidate rows they needed (those not dropped as -1, a repeat or an id
-    already in the buffer)."""
+    already in the buffer).  Rows a kernel leg reads (a tensor or a
+    ``PagedRows``) are scored in the kernel's summation order; rows decoded
+    on gather (a VPQ dataset, which no kernel leg reads) by one batched
+    product, as raft_tpu's XLA body scores them."""
     tile, itopk = buf_d.shape
     n, deg = graph.shape
     q = queries.to(torch.float32)
-    q2 = _sqnorm(q)[:, None]
+    exact = isinstance(dataset, (torch.Tensor, PagedRows))
+    q2 = (_sqnorm(q) if exact else (q * q).sum(dim=1))[:, None]
     inf = torch.full((), float("inf"), dtype=torch.float32, device=q.device)
     earlier = torch.triu(torch.ones((deg, deg), dtype=torch.bool, device=q.device), 1)
     md, mi = buf_d.to(torch.float32), buf_i.to(torch.int32)
@@ -117,11 +122,13 @@ def _hop_torch(dataset, graph, queries, parents, buf_d, buf_i, explored, metric)
         cand = graph[pid[:, 0].clamp(0, n - 1)].to(torch.int32)               # [t, deg]
         cand = torch.where(pid < 0, torch.full_like(cand, -1), cand)
         rows = gather_rows(dataset, cand)                                      # [t, deg, d]
-        ip = sequential_dot(q[:, None, :], rows)[:, 0, :]
+        ip = (sequential_dot(q[:, None, :], rows)[:, 0, :] if exact
+              else torch.bmm(rows, q[:, :, None])[:, :, 0])
         if metric == "inner_product":
             cd = -ip
         else:
-            cd = torch.clamp((q2 + _sqnorm(rows)) - 2.0 * ip, min=0.0)
+            v2 = _sqnorm(rows) if exact else (rows * rows).sum(dim=2)
+            cd = torch.clamp((q2 + v2) - 2.0 * ip, min=0.0)
         in_buf = (cand[:, :, None] == mi[:, None, :]).any(dim=2)
         dup = ((cand[:, :, None] == cand[:, None, :]) & earlier).any(dim=1)
         bad = (cand < 0) | (pid < 0) | in_buf | dup
@@ -204,6 +211,10 @@ def cagra_fused_hop(
     out_e = torch.empty_like(be)
     lib = _k.library()
     _k.stamp_kernel_path("cuda")
+    _cost.note(name, lambda: _cost.cagra_hop_work(
+        *cagra_hop_reads(dataset, graph, queries, parents, buf_d, buf_i, explored,
+                         metric=metric),
+        g.shape[1], d, itopk, itemsize=x.element_size(), paged=paged, width=par.shape[1]))
     _k.count_launch(name)
     code = lib.rt_cagra_hop(
         x.data_ptr(), _DATASET_DTYPES[x.dtype], g.data_ptr(), qf.data_ptr(),
@@ -311,4 +322,6 @@ def cagra_traverse_steps(
         _k.stream_of(x),
     )
     _k.check(name, code)
+    _cost.note(name, lambda: _cost.cagra_hop_work(live, fetched, g.shape[1], d, itopk,
+                                                  itemsize=x.element_size(), paged=paged))
     return out_d, out_i, out_e, live, fetched

@@ -17,6 +17,7 @@ import torch
 
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.kernels.toolkit import cdiv, sequential_dot, topk_by_position
+from raft_tpu_torch.ops import cost as _cost
 
 #: deepest k; raft_tpu's Pallas kernel bounds k only by its VMEM blocks
 MAX_K = 2048
@@ -96,6 +97,7 @@ def fused_l2_topk(
     part_i = torch.empty((n_q, splits, cap), dtype=torch.int32, device=q.device)
     counts = torch.empty((n_q, splits), dtype=torch.int32, device=q.device)
     lib = _k.library()
+    _cost.note("fused_knn", lambda: _cost.fused_knn_work(n_q, n, d, k))
     _k.count_launch("fused_knn")
     code = lib.rt_fused_knn(
         q.data_ptr(), x.data_ptr(), xx.data_ptr(), n_q, n, d, k, int(mode == "ip"), splits, cap,

@@ -66,6 +66,7 @@ import torch
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.core.bitset import WORD_BITS, _n_words, pack_bits, unpack_words
 from raft_tpu_torch.kernels.toolkit import int8_scored_ip, sequential_dot, topk_by_position
+from raft_tpu_torch.ops import cost as _cost
 from raft_tpu_torch.store.paged import PagedLists, gather_lists
 
 #: deepest kk; raft_tpu's Pallas scans bound kk only by one (G, kk) f32 +
@@ -340,6 +341,16 @@ def _check(metric, list_data, list_y2, list_index, kk, scan_dtype, scan_scale):
                          f"[{L * list_data.pages_per_list}], got {tuple(list_data.page_slot.shape)}")
 
 
+def _work_kw(list_data, list_index, scan_dtype, scan_scale, cap_w):
+    """Keyword arguments of the ``ops.cost`` scan work of a launch."""
+    leg = storage_leg(list_data.dtype, scan_scale)
+    compute = ("int8" if leg == "_int8" else
+               "bfloat16" if scan_dtype == "bfloat16" else "float32")
+    return dict(list_rows=(list_index >= 0).sum(dim=1),
+                itemsize=torch.empty(0, dtype=list_data.dtype).element_size(),
+                compute=compute, cap_w=cap_w)
+
+
 def _leg_arg(list_data, scan_dtype, scan_scale):
     """The leg's own argument: scan_scale (as f32) for a scaled int8
     cache, else whether to compute in bf16."""
@@ -414,8 +425,13 @@ def ivf_scan_probe_major(
     ws_v = torch.empty(ws_shape, dtype=torch.float32, device=dev)
     ws_i = torch.empty(ws_shape, dtype=torch.int32, device=dev)
     wide = ws_shape[-1] > 0
+    name = kernel_name("probe_major", list_data, filt, scan_scale=scan_scale)
+    _cost.note(name, lambda: _cost.scan_bucket_work(
+        tensors[0], tensors[2], d=d, kk=kk,
+        pages_per_list=list_data.pages_per_list if pages[0] is not None else 0,
+        **_work_kw(list_data, list_index, scan_dtype, scan_scale, cap_w)))
     return _launch(
-        kernel_name("probe_major", list_data, filt, scan_scale=scan_scale), "probe_major",
+        name, "probe_major",
         storage_leg(list_data.dtype, scan_scale), tensors,
         (B, G, cap, d, kk, _METRICS[metric], _leg_arg(list_data, scan_dtype, scan_scale),
          words, cap_w, *pages, ws_v.data_ptr() if wide else None,
@@ -467,8 +483,20 @@ def ivf_scan_query_major(
     part_shape = (Q, splits * kk) if splits > 1 else (0,)
     part_v = torch.empty(part_shape, dtype=torch.float32, device=dev)
     part_i = torch.empty(part_shape, dtype=torch.int32, device=dev)
+    name = kernel_name("query_major", list_data, filt, fid, scan_scale)
+    def work():
+        kw = _work_kw(list_data, list_index, scan_dtype, scan_scale,
+                      0 if filt is None else _n_words(cap))
+        if pages[0] is None:
+            return _cost.scan_work(tensors[0], kw.pop("list_rows"), d, Q, kk, query_fid=fid,
+                                   **kw)
+        return _cost.scan_paged_work(tensors[0], kw.pop("list_rows"), d, Q, kk, blocks=Q * P,
+                                     pages_per_list=list_data.pages_per_list, query_fid=fid,
+                                     **kw)
+
+    _cost.note(name, work)
     return _launch(
-        kernel_name("query_major", list_data, filt, fid, scan_scale), "query_major",
+        name, "query_major",
         storage_leg(list_data.dtype, scan_scale), tensors,
         (Q, P, cap, d, kk, _METRICS[metric], splits,
          _leg_arg(list_data, scan_dtype, scan_scale),

@@ -23,6 +23,7 @@ import torch
 
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.kernels.toolkit import topk_by_position
+from raft_tpu_torch.ops import cost as _cost
 
 #: widest row the shared-memory kernel serves (matrix.select_k's chunked
 #: tournament takes wider rows)
@@ -127,6 +128,7 @@ def select_k_kernel(
     out_v = torch.empty((rows, k), dtype=torch.float32, device=v.device)
     out_i = torch.empty((rows, k), dtype=torch.int32, device=v.device)
     lib = _k.library()
+    _cost.note("select_k", lambda: _cost.select_k_work(rows, n, k, with_ids=ids is not None))
     _k.count_launch("select_k")
     code = lib.rt_select_k(
         v.data_ptr(), ids.data_ptr() if ids is not None else None, stride,

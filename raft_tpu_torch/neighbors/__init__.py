@@ -2,7 +2,9 @@
 
 #: raft_tpu modules the port does not serve yet, and where ROADMAP lists them
 _NOT_PORTED = {
-    "hnsw": "hnsw export and search of CAGRA graphs (ROADMAP Queue 2, CAGRA leftovers)",
+    "ball_cover": "random ball cover (ROADMAP Queue 1 item 6)",
+    "extras": "epsilon neighbourhoods and masked L2 NN (ROADMAP Queue 1 item 6)",
+    "helpers": "index helpers (ROADMAP Queue 1 item 6)",
 }
 
 

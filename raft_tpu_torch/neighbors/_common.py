@@ -17,7 +17,7 @@ import torch
 from raft_tpu_torch.core import validation
 from raft_tpu_torch.core.bitset import Bitset, RowFilter, bits_at
 from raft_tpu_torch.kernels.toolkit import round_up
-from raft_tpu_torch.ops.matrix import select_k
+from raft_tpu_torch.ops.matrix import select_k_untraced as select_k
 
 
 def merge_split_lists(centers: np.ndarray, labels: np.ndarray):

@@ -43,17 +43,19 @@ from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import validation
 from raft_tpu_torch.core.bitset import RowFilter
 from raft_tpu_torch.core.resources import Resources, ensure, from_numpy, to_device
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES, EXPANDED, distance_matrix_tile
 from raft_tpu_torch.kernels import stamp_kernel_path
 from raft_tpu_torch.kernels.fused_knn import fused_l2_topk, fused_l2_topk_torch
 from raft_tpu_torch.neighbors._common import invalid_mask, resolve_pass_filter
-from raft_tpu_torch.ops.matrix import select_k
+from raft_tpu_torch.ops.matrix import select_k_untraced as select_k
 
 _SERIALIZATION_VERSION = 1
 #: the metrics of the fused kernel
 _FUSED = ("sqeuclidean", "euclidean", "inner_product")
 
 
+@traced("brute_force.knn")
 def knn(
     dataset,
     queries,
@@ -201,12 +203,14 @@ class Index:
         return self.dataset.shape[1]
 
 
+@traced("brute_force.build")
 def build(dataset, *, metric: str = "sqeuclidean",
           res: Optional[Resources] = None) -> Index:
     res = ensure(res)
     return Index(to_device(dataset, res.device), metric)
 
 
+@traced("brute_force.search")
 def search(index: Index, queries, k: int, *, sample_filter=None,
            deleted_mask=None, res: Optional[Resources] = None):
     dataset = index.dataset
@@ -298,12 +302,14 @@ def make_batch_k_query(index: Index, queries, batch_size: int, *,
     return BatchKQuery(index, queries, batch_size, res=res)
 
 
+@traced("brute_force.save")
 def save(filename: str, index: Index) -> None:
     """raft_tpu's format: the metric and the dataset in its dtype."""
     ser.save_tree(filename, "brute_force", _SERIALIZATION_VERSION,
                   {"metric": index.metric}, {"dataset": index.dataset})
 
 
+@traced("brute_force.load")
 def load(filename: str, *, res: Optional[Resources] = None) -> Index:
     """An index saved by this package's or raft_tpu's ``save``."""
     scalars, arrays = ser.load_tree(filename, "brute_force", _SERIALIZATION_VERSION)

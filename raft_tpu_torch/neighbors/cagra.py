@@ -3,8 +3,10 @@
 
 Build: a kNN graph of ``intermediate_graph_degree`` neighbours per row —
 IVF-PQ search of every row for ``gpu_top_k = 2 (inter + 1)`` candidates,
-refined exactly to ``inter + 1`` (``build_algo="ivf_pq"``), or the exact
-graph (``"brute_force"``) — then ``optimize``: the detour-count prune to
+refined exactly to ``inter + 1`` (``build_algo="ivf_pq"``), the exact
+graph (``"brute_force"``), or NN-descent (``"nn_descent"``, in memory;
+``"nn_descent_batch"``, out of core: ``neighbors.nn_descent``) — then
+``optimize``: the detour-count prune to
 ``graph_degree``, reverse edges, and the merge of the two; last a coarse
 entry-point table (a small balanced k-means and the dataset row nearest
 each centre).  ``"auto"`` takes the exact graph up to 131,072 rows on a
@@ -50,10 +52,16 @@ IVF-PQ build, its searches and the refine convert tiles of rows), and the
 walk reads 8-bit rows on the hop kernel's 8-bit legs, each value converted
 exactly to f32 where it is staged.
 
+VPQ-compressed datasets (:func:`compress`, ``neighbors.vpq_dataset``):
+the search decodes the candidate rows it gathers.  raft_tpu keeps such a
+dataset on its XLA body, off the fused hop; the port walks it on the plain
+walk (:func:`cagra_traverse_steps_torch` over decoded rows) and stamps
+``kernel_path`` "torch".  ``save`` / ``load`` write and read raft_tpu's
+"vpq" dataset kind.
+
 ``EffortSpec`` holds the search's effort knobs (``itopk_size``,
-``search_width``).  Not ported (``NotImplementedError``, ROADMAP Queue 1):
-``compress`` and VPQ datasets, the NN-descent builds; hnsw export and the
-sharded graph mode are not ported either.
+``search_width``).  hnswlib export and search are ``neighbors.hnsw``; the
+sharded graph mode is not ported (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -69,11 +77,16 @@ from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.bitset import RowFilter
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure, from_numpy
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.kernels import stamp_kernel_path
 from raft_tpu_torch.kernels import cagra_traverse as _ct
-from raft_tpu_torch.kernels.cagra_traverse import cagra_traverse_steps, gather_rows
-from raft_tpu_torch.neighbors import brute_force, ivf_pq, nn_descent
+from raft_tpu_torch.kernels.cagra_traverse import (
+    cagra_traverse_steps,
+    cagra_traverse_steps_torch,
+    gather_rows,
+)
+from raft_tpu_torch.neighbors import brute_force, ivf_pq, nn_descent, vpq_dataset
 from raft_tpu_torch.neighbors._common import (
     invalid_mask,
     postprocess,
@@ -82,37 +95,25 @@ from raft_tpu_torch.neighbors._common import (
     subsample_trainset,
 )
 from raft_tpu_torch.neighbors.refine import refine
-from raft_tpu_torch.ops.matrix import select_k
+from raft_tpu_torch.ops.matrix import select_k_untraced as select_k
 from raft_tpu_torch.store.paged import PagedRows
 
 _SERIALIZATION_VERSION = 1
 _METRICS = ("sqeuclidean", "euclidean", "inner_product")
-_ROADMAP = "ROADMAP Queue 2, CAGRA leftovers"
-#: names raft_tpu's cagra module has that the port does not serve yet
-_NOT_PORTED = {
-    "compress": "VPQ-compressed CAGRA datasets",
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"cagra.{name}: {_NOT_PORTED[name]} are not ported yet "
-                                  f"({_ROADMAP})")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+_ROADMAP = "ROADMAP Queue 1 item 3, CAGRA leftovers"
 
 
 @dataclass
 class IndexParams:
     """raft's defaults.  ``entry_points``: size of the coarse entry-point
     table, ``None`` → auto (about 4·√n, a power of two in [64, 4096]),
-    ``0`` → none (random seeds only).  ``nn_descent_niter`` is accepted
-    for raft_tpu compatibility and has no effect: the NN-descent builds
-    are not ported."""
+    ``0`` → none (random seeds only).  ``nn_descent_niter``: the
+    iterations of the NN-descent builds."""
 
     metric: str = "sqeuclidean"
     intermediate_graph_degree: int = 128
     graph_degree: int = 64
-    #: auto | ivf_pq | brute_force (nn_descent, nn_descent_batch: not ported)
+    #: auto | ivf_pq | brute_force | nn_descent | nn_descent_batch
     build_algo: str = "auto"
     nn_descent_niter: int = 20
     seed: int = 0
@@ -171,9 +172,10 @@ class EffortSpec:
 
 
 class Index:
-    """Dataset [n, d] (f32, bf16, int8 or uint8), graph [n, degree] int32, and the
-    optional entry-point table: centres [c, d] f32 and the id of the
-    dataset row nearest each."""
+    """Dataset [n, d] (f32, bf16, int8 or uint8, or a
+    ``vpq_dataset.VpqDataset``), graph [n, degree] int32, and the optional
+    entry-point table: centres [c, d] f32 and the id of the dataset row
+    nearest each."""
 
     def __init__(self, metric: str, dataset: torch.Tensor, graph: torch.Tensor,
                  entry_centers: Optional[torch.Tensor] = None,
@@ -197,6 +199,20 @@ class Index:
     @property
     def graph_degree(self) -> int:
         return self.graph.shape[1]
+
+
+@traced("cagra.compress")
+def compress(index: Index, params: Optional[vpq_dataset.VpqParams] = None, *,
+             res: Optional[Resources] = None) -> Index:
+    """The index with its dense dataset replaced by a VPQ-compressed one
+    (``vpq_dataset.build``); searches then decode the rows they gather and
+    distances become approximate."""
+    if isinstance(index.dataset, vpq_dataset.VpqDataset):
+        raise ValueError("index dataset is already compressed")
+    if index.paged is not None:
+        raise ValueError("a paged index cannot be compressed; compress the dense index")
+    ds = vpq_dataset.build(params or vpq_dataset.VpqParams(), index.dataset, res=res)
+    return Index(index.metric, ds, index.graph, index.entry_centers, index.entry_ids)
 
 
 def _as_dataset(dataset, device: torch.device) -> torch.Tensor:
@@ -276,6 +292,7 @@ def _merge_forward_reverse(forward: torch.Tensor, reverse: torch.Tensor) -> torc
     return torch.where(out < 0, forward, out)
 
 
+@traced("cagra.optimize")
 def optimize(knn_graph, out_degree: int, *, res: Optional[Resources] = None) -> torch.Tensor:
     """Prune a kNN graph (rows sorted by distance) to a ``out_degree``
     CAGRA search graph: the detour-count prune, reverse edges, merge."""
@@ -343,19 +360,31 @@ def resolve_build_algo(build_algo: str, n: int, device: torch.device) -> str:
     return "brute_force" if n <= brute_cap else "ivf_pq"
 
 
+@traced("cagra.build")
 def build(params: IndexParams, dataset, *, res: Optional[Resources] = None) -> Index:
-    """kNN graph (IVF-PQ + refine, or exact) → :func:`finalize_index`."""
+    """kNN graph (IVF-PQ + refine, exact, or NN-descent) →
+    :func:`finalize_index`.  A host dataset (numpy or a CPU tensor) given to
+    ``"nn_descent_batch"`` stays on the host until the graph is built, as in
+    raft_tpu: the out-of-core build uploads one cluster at a time."""
     res = ensure(res)
-    dataset = _as_dataset(dataset, res.device)
-    n, d = dataset.shape
     _check_metric(params.metric)
+    algo = resolve_build_algo(params.build_algo, dataset.shape[0], res.device)
+    host = _as_dataset(dataset, torch.device("cpu")) if algo == "nn_descent_batch" else None
+    dataset = _as_dataset(dataset, res.device) if host is None else host
+    n, d = dataset.shape
     inter = min(params.intermediate_graph_degree, n - 1)
-    algo = resolve_build_algo(params.build_algo, n, res.device)
     if algo == "brute_force":
         knn_graph = nn_descent.build_exact(dataset, inter, metric=params.metric, res=res).graph
     elif algo in ("nn_descent", "nn_descent_batch"):
-        raise NotImplementedError(
-            f"cagra build_algo={algo!r}: the NN-descent builds are not ported yet ({_ROADMAP})")
+        nnd = nn_descent.IndexParams(
+            graph_degree=inter,
+            intermediate_graph_degree=min(n - 1, max(inter + inter // 2, inter + 8)),
+            max_iterations=params.nn_descent_niter, metric=params.metric, seed=params.seed)
+        if algo == "nn_descent_batch":
+            rows = host.to(torch.float32) if host.dtype == torch.bfloat16 else host
+            knn_graph = nn_descent.build_batch(nnd, rows.numpy(), res=res).graph
+        else:
+            knn_graph = nn_descent.build(nnd, dataset, res=res).graph
     elif algo == "ivf_pq":
         ip, sp, gpu_top_k = _graph_build_ivf_pq_params(params, n, d)
         idx = ivf_pq.build(ip, dataset, res=res)
@@ -396,11 +425,14 @@ def finalize_index(params: IndexParams, dataset, knn_graph, *,
 
 def from_graph(metric: str, dataset, graph, entry_centers=None, entry_ids=None, *,
                res: Optional[Resources] = None) -> Index:
-    """An index from a prebuilt graph (and optional entry-point table)."""
+    """An index from a prebuilt graph (and optional entry-point table);
+    ``dataset`` is rows or a ``vpq_dataset.VpqDataset``."""
     dev = ensure(res).device
     _check_metric(metric)
+    rows = (dataset.to(dev) if isinstance(dataset, vpq_dataset.VpqDataset)
+            else _as_dataset(dataset, dev))
     return Index(
-        metric, _as_dataset(dataset, dev), torch.as_tensor(graph).to(dev, torch.int32),
+        metric, rows, torch.as_tensor(graph).to(dev, torch.int32),
         None if entry_centers is None else as_f32(entry_centers, dev),
         None if entry_ids is None else torch.as_tensor(entry_ids).to(dev, torch.int32),
     )
@@ -584,6 +616,7 @@ def traverse_steps_filtered(dataset, graph: torch.Tensor,
     return v, torch.where(torch.isfinite(v), i, torch.full_like(i, -1))
 
 
+@traced("cagra.search")
 def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter=None,
            deleted_mask=None, res: Optional[Resources] = None, seed_ids=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -592,7 +625,8 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
     ``Bitset``, or a ``RowFilter`` with one row per query) keeps its set
     bits and ``deleted_mask`` excludes its set bits: such a search widens
     ``itopk`` and runs :func:`traverse_steps_filtered` (no hop kernel).
-    The call stamps ``kernel_path`` "cuda" (its kernels) or "torch"."""
+    The call stamps ``kernel_path`` "cuda" (its kernels) or "torch" (CPU
+    tensors, or a compressed dataset's plain walk)."""
     res = ensure(res)
     res.device  # raises without a card unless the caller asked for the CPU
     dev = index.graph.device
@@ -613,6 +647,8 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
         seed_ids = torch.as_tensor(np.array(seed_ids) if isinstance(seed_ids, np.ndarray)
                                    else seed_ids).to(dev, torch.int32)
     dataset = index.dataset
+    # a compressed dataset walks on the plain walk, its rows decoded as gathered
+    compressed = isinstance(dataset, vpq_dataset.VpqDataset)
     if index.paged is not None:
         # the walk gathers rows the graph decides, so no probe-keyed
         # prefetch exists: identity-pin the whole payload once
@@ -625,9 +661,9 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
         qs = queries[s:s + tile]
         buf = traverse_init(dataset, qs, seed_ids[s:s + tile], itopk, metric)
         if pass_filter is None:
-            buf_d, buf_i, _ = traverse_steps(dataset, index.graph, qs, *buf,
-                                             steps=max_iter, width=params.search_width,
-                                             metric=metric)
+            walk = cagra_traverse_steps_torch if compressed else cagra_traverse_steps
+            buf_d, buf_i = walk(dataset, index.graph, qs, *buf, steps=max_iter,
+                                width=params.search_width, metric=metric)[:2]
             v, i = select_k(buf_d, k, select_min=True, input_indices=buf_i)
             i = torch.where(torch.isfinite(v), i, torch.full_like(i, -1))
         else:
@@ -637,7 +673,7 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
                 words=words[s:s + tile] if per_row else words)
         vs.append(v)
         is_.append(i)
-    stamp_kernel_path("cuda" if dev.type == "cuda" else "torch")
+    stamp_kernel_path("cuda" if dev.type == "cuda" and not compressed else "torch")
     if not vs:
         return (torch.zeros((0, k), dtype=torch.float32, device=dev),
                 torch.zeros((0, k), dtype=torch.int32, device=dev))
@@ -648,13 +684,19 @@ def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter
 # serialization (raft_tpu's format)
 
 
+@traced("cagra.save")
 def save(filename: str, index: Index, *, include_dataset: bool = True) -> None:
     arrays = {"graph": index.graph}
     if index.entry_centers is not None:
         arrays["entry_centers"] = index.entry_centers
         arrays["entry_ids"] = index.entry_ids
     kind = "none"
-    if include_dataset:
+    if include_dataset and isinstance(index.dataset, vpq_dataset.VpqDataset):
+        kind = "vpq"
+        ds = index.dataset
+        arrays.update(vq_centers=ds.vq_centers, pq_codebook=ds.pq_codebook,
+                      vq_codes=ds.vq_codes, pq_codes=ds.pq_codes)
+    elif include_dataset:
         kind = "dense"
         ds = index.dataset.detach().cpu()
         # numpy has no bf16: its raw 2-byte words, as raft_tpu writes them
@@ -668,17 +710,23 @@ def save(filename: str, index: Index, *, include_dataset: bool = True) -> None:
     )
 
 
+@traced("cagra.load")
 def load(filename: str, *, dataset=None, res: Optional[Resources] = None) -> Index:
-    """An index saved by either package; ``dataset`` supplies the rows of a
-    file saved without them."""
+    """An index saved by either package (dense rows, VPQ codes, or none);
+    ``dataset`` supplies the rows of a file saved without them."""
     scalars, arrays = ser.load_tree(filename, "cagra", _SERIALIZATION_VERSION)
     kind = scalars.get("dataset_kind", "dense" if scalars["include_dataset"] else "none")
-    if kind == "vpq":
-        raise NotImplementedError(f"VPQ-compressed CAGRA datasets are not ported yet ({_ROADMAP})")
     if kind == "dense":
         raw = arrays["dataset"]
         ds = (torch.from_numpy(raw.view(np.int16).copy()).view(torch.bfloat16)
               if raw.dtype == np.dtype("V2") else np.array(raw))
+    elif kind == "vpq":
+        ds = vpq_dataset.VpqDataset(
+            torch.from_numpy(np.array(arrays["vq_centers"], np.float32)),
+            torch.from_numpy(np.array(arrays["pq_codebook"], np.float32)),
+            torch.from_numpy(np.array(arrays["vq_codes"], np.int32)),
+            torch.from_numpy(np.array(arrays["pq_codes"], np.uint8)),
+            int(scalars["dim"]))
     elif dataset is not None:
         ds = dataset
     else:

@@ -40,6 +40,7 @@ from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import validation
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure, to_device
 from raft_tpu_torch.core.resources import from_numpy as tensor_from_numpy
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.neighbors import _common
 from raft_tpu_torch.neighbors._common import (
@@ -189,6 +190,7 @@ def _pack_lists(rows: torch.Tensor, ids: torch.Tensor, labels: np.ndarray,
     return l_data, l_index, torch.from_numpy(sizes).to(dev), l_norms, center_map
 
 
+@traced("ivf_flat.build")
 def build(params: IndexParams, dataset, *, res: Optional[Resources] = None) -> Index:
     """Subsample a trainset → balanced k-means → predict → pack lists."""
     res = ensure(res)
@@ -217,6 +219,7 @@ def build(params: IndexParams, dataset, *, res: Optional[Resources] = None) -> I
     return index
 
 
+@traced("ivf_flat.extend")
 def extend(index: Index, new_vectors, new_indices=None, *,
            res: Optional[Resources] = None) -> Index:
     """Add vectors: append into spare list capacity when every centroid
@@ -310,6 +313,7 @@ def query_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
         DISTANCE_TYPES[index.metric], n_probes, k)
 
 
+@traced("ivf_flat.search")
 def search(
     params: SearchParams,
     index: Index,
@@ -351,6 +355,7 @@ def search(
     return _common.postprocess(v, metric), i
 
 
+@traced("ivf_flat.save")
 def save(filename: str, index: Index) -> None:
     ser.save_tree(
         filename, "ivf_flat", _SERIALIZATION_VERSION,
@@ -376,6 +381,7 @@ def from_numpy(arrays, metric: str, *, headroom: bool = True,
                  t["list_sizes"].to(torch.int32), t["list_norms"], headroom=headroom)
 
 
+@traced("ivf_flat.load")
 def load(filename: str, *, res: Optional[Resources] = None) -> Index:
     scalars, arrays = ser.load_tree(filename, "ivf_flat", _SERIALIZATION_VERSION)
     return from_numpy(arrays, scalars["metric"],

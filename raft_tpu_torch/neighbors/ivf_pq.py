@@ -52,6 +52,7 @@ from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import validation
 from raft_tpu_torch.core.bitset import RowFilter
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.neighbors import _common
 from raft_tpu_torch.neighbors._common import (
@@ -65,7 +66,8 @@ from raft_tpu_torch.neighbors._common import (
 )
 from raft_tpu_torch.kernels import stamp_kernel_path
 from raft_tpu_torch.kernels.toolkit import int8_scored_ip, true_div
-from raft_tpu_torch.ops.matrix import segment_sum, select_k
+from raft_tpu_torch.ops.matrix import segment_sum
+from raft_tpu_torch.ops.matrix import select_k_untraced as select_k
 from raft_tpu_torch.store.paged import gather_lists
 
 _SERIALIZATION_VERSION = 1
@@ -449,6 +451,7 @@ def _resolve_decoded_dtype(params: IndexParams, n: int, rot_dim: int, pq_dim: in
     return "bfloat16"
 
 
+@traced("ivf_pq.build")
 def build(params: IndexParams, dataset, *, res: Optional[Resources] = None) -> Index:
     """Subsample a trainset → balanced k-means → rotation → codebooks →
     encode and pack every row (``add_data_on_build``)."""
@@ -538,6 +541,7 @@ def _extend_fast(index: Index, codes, labels: np.ndarray, new_ids):
     return new
 
 
+@traced("ivf_pq.extend")
 def extend(index: Index, new_vectors, new_indices=None, *,
            res: Optional[Resources] = None) -> Index:
     """Encode and add rows: predict + encode one tile at a time (a numpy
@@ -658,6 +662,7 @@ def query_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int, 
         DISTANCE_TYPES[index.metric], n_probes, k)
 
 
+@traced("ivf_pq.search")
 def search(params: SearchParams, index: Index, queries, k: int, *, sample_filter=None,
            deleted_mask=None, res: Optional[Resources] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -775,6 +780,7 @@ def _unpack_bits(packed: np.ndarray, pq_dim: int, pq_bits: int) -> np.ndarray:
     return np.packbits(full, axis=-1, bitorder="little")[..., 0]
 
 
+@traced("ivf_pq.save")
 def save(filename: str, index: Index) -> None:
     lc = index.list_codes.cpu().numpy()
     L, cap, pq_dim = lc.shape
@@ -829,6 +835,7 @@ def from_numpy(arrays, scalars, *, res: Optional[Resources] = None) -> Index:
                  headroom=bool(scalars.get("headroom", 1)))
 
 
+@traced("ivf_pq.load")
 def load(filename: str, *, res: Optional[Resources] = None) -> Index:
     scalars, arrays = ser.load_tree(filename, "ivf_pq", _SERIALIZATION_VERSION)
     return from_numpy(arrays, scalars, res=res)

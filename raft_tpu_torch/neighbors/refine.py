@@ -17,9 +17,10 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.resources import Resources, as_f32, ensure, to_device
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.neighbors._common import postprocess
-from raft_tpu_torch.ops.matrix import select_k
+from raft_tpu_torch.ops.matrix import select_k_untraced as select_k
 
 #: bytes of the [tile, k', d] f32 candidate gather
 _REFINE_TILE_BYTES = 512 * 1024 * 1024
@@ -45,6 +46,7 @@ def _distances(qf: torch.Tensor, cand: torch.Tensor, metric: str) -> torch.Tenso
     return torch.clamp(q2[:, None] + c2 - 2.0 * ip, min=0.0)
 
 
+@traced("refine.refine")
 def refine(dataset, queries, candidates, k: int, *, metric: str = "sqeuclidean",
            host: bool = False, res: Optional[Resources] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -26,7 +26,7 @@ import contextlib
 import dataclasses
 import threading
 from dataclasses import dataclass
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
@@ -155,6 +155,30 @@ def scan_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int,
     return KernelCost(int(pair_rows * 2 * d), int(bytes_accessed), compute)
 
 
+def scan_bucket_work(bucket_list: torch.Tensor, q2_gathered: torch.Tensor,
+                     list_rows: torch.Tensor, d: int, kk: int, *, itemsize: int = 4,
+                     compute: str = "float32", cap_w: int = 0,
+                     pages_per_list: int = 0) -> KernelCost:
+    """The probe-major scan from its own inputs: buckets of gathered queries
+    (``bucket_list`` [B] list ids, ``q2_gathered`` [B, G], +inf at padding).
+    2·d operations per (live query, real row of its bucket's list); the
+    real rows of each distinct probed list read once (and its ``cap_w``
+    filter words), each live gathered query (d f32 and its norm) and each
+    bucket's list id read once, ``kk`` values and ids written per live
+    query; a paged leg also reads ``pages_per_list`` table entries per live
+    bucket."""
+    live = torch.isfinite(q2_gathered)
+    per_bucket = live.sum(dim=1)
+    rows = list_rows.long().to(bucket_list.device)[bucket_list.long()]
+    lists = torch.unique(bucket_list[per_bucket > 0].long())
+    n_live = int(per_bucket.sum())
+    list_rows_read = int(list_rows.long().to(lists.device)[lists].sum())
+    bytes_accessed = (list_rows_read * (d * itemsize + 8) + 4 * cap_w * lists.numel()
+                      + n_live * (d + 1) * 4 + bucket_list.numel() * 4 + n_live * kk * 8
+                      + 4 * int((per_bucket > 0).sum()) * pages_per_list)
+    return KernelCost(int((per_bucket * rows).sum()) * 2 * d, int(bytes_accessed), compute)
+
+
 def cagra_hop_work(live: torch.Tensor, fetched: torch.Tensor, deg: int, d: int, itopk: int, *,
                    itemsize: int = 4, paged: bool = False, width: int = 0) -> KernelCost:
     """CAGRA hops over a tile of queries in one launch, one hop from
@@ -215,9 +239,30 @@ def capture() -> Iterator[List[Tuple[str, KernelCost]]]:
         _tls.notes = prev
 
 
-def note(name: str, cost: KernelCost) -> None:
+def note(name: str, cost) -> None:
     """Record one kernel launch's cost (a no-op outside a :func:`capture`
-    scope, so wrappers call it unconditionally)."""
+    scope, so wrappers call it unconditionally).  ``cost`` may be a
+    callable returning the :class:`KernelCost`: it is called only inside a
+    scope (a cost that reads the device, such as the real rows of probed
+    lists, then costs nothing outside one)."""
     notes = getattr(_tls, "notes", None)
     if notes is not None:
-        notes.append((name, cost))
+        notes.append((name, cost() if callable(cost) else cost))
+
+
+def noted_total(notes: List[Tuple[str, KernelCost]]) -> Optional[KernelCost]:
+    """Sum of a capture scope's notes (None when nothing was noted); the
+    arithmetic is "float32" unless every note shares another."""
+    if not notes:
+        return None
+    kinds = {c.compute for _, c in notes}
+    return KernelCost(sum(c.flops for _, c in notes), sum(c.bytes_accessed for _, c in notes),
+                      kinds.pop() if len(kinds) == 1 else "float32")
+
+
+def ops_seconds(notes: List[Tuple[str, KernelCost]], peaks=None) -> float:
+    """The least seconds the notes' operations take at the card's peak rate
+    for each note's arithmetic (``peaks``: compute → ops/s, default
+    :data:`H100_PEAK_OPS`)."""
+    peaks = H100_PEAK_OPS if peaks is None else peaks
+    return sum(c.flops / peaks[c.compute] for _, c in notes)

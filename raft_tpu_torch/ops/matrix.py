@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core import validation
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.kernels import select_k as _sk
 from raft_tpu_torch.kernels.toolkit import topk_by_position
 
@@ -82,6 +83,7 @@ def _take_ids(input_indices, idx):
     return torch.gather(ii.to(torch.int32), -1, idx.long())
 
 
+@traced("matrix.select_k")
 def select_k(
     scores: torch.Tensor,
     k: int,
@@ -95,6 +97,22 @@ def select_k(
     positions into the row, or gathered from ``input_indices``.  ``algo``:
     "auto", "topk" (one stable sort) or "chunked"; rows always come out
     sorted (``sorted`` is kept for interface parity)."""
+    return select_k_untraced(scores, k, select_min=select_min, input_indices=input_indices,
+                             algo=algo)
+
+
+def select_k_untraced(
+    scores: torch.Tensor,
+    k: int,
+    *,
+    select_min: bool = True,
+    input_indices: Optional[torch.Tensor] = None,
+    algo: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`select_k` without its span: what the port's own modules call.
+    raft_tpu calls its select_k inside jitted bodies, where the span fires
+    once when the body is traced; a span on every call of a search's inner
+    loops would cost host time raft_tpu does not spend."""
     if algo not in ("auto", "topk", "chunked"):
         raise ValueError(f"unknown select_k algo {algo!r}")
     squeeze = scores.ndim == 1

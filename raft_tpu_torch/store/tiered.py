@@ -16,7 +16,13 @@ Residency is demand-driven and clock-evicted:
 - :meth:`evict` — clock (second-chance) victim selection over slots;
   runs implicitly when admission needs room.  An evict-then-refetch inside
   the thrash window counts in ``thrash`` — the sign that the hot pool is
-  undersized.
+  undersized — and publishes a ``page_thrash`` bus event (``obs.events``),
+  at most one per store every ``_THRASH_DEBOUNCE_S`` seconds.
+
+Hits, misses and evictions are also counted in the obs registry, as
+raft_tpu names them: ``raft_tpu_page_{hits,misses,evictions}_total
+{index=<name>}``; the three entry points are traced (``store.pager.ensure``,
+``.prefetch``, ``.evict``).
 
 Placing pages.  raft_tpu rebuilds the pool functionally on every admission
 (``pool.at[slots].set(rows)``: a new array, which doubles as a snapshot
@@ -45,12 +51,6 @@ writes cannot overtake a scan still queued on another stream, and a scan
 cannot read a page whose upload is still queued there.  A pool that holds
 every page is pinned once (:meth:`pin_identity`) and never changes again,
 so its searches take no guard and no per-call synchronisation.
-
-Left out (their subsystems are not ported; ROADMAP Queue 2): the obs
-registry counters (``raft_tpu_page_*_total``) and the debounced
-``page_thrash`` bus event — the counters stay attributes (``hits``,
-``misses``, ``evictions``, ``prefetched``, ``thrash``) — and ``@traced``
-spans on ``ensure_resident`` / ``prefetch`` / ``evict``.
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ import contextlib
 import logging
 import queue
 import threading
+import time
 import uuid
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -68,6 +69,7 @@ import torch
 
 from raft_tpu_torch.core import env as _env
 from raft_tpu_torch.core.resources import ensure
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.store.budget import BudgetExceeded, MemoryBudget
 from raft_tpu_torch.store.pagestore import PageStore
 
@@ -77,6 +79,8 @@ _log = logging.getLogger(__name__)
 
 #: fetches within this many admissions of the eviction count as thrash
 _THRASH_WINDOW = 256
+#: minimum seconds between page_thrash events per store
+_THRASH_DEBOUNCE_S = 5.0
 
 
 def _runs(src: np.ndarray, dst: np.ndarray):
@@ -175,6 +179,7 @@ class TieredStore:
         self.thrash = 0
         self._fetch_seq = 0
         self._evicted_at: Dict[int, int] = {}
+        self._last_thrash_t = -1e9
 
         depth = prefetch_depth
         if depth is None:
@@ -214,6 +219,7 @@ class TieredStore:
     def _current_stream(self):
         return torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
 
+    @traced("store.pager.ensure")
     def ensure_resident(self, pages: Sequence[int]) -> None:
         """Blocking admission: every listed page is resident on return (on
         the caller's current stream).
@@ -233,6 +239,7 @@ class TieredStore:
             self.hits += hits
             if hits:
                 self._ref[slot_of[present]] = True
+                self._counter("raft_tpu_page_hits_total", hits)
             if missing.size == 0:
                 return
             if pages.size > self.slots:
@@ -243,6 +250,7 @@ class TieredStore:
                     "RAFT_TPU_PAGE_HBM_BUDGET_MB or RAFT_TPU_PAGE_ROWS"
                 )
             self.misses += missing.size
+            self._counter("raft_tpu_page_misses_total", int(missing.size))
             # pages of THIS admission may not be victimized mid-batch —
             # the clock's second sweep would otherwise evict a page the
             # caller was just promised (ref bits only survive one wrap)
@@ -271,6 +279,7 @@ class TieredStore:
                     event.record(stream)
                     self._scan_events[stream.cuda_stream] = event
 
+    @traced("store.pager.prefetch")
     def prefetch(self, pages: Sequence[int]) -> bool:
         """Async warm-start keyed by the coarse-probe result.  Returns
         whether the hint was accepted (a full queue drops it)."""
@@ -289,6 +298,7 @@ class TieredStore:
         except queue.Full:
             return False
 
+    @traced("store.pager.evict")
     def evict(self, count: int = 1) -> List[int]:
         """Clock-evict up to ``count`` pages; returns the evicted page
         ids.  Pinned stores refuse (their views alias slot order)."""
@@ -328,6 +338,7 @@ class TieredStore:
                     "RAFT_TPU_PAGE_HBM_BUDGET_MB"
                 )
             self.misses += self.n_pages
+            self._counter("raft_tpu_page_misses_total", self.n_pages)
             with self._on(self._current_stream()):
                 if self.store._identity():
                     self.pool.copy_(self.store.pages, non_blocking=True)
@@ -448,15 +459,43 @@ class TieredStore:
         self._ref[slot] = False
         self._evicted_at[page] = self._fetch_seq
         self.evictions += 1
+        self._counter("raft_tpu_page_evictions_total", 1)
         return page
 
     def _note_thrash(self, fetched: np.ndarray) -> None:
-        """Count evict-then-refetch inside the window: the pool is too
-        small for the working set."""
+        """Count evict-then-refetch inside the window (the pool is too
+        small for the working set) and publish it, debounced, as a
+        ``page_thrash`` event."""
+        n = 0
         for page in fetched:
             seq = self._evicted_at.pop(int(page), None)
             if seq is not None and self._fetch_seq - seq <= _THRASH_WINDOW:
-                self.thrash += 1
+                n += 1
+        if not n:
+            return
+        self.thrash += n
+        now = time.monotonic()
+        if now - self._last_thrash_t < _THRASH_DEBOUNCE_S:
+            return
+        self._last_thrash_t = now
+        try:
+            from raft_tpu_torch.obs import events as _events
+
+            _events.publish(
+                "page_thrash",
+                f"pager {self.name!r}: {n} pages refetched within "
+                f"{_THRASH_WINDOW} admissions of eviction "
+                f"(slots={self.slots}, pages={self.n_pages})",
+                index=self.name, pages=int(n), slots=int(self.slots),
+                n_pages=int(self.n_pages),
+            )
+        except Exception:  # observability must never break a search
+            _log.debug("page_thrash publish failed", exc_info=True)
+
+    def _counter(self, name: str, value: int) -> None:
+        from raft_tpu_torch.obs.registry import default_registry
+
+        default_registry().counter(name).inc(float(value), index=self.name)
 
     # -- async prefetch ------------------------------------------------------
     def _ensure_worker(self) -> None:

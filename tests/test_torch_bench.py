@@ -15,6 +15,7 @@ from raft_tpu.bench import export as jexport
 from raft_tpu.bench import runner as jrunner
 from raft_tpu.neighbors import ivf_flat as jflat
 from raft_tpu.stats import neighborhood_recall as j_neighborhood_recall
+from raft_tpu_torch import kernels
 from raft_tpu_torch.bench import conf as tconf
 from raft_tpu_torch.bench import datasets as tds
 from raft_tpu_torch.bench import device_time, ladder, prims
@@ -301,13 +302,28 @@ def test_run_case_ivf_flat_on_a_saved_and_loaded_index(bench_ds, tmp_path, monke
 
 def test_runner_algorithms_and_not_ported_wrappers(bench_ds):
     assert set(trunner.ALGORITHMS) == set(jrunner.ALGORITHMS)
-    for name in ("raft_tpu_cagra_vpq", "raft_tpu_ball_cover", "sklearn", "hnswlib_format",
-                 "hnsw_native", "native_ivf_flat", "native_ivf_pq", "native_cagra"):
+    # raft_tpu_cagra_vpq and hnswlib_format are served since slice 11
+    # (test_run_case_cagra_vpq_and_hnswlib_format_rows)
+    for name in ("raft_tpu_ball_cover", "sklearn", "hnsw_native", "native_ivf_flat",
+                 "native_ivf_pq", "native_cagra"):
         with pytest.raises(NotImplementedError):
             trunner.ALGORITHMS[name]("sqeuclidean", {}, res=CPU).build(bench_ds.base)
     with pytest.raises(ValueError, match="groundtruth"):
         trunner.run_case(tds.Dataset("x", bench_ds.base, bench_ds.queries),
                          "raft_tpu_brute_force", {}, [{}], res=CPU)
+
+
+@pytest.mark.parametrize("algo", ["raft_tpu_cagra_vpq", "hnswlib_format"])
+def test_run_case_cagra_vpq_and_hnswlib_format_rows(bench_ds, algo):
+    """The two rows that raised before slice 11, at a tiny scale: a VPQ
+    index walked on the plain walk ("torch" even on a card), and a CAGRA
+    graph through the hnswlib file and back."""
+    bp = {"graph_degree": 16, "intermediate_graph_degree": 32, "build_algo": "brute_force"}
+    sps = [{"itopk_size": 32}] if algo == "raft_tpu_cagra_vpq" else [{"ef": 32}]
+    kernels.consume_kernel_path()
+    rows = trunner.run_case(bench_ds, algo, bp, sps, k=10, warmup=0, iters=1, res=CPU)
+    assert len(rows) == 1 and rows[0].algo == algo and rows[0].recall > 0.5
+    assert kernels.consume_kernel_path() == "torch" and rows[0].device_time_s is None
 
 
 def test_run_config_labels_and_numpy_floor(bench_ds):
@@ -347,6 +363,51 @@ def test_measure_device_time_retakes_a_window_without_device_records():
     taken.clear()
     assert device_time.first_busy(lambda: taken.append(1) or []) == []
     assert len(taken) == device_time.TRACE_ATTEMPTS
+
+
+def test_measure_device_time_retakes_a_window_that_lost_kernel_records(monkeypatch):
+    """A window holding fewer records of a kernel than the call launched is
+    taken again, as an empty one is; ``TRACE_ATTEMPTS`` such windows give
+    None.  The fake trace stands in for ``torch.profiler`` on the card."""
+    calls = []
+
+    def search():
+        kernels.count_launch("select_k")
+        kernels.count_launch("select_k")
+        kernels.count_launch("ivf_scan_query_major_filt")
+
+    whole = [(0.0, 2.0, "void select_k_warp_kernel<2, false>(Row, int)"),
+             (2.0, 3.0, "select_k_sort_kernel<true>"), (3.0, 7.0, "query_major_kernel<0>"),
+             (7.0, 9.0, "merge_parts_kernel")]
+    windows = iter([whole[1:], [r for r in whole if "query" not in r[2]], whole])
+
+    def fake_trace(fn, *args):
+        before = kernels.launch_counts()
+        fn(*args)
+        after = kernels.launch_counts()
+        calls.append(1)
+        return next(windows), {k: after[k] - before[k] for k in after if after[k] > before[k]}
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(device_time, "trace_device_spans", fake_trace)
+    assert device_time.measure_device_time(search) == pytest.approx(9e-6)
+    assert len(calls) == 3
+    assert device_time.missing_records(whole[1:], {"select_k": 2}) == 1
+    assert device_time.missing_records(whole, {"select_k": 2, "ivf_scan_query_major": 1}) == 0
+    calls.clear()
+    windows = iter([whole[1:]] * device_time.TRACE_ATTEMPTS)
+    assert device_time.measure_device_time(search) is None
+    assert len(calls) == device_time.TRACE_ATTEMPTS
+    # the port's trace ranges are device annotations, not device work
+    from types import SimpleNamespace
+
+    cuda = torch.autograd.DeviceType.CUDA
+    assert device_time.is_device_work(SimpleNamespace(device_type=cuda, name=whole[0][2]))
+    assert not device_time.is_device_work(
+        SimpleNamespace(device_type=cuda, name="raft_tpu.ivf_flat.search"))
+    assert not device_time.is_device_work(
+        SimpleNamespace(device_type=cuda, name="ProfilerStep#1", is_user_annotation=True))
 
 
 def test_ladder_configs_1_to_3_on_the_cpu_at_floor_sizes():

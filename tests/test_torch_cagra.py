@@ -215,24 +215,23 @@ def test_not_in_slice_options_raise(raft_index, data, tmp_path):
     # int8 / uint8 datasets are served (test_8bit_index_parity_with_raft); f16 is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcagra.build(tcagra.IndexParams(build_algo="brute_force"), x.astype(np.float16), res=CPU)
-    for algo in ("nn_descent", "nn_descent_batch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcagra.build(tcagra.IndexParams(build_algo=algo), x, res=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tcagra, "compress")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from raft_tpu_torch.neighbors import hnsw  # noqa: F401
+    # the NN-descent builds, compress and hnsw are served since slice 11
+    # (tests/test_torch_nn_descent.py, test_torch_vpq.py, test_torch_hnsw.py)
+    from raft_tpu_torch.neighbors import hnsw  # noqa: F401
+
+    assert callable(tcagra.compress)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        from raft_tpu_torch.neighbors import ball_cover  # noqa: F401
     # paged datasets are served since slice 5 (tests/test_torch_paged_search.py)
     paged = copy.copy(tidx)
     paginate_index(paged, page_rows=8, budget=None)
     for a, b in zip(tcagra.search(sp, paged, q[:8], 10, res=CPU),
                     tcagra.search(sp, tidx, q[:8], 10, res=CPU)):
         assert torch.equal(a, b)
-    # a VPQ-compressed index saved by raft_tpu
+    # a VPQ-compressed index saved by raft_tpu loads (tests/test_torch_vpq.py)
     path = str(tmp_path / "vpq.idx")
     jcagra.save(path, jcagra.compress(raft_index))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcagra.load(path, res=CPU)
+    assert tcagra.load(path, res=CPU).dataset.shape == tuple(raft_index.dataset.shape)
     with pytest.raises(ValueError):
         tcagra.build(tcagra.IndexParams(metric="cosine"), x, res=CPU)
 
