@@ -143,7 +143,25 @@ then drives the port's main paths at the scale of sift-128-euclidean
    for every entry point the phases called, the kernel-build counter against
    the sources this process built, the over-budget store's page counters
    against its own, and ``obs.analyze_callable`` of the 10,000-query
-   IVF-Flat search against the sum of its noted work (roofline share <= 1).
+   IVF-Flat search against the sum of its noted work (roofline share <= 1);
+24. serving (``raft_tpu_torch.serve``): phase 1's index as a
+   ``MutableIndex`` behind ``SearchService(k=10, max_batch=64,
+   max_delay_ms=2.0)``, warmed; eight client threads send the 10,000
+   queries as single-query requests, and every answer equals
+   ``ivf_flat.search`` of that query alone; no kernel build or library load
+   on the dispatch thread after warmup; pipeline depth 1 gives the same
+   bytes; 10,000 rows upserted and 1 % of the ids deleted while two threads
+   keep searching, after which every upserted row finds itself first and no
+   deleted id comes back; ragged requests (k drawn from 1..10, ``table8``
+   filter ids) never return an id their filter fails and equal the direct
+   filtered search; ``compact_now`` promotes a shadow (IVF ``extend`` into
+   an empty clone with the trained centers; its gate's exact oracle on
+   fused_knn) whose recall@10 against brute force over the live rows is no
+   lower than before; and a second service over phase 5's CAGRA index
+   answers the 20 x 64 batches as ``cagra.search`` did, on the walk.
+   Prints ``stats()`` (qps, p50 / p99, batch fill), the device's busy share
+   under the single-query load, the compaction time and each kernel's
+   launches in the phase.
 
 Launch counts are set to 0 before each phase of the main paths and read
 after it.  Prints the card, JSON lines of the over-budget batches, the
@@ -240,6 +258,16 @@ VPQ_QUERIES, VPQ_RECALL = 1000, 0.5
 HNSW_EF, HNSW_RECALL = 64, 0.9
 #: obs (phase 23): interleaved rounds of the span-overhead A/B and its limit
 OBS_ROUNDS, OBS_OVERHEAD = 300, 0.05
+#: serving (phase 24): client threads, rows upserted (each a base row plus
+#: noise of this std) and the deleted share of the ids, in this many
+#: mutation rounds; the ragged requests, the requests whose busy share is
+#: traced, and how long any wait on a request may take
+SERVE_THREADS, SERVE_UPSERTS, SERVE_NOISE, SERVE_DELETE = 8, 10_000, 0.5, 0.01
+SERVE_ROUNDS, SERVE_RAGGED, SERVE_TRACED, SERVE_WAIT_S = 10, 2000, 2000, 600.0
+#: profiler windows of the served load taken before its busy share counts
+#: as unmeasured: a window of kernels launched from the batcher's thread
+#: loses some device records more often than a one-thread call's
+SERVE_TRACE_ATTEMPTS = 8
 
 
 def main() -> int:
@@ -2748,10 +2776,18 @@ def main() -> int:
           f"= the sum of {len(notes)} noted KernelCosts; roofline share "
           f"{rep_d.get('utilization')} <= 1")
 
+    # -- phase 24: serving one index on the card ----------------------------------
+    t24 = time.perf_counter()
+    serving_phase(x=x, q=q, index=index, sp=sp, cg=cg, cagra_sp=cagra_sp,
+                  cagra_batches=outputs["cagra batches"], table8=table8, res=res, check=check,
+                  phase=phase, phase_launches=phase_launches)
+    print(f"phase 24 (serving): {time.perf_counter() - t24:.1f} s", flush=True)
 
     for name in kernels.KERNELS:
         check(main_launches[name] > 0, f"{name} launched {main_launches[name]} times on the main path")
-    print(f"phase launches: {json.dumps(phase_launches)}", flush=True)
+    print(f"phase launches (nonzero): "
+          f"{json.dumps({ph: {n: c for n, c in d.items() if c} for ph, d in phase_launches.items()})}",
+          flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     nums = [v for r in results for e in [r] + r.get("also", []) for v in e.values()
@@ -2767,6 +2803,311 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def serving_phase(*, x, q, index, sp, cg, cagra_sp, cagra_batches, table8, res, check, phase,
+                  phase_launches):
+    """Phase 24: raft_tpu's README serving path on the card (see the module
+    docstring).  Returns nothing; every check goes through ``check``."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import serve
+    from raft_tpu_torch.bench.device_time import (
+        busy_seconds,
+        missing_records,
+        trace_device_spans,
+    )
+    from raft_tpu_torch.core.bitset import RowFilter
+    from raft_tpu_torch.obs import slowlog
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat
+    from raft_tpu_torch.stats.metrics import recall_at_k
+
+    qn = q.cpu().numpy()
+    n_q, n_rows = qn.shape[0], x.shape[0]
+    serve_phases = []
+    # the open-loop clients queue every request at once, so queue waits
+    # cross the slow-query threshold by design (as raft_tpu's serving bench
+    # legs do, the log is off for the phase); and the perf ledger's
+    # automatic profiler capture on a device-time trip would run beside the
+    # phase's own profiler window, so it is off too
+    slowlog.configure(None)
+    os.environ["RAFT_TPU_PERF_CAPTURE_S"] = "0"
+
+    def serve_phase(name):
+        serve_phases.append(name)
+        return phase(name)
+
+    def drive(svc, name, queries, threads=SERVE_THREADS, kw_of=None):
+        """``queries`` sent as single-query requests (``kw_of(i)``: their
+        ragged k / fid) from ``threads`` client threads, all submitted
+        before any is awaited: the answers (a list, by request) and the
+        wall seconds."""
+        out = [None] * queries.shape[0]
+        errors = []
+
+        def client(t):
+            try:
+                futs = [(i, svc.submit(name, queries[i], **(kw_of(i) if kw_of else {})))
+                        for i in range(t, queries.shape[0], threads)]
+                for i, f in futs:
+                    out[i] = f.result(SERVE_WAIT_S)
+            except Exception as exc:  # noqa: BLE001 — reported by the check below
+                errors.append(repr(exc))
+
+        workers = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(SERVE_WAIT_S)
+        wall = time.perf_counter() - t0
+        check(not errors and not any(w.is_alive() for w in workers),
+              f"{name}: {queries.shape[0]} requests from {threads} threads answered "
+              f"({errors[:2]})")
+        return out, wall
+
+    def stack(answers):
+        return (np.stack([a[0] for a in answers]), np.stack([a[1] for a in answers]))
+
+    def report(svc, name, tag):
+        st = svc.stats(name)
+        print(f"serve {tag}: qps {st['qps']}, p50 {st['p50_ms']} ms, p99 {st['p99_ms']} ms, "
+              f"batch fill {st['batch_fill']}, batches {st['batches']}, requests "
+              f"{st['requests']}, recompiles {st['recompiles']}, warmup builds "
+              f"{st['warmup_compiles']}, kernel paths {st['kernel_paths']}, stages "
+              f"{json.dumps(st['stages'])}", flush=True)
+        return st
+
+    # 1-2: the IVF-Flat service, each answer against the query alone
+    svc = serve.SearchService(k=K, max_batch=64, max_delay_ms=2.0,
+                              compaction=serve.CompactionPolicy())
+    svc.pause_compaction()
+    mi = serve.MutableIndex(index, search_params=sp)
+    with serve_phase("serve_warmup"):
+        svc.add_index("flat", mi, warmup=True)
+    with serve_phase("serve_ivf_flat"):
+        answers, wall = drive(svc, "flat", qn)
+    d2, i2 = stack(answers)
+    st = report(svc, "flat", f"{n_q} single-query requests, {wall:.3f} s wall, "
+                f"{n_q / wall:.0f} requests/s,")
+    check(st["recompiles"] == 0, f"no kernel build or library load on the dispatch thread "
+          f"after warmup (recompiles {st['recompiles']})")
+    check(st["kernel_paths"] and set(st["kernel_paths"]) == {"cuda"},
+          f"every served batch stamped kernel_path cuda ({st['kernel_paths']})")
+    alone = [ivf_flat.search(sp, index, q[i:i + 1], K, res=res) for i in range(n_q)]
+    ref_d = torch.cat([a[0] for a in alone]).cpu().numpy()
+    ref_i = torch.cat([a[1] for a in alone]).cpu().numpy()
+    same_bits = float((d2.view(np.int32) == ref_d.view(np.int32)).mean())
+    check(np.array_equal(i2, ref_i) and np.allclose(d2, ref_d, rtol=RTOL, atol=ATOL),
+          f"each of the {n_q} served answers equals ivf_flat.search of that query alone: ids "
+          f"equal on {float((i2 == ref_i).mean()):.6f} of slots, distances bitwise on "
+          f"{same_bits:.6f}")
+    traced = {}
+
+    def traced_load():
+        t0 = time.perf_counter()
+        drive(svc, "flat", qn[:SERVE_TRACED])
+        traced["wall"] = time.perf_counter() - t0
+
+    # bench.device_time's windows, each held to the launches made in it
+    busy, tries = None, []
+    for _ in range(SERVE_TRACE_ATTEMPTS):
+        spans, launched = trace_device_spans(traced_load)
+        missing = missing_records(spans, launched)
+        tries.append((len(spans), launched, missing))
+        if spans and not missing:
+            busy = busy_seconds(spans) / 1e6
+            break
+    share = busy / traced["wall"] if busy else float("nan")
+    print(f"serve busy share: {SERVE_TRACED} single-query requests, device busy "
+          f"{busy if busy is None else round(busy * 1e3, 3)} ms in {traced['wall'] * 1e3:.1f} ms "
+          f"wall, share {share:.4f}; windows (device records, launches, launches without a "
+          f"record): {tries}", flush=True)
+    check(busy is not None and 0 < share <= 1, f"busy share of the served load {share:.4f} in (0, 1]")
+
+    # 3: pipeline depth 1 gives the same bytes
+    svc1 = serve.SearchService(k=K, max_batch=64, max_delay_ms=2.0, pipeline_depth=1)
+    try:
+        svc1.add_index("flat", serve.MutableIndex(index, search_params=sp), warmup=True)
+        with serve_phase("serve_depth1"):
+            answers1, wall1 = drive(svc1, "flat", qn)
+        report(svc1, "flat", f"depth 1, {wall1:.3f} s wall, {n_q / wall1:.0f} requests/s,")
+    finally:
+        svc1.stop()
+    d1, i1 = stack(answers1)
+    check(np.array_equal(i1, i2) and np.array_equal(d1.view(np.int32), d2.view(np.int32)),
+          "pipeline depth 1 and 2 give the same bytes")
+
+    # 4: mutations while two threads search
+    rng = np.random.default_rng(SEED + 24)
+    src = torch.from_numpy(rng.choice(n_rows, SERVE_UPSERTS, replace=False)).to(x.device)
+    new_rows = (x[src].cpu().numpy()
+                + rng.standard_normal((SERVE_UPSERTS, x.shape[1])).astype(np.float32)
+                * np.float32(SERVE_NOISE))
+    del_ids = rng.choice(n_rows, int(SERVE_DELETE * n_rows), replace=False)
+    stop = threading.Event()
+    seen, errs = [0, 0], []
+
+    def searcher(t):
+        j = t
+        while not stop.is_set():
+            try:
+                d, i = svc.search("flat", qn[j % n_q], timeout=SERVE_WAIT_S)
+                seen[t] += int(np.isfinite(d).all() and i.shape == (K,))
+            except Exception as exc:  # noqa: BLE001 — reported by the check below
+                errs.append(repr(exc))
+                return
+            j += 2
+
+    up_ids = []
+    with serve_phase("serve_mutate"):
+        workers = [threading.Thread(target=searcher, args=(t,)) for t in range(2)]
+        for w in workers:
+            w.start()
+        t0 = time.perf_counter()
+        per = SERVE_UPSERTS // SERVE_ROUNDS
+        per_del = del_ids.shape[0] // SERVE_ROUNDS
+        for r in range(SERVE_ROUNDS):
+            up_ids.append(mi.upsert(new_rows[r * per:(r + 1) * per]))
+            mi.delete(del_ids[r * per_del:(r + 1) * per_del])
+            # each round is searched before the next lands
+            served, t_round = sum(seen), time.perf_counter()
+            while (sum(seen) < served + 2 and not errs
+                   and time.perf_counter() - t_round < SERVE_WAIT_S):
+                time.sleep(1e-3)
+        t_mut = time.perf_counter() - t0
+        stop.set()
+        for w in workers:
+            w.join(SERVE_WAIT_S)
+    up_ids = np.concatenate(up_ids)
+    print(f"serve mutations: {SERVE_UPSERTS} upserts and {del_ids.shape[0]} deletes in "
+          f"{SERVE_ROUNDS} rounds, {t_mut:.3f} s, while 2 threads served {sum(seen)} searches; "
+          f"pending {mi.pending_mutations()}", flush=True)
+    check(not errs and sum(seen) > 0 and not any(w.is_alive() for w in workers),
+          f"searches during the mutations all answered ({sum(seen)}, errors {errs[:2]})")
+    with serve_phase("serve_after_mutation"):
+        up_answers, _ = drive(svc, "flat", new_rows)
+        q_answers, _ = drive(svc, "flat", qn)
+    _, up_i = stack(up_answers)
+    _, q_i = stack(q_answers)
+    check(np.array_equal(up_i[:, 0], up_ids), f"each of the {SERVE_UPSERTS} upserted rows "
+          f"queried by itself returns its own id first "
+          f"({int((up_i[:, 0] == up_ids).sum())} do)")
+    check(not np.isin(q_i, del_ids).any() and not np.isin(up_i, del_ids).any(),
+          f"no deleted id among {q_i.size + up_i.size} returned ids")
+
+    # 5: ragged requests with table8 filter ids
+    svc_r = serve.SearchService(k=K, max_batch=64, max_delay_ms=2.0,
+                                ragged=serve.RaggedSpec(k_max=K))
+    try:
+        svc_r.add_index("flat", mi)
+        table = table8.cpu().numpy()
+        fids = [svc_r.register_filter("flat", table[r]) for r in range(table.shape[0])]
+        svc_r.warmup("flat")
+        kq = rng.integers(1, K + 1, SERVE_RAGGED)
+        fq = rng.choice(fids, SERVE_RAGGED)
+        with serve_phase("serve_ragged"):
+            r_answers, r_wall = drive(svc_r, "flat", qn[:SERVE_RAGGED],
+                                      kw_of=lambda i: dict(k=int(kq[i]), fid=int(fq[i])))
+        report(svc_r, "flat", f"ragged, {SERVE_RAGGED} requests, {r_wall:.3f} s wall,")
+        st_r = svc_r.stats("flat")
+    finally:
+        svc_r.stop()
+    planes = np.vstack([np.ones((1, n_rows), bool), table])
+    bad, shapes = 0, 0
+    for (d, i), k_, f_ in zip(r_answers, kq, fq):
+        shapes += int(i.shape != (k_,) or d.shape != (k_,))
+        main_ids = i[(i >= 0) & (i < n_rows)]
+        bad += int((~planes[f_][main_ids]).sum() + np.isin(i, del_ids).sum() + (i < 0).sum())
+    check(shapes == 0 and bad == 0 and st_r["recompiles"] == 0,
+          f"ragged: every answer has its own k, no id fails its request's filter or was "
+          f"deleted, no -1 ({bad} bad ids, {shapes} bad shapes)")
+    direct = []
+    for b in range(0, SERVE_RAGGED, 64):
+        rows = slice(b, min(b + 64, SERVE_RAGGED))
+        rf = RowFilter.from_mask_rows(torch.from_numpy(planes[fq[rows]]).to(x.device))
+        direct.append(mi.search(q[rows], K, sample_filter=rf,
+                                row_k=torch.from_numpy(kq[rows].astype(np.int32)))[1])
+    direct = torch.cat(direct).cpu().numpy()
+    check(all(np.array_equal(i, direct[n, :k_]) for n, ((_, i), k_) in
+              enumerate(zip(r_answers, kq))),
+          "ragged answers equal the direct filtered search of the same queries (ids)")
+    check(phase_launches["serve_ragged"]["ivf_scan_query_major_fid"] > 0,
+          "ragged filtered requests launched the query_fid leg (#6)")
+
+    # 6: compaction
+    rows_h, gids = mi.live_vectors()
+    _, o = brute_force.knn(torch.from_numpy(rows_h).to(x.device), q, K, res=res)
+    oracle = gids[o.cpu().numpy()]
+    recall_before = recall_at_k(q_i, oracle, K)
+    del rows_h
+    with serve_phase("serve_compact"):
+        t0 = time.perf_counter()
+        result = svc.compact_now("flat")
+        t_compact = time.perf_counter() - t0
+    print(f"serve compaction: {t_compact:.3f} s, {json.dumps(result, default=str)}", flush=True)
+    check(result.get("status") == "promoted", f"compact_now promoted ({result.get('status')}, "
+          f"{result.get('detail')})")
+    # the extend's assignment is kmeans_balanced.predict, raft_tpu's
+    # pairwise.tiled_argmin (the distance tile and its argmin, plain ops in
+    # both packages): kernel #7 is on no serving path
+    check(phase_launches["serve_compact"]["fused_knn"] > 0,
+          "compaction's quality gate launched fused_knn (#2) for its exact oracle")
+    with serve_phase("serve_after_compact"):
+        c_answers, _ = drive(svc, "flat", qn)
+        up_c, _ = drive(svc, "flat", new_rows[:1000])
+    _, c_i = stack(c_answers)
+    recall_after = recall_at_k(c_i, oracle, K)
+    print(f"serve recall@{K} against brute force over the live rows: before compaction "
+          f"{recall_before:.5f}, after {recall_after:.5f}", flush=True)
+    check(recall_after >= recall_before, f"compacted index recall@{K} {recall_after:.5f} >= "
+          f"{recall_before:.5f} before")
+    check(np.array_equal(stack(up_c)[1][:, 0], up_ids[:1000]),
+          "after compaction 1,000 upserted rows still find their own ids first")
+    st = report(svc, "flat", "after compaction")
+    check(st["recompiles"] == 0 and st["version"] == 2 and st["side_rows"] == 0,
+          f"after compaction: version {st['version']}, side rows {st['side_rows']}, "
+          f"recompiles {st['recompiles']}")
+    health = svc.healthz()
+    prom = svc.prometheus()
+    plan = svc.explain("flat", qn[0])
+    check(health["status"] in ("OK", "DEGRADED") and 'raft_tpu_serve_requests_total{index="flat"}'
+          in prom and plan["kernel_path"] == "cuda" and plan["probe"]["n_probes"] == sp.n_probes,
+          f"healthz {health['status']} (index checks "
+          f"{ {k: v['status'] for k, v in health['indexes']['flat']['checks'].items()} }; "
+          f"memory {health['memory']['detail']}; perf {health.get('perf')}), "
+          f"prometheus serve series, explain kernel_path {plan['kernel_path']}")
+    svc.stop()
+
+    # 7: CAGRA through a second service
+    svc_c = serve.SearchService(k=K, max_batch=64, max_delay_ms=2.0)
+    try:
+        svc_c.add_index("cagra", serve.MutableIndex(cg, search_params=cagra_sp), warmup=True)
+        with serve_phase("serve_cagra"):
+            futs = [svc_c.submit("cagra", qn[b * QM_BATCH:(b + 1) * QM_BATCH])
+                    for b in range(QM_BATCHES)]
+            c_out = [f.result(SERVE_WAIT_S) for f in futs]
+        report(svc_c, "cagra", f"{QM_BATCHES} x {QM_BATCH}-query requests,")
+    finally:
+        svc_c.stop()
+    cd = np.concatenate([a[0] for a in c_out])
+    ci = np.concatenate([a[1] for a in c_out])
+    want_d, want_i = (t.cpu().numpy() for t in cagra_batches)
+    check(np.array_equal(ci, want_i) and np.array_equal(cd.view(np.int32), want_d.view(np.int32)),
+          f"served CAGRA batches equal cagra.search of the same batches bitwise "
+          f"(ids equal on {float((ci == want_i).mean()):.6f})")
+    check(phase_launches["serve_cagra"]["cagra_traverse"] > 0, "served CAGRA launched the walk (#8)")
+    launched = {}
+    for ph in serve_phases:
+        for name, c in phase_launches[ph].items():
+            if c:
+                launched[name] = launched.get(name, 0) + c
+    print(f"serve launches in phase 24: {json.dumps(launched)}", flush=True)
+    for name in ("select_k", "fused_knn", "ivf_scan_query_major", "ivf_scan_query_major_fid",
+                 "cagra_traverse"):
+        check(launched.get(name, 0) > 0, f"phase 24 launched {name} through the service "
+              f"({launched.get(name, 0)})")
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ device-time counter (``device_time``).  ``python -m raft_tpu_torch.bench``
 runs a config end to end.
 
 Not ported: ``plot`` (no matplotlib where the card is), ``frontier`` (it
-needs the serving layer, ROADMAP Queue 1 item 5) and ``get_dataset``'s
+comes with the autotuner, ROADMAP Queue 1 item 5b) and ``get_dataset``'s
 download step (no network).
 """
 

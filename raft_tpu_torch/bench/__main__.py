@@ -11,8 +11,8 @@ record ``<dataset>_record.json``.  ``python -m raft_tpu_torch.bench compare
 --baseline X --candidate Y`` diffs two records.  The run is on the card;
 ``--device cpu`` asks for the CPU (raft_tpu's ``RAFT_TPU_PLATFORM=cpu``).
 Every printed number stands beside the device it ran on (the card's name
-and power limit).  ``frontier`` (or ``--frontier``) raises until serving
-is ported (ROADMAP Queue 1 item 5).
+and power limit).  ``frontier`` (or ``--frontier``) raises: it comes with
+the autotuner (ROADMAP Queue 1 item 5b).
 """
 
 from __future__ import annotations
@@ -110,8 +110,8 @@ def main(argv=None):
     if argv and argv[0] == "compare":
         return export.compare_main(argv[1:])
     if "frontier" in argv[:1] or "--frontier" in argv:
-        raise NotImplementedError("bench frontier needs the serving layer, which is not "
-                                  "ported yet (ROADMAP Queue 1 item 5)")
+        raise NotImplementedError("bench frontier is not ported yet "
+                                  "(ROADMAP Queue 1 item 5b)")
     ap = argparse.ArgumentParser("raft_tpu_torch.bench")
     ap.add_argument("--dataset", default="sift-128-euclidean")
     ap.add_argument("--scale", type=float, default=0.01,

@@ -191,8 +191,15 @@ class RowFilter:
         if isinstance(table, np.ndarray) and table.dtype == np.uint32:
             table = table.view(np.int32)
         table = _as_tensor(table, dev).to(torch.int32)
-        fid = _as_tensor(fid, dev).to(torch.int64).reshape(-1)
-        if fid.numel() and (int(fid.min()) < 0 or int(fid.max()) >= table.shape[0]):
+        if isinstance(fid, np.ndarray):
+            # checked on the host, before the upload: no device read
+            fid = fid.reshape(-1).astype(np.int64)
+            bad = fid.size and (int(fid.min()) < 0 or int(fid.max()) >= table.shape[0])
+            fid = _as_tensor(fid, dev)
+        else:
+            fid = _as_tensor(fid, dev).to(torch.int64).reshape(-1)
+            bad = fid.numel() and (int(fid.min()) < 0 or int(fid.max()) >= table.shape[0])
+        if bad:
             raise ValueError(f"filter ids must lie in [0, {table.shape[0]})")
         return cls(table[fid], n_bits, fid=fid.to(torch.int32), table=table,
                    pass_count=pass_count)

@@ -14,12 +14,29 @@ accessors of ``raft_tpu.core.env`` it needs, with raft_tpu's semantics).
 - ``RAFT_TPU_DISABLE_PROFILER``: ``core.trace.profile`` captures nothing.
 - ``RAFT_TPU_PEAK_FLOPS`` / ``RAFT_TPU_PEAK_BW``: the peaks ``obs.cost``
   takes a roofline share against (default: the H100's, ``ops.cost``).
+
+The serving layer (``serve``) and its observability read raft_tpu's
+knobs with raft_tpu's defaults: ``RAFT_TPU_PIPELINE_DEPTH`` (2),
+``RAFT_TPU_COST_ACCOUNTING`` (on), ``RAFT_TPU_RAGGED`` /
+``_RAGGED_KMAX`` (32) / ``_RAGGED_FILTERS`` (on), ``RAFT_TPU_OVERLOAD`` and
+``RAFT_TPU_OVERLOAD_*``, ``RAFT_TPU_COMPACT_*``, ``RAFT_TPU_PAGED``,
+``RAFT_TPU_FLIGHT_{CAP,DIR,DEBOUNCE_S}``,
+``RAFT_TPU_INCIDENT_{WINDOW_S,AUTOCLOSE_S,MAX_OPEN,DIR}``,
+``RAFT_TPU_PERF_LEDGER`` and ``RAFT_TPU_PERF_*``, ``RAFT_TPU_EXPLAIN`` /
+``_EXPLAIN_ARCHIVE_CAP`` / ``_EXPLAIN_TAIL_PER_WINDOW``.  ``RAFT_TPU_AUTOTUNE``
+and ``RAFT_TPU_GATEWAY`` are read so that asking for them raises (ROADMAP
+Queue 1 item 5b).
 """
 
 from __future__ import annotations
 
 import os
 from typing import Optional
+
+
+def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    """``os.environ[name]``, or ``default`` when unset."""
+    return os.environ.get(name, default)
 
 
 def env_int(name: str, default: Optional[int] = None) -> Optional[int]:

@@ -17,7 +17,8 @@ call, plain PyTorch ops) notes nothing and publishes no work gauge.
 
 :func:`refresh_live_buffer_gauges` / :func:`refresh_page_gauges` publish
 per-version memory gauges from any object with ``live_versions()`` (the
-serving layer's ``IndexRegistry``, ROADMAP Queue 1 item 5).
+serving layer's ``IndexRegistry``); :func:`refresh_mutation_gauges` the
+per-index mutation pressure of its current entries.
 """
 
 from __future__ import annotations
@@ -96,6 +97,27 @@ def roofline_share(notes, seconds: Optional[float],
     t_ops = ops_cost.ops_seconds(notes, peaks)
     t_bytes = sum(c.bytes_accessed for _, c in notes) / bw
     return float(max(t_ops, t_bytes) / seconds)
+
+
+def roofline_utilization(
+    flops: Optional[float],
+    bytes_accessed: Optional[float],
+    seconds: Optional[float],
+    platform: Optional[str] = None,
+) -> Optional[float]:
+    """Achieved FLOP/s as a fraction of the roofline-attainable rate
+    ``min(peak_flops, intensity * peak_bw)`` (raft_tpu's
+    ``roofline_utilization``; the perf ledger's measured share of a
+    dispatch's noted work).  None when any input is unknown."""
+    if not flops or not seconds or seconds <= 0:
+        return None
+    peak_flops, peak_bw = device_peaks(platform)
+    attainable = peak_flops
+    if bytes_accessed and bytes_accessed > 0:
+        attainable = min(peak_flops, (flops / bytes_accessed) * peak_bw)
+    if attainable <= 0:
+        return None
+    return float((flops / seconds) / attainable)
 
 
 def _tensor_bytes(obj) -> int:
@@ -302,4 +324,65 @@ def refresh_page_gauges(
             if "index" in d and "version" in d:
                 if (d["index"], d["version"]) not in alive:
                     gauge.remove(**d)
+    return out
+
+
+def refresh_mutation_gauges(
+    index_registry, registry: Optional[MetricsRegistry] = None,
+) -> Dict[str, Dict[str, float]]:
+    """Publish per-index mutation-pressure gauges from the registry's
+    *current* entries: ``raft_tpu_index_pending_deletes``,
+    ``raft_tpu_index_side_rows``, and ``raft_tpu_index_tombstone_frac``
+    (tombstones over main rows, construction padding excluded).
+
+    These are the compaction trigger inputs — the same numbers
+    :class:`~raft_tpu_torch.serve.compactor.Compactor` compares against its
+    policy — so compaction pressure is visible in ``prometheus()``
+    output, not only via method calls.  Entries that are not
+    :class:`~raft_tpu_torch.serve.mutation.MutableIndex` (sharded indexes,
+    raw wrappers without a side buffer) are skipped; series for names
+    no longer registered are removed, mirroring
+    :func:`refresh_live_buffer_gauges`.
+    """
+    reg = registry if registry is not None else default_registry()
+    g_del = reg.gauge(
+        "raft_tpu_index_pending_deletes",
+        help="tombstoned rows awaiting compaction (padding excluded)",
+    )
+    g_side = reg.gauge(
+        "raft_tpu_index_side_rows",
+        help="live upsert rows in the brute-force side buffer",
+    )
+    g_frac = reg.gauge(
+        "raft_tpu_index_tombstone_frac",
+        help="pending deletes over main structure rows",
+    )
+    out: Dict[str, Dict[str, float]] = {}
+    alive = set()
+    for name in index_registry.names():
+        try:
+            index = index_registry.get(name)
+            deletes, side = index.pending_mutations()
+            denom = max(
+                index.main_size - getattr(index, "_n_structural", 0), 1
+            )
+        except (KeyError, AttributeError):
+            continue
+        except Exception:
+            continue
+        frac = float(deletes) / float(denom)
+        g_del.set(deletes, index=name)
+        g_side.set(side, index=name)
+        g_frac.set(frac, index=name)
+        alive.add(name)
+        out[name] = {
+            "pending_deletes": float(deletes),
+            "side_rows": float(side),
+            "tombstone_frac": frac,
+        }
+    for gauge in (g_del, g_side, g_frac):
+        for key in gauge.series():
+            d = dict(key)
+            if d.get("index") not in alive:
+                gauge.remove(**d)
     return out

@@ -25,11 +25,15 @@ Each is also added to the innermost open span's events (``kernel_builds``,
 ``kernel_build_seconds``, ``kernel_cache_hit`` / ``kernel_cache_miss``,
 ``transfers``, ``transfer_bytes``).  Nothing is counted while obs is
 disabled (``obs.set_enabled(False)``).
+
+Listeners (:func:`add_listener`) hear every event on the thread that
+recorded it, obs enabled or not: the serving layer's per-thread build
+counter (``serve.metrics.compile_count``) is one.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, List, Optional
 
 from raft_tpu_torch.obs import spans as _spans
 from raft_tpu_torch.obs.registry import default_registry
@@ -39,12 +43,23 @@ _BUILD_BUCKETS = tuple(0.01 * (2.0 ** i) for i in range(15))
 
 FAMILIES = ("backend_compile", "cache_hit", "cache_miss", "transfer")
 
+_listeners: List[Callable[[str], None]] = []
+
+
+def add_listener(fn: Callable[[str], None]) -> None:
+    """Call ``fn(family)`` on the recording thread for every event from now
+    on (idempotent per function)."""
+    if fn not in _listeners:
+        _listeners.append(fn)
+
 
 def record(family: str, *, seconds: Optional[float] = None, nbytes: int = 0,
            direction: Optional[str] = None) -> None:
     """Book one event of ``family`` against the innermost open span."""
     if family not in FAMILIES:
         raise ValueError(f"unknown device-event family {family!r}; known: {FAMILIES}")
+    for fn in tuple(_listeners):
+        fn(family)
     if not _spans.enabled():
         return
     reg = default_registry()

@@ -14,11 +14,9 @@ The ring of recent events is bounded (``RAFT_TPU_EVENTS_RING``);
 overwritten events are counted in ``raft_tpu_events_dropped_total`` and
 the ring appears in ``obs.snapshot()`` under the ``events`` provider.
 
-raft_tpu's default bus also wires its flight recorder, incident manager,
-perf ledger and query archive as subscribers; those belong to the serving
-layer's observability, which the port does not have yet (ROADMAP Queue 1
-item 5), so the port's default bus carries only the ``events`` snapshot
-provider.
+The default bus wires the flight recorder, the perf ledger's profiler
+capture, the incident manager and the query archive as subscribers, as
+raft_tpu's does.
 """
 
 from __future__ import annotations
@@ -287,15 +285,29 @@ _default: Optional[EventBus] = None
 
 
 def _install_default_subscribers(bus: EventBus) -> None:
-    # raft_tpu also installs its flight dumper, perf auto-capture, incident
-    # manager and query-archive dumper here (serving observability, ROADMAP
-    # Queue 1 item 5)
+    # deferred imports keep the obs package cycle-free (flight / incidents
+    # import this module's registry sibling)
+    from raft_tpu_torch.obs import explain as _explain
+    from raft_tpu_torch.obs import flight as _flight
+    from raft_tpu_torch.obs import incidents as _incidents
+    from raft_tpu_torch.obs import perf as _perf
+
+    # raft_tpu's order: the flight dumper and the perf auto-capture run
+    # before the incident manager, so the dump and the capture are fresh
+    # when the incident attaches its evidence; the query-archive dumper
+    # runs after it, so its reentrant ``explain_dump`` publish finds the
+    # incident the trigger just opened
+    _flight.install_bus_subscriber(bus)
+    _perf.install_bus_subscriber(bus)
+    _incidents.install(bus)
+    _explain.install_bus_subscriber(bus)
     default_registry().register_provider("events", bus.snapshot)
 
 
 def default_bus() -> EventBus:
     """The process-wide bus.  First use creates it and installs the
-    ``events`` snapshot provider."""
+    default subscribers (flight dumper, perf capture, incident manager,
+    query-archive dumper) plus the ``events`` snapshot provider."""
     global _default
     created = False
     with _default_lock:
@@ -334,8 +346,15 @@ def events_snapshot() -> Dict[str, object]:
 
 
 def reset() -> None:
-    """Drop the default bus (subscriptions die with it), so the next
+    """Drop the default bus (subscriptions die with it) and reset the
+    incident manager, flight, perf and explain bus state, so the next
     :func:`default_bus` rewires everything against fresh env knobs."""
     global _default
+    import sys
+
     with _default_lock:
         _default = None
+    for mod in ("incidents", "flight", "perf", "explain"):
+        m = sys.modules.get(f"raft_tpu_torch.obs.{mod}")
+        if m is not None:
+            m._on_bus_reset()

@@ -73,6 +73,30 @@ def _select_k_chunked(scores: torch.Tensor, k: int, select_min: bool):
     return vals.to(scores.dtype), idx.to(torch.int32)
 
 
+def mask_row_k(
+    vals: torch.Tensor,
+    idx: torch.Tensor,
+    row_k: torch.Tensor,
+    *,
+    select_min: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Demote result columns past each row's own k: positions >= row_k[r]
+    become (worst value, id -1) — raft_tpu's ``mask_row_k``.  The ragged
+    serving path computes every row at the bucket's ``k_max`` and restores
+    per-row k with this mask."""
+    kk = vals.shape[-1]
+    pos = torch.arange(kk, dtype=torch.int32, device=vals.device)
+    row_k = torch.as_tensor(row_k).to(device=vals.device, dtype=torch.int32)
+    keep = pos[None, :] < row_k.reshape(-1, 1)
+    if vals.is_floating_point():
+        worst = float("inf") if select_min else float("-inf")
+    else:
+        info = torch.iinfo(vals.dtype)
+        worst = info.max if select_min else info.min
+    return (torch.where(keep, vals, torch.full_like(vals, worst)),
+            torch.where(keep, idx, torch.full_like(idx, -1)))
+
+
 def _take_ids(input_indices, idx):
     if input_indices is None:
         return idx
@@ -92,13 +116,16 @@ def select_k(
     input_indices: Optional[torch.Tensor] = None,
     sorted: bool = True,
     algo: str = "auto",
+    row_k: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched top-k: (values [batch, k], int32 indices [batch, k]) —
     positions into the row, or gathered from ``input_indices``.  ``algo``:
     "auto", "topk" (one stable sort) or "chunked"; rows always come out
-    sorted (``sorted`` is kept for interface parity)."""
+    sorted (``sorted`` is kept for interface parity).  ``row_k`` ([batch]
+    int, each <= k) demotes the columns past each row's own k after the
+    selection (:func:`mask_row_k`), on every route."""
     return select_k_untraced(scores, k, select_min=select_min, input_indices=input_indices,
-                             algo=algo)
+                             algo=algo, row_k=row_k)
 
 
 def select_k_untraced(
@@ -108,6 +135,7 @@ def select_k_untraced(
     select_min: bool = True,
     input_indices: Optional[torch.Tensor] = None,
     algo: str = "auto",
+    row_k: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`select_k` without its span: what the port's own modules call.
     raft_tpu calls its select_k inside jitted bodies, where the span fires
@@ -147,6 +175,8 @@ def select_k_untraced(
             vals, idx = topk_by_position(scores, k, descending=not select_min,
                                          signed_zeros=True)
         idx = _take_ids(input_indices, idx.to(torch.int32))
+    if row_k is not None:
+        vals, idx = mask_row_k(vals, idx, row_k, select_min=select_min)
     if squeeze:
         return vals[0], idx[0]
     return vals, idx

@@ -3,6 +3,7 @@
 byte, the generators, ground truth, the reference-conf translation, the
 bench records, the runner's results and the ladder on the CPU."""
 
+import os
 import json
 
 import numpy as np
@@ -24,6 +25,10 @@ from raft_tpu_torch.bench import runner as trunner
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.neighbors import ivf_flat as tflat
 from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 

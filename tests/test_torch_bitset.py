@@ -2,6 +2,7 @@
 ``raft_tpu.core.bitset`` (words compared as uint32), the folding of
 tombstones into a pass filter, and the candidate masks built from them."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -12,6 +13,10 @@ from raft_tpu.core import bitset as jbs
 from raft_tpu.neighbors import _common as jcommon
 from raft_tpu_torch.core import bitset as tbs
 from raft_tpu_torch.neighbors import _common as tcommon
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = "cpu"
 

@@ -4,6 +4,7 @@ built (one set of seed ids for both, raft_tpu's fused hop in interpret
 mode), the file format both ways, the port's own builds at raft_tpu's
 recall thresholds, and the options this slice does not serve."""
 
+import os
 import copy
 
 import numpy as np
@@ -22,6 +23,10 @@ from raft_tpu_torch.neighbors import nn_descent as tnn
 from raft_tpu_torch.neighbors._common import sorted_id_dedup
 from raft_tpu_torch.stats.metrics import recall_at_k
 from raft_tpu_torch.store import paginate_index
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 

@@ -6,6 +6,7 @@ search against raft_tpu's early stop.  The hop and walk kernels against
 their plain versions on the card are in ``test_torch_package.py`` (the
 card's machine has no JAX)."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -21,6 +22,10 @@ from raft_tpu_torch.neighbors import cagra as tcagra
 from raft_tpu_torch.ops import cost
 
 from _torch_parity import hop_inputs
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 

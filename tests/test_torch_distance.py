@@ -5,6 +5,7 @@ torch (TF32 off), so values differ by summation order only: each metric's
 tolerance is stated beside it, and argmins are equal on data without
 near-ties."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,10 @@ import jax.numpy as jnp
 from raft_tpu import distance as jdist
 from raft_tpu_torch import distance as tdist
 from raft_tpu_torch.core.resources import Resources
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 # a small workspace, so that pairwise_distance and the fused 1-NN run over

@@ -5,6 +5,7 @@ index raft_tpu saved searches in the port with raft_tpu's ids; brute force
 keeps its dataset's dtype, scores 8-bit data exactly, and its save / load
 reads and writes raft_tpu's format in both directions."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,10 @@ from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.neighbors import brute_force as tbf
 from raft_tpu_torch.neighbors import ivf_flat as tivf
 from raft_tpu_torch.stats.metrics import recall_at_k as neighborhood_recall
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 _TORCH = {"int8": torch.int8, "uint8": torch.uint8, "bfloat16": torch.bfloat16}

@@ -1,6 +1,7 @@
 """Port parity of the search-effort specs: each backend's ``EffortSpec``
 and ``neighbors.effort`` against raft_tpu's, field by field."""
 
+import os
 import dataclasses
 
 import numpy as np
@@ -17,6 +18,11 @@ from raft_tpu_torch.neighbors import cagra as tcagra
 from raft_tpu_torch.neighbors import effort as teffort
 from raft_tpu_torch.neighbors import ivf_flat as tflat
 from raft_tpu_torch.neighbors import ivf_pq as tpq
+import torch
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 BACKENDS = [("ivf_flat", jflat, tflat), ("ivf_pq", jpq, tpq), ("cagra", jcagra, tcagra)]

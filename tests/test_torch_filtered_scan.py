@@ -4,6 +4,7 @@ plain scans (one plane of words on both schedules; per-query planes with
 ``query_fid`` on query-major) against raft_tpu's Pallas scans in
 interpret mode, on f32, bf16 and int8 rows and three metrics."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,10 @@ from raft_tpu_torch.kernels import ivf_scan as tscan
 from raft_tpu_torch.ops import cost
 
 from _torch_parity import assert_topk_match
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 L, CAP, D = 6, 40, 16
 DEAD_LIST = 2          # every slot of this list fails every filter below

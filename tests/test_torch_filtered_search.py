@@ -5,6 +5,7 @@ raft_tpu built and saved, against raft_tpu's own filtered searches
 (``RAFT_TPU_PALLAS=1`` for its kernel legs; a RowFilter without a
 descriptor takes raft_tpu's XLA fallback)."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -27,6 +28,10 @@ from raft_tpu_torch.neighbors._common import resolve_pass_filter
 from raft_tpu_torch.stats.metrics import recall_at_k
 
 from _torch_parity import assert_topk_match
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 N, D = 3000, 32

@@ -4,6 +4,7 @@ mode, on the same numpy inputs: ids equal and scores within rtol 1e-5 /
 atol 1e-4 (the Pallas product sums in another order) on centred data, with
 explicit ties; and ``ops.cost`` against raft_tpu's formula."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,10 @@ from raft_tpu.ops import cost as jcost
 from raft_tpu_torch import kernels
 from raft_tpu_torch.kernels import fused_argmin as targmin
 from raft_tpu_torch.ops import cost as tcost
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 D = 40   # not a multiple of anything the kernels tile by
 

@@ -2,6 +2,7 @@
 ``brute_force.knn`` of ``raft_tpu_torch`` against raft_tpu's Pallas kernel
 (interpret mode) and its routed ``brute_force.knn``."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,10 @@ from raft_tpu_torch.kernels.fused_knn import fused_l2_topk, fused_l2_topk_torch
 from raft_tpu_torch.neighbors import brute_force as tbf
 
 from _torch_parity import assert_topk_match
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 

@@ -7,6 +7,7 @@ seeds (random rows on a base-layer-only file; the upper levels' elements,
 given to raft_tpu's loaded index as its entry-point table, on a file with
 them), and ``load_native`` refused."""
 
+import os
 import numpy as np
 import pytest
 
@@ -17,6 +18,11 @@ from raft_tpu_torch.neighbors import brute_force as tbf
 from raft_tpu_torch.neighbors import cagra as tcagra
 from raft_tpu_torch.neighbors import hnsw as thnsw
 from raft_tpu_torch.stats.metrics import recall_at_k
+import torch
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 

@@ -3,6 +3,7 @@
 legs; the port's own build reaches raft_tpu's recall; k-means predict and
 one balancing step agree on injected state."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,10 @@ from raft_tpu_torch.cluster import kmeans_balanced as tkb
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.neighbors import ivf_flat as tivf
 from raft_tpu_torch.stats.metrics import recall_at_k
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 

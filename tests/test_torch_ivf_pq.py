@@ -4,6 +4,7 @@ fused (Pallas, interpret mode) legs on every storage leg; encode agrees on
 injected state; the port's own build reaches raft_tpu's recall; extend
 appends in place or repacks."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,10 @@ from raft_tpu_torch.neighbors import ivf_pq as tpq
 from raft_tpu_torch.stats.metrics import recall_at_k
 
 from _torch_parity import assert_topk_match
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 N, D, N_Q = 3000, 32, 512

@@ -1,6 +1,7 @@
 """Port parity: the IVF scan plain versions of ``raft_tpu_torch`` against
 raft_tpu's Pallas scans (interpret mode) on the same [L, cap, d] lists."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,10 @@ from raft_tpu_torch.kernels import ivf_scan as tscan
 from raft_tpu_torch.ops import cost
 
 from _torch_parity import assert_topk_match
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 L, CAP, D = 6, 40, 16
 

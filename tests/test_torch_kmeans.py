@@ -5,6 +5,7 @@ raft_tpu's on the same numpy inputs.  With the same initial centers
 order).  kmeans++ draws from a torch.Generator, not raft_tpu's threefry, so
 it is held to reproducibility and to raft_tpu's inertia within 10 %."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,10 @@ from raft_tpu.cluster import kmeans as jkm
 from raft_tpu_torch import cluster as tcluster
 from raft_tpu_torch.cluster import kmeans as tkm
 from raft_tpu_torch.core.resources import Resources
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 

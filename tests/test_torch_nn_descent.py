@@ -7,6 +7,7 @@ Data is centred and of unit scale: distances are |x|^2 + |y|^2 - 2 x.y,
 summed in another order by each package, so their difference grows with
 |x|^2 (ROADMAP, ground rules)."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,10 @@ from raft_tpu_torch.neighbors import brute_force as tbf
 from raft_tpu_torch.neighbors import cagra as tcagra
 from raft_tpu_torch.neighbors import nn_descent as tnn
 from raft_tpu_torch.stats.metrics import recall_at_k
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 #: the distance tolerance: each package sums |x|^2 + |y|^2 - 2 x.y in its own order

@@ -22,6 +22,10 @@ from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq, refin
 
 from _torch_parity import hop_inputs
 
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "raft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
                                                                 REPO / "kernel_ab.py"]
@@ -47,6 +51,17 @@ def test_port_imports_no_jax_and_no_raft_tpu():
     bad = [(p.relative_to(REPO).as_posix(), m) for p in PORT_FILES
            for m in _imported_modules(p) if _forbidden(m)]
     assert bad == []
+
+
+def test_import_check_covers_the_serving_layer_and_its_observability():
+    """The walk of ``test_port_imports_no_jax_and_no_raft_tpu`` reaches every
+    module of ``serve/`` and ``obs/``."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for mod in ("batcher", "compactor", "effort", "metrics", "mutation", "overload", "ragged",
+                "registry", "service", "__init__"):
+        assert f"raft_tpu_torch/serve/{mod}.py" in names
+    for mod in ("explain", "flight", "health", "incidents", "perf", "profiler"):
+        assert f"raft_tpu_torch/obs/{mod}.py" in names
 
 
 def test_forbidden_import_check_is_not_vacuous():

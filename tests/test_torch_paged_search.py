@@ -18,6 +18,7 @@ on raft_tpu's fixture sizes (``tests/test_store_paged_index.py``: N 400, D
   scattered page placements.
 """
 
+import os
 import copy
 import threading
 
@@ -54,6 +55,10 @@ from raft_tpu_torch.store import (
 )
 
 from _torch_parity import assert_topk_match, hop_inputs, paged_lists, paged_rows
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 N, D, K = 400, 24, 10

@@ -2,6 +2,7 @@
 raft_tpu's ``refine`` on the device path and the host path, and lifts an
 IVF-PQ search's recall."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -13,6 +14,10 @@ from raft_tpu_torch.neighbors import refine as trefine
 from raft_tpu_torch.stats.metrics import recall_at_k
 
 from _torch_parity import assert_topk_match
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 

@@ -1,6 +1,7 @@
 """Port parity: the select_k plain versions of ``raft_tpu_torch`` against
 raft_tpu's Pallas kernel (interpret mode) and its XLA paths, bitwise."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -11,6 +12,10 @@ from raft_tpu.kernels.select_k import select_k_pallas
 from raft_tpu.ops import matrix as jmatrix
 from raft_tpu_torch.kernels import select_k as tsk
 from raft_tpu_torch.ops import matrix as tmatrix
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def _np(t):

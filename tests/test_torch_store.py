@@ -13,6 +13,7 @@ same slot count, victims, placement, counters and pool contents.
   budget-sized slots, in-place page writes.
 """
 
+import os
 import gc
 
 import numpy as np
@@ -29,6 +30,10 @@ from raft_tpu_torch.store import (
 )
 from raft_tpu_torch.store import budget as budget_mod
 from raft_tpu_torch.store.tiered import _runs
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 # ---------------------------------------------------------------------------
 # MemoryBudget

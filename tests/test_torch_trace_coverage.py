@@ -3,10 +3,16 @@ carries a ``__traced__`` label (``@traced``) and has a counterpart of the
 same name in the same module of the port carries the same label there, so
 the span series of both packages are named alike."""
 
+import os
 import importlib
 import inspect
 
 import pytest
+import torch
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 #: raft_tpu modules whose traced entry points the port has
 MODULES = (
@@ -14,6 +20,8 @@ MODULES = (
     "neighbors.refine", "neighbors.nn_descent", "neighbors.vpq_dataset", "neighbors.hnsw",
     "cluster.kmeans", "cluster.kmeans_balanced", "distance.pairwise", "distance.fused_nn",
     "ops.matrix", "store.tiered",
+    "serve.mutation", "serve.ragged", "serve.overload", "serve.effort", "serve.compactor",
+    "serve.service", "obs.perf", "obs.explain", "obs.incidents",
 )
 
 

@@ -4,6 +4,7 @@ loads it: ``decode`` bitwise, search recall within 0.005 of raft_tpu's on
 the same loaded index and seeds (the walk's recall rule), the save / load
 round trip both ways, and the port's own ``compress``."""
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,10 @@ from raft_tpu_torch.neighbors import brute_force as tbf
 from raft_tpu_torch.neighbors import cagra as tcagra
 from raft_tpu_torch.neighbors import vpq_dataset as tvpq
 from raft_tpu_torch.stats.metrics import recall_at_k
+
+# six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CPU = Resources(device="cpu")
 VPQ = dict(vq_n_centers=16, pq_dim=8, kmeans_n_iters=6)
