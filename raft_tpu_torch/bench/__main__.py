@@ -11,8 +11,8 @@ record ``<dataset>_record.json``.  ``python -m raft_tpu_torch.bench compare
 --baseline X --candidate Y`` diffs two records.  The run is on the card;
 ``--device cpu`` asks for the CPU (raft_tpu's ``RAFT_TPU_PLATFORM=cpu``).
 Every printed number stands beside the device it ran on (the card's name
-and power limit).  ``frontier`` (or ``--frontier``) raises: it comes with
-the autotuner (ROADMAP Queue 1 item 5b).
+and power limit).  ``python -m raft_tpu_torch.bench frontier`` runs the
+QPS–recall frontier sweep (``bench.frontier``).
 """
 
 from __future__ import annotations
@@ -109,9 +109,12 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "compare":
         return export.compare_main(argv[1:])
-    if "frontier" in argv[:1] or "--frontier" in argv:
-        raise NotImplementedError("bench frontier is not ported yet "
-                                  "(ROADMAP Queue 1 item 5b)")
+    if argv and argv[0] == "frontier":
+        # the QPS–recall frontier sweep → a FrontierModel (the autotuner's
+        # measurement leg); imported here, off the default path
+        from raft_tpu_torch.bench import frontier as frontier_mod
+
+        return frontier_mod.frontier_main(argv[1:])
     ap = argparse.ArgumentParser("raft_tpu_torch.bench")
     ap.add_argument("--dataset", default="sift-128-euclidean")
     ap.add_argument("--scale", type=float, default=0.01,

@@ -23,9 +23,16 @@ knobs with raft_tpu's defaults: ``RAFT_TPU_PIPELINE_DEPTH`` (2),
 ``RAFT_TPU_FLIGHT_{CAP,DIR,DEBOUNCE_S}``,
 ``RAFT_TPU_INCIDENT_{WINDOW_S,AUTOCLOSE_S,MAX_OPEN,DIR}``,
 ``RAFT_TPU_PERF_LEDGER`` and ``RAFT_TPU_PERF_*``, ``RAFT_TPU_EXPLAIN`` /
-``_EXPLAIN_ARCHIVE_CAP`` / ``_EXPLAIN_TAIL_PER_WINDOW``.  ``RAFT_TPU_AUTOTUNE``
-and ``RAFT_TPU_GATEWAY`` are read so that asking for them raises (ROADMAP
-Queue 1 item 5b).
+``_EXPLAIN_ARCHIVE_CAP`` / ``_EXPLAIN_TAIL_PER_WINDOW``.  Its optional obs
+layers read the same: the SLO engine ``RAFT_TPU_SLO_WINDOW_SCALE`` (1.0),
+``_EVAL_S`` (10), ``_BUDGET_WINDOW_S`` (30 days), ``_AVAILABILITY`` (0.999),
+``_P99_MS`` (250), ``_RECALL`` (0.9) and ``_FRESHNESS_S`` (300); the
+autotuner ``RAFT_TPU_AUTOTUNE`` (off), ``_AUTOTUNE_EVAL_S`` (2),
+``_AUTOTUNE_RECALL_FLOOR`` (0.9) and ``RAFT_TPU_FRONTIER_PATH`` (unset: the
+synthetic ladder model); the gateway ``RAFT_TPU_GATEWAY`` (off),
+``_GATEWAY_PORT`` (0: an ephemeral port), ``_GATEWAY_TOKEN`` (unset) and
+``_GATEWAY_ADMIN`` (off).  ``python -m raft_tpu_torch.bench frontier`` writes
+its record to ``RAFT_TPU_BENCH_RECORD`` when it is set.
 """
 
 from __future__ import annotations

@@ -27,10 +27,20 @@ profiler attached.
 - :mod:`~raft_tpu_torch.obs.incidents` — correlated incident timelines.
 - :mod:`~raft_tpu_torch.obs.profiler` — ``obs.profile(dir)`` and the
   unattended ``capture_async`` over ``torch.profiler``.
+- :mod:`~raft_tpu_torch.obs.quality` — the online recall auditor: served
+  batches shadow-scored against an exact numpy oracle off the hot path,
+  with an edge-triggered alarm on the recall EWMA.
+- :mod:`~raft_tpu_torch.obs.slo` — declarative SLOs with error budgets and
+  multi-window multi-burn-rate alerts.
+- :mod:`~raft_tpu_torch.obs.autotune` — the closed-loop effort controller
+  steering each served index along its measured QPS–recall frontier.
+- :mod:`~raft_tpu_torch.obs.gateway` — the operational HTTP server over
+  this pull surface (``/metrics``, ``/healthz``, ``/readyz``, debug and
+  token-guarded admin routes).
 
-raft_tpu's quality auditor, SLO engine, autotuner and operational gateway
-(``obs.quality`` / ``slo`` / ``autotune`` / ``gateway``) are not ported
-yet: those names raise ``NotImplementedError`` (ROADMAP Queue 1 item 5b).
+XLA's compiled-executable analysis and event listeners have no counterpart
+(the port's are ``obs.cost.analyze_callable`` and ``obs.device_events``):
+``obs.analyze_compiled`` and ``obs.xla_events`` raise ``NotImplementedError``.
 
 Quick start::
 
@@ -41,20 +51,25 @@ Quick start::
 """
 
 from raft_tpu_torch.obs import (
+    autotune,
     cost,
     device_events,
     events,
     explain,
     export,
     flight,
+    gateway,
     health,
     incidents,
     perf,
     profiler,
+    quality,
     registry,
+    slo,
     slowlog,
     spans,
 )
+from raft_tpu_torch.obs.autotune import Autotuner, FrontierModel, FrontierPoint
 from raft_tpu_torch.obs.cost import (
     CostReport,
     analyze_callable,
@@ -86,6 +101,7 @@ from raft_tpu_torch.obs.export import (
     to_prometheus,
     write_snapshot,
 )
+from raft_tpu_torch.obs.gateway import GatewayConfig, OperationalGateway
 from raft_tpu_torch.obs.flight import (
     FlightRecorder,
     default_recorder,
@@ -95,6 +111,7 @@ from raft_tpu_torch.obs.flight import (
 from raft_tpu_torch.obs.incidents import Incident, IncidentManager, incidents_snapshot
 from raft_tpu_torch.obs.perf import PerfLedger, default_ledger, ledger_snapshot
 from raft_tpu_torch.obs.profiler import capture_async, last_capture, profile
+from raft_tpu_torch.obs.quality import QualityAuditor
 from raft_tpu_torch.obs.registry import (
     Counter,
     Gauge,
@@ -103,6 +120,7 @@ from raft_tpu_torch.obs.registry import (
     MetricsRegistry,
     default_registry,
 )
+from raft_tpu_torch.obs.slo import AlertPolicy, SloEngine, SloSpec
 from raft_tpu_torch.obs.slowlog import slowlog_snapshot
 from raft_tpu_torch.obs.spans import (
     Span,
@@ -140,14 +158,10 @@ def snapshot():
     return default_registry().snapshot()
 
 
-#: raft_tpu.obs names not ported yet (ROADMAP Queue 1 item 5b); XLA's
-#: compiled-executable analysis and event listeners have no counterpart
-#: (the port's are ``obs.cost.analyze_callable`` and ``obs.device_events``)
+#: raft_tpu.obs names with no counterpart: XLA's compiled-executable
+#: analysis and event listeners (the port's are ``obs.cost.analyze_callable``
+#: and ``obs.device_events``)
 _NOT_PORTED = {
-    **{name: "ROADMAP Queue 1 item 5b" for name in (
-        "AlertPolicy", "Autotuner", "FrontierModel", "FrontierPoint", "GatewayConfig",
-        "OperationalGateway", "QualityAuditor", "SloEngine", "SloSpec", "autotune",
-        "gateway", "quality", "slo")},
     "analyze_compiled": "XLA only; see obs.cost.analyze_callable",
     "xla_events": "XLA only; see obs.device_events",
 }
@@ -160,6 +174,9 @@ def __getattr__(name):
 
 
 __all__ = [
+    "AlertPolicy", "Autotuner", "FrontierModel", "FrontierPoint", "GatewayConfig",
+    "OperationalGateway", "QualityAuditor", "SloEngine", "SloSpec", "autotune", "gateway",
+    "quality", "slo",
     "CostReport", "Counter", "Event", "EventBus", "ExplainPlan", "FlightRecorder", "Gauge",
     "Histogram", "Incident", "IncidentManager", "LabelCardinalityError", "MetricsRegistry",
     "OPENMETRICS_CONTENT_TYPE", "PROMETHEUS_CONTENT_TYPE", "PerfLedger", "QueryArchive",

@@ -248,7 +248,7 @@ def reset_transitions() -> None:
 
 
 def slo_check(slo_health: Optional[Dict[str, object]]) -> Dict[str, object]:
-    """Fold an ``SloEngine.health()`` (ROADMAP Queue 1 item 5b) slice into a
+    """Fold an ``obs.slo.SloEngine.health()`` slice into a
     health check: an exhausted error budget is DEGRADED — serving still
     works, but the operator contract is broken and releases should
     freeze until the budget window rolls."""

@@ -20,7 +20,10 @@
   control and degraded-mode search; :mod:`~raft_tpu_torch.serve.effort`
   arbitrates the effort level.
 
-``SearchService`` (:mod:`~raft_tpu_torch.serve.service`) assembles them.
+``SearchService`` (:mod:`~raft_tpu_torch.serve.service`) assembles them,
+with the optional obs layers that watch and steer a served index: the
+recall auditor (``auditor=``), the SLO engine (``slo=``), the autotuner
+(``autotune=``) and the operational HTTP gateway (``gateway=``).
 Multi-GPU serving (``ShardedIndex``, ``ReplicaGroup``, ``build_sharded``,
 ``HedgedDispatcher``'s replicas) is ROADMAP Queue 1 item 7: those names
 raise ``NotImplementedError``.

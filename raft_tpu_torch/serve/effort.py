@@ -4,7 +4,7 @@
 :class:`EffortArbiter` is the one place that computes the effective
 effort level and the derived ``SearchParams`` a dispatch uses
 (``apply(index)``).  The autotuner is its only writer
-(``set_autotune_level``; the autotuner itself is ROADMAP Queue 1 item 5b);
+(``set_autotune_level``, called by ``obs.autotune.Autotuner``);
 the overload ladder is a clamp, read at apply time: effective level =
 ``max(autotune level, overload shed level)``, capped at the warmed ladder
 depth.  Derived params are cached per ``(base params, level)``, and the

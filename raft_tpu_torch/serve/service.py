@@ -22,18 +22,22 @@ Typical lifecycle::
     svc.stats("wiki")                              # qps / p50 / p99 / recompiles
     svc.stop()
 
+The optional obs layers watch and steer what is served: ``auditor=`` (the
+online recall auditor, ``obs.quality``), ``slo=`` (error budgets and burn
+alerts, ``obs.slo``), ``autotune=`` (the closed-loop effort controller,
+``obs.autotune``; ``RAFT_TPU_AUTOTUNE``) and ``gateway=`` (the operational
+HTTP server, ``obs.gateway``; ``RAFT_TPU_GATEWAY``).
+
 Not ported yet, and refused loudly (a flag that is asked for is never
 ignored): ``replicas=`` and a ``ShardedIndex`` (multi-GPU serving, ROADMAP
-Queue 1 item 7); ``auditor=``, ``slo=``, ``autotune=`` and ``gateway=``,
-and ``RAFT_TPU_AUTOTUNE=1`` / ``RAFT_TPU_GATEWAY=1`` (ROADMAP Queue 1 item
-5b).
+Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
@@ -41,12 +45,16 @@ from raft_tpu_torch import obs
 from raft_tpu_torch.core import env as _env
 from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance import DISTANCE_TYPES
+from raft_tpu_torch.obs import autotune as obs_autotune
 from raft_tpu_torch.obs import cost as obs_cost
 from raft_tpu_torch.obs import explain as obs_explain
+from raft_tpu_torch.obs import gateway as obs_gateway
 from raft_tpu_torch.obs import health as obs_health
 from raft_tpu_torch.obs import incidents as obs_incidents
 from raft_tpu_torch.obs import perf as obs_perf
+from raft_tpu_torch.obs import slo as obs_slo
 from raft_tpu_torch.obs import spans as obs_spans
+from raft_tpu_torch.obs.quality import QualityAuditor
 from raft_tpu_torch.serve.batcher import MicroBatcher
 from raft_tpu_torch.serve.compactor import CompactionPolicy, Compactor
 from raft_tpu_torch.serve.effort import EffortArbiter
@@ -62,13 +70,25 @@ from raft_tpu_torch.serve.overload import (
 from raft_tpu_torch.serve.ragged import FilterRegistry, RaggedSearcher, RaggedSpec
 from raft_tpu_torch.serve.registry import IndexRegistry
 
-_ITEM_5B = "ROADMAP Queue 1 item 5b"
 _ITEM_7 = "ROADMAP Queue 1 item 7"
 
 
 def _refuse(option: str, what: str, item: str) -> None:
     raise NotImplementedError(
         f"SearchService({option}): {what} is not ported yet ({item})")
+
+
+class _AuditorTap:
+    """Late-bound recall tap for the autotuner: reads the service's current
+    auditor per call, so :meth:`SearchService.attach_auditor` reaches
+    indexes already watched."""
+
+    def __init__(self, service: "SearchService"):
+        self._service = service
+
+    def recall_ewma(self, name: str) -> Optional[float]:
+        auditor = self._service.auditor
+        return auditor.recall_ewma(name) if auditor is not None else None
 
 
 class SearchService:
@@ -84,32 +104,19 @@ class SearchService:
         max_delay_ms: float = 2.0,
         replicas=None,
         start: bool = True,
-        auditor=None,
+        auditor: Optional[QualityAuditor] = None,
         cost_accounting: Optional[bool] = None,
         pipeline_depth: Optional[int] = None,
         compaction: Union[None, bool, CompactionPolicy, Compactor] = None,
-        slo=None,
+        slo: Union[None, bool, Sequence[obs_slo.SloSpec], obs_slo.SloEngine] = None,
         ragged: Union[None, bool, RaggedSpec] = None,
         overload: Union[None, bool, OverloadConfig] = None,
-        autotune=None,
-        gateway=None,
+        autotune: Union[None, bool, obs_autotune.Autotuner] = None,
+        gateway: Union[None, bool, obs_gateway.GatewayConfig,
+                       obs_gateway.OperationalGateway] = None,
     ):
         if replicas is not None:
             _refuse("replicas=", "replica dispatch", _ITEM_7)
-        if auditor is not None:
-            _refuse("auditor=", "the online recall auditor (obs.quality)", _ITEM_5B)
-        if slo is not None and slo is not False:
-            _refuse("slo=", "the SLO engine (obs.slo)", _ITEM_5B)
-        if autotune is None:
-            autotune = _env.env_bool("RAFT_TPU_AUTOTUNE", False)
-        if autotune is not False:
-            _refuse("autotune=" if autotune is not True else "autotune / RAFT_TPU_AUTOTUNE",
-                    "the SLO autotuner (obs.autotune)", _ITEM_5B)
-        if gateway is None:
-            gateway = _env.env_bool("RAFT_TPU_GATEWAY", False)
-        if gateway is not False:
-            _refuse("gateway=" if gateway is not True else "gateway / RAFT_TPU_GATEWAY",
-                    "the operational HTTP gateway (obs.gateway)", _ITEM_5B)
         install_compile_listener()
         # span / slow-log / flight / perf / explain sections in snapshots
         # and the default event bus with its subscribers
@@ -119,6 +126,8 @@ class SearchService:
         self.min_bucket = min_bucket
         self.max_batch = max_batch
         self.max_delay_ms = max_delay_ms
+        # read per batch by the batchers' observers (attach_auditor swaps it)
+        self.auditor = auditor
         self.cost_accounting = cost_accounting
         # None defers to the batcher's RAFT_TPU_PIPELINE_DEPTH / default
         self.pipeline_depth = pipeline_depth
@@ -142,6 +151,22 @@ class SearchService:
         self.overload: Optional[OverloadConfig] = overload
         self._admission: Dict[str, AdmissionController] = {}
         self._degraded: Dict[str, DegradedModeManager] = {}
+        # autotune=None: RAFT_TPU_AUTOTUNE decides; True: a controller from
+        # env (its frontier from RAFT_TPU_FRONTIER_PATH); an Autotuner is
+        # adopted as it is (its caller owns its start state).  Every added
+        # index then gets an EffortArbiter: the autotuner writes its level,
+        # the overload ladder clamps it, the dispatch reads one arbitrated
+        # SearchParams
+        self.autotuner: Optional[obs_autotune.Autotuner] = None
+        if isinstance(autotune, obs_autotune.Autotuner):
+            self.autotuner = autotune
+        else:
+            if autotune is None:
+                autotune = _env.env_bool("RAFT_TPU_AUTOTUNE", False)
+            if autotune:
+                self.autotuner = obs_autotune.Autotuner()
+                if start:
+                    self.autotuner.start()
         self._effort: Dict[str, EffortArbiter] = {}
         self._start = start
         self._lock = threading.Lock()
@@ -157,8 +182,43 @@ class SearchService:
         elif compaction:
             self.compactor = Compactor(
                 self, start=start and not CompactionPolicy.disabled_by_env())
+        # slo=None/False: no engine; True: the four default objectives for
+        # each index added; a sequence of SloSpec: an engine with exactly
+        # those; an SloEngine is adopted as it is (its caller owns its start
+        # state)
+        self.slo_engine: Optional[obs_slo.SloEngine] = None
+        self._slo_auto = False
+        if isinstance(slo, obs_slo.SloEngine):
+            self.slo_engine = slo
+        elif slo is True:
+            self.slo_engine = obs_slo.SloEngine(service=self)
+            self._slo_auto = True
+            if start:
+                self.slo_engine.start()
+        elif slo:
+            self.slo_engine = obs_slo.SloEngine(tuple(slo), service=self)
+            if start:
+                self.slo_engine.start()
         # incident timelines carry a service snapshot at open / close
         obs_incidents.default_manager().add_context_source("service", self._incident_context)
+        # gateway=None: RAFT_TPU_GATEWAY decides; True: bind knobs from env;
+        # a GatewayConfig binds a new server; an OperationalGateway is
+        # adopted (and pointed at this service if it has none).  The gateway
+        # calls only the pull APIs below
+        self.gateway: Optional[obs_gateway.OperationalGateway] = None
+        if isinstance(gateway, obs_gateway.OperationalGateway):
+            self.gateway = gateway
+            if self.gateway.service is None:
+                self.gateway.service = self
+        elif isinstance(gateway, obs_gateway.GatewayConfig):
+            self.gateway = obs_gateway.OperationalGateway(self, config=gateway)
+        else:
+            if gateway is None:
+                gateway = _env.env_bool("RAFT_TPU_GATEWAY", False)
+            if gateway:
+                self.gateway = obs_gateway.OperationalGateway(self)
+        if self.gateway is not None and start:
+            self.gateway.start()
 
     # -- index management ----------------------------------------------------
     def add_index(
@@ -195,7 +255,9 @@ class SearchService:
         if self.overload is not None:
             admission = AdmissionController(self.overload, name=name)
             degraded = DegradedModeManager(self.overload, name=name)
-            # the single effort-arbitration point (overload clamp)
+        if degraded is not None or self.autotuner is not None:
+            # the single effort-arbitration point: the autotuner writes,
+            # the overload ladder clamps; plain services skip it
             effort = EffortArbiter(degraded, name=name)
         with self._lock:
             self._ks[name] = k
@@ -206,6 +268,7 @@ class SearchService:
             if admission is not None:
                 self._admission[name] = admission
                 self._degraded[name] = degraded
+            if effort is not None:
                 self._effort[name] = effort
             if self.ragged is not None:
                 # filter id space: the main index's global ids; side rows
@@ -224,6 +287,7 @@ class SearchService:
                 max_delay_ms=self.max_delay_ms,
                 metrics=ServingMetrics(name=name),
                 start=self._start,
+                observer=self._make_observer(name),
                 cost_accounting=self.cost_accounting,
                 pipeline_depth=self.pipeline_depth,
                 ragged=self.ragged,
@@ -238,12 +302,18 @@ class SearchService:
             old.stop()
         if old_admission is not None:
             old_admission.close()
+        if self.slo_engine is not None and self._slo_auto and old is None:
+            self.slo_engine.watch_index(name)
+        if self.autotuner is not None and effort is not None:
+            self.autotuner.watch_index(name, effort, index=index, auditor=_AuditorTap(self),
+                                       slo=self.slo_engine, perf=obs_perf.default_ledger())
         if warmup:
             batcher.warmup()
         return version
 
     def effort_arbiter(self, name: str) -> Optional[EffortArbiter]:
-        """The index's effort-arbitration point (None without overload)."""
+        """The index's effort-arbitration point (None: a plain service, with
+        neither overload nor an autotuner)."""
         with self._lock:
             return self._effort.get(name)
 
@@ -273,10 +343,27 @@ class SearchService:
 
         return perf_meta
 
-    def attach_auditor(self, auditor) -> None:
-        """raft_tpu's online recall auditor: ROADMAP Queue 1 item 5b."""
-        if auditor is not None:
-            _refuse("attach_auditor", "the online recall auditor (obs.quality)", _ITEM_5B)
+    def _make_observer(self, name: str):
+        """The batcher's observer: feeds the auditor, if any.  It reads
+        ``self.auditor`` per call, so :meth:`attach_auditor` reaches running
+        batchers.  The (index, version) pair is resolved after the batch
+        completed: a swap racing in between may attribute one audited batch
+        to the successor version, which the auditor's per-version EWMA reset
+        absorbs."""
+
+        def observer(queries, dists, ids):
+            auditor = self.auditor
+            if auditor is None:
+                return
+            index, version = self.registry.get_versioned(name)
+            auditor.observe(name, version, index, queries, ids)
+
+        return observer
+
+    def attach_auditor(self, auditor: Optional[QualityAuditor]) -> None:
+        """Install (or, with None, remove) the online recall auditor; running
+        batchers pick it up with their next batch."""
+        self.auditor = auditor
 
     @traced("serve.swap")
     def swap(self, name: str, index) -> int:
@@ -329,6 +416,11 @@ class SearchService:
         if admission is not None:
             admission.close()
         self.registry.unregister(name)
+        if self.slo_engine is not None and self._slo_auto:
+            self.slo_engine.unwatch_index(name)
+        if self.autotuner is not None:
+            self.autotuner.unwatch_index(name)
+        # retire the index's archived plans and explain series too
         obs_explain.default_archive().unwatch_index(name)
 
     def names(self):
@@ -440,8 +532,8 @@ class SearchService:
         return obs_explain.ExplainPlan(sections)
 
     def _explain_deep_sections(self, name, queries, sections, result):
-        """The deep-only plan sections: coarse-probe replay, audit verdict
-        (no auditor in the port yet), result payload."""
+        """The deep-only plan sections: coarse-probe replay, audit verdict,
+        result payload."""
         try:
             index, version = self.registry.get_versioned(name)
         except KeyError:  # removed mid-explain
@@ -456,7 +548,18 @@ class SearchService:
             if isinstance(prev, dict) and prev.get("params"):
                 info.setdefault("params", prev["params"])
             sections["probe"] = info
-        sections["audit"] = {"available": False}
+        auditor = self.auditor
+        if auditor is not None:
+            ewma = auditor.recall_ewma(name)
+            threshold = auditor.threshold
+            sections["audit"] = {
+                "recall_ewma": ewma,
+                "threshold": threshold,
+                "verdict": ("unaudited" if ewma is None
+                            else "ok" if ewma >= threshold else "below_threshold"),
+            }
+        else:
+            sections["audit"] = {"available": False}
         if result is not None:
             dists, ids = result
             sections["results"] = {
@@ -605,17 +708,26 @@ class SearchService:
             except KeyError:
                 pass
             indexes[name] = entry
-        return {"indexes": indexes}
+        ctx: Dict[str, object] = {"indexes": indexes}
+        if self.slo_engine is not None:
+            ctx["slo"] = self.slo_engine.health()
+        if self.autotuner is not None:
+            ctx["autotune"] = self.autotuner.health()
+        return ctx
 
     def healthz(self) -> Dict[str, object]:
         """OK / DEGRADED / UNHEALTHY: one :class:`obs.health.IndexProbe`
         per served name (warmup, kernel builds after warmup, queue depth,
-        the pipeline window, compaction and overload state) folded with the
-        card's memory headroom, the perf ledger's regressions and the page
-        budget (``store.budget.default_budget``) by
+        the pipeline window, compaction and overload state, the autotuner's
+        level and the auditor's recall EWMA) folded with the card's memory
+        headroom, the SLO engine's exhausted budgets, the perf ledger's
+        regressions and the page budget (``store.budget.default_budget``) by
         :func:`raft_tpu_torch.obs.health.build_report`; publishes the
         ``raft_tpu_health`` gauge."""
         self._refresh_capacity_gauges()
+        auditor = self.auditor
+        pinned_min = (set(self.autotuner.health().get("pinned_min_effort", ()))
+                      if self.autotuner is not None else set())
         probes: Dict[str, obs_health.IndexProbe] = {}
         for name in self.names():
             try:
@@ -640,6 +752,12 @@ class SearchService:
                 inflight=b.inflight,
                 admission_level=ctrl.last_level if ctrl is not None else None,
                 degraded_level=mgr.level if mgr is not None else None,
+                autotune_level=(self._effort[name].autotune_level
+                                if self.autotuner is not None and name in self._effort
+                                else None),
+                autotune_pinned_min=name in pinned_min,
+                recall_ewma=auditor.recall_ewma(name) if auditor is not None else None,
+                recall_threshold=auditor.threshold if auditor is not None else None,
                 compaction_backlog=compaction.get("backlog"),
                 compaction_trigger=compaction.get("trigger"),
                 compaction_last_abort=(
@@ -653,6 +771,7 @@ class SearchService:
         return obs_health.build_report(
             probes,
             registry=obs.default_registry(),
+            slo=self.slo_engine.health() if self.slo_engine is not None else None,
             perf=obs_perf.default_ledger().health_slice(),
             budget=page_budget.snapshot() if page_budget is not None else None,
         )
@@ -666,12 +785,15 @@ class SearchService:
         """The whole observability picture in one JSON-safe dict: each
         index's :meth:`stats`, the :meth:`healthz` report, the process
         registry snapshot and the perf ledger."""
-        return {
+        out = {
             "indexes": {n: self.stats(n) for n in self.names()},
             "health": self.healthz(),
             "registry": obs.snapshot(),
             "perf": obs_perf.default_ledger().snapshot(),
         }
+        if self.slo_engine is not None:
+            out["slo"] = self.slo_engine.snapshot()
+        return out
 
     def prometheus(self) -> str:
         """The process registry in Prometheus text format (pull-style
@@ -692,6 +814,15 @@ class SearchService:
 
     # -- lifecycle -----------------------------------------------------------
     def stop(self) -> None:
+        # the gateway first: stop answering probes and admin verbs before
+        # the subsystems they read go down; the autotuner before the SLO
+        # engine, whose health its ticks read
+        if self.gateway is not None:
+            self.gateway.close()
+        if self.autotuner is not None:
+            self.autotuner.stop()
+        if self.slo_engine is not None:
+            self.slo_engine.stop()
         try:
             obs_incidents.default_manager().remove_context_source("service")
         except Exception:  # bus already reset

@@ -437,11 +437,21 @@ def test_prims_cases_keep_raft_names():
     assert [r["name"] for r in rows] == ["select_k/4096x2048/k10"] and rows[0]["seconds"] > 0
 
 
-def test_cli_frontier_raises_and_compare_dispatches(tmp_path):
+def test_cli_frontier_raises_and_compare_dispatches(tmp_path, monkeypatch):
+    from raft_tpu_torch.bench import frontier
     from raft_tpu_torch.bench.__main__ import main
 
-    for argv in (["frontier"], ["--frontier"], ["--scale", "0.01", "--frontier"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # "frontier" dispatches to the sweep (the sweep itself:
+    # test_torch_autotune.py); its multi-GPU leg raises naming item 7, and
+    # "--frontier" is no option, as in raft_tpu's CLI
+    seen = []
+    monkeypatch.setattr(frontier, "frontier_main", lambda argv: seen.append(argv) or 0)
+    assert main(["frontier", "--n", "5"]) == 0 and seen == [["--n", "5"]]
+    monkeypatch.undo()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        main(["frontier", "--sharded", "2"])
+    for argv in (["--frontier"], ["--scale", "0.01", "--frontier"]):
+        with pytest.raises(SystemExit):
             main(argv)
     a = tmp_path / "a.json"
     texport.write_bench_record({"metric": "m", "value": 1.0, "unit": "queries/s"}, str(a))

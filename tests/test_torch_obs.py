@@ -322,15 +322,19 @@ def test_obs_names_and_the_serving_layer_refused():
     obs.install()
     assert "spans" in obs.snapshot() and "events" in obs.snapshot()
     assert obs.registry() is tregistry.default_registry()
-    # the serving observability is ported (flight, profile, ...); the
-    # auditor waits for item 5b and XLA's listeners have no counterpart
+    # the serving observability is ported (flight, profile, the auditor,
+    # the SLO engine, the autotuner, the gateway); XLA's listeners have no
+    # counterpart
     assert obs.flight.default_recorder() is obs.default_recorder()
     assert callable(obs.profile)
-    for name in ("QualityAuditor", "SloEngine", "gateway"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
-            getattr(obs, name)
+    assert obs.QualityAuditor is obs.quality.QualityAuditor
+    assert obs.SloEngine is obs.slo.SloEngine and obs.SloSpec is obs.slo.SloSpec
+    assert obs.Autotuner is obs.autotune.Autotuner
+    assert obs.OperationalGateway is obs.gateway.OperationalGateway
     with pytest.raises(NotImplementedError, match="obs.device_events"):
         obs.xla_events
+    with pytest.raises(NotImplementedError, match="analyze_callable"):
+        obs.analyze_compiled
     from raft_tpu_torch.core import logger
 
     assert logger.child("obs.slowlog").name == "raft_tpu_torch.obs.slowlog"

@@ -60,8 +60,11 @@ def test_import_check_covers_the_serving_layer_and_its_observability():
     for mod in ("batcher", "compactor", "effort", "metrics", "mutation", "overload", "ragged",
                 "registry", "service", "__init__"):
         assert f"raft_tpu_torch/serve/{mod}.py" in names
-    for mod in ("explain", "flight", "health", "incidents", "perf", "profiler"):
+    for mod in ("explain", "flight", "health", "incidents", "perf", "profiler", "quality", "slo",
+                "autotune", "gateway"):
         assert f"raft_tpu_torch/obs/{mod}.py" in names
+    for mod in ("bench/frontier", "bench/plot", "stats/metrics", "stats/summary"):
+        assert f"raft_tpu_torch/{mod}.py" in names
 
 
 def test_forbidden_import_check_is_not_vacuous():

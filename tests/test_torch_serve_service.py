@@ -4,8 +4,8 @@ depth 1 and 2, each query alone), overload (deadlines, shedding, degraded
 effort), hot swap, ``stats()`` / ``healthz()`` / ``prometheus()`` keys
 against raft_tpu's service, ``compact_now`` on IVF-Flat held by ids to
 raft_tpu's compaction of the same state (other kinds by recall), the
-per-thread build counter, and every refused option naming its ROADMAP
-item.  No test reads the clock against a bound; every thread is joined
+per-thread build counter, every refused multi-GPU option naming its
+ROADMAP item, and the obs layer options building their layers.  No test reads the clock against a bound; every thread is joined
 with a timeout."""
 
 import os
@@ -415,15 +415,23 @@ def test_flight_explain_and_perf_ledger_see_served_batches(flat, data, tmp_path)
 
 
 def test_refused_options_name_their_roadmap_item(flat, monkeypatch):
-    for kw, item in ((dict(replicas=object()), "item 7"), (dict(auditor=object()), "item 5b"),
-                     (dict(slo=True), "item 5b"), (dict(autotune=True), "item 5b"),
-                     (dict(gateway=True), "item 5b")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-            serve.SearchService(**kw)
-    for env in ("RAFT_TPU_AUTOTUNE", "RAFT_TPU_GATEWAY"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        serve.SearchService(replicas=object())
+    # the obs layers are ported: each option (and its env knob) builds its layer
+    for kw, attr in ((dict(slo=True), "slo_engine"), (dict(autotune=True), "autotuner"),
+                     (dict(gateway=obs.GatewayConfig()), "gateway")):
+        svc = serve.SearchService(start=False, **kw)
+        try:
+            assert getattr(svc, attr) is not None
+        finally:
+            svc.stop()
+    for env, attr in (("RAFT_TPU_AUTOTUNE", "autotuner"), ("RAFT_TPU_GATEWAY", "gateway")):
         monkeypatch.setenv(env, "1")
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            serve.SearchService()
+        svc = serve.SearchService(start=False)
+        try:
+            assert getattr(svc, attr) is not None
+        finally:
+            svc.stop()
         monkeypatch.delenv(env)
     for name in ("ShardedIndex", "ReplicaGroup", "build_sharded"):
         with pytest.raises(NotImplementedError, match="item 7"):
@@ -441,7 +449,10 @@ def test_refused_options_name_their_roadmap_item(flat, monkeypatch):
             svc.add_index("s", fake)
         with pytest.raises(NotImplementedError, match="item 7"):
             tregistry.IndexRegistry().register("s", fake)
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            svc.attach_auditor(object())
+        auditor = types.SimpleNamespace(threshold=0.9)
+        svc.attach_auditor(auditor)
+        assert svc.auditor is auditor
+        svc.attach_auditor(None)
+        assert svc.auditor is None
     finally:
         svc.stop()

@@ -21,7 +21,8 @@ MODULES = (
     "cluster.kmeans", "cluster.kmeans_balanced", "distance.pairwise", "distance.fused_nn",
     "ops.matrix", "store.tiered",
     "serve.mutation", "serve.ragged", "serve.overload", "serve.effort", "serve.compactor",
-    "serve.service", "obs.perf", "obs.explain", "obs.incidents",
+    "serve.service", "obs.perf", "obs.explain", "obs.incidents", "obs.slo", "obs.autotune",
+    "obs.gateway",
 )
 
 
