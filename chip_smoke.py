@@ -195,10 +195,35 @@ then drives the port's main paths at the scale of sift-128-euclidean
    layered service made for its run and stopped after it; each run's
    requests/s and p50 / p99 printed beside the card's name and power
    limit, with the oracle's seconds a batch, ``live_vectors()``' seconds,
-   the gateway's answer times and the autotune level's trajectory.
+   the gateway's answer times and the autotune level's trajectory;
+26. graphs and sparse (``graphs_phase``, at most 150 s): ``sparse.neighbors
+   .knn_graph`` over phase 1's rows at k = 15 (fused_knn), weights
+   1 / (1 + d), ``spectral.partition`` into 8 clusters twice (labels and
+   eigenvalues bitwise equal; 8 labels used; an edge cut at most half a
+   seeded random labelling's; eigenvalues within 1e-4 relative of the same
+   call on the plain SpMV; kernel #7 holds its k-means assignment); an
+   R-MAT graph at Graph500's scale 20, edge factor 16 (``random.rmat``'s
+   default theta), symmetrized, by ``modularity_maximization`` twice
+   (bitwise; Q above a seeded random labelling's); ``single_linkage`` over
+   250,000 x 128 ``make_blobs`` rows (250 blobs, std 1, centre box (0, 10))
+   into 250 clusters at c = 15 (ARI >= 0.99 against the blob labels, n - 1
+   merges, non-decreasing deltas, last size n; the cross-component rounds
+   printed); ``linear_assignment`` of a seeded 2,048 x 2,048 uniform cost
+   within n eps of scipy's ``linear_sum_assignment``; ``find_k`` over
+   1,000,000 x 128 blobs (16 blobs, kmax 32); sparse ``brute_force_knn``
+   and ``pairwise_distance_sparse`` (sqeuclidean, cosine) over a seeded
+   100,000 x 20,000 CSR at 0.5 % with 1,000 queries at k = 10, held to the
+   dense path on its first 10,000 rows; ``gram_matrix`` (rbf, polynomial)
+   at 8,192 x 8,192 x 128 within rtol 1e-4 of the CPU; and the csr_spmm
+   kernel bitwise its plain version on the kNN graph's Laplacian and on
+   R-MAT's hub rows and a seeded row sample, timed beside its plain version
+   and ``torch.sparse.mm``.  csr_spmm, fused_knn, select_k and fused_argmin
+   must launch in the phase.
 
-Launch counts are set to 0 before each phase of the main paths and read
-after it.  Prints the card, JSON lines of the over-budget batches, the
+Q3.8's probe (``served_window_probe``, not checked) runs after phase 1,
+after each section of the main path through the plain versions' searches,
+and at four later points.  Launch counts are set to 0 before each phase of
+the main paths and read after it.  Prints the card, JSON lines of the over-budget batches, the
 uploads, profiles and per-kernel results, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when there is no card or any check fails.
@@ -312,6 +337,21 @@ SERVED_BUSY_FLAG = "--served-busy-share"
 FRONTIER_ARGS = ("--no-comparators",)
 OBS_TICK_S, OBS_TIGHT_P99_S, OBS_MUTATIONS = 10.0, 0.005, 1000
 OBS_COST_ROUNDS, OBS_COST_TICK_S, OBS_SCRAPE_S = 2, 0.5, 1.0
+#: graphs and sparse (phase 26): the kNN graph's k and the spectral clusters;
+#: R-MAT at Graph500's scale 20, edge factor 16 (rmat's default theta);
+#: single linkage over make_blobs at phase 1's geometry; the LAP size; find_k's
+#: blobs and kmax; the sparse kNN rows, columns, slots a row, queries, k and
+#: the slice held to the dense path; the Gram rows; the R-MAT rows held to the
+#: plain SpMV (the highest-degree rows, then a seeded sample); the time limit
+GRAPH_K, GRAPH_CLUSTERS = 15, 8
+RMAT_SCALE, RMAT_EDGE_FACTOR = 20, 16
+SL_ROWS, SL_BLOBS, SL_C = 250_000, 250, 15
+LAP_N = 2048
+FK_ROWS, FK_BLOBS, FK_KMAX = 1_000_000, 16, 32
+SP_ROWS, SP_COLS, SP_PER_ROW, SP_QUERIES, SP_K, SP_SLICE = 100_000, 20_000, 100, 1000, 10, 10_000
+GRAM_ROWS = 8192
+RMAT_HUB_ROWS, RMAT_SAMPLE_ROWS = 16, 4096
+GRAPH_PHASE_S = 150.0
 
 
 def main() -> int:
@@ -538,6 +578,8 @@ def main() -> int:
     with phase("pq_refine"):
         cand, outputs["ivf_pq probe-major + refine"] = refined()
 
+    probe("IVF-PQ's build, caches and refine")
+
     # -- main path: CAGRA ---------------------------------------------------
     @contextlib.contextmanager
     def spied():
@@ -670,6 +712,8 @@ def main() -> int:
           and phase_launches["cagra_hop"]["cagra_traverse"] == 1,
           "cagra hop by hop: one walk launch to hop 2, then one hop launch")
 
+    probe("CAGRA's build and searches")
+
     # -- main path: filtered search -------------------------------------------
     n_rows = x.shape[0]
     frng = np.random.default_rng(SEED)
@@ -772,6 +816,8 @@ def main() -> int:
     check(phase_launches["filt_cagra"]["cagra_fused_hop"] == 0
           and phase_launches["filt_cagra"]["cagra_traverse"] == 0,
           "filtered CAGRA keeps the hop and walk kernels off filtered traffic, as raft_tpu does")
+    probe("the filtered searches")
+
     # -- main path: paged storage ---------------------------------------------
     # second indexes made from the same tensors (copy.copy), paginated in
     # place: the monolithic indexes above stay as they are
@@ -1002,6 +1048,8 @@ def main() -> int:
         del small
     print(json.dumps({"uploads": uploads}), flush=True)
 
+    probe("paged storage")
+
     # -- main path: kernel #7, the distance layer, flat k-means ----------------
     # k-means' initial centers: a fixed seeded sample of rows (init="array")
     km_rows = np.sort(np.random.default_rng(SEED).choice(x.shape[0], KM_CLUSTERS, replace=False))
@@ -1123,6 +1171,8 @@ def main() -> int:
               f"brute force {m} [{BF_QUERIES}, {K}] over {BF_ROWS} rows: values within rtol 1e-5 "
               f"atol 1e-4 of the CPU, ids equal except at ties ({int((~untied).sum())} tied)")
 
+    probe("kernel #7, the distance layer and flat k-means")
+
     # -- main path: IVF-Flat over 8-bit and bf16 rows ---------------------------
     x_u8 = torch.clamp(torch.round(x * U8_SCALE), 0, 255).to(torch.uint8)
     q_u8 = torch.clamp(torch.round(q * U8_SCALE), 0, 255)            # f32 queries
@@ -1189,6 +1239,8 @@ def main() -> int:
           f"ivf_flat u8 save -> load ({buf.tell()} bytes): uint8 lists, searches bitwise equal")
     del buf, back
 
+    probe("IVF-Flat over 8-bit and bf16 rows")
+
     # -- main path: paged 8-bit IVF-Flat (the _u8_paged / _s8_paged legs) ---------
     # the uint8 and int8 indexes paginated as the f32 one: a pinned pool
     # holding every page (every search above, bitwise), and a quarter of the
@@ -1240,6 +1292,8 @@ def main() -> int:
         ov8.close()
         del p_ov8, ov8, want8, got8
 
+    probe("paged 8-bit IVF-Flat")
+
     # -- main path: deep k (past the kernels' former 512) -------------------------
     dq = q[:DEEP_QUERIES]
     deep = {}
@@ -1270,6 +1324,8 @@ def main() -> int:
               f"deep k {name} [{DEEP_QUERIES}, {k_}]: every slot filled")
     check(torch.equal(deep["probe_major"][1][:, :K], deep["query_major"][1][:, :K]),
           "deep k: both schedules agree on the first 10")
+
+    probe("deep k")
 
     # -- main path: threads searching one paged index over budget ----------------
     t_batches = [q[b:b + OVER_BUDGET_BATCH] for b in range(0, THREAD_QUERIES, OVER_BUDGET_BATCH)]
@@ -1306,6 +1362,8 @@ def main() -> int:
     print(f"paged threads: {THREADS} x {len(t_batches)} batches in {threads_s:.3f} s; "
           f"pager {json.dumps(over_pager.stats())}", flush=True)
     del t_want, t_out
+
+    probe("threads over one paged index")
 
     # -- main path: CAGRA over 8-bit rows (BIGANN's uint8) -----------------------
     # raft's defaults over the uint8 rows of the 8-bit IVF-Flat phases: the
@@ -1360,6 +1418,8 @@ def main() -> int:
     main_launches = {
         name: sum(p[name] for p in phase_launches.values()) for name in kernels.KERNELS
     }
+
+    probe("CAGRA over 8-bit rows")
 
     # -- outputs: shapes, finiteness, recall --------------------------------
     for name, (v, i) in [("oracle", (gt_v, gt_i))] + list(outputs.items()):
@@ -1425,6 +1485,8 @@ def main() -> int:
     check(np.allclose(rv[:64].cpu().numpy(), exact, rtol=1e-4, atol=1e-2),
           "refined distances match float64 numpy on 64 queries")
 
+    probe("the outputs' recall")
+
     # -- reproducibility of the build ---------------------------------------
     n_train = min(x.shape[0], max(2 * params.n_lists,
                                   int(x.shape[0] * params.kmeans_trainset_fraction)))
@@ -1440,6 +1502,8 @@ def main() -> int:
     check(torch.equal(fits[0], fits[1]), "two k-means fits, one seed: centers bitwise equal")
     check(torch.equal(labels[0], labels[1]), "two predicts: labels equal")
     del trainset, fits, labels
+
+    probe("the build's reproducibility")
 
     # -- the same searches with every kernel replaced by its plain version --
     @contextlib.contextmanager
@@ -1580,7 +1644,7 @@ def main() -> int:
           "cagra 8-bit low-effort recall is below 0.95 (the comparison can fail)")
     print(json.dumps({"recall_kernel_vs_plain": recall_table}), flush=True)
 
-    probe("the main path's searches")
+    probe("the plain versions' searches")
 
     # -- kernels against their plain versions -------------------------------
     results = []
@@ -2858,6 +2922,14 @@ def main() -> int:
                      phase=phase, phase_launches=phase_launches, smi=smi)
     print(f"phase 25 (obs layers): {time.perf_counter() - t25:.1f} s", flush=True)
 
+    # -- phase 26: graphs and sparse ---------------------------------------------------
+    t26 = time.perf_counter()
+    graphs_phase(x=x, res=res, check=check, phase=phase, phase_launches=phase_launches,
+                 record=record, main_launches=main_launches, cuda_ms=cuda_ms)
+    t26 = time.perf_counter() - t26
+    print(f"phase 26 (graphs and sparse): {t26:.1f} s", flush=True)
+    check(t26 <= GRAPH_PHASE_S, f"phase 26 took {t26:.1f} s <= {GRAPH_PHASE_S:.0f} s")
+
     for name in kernels.KERNELS:
         check(main_launches[name] > 0, f"{name} launched {main_launches[name]} times on the main path")
     print(f"phase launches (nonzero): "
@@ -3838,6 +3910,335 @@ def obs_layers_phase(*, x, q, index, sp, gt_i, res, check, phase, phase_launches
                 os.environ[k_] = v_
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"obs layers cost: {json.dumps(cost, default=str)}", flush=True)
+
+
+def graphs_phase(*, x, res, check, phase, phase_launches, record, main_launches, cuda_ms):
+    """Phase 26: the graph and sparse path on the card.  A kNN graph over
+    the main rows (fused_knn) partitioned spectrally (csr_spmm in every
+    Laplacian matvec, k-means, kernel #7 holding its assignment); R-MAT at
+    Graph500's scale 20 by modularity; single linkage over 250,000 blobs;
+    the LAP; find_k; sparse kNN (select_k) against the dense path; Gram
+    matrices against the CPU; and csr_spmm against its plain version (and
+    torch.sparse.mm as a yardstick) at the kNN-graph and R-MAT shapes."""
+    import numpy as np
+    import scipy.optimize
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch import random as trandom
+    from raft_tpu_torch.cluster import find_k, spectral
+    from raft_tpu_torch.cluster import single_linkage as run_single_linkage
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.distance import KernelParams, gram_matrix, pairwise_distance
+    from raft_tpu_torch.kernels import csr_spmm as csr_k
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import cost
+    from raft_tpu_torch.solver import linear_assignment
+    from raft_tpu_torch.sparse import COO, CSR
+    from raft_tpu_torch.sparse import distance as sdist
+    from raft_tpu_torch.sparse import linalg as slinalg
+    from raft_tpu_torch.sparse import neighbors as sneighbors
+    from raft_tpu_torch.sparse import op as sop
+    from raft_tpu_torch.sparse import solver as ssolver
+    from raft_tpu_torch.stats import adjusted_rand_index
+
+    dev = x.device
+    cpu = Resources(device="cpu")
+    subs = []
+
+    def sub(name):
+        """A sub-phase whose launch counts join phase 26's."""
+        subs.append(name)
+        return phase(f"graphs_{name}")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def once_ms(fn):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b), out
+
+    @contextlib.contextmanager
+    def plain_spmv():
+        saved = csr_k.csr_spmm
+        csr_k.csr_spmm = csr_k.csr_spmm_torch
+        try:
+            yield
+        finally:
+            csr_k.csr_spmm = saved
+
+    # -- the kNN graph and its spectral partition --------------------------------
+    n = x.shape[0]
+    t0 = time.perf_counter()
+    with sub("knn"):
+        knn = sneighbors.knn_graph(x, GRAPH_K, res=res)
+        v = knn.valid
+        sim = COO(knn.rows, knn.cols, torch.where(v, 1.0 / (1.0 + knn.data),
+                                                  torch.zeros_like(knn.data)), knn.shape, knn.nnz)
+    deg = slinalg.degree(sim)
+    print(f"kNN graph of {n} rows at k={GRAPH_K}: {sim.nnz} slots after symmetrize (max), "
+          f"degree min {int(deg.min())} max {int(deg.max())}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(phase_launches["graphs_knn"]["fused_knn"] > 0, "knn_graph launched fused_knn")
+    check(int(deg.min()) >= GRAPH_K and torch.equal(slinalg.degree(
+        COO(sim.cols, sim.rows, sim.data, sim.shape, sim.nnz)), deg),
+        f"kNN graph: every row has >= {GRAPH_K} neighbours and the graph is symmetric")
+
+    captured = []
+    predict = spectral.kmeans.predict
+
+    def capturing_predict(centers, emb, **kw):
+        captured.append((centers, emb))
+        return predict(centers, emb, **kw)
+
+    spectral.kmeans.predict = capturing_predict
+    try:
+        runs = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            with sub(f"spectral_{i}"):
+                runs.append(spectral.partition(sim, GRAPH_CLUSTERS, seed=0, res=res))
+            print(f"spectral.partition run {i}: {time.perf_counter() - t0:.2f} s, eigenvalues "
+                  f"{runs[-1][1].cpu().numpy().tolist()}", flush=True)
+    finally:
+        spectral.kmeans.predict = predict
+    (labels, vals), (labels2, vals2) = runs
+    check(phase_launches["graphs_spectral_0"]["csr_spmm"] > 0,
+          f"spectral.partition launched csr_spmm "
+          f"({phase_launches['graphs_spectral_0']['csr_spmm']})")
+    check(torch.equal(labels, labels2) and torch.equal(vals, vals2),
+          "spectral.partition twice with seed 0: labels and eigenvalues bitwise equal")
+    used = int(torch.unique(labels).numel())
+    check(used == GRAPH_CLUSTERS, f"spectral partition uses {used} of {GRAPH_CLUSTERS} labels")
+    rand = torch.randint(0, GRAPH_CLUSTERS, (n,), generator=gen(0), device=dev)
+    cut, min_size = spectral.analyze_partition(sim, labels, GRAPH_CLUSTERS)
+    cut_rand, _ = spectral.analyze_partition(sim, rand, GRAPH_CLUSTERS)
+    check(float(cut) <= 0.5 * float(cut_rand),
+          f"spectral edge cut {float(cut):.1f} <= 0.5 x a seeded random labelling's "
+          f"{float(cut_rand):.1f} (smallest cluster {int(min_size)})")
+    t0 = time.perf_counter()
+    with plain_spmv():
+        kernels.reset_launch_counts()
+        labels_p, vals_p = spectral.partition(sim, GRAPH_CLUSTERS, seed=0, res=res)
+        plain_launches = kernels.launch_counts()["csr_spmm"]
+    rel = float((vals_p - vals).abs().max() / vals.abs().max().clamp(min=1e-30))
+    check(plain_launches == 0 and rel <= 1e-4,
+          f"eigenvalues of the plain SpMV's run within 1e-4 relative ({rel:.3e}; bitwise "
+          f"{torch.equal(vals_p, vals)}, labels bitwise {torch.equal(labels_p, labels)}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    centers, emb = captured[0]
+    with sub("assign"):
+        _, ids = kernels.fused_l2_argmin(emb, centers, (centers * centers).sum(dim=1))
+    agree = float((ids == labels).float().mean())
+    check(agree >= 0.999, f"kernel #7 on the partition's k-means assignment: ids equal "
+          f"kmeans.predict on {agree:.6f} of {n} rows")
+
+    # -- csr_spmm at the kNN graph's Laplacian ----------------------------------------
+    lap = slinalg.laplacian(sim, normalized=True)
+    ip, ci, cd = lap.row_view()
+    xv = torch.randn((n, 1), generator=gen(1), device=dev)
+    got = csr_k.csr_spmm(ip, ci, cd, xv)
+    plain_ms, want = once_ms(lambda: csr_k.csr_spmm_torch(ip, ci, cd, xv))
+    knn_bitwise = torch.equal(got, want)
+    check(knn_bitwise, f"csr_spmm bitwise its plain version on the kNN Laplacian "
+          f"([{n}] rows, {lap.nnz} slots)")
+    knn_ms = cuda_ms(lambda: csr_k.csr_spmm(ip, ci, cd, xv), 20)
+    lib = torch.sparse_csr_tensor(ip.long(), ci.long(), cd, size=(n, n))
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, xv), 20)
+    lib_err = float((torch.sparse.mm(lib, xv) - got).abs().max())
+    print(f"csr_spmm kNN Laplacian SpMV: {knn_ms:.4f} ms, plain {plain_ms:.2f} ms, "
+          f"torch.sparse.mm {lib_ms:.4f} ms (max abs diff {lib_err:.3e}), bound "
+          f"{cost.bound_ms(cost.csr_spmm_work(n, lap.nnz, n, 1))[0]:.4f} ms", flush=True)
+
+    # -- R-MAT by modularity ------------------------------------------------------------
+    n_rmat = 1 << RMAT_SCALE
+    n_edges = RMAT_EDGE_FACTOR * n_rmat
+    t0 = time.perf_counter()
+    with sub("rmat"):
+        e = trandom.rmat(gen(2), RMAT_SCALE, RMAT_SCALE, n_edges, res=res)
+        adj = slinalg.symmetrize(COO(e[:, 0], e[:, 1], torch.ones(n_edges, device=dev),
+                                     (n_rmat, n_rmat)), op="max")
+    rdeg = slinalg.degree(adj)
+    print(f"R-MAT scale {RMAT_SCALE}, {n_edges} edges: {adj.nnz} slots after symmetrize, "
+          f"{int((rdeg > 0).sum())} vertices with an edge, max degree {int(rdeg.max())}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mruns = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        with sub(f"modularity_{i}"):
+            mruns.append(spectral.modularity_maximization(adj, GRAPH_CLUSTERS, seed=0, res=res))
+        print(f"modularity_maximization run {i}: {time.perf_counter() - t0:.2f} s", flush=True)
+    (mlab, mvals), (mlab2, mvals2) = mruns
+    check(torch.equal(mlab, mlab2) and torch.equal(mvals, mvals2),
+          "modularity_maximization twice with seed 0: labels and eigenvalues bitwise equal")
+    q_mod = float(spectral.analyze_modularity(adj, mlab))
+    q_rand = float(spectral.analyze_modularity(
+        adj, torch.randint(0, GRAPH_CLUSTERS, (n_rmat,), generator=gen(3), device=dev)))
+    check(q_mod > q_rand, f"R-MAT modularity Q {q_mod:.4f} > a seeded random labelling's "
+          f"{q_rand:.4f}")
+    rp, rc, rd = adj.row_view()
+    xr = torch.randn((n_rmat, 1), generator=gen(4), device=dev)
+    rmat_ms = cuda_ms(lambda: csr_k.csr_spmm(rp, rc, rd, xr), 20)
+    rmat_plain_ms, _ = once_ms(lambda: csr_k.csr_spmm_torch(rp, rc, rd, xr))
+    rlib = torch.sparse_csr_tensor(rp.long(), rc.long(), rd, size=(n_rmat, n_rmat))
+    rmat_lib_ms = cuda_ms(lambda: torch.sparse.mm(rlib, xr), 20)
+    # the plain version held to the kernel on the hub rows and a seeded sample
+    hubs = torch.topk(rdeg, RMAT_HUB_ROWS).indices
+    rows = torch.unique(torch.cat([hubs, torch.randint(0, n_rmat, (RMAT_SAMPLE_ROWS,),
+                                                       generator=gen(5), device=dev)]))
+    starts, ends = rp[rows].long(), rp[rows + 1].long()
+    cnt = ends - starts
+    sp_ptr = torch.zeros(rows.numel() + 1, dtype=torch.int32, device=dev)
+    sp_ptr[1:] = torch.cumsum(cnt, 0).to(torch.int32)
+    slot = torch.repeat_interleave(starts - sp_ptr[:-1].long(), cnt) + torch.arange(
+        int(cnt.sum()), device=dev)
+    full = csr_k.csr_spmm(rp, rc, rd, xr)
+    sample_got = csr_k.csr_spmm(sp_ptr, rc[slot].contiguous(), rd[slot].contiguous(), xr)
+    sample_want = csr_k.csr_spmm_torch(sp_ptr, rc[slot].contiguous(), rd[slot].contiguous(), xr)
+    check(torch.equal(sample_got, sample_want) and torch.equal(full[rows], sample_got),
+          f"csr_spmm bitwise its plain version on {rows.numel()} R-MAT rows ({RMAT_HUB_ROWS} "
+          f"hubs, degree up to {int(cnt.max())}) and equal to the full graph's rows")
+    print(f"csr_spmm R-MAT SpMV: {rmat_ms:.4f} ms, plain {rmat_plain_ms:.2f} ms, "
+          f"torch.sparse.mm {rmat_lib_ms:.4f} ms, bound "
+          f"{cost.bound_ms(cost.csr_spmm_work(n_rmat, adj.nnz, n_rmat, 1))[0]:.4f} ms",
+          flush=True)
+
+    # -- single linkage over blobs ------------------------------------------------------------
+    rounds = []
+    cross_nn = ssolver.cross_component_nn
+
+    def counting_cross_nn(*a, **kw):
+        out = cross_nn(*a, **kw)
+        rounds.append(out.nnz)
+        return out
+
+    t0 = time.perf_counter()
+    with sub("single_linkage"):
+        xb, truth, _ = trandom.make_blobs(gen(6), SL_ROWS, x.shape[1], n_clusters=SL_BLOBS,
+                                          cluster_std=1.0, center_box=(0.0, 10.0), res=res)
+        ssolver.cross_component_nn = counting_cross_nn
+        try:
+            out = run_single_linkage(xb, n_clusters=SL_BLOBS, c=SL_C, res=res)
+        finally:
+            ssolver.cross_component_nn = cross_nn
+    sl_s = time.perf_counter() - t0
+    ari = float(adjusted_rand_index(out.labels, truth, res=res))
+    print(f"single linkage of {SL_ROWS} x {x.shape[1]} blobs ({SL_BLOBS} blobs, c={SL_C}): "
+          f"{sl_s:.1f} s, {len(rounds)} cross-component rounds (edges added {rounds})",
+          flush=True)
+    check(ari >= 0.99, f"single linkage ARI against the blob labels {ari:.5f} >= 0.99")
+    check(out.dendrogram.shape == (SL_ROWS - 1, 2) and bool((np.diff(out.deltas) >= 0).all())
+          and int(out.sizes[-1]) == SL_ROWS,
+          f"single linkage: {SL_ROWS - 1} merges, non-decreasing deltas, last size "
+          f"{int(out.sizes[-1])}")
+
+    # -- the LAP ----------------------------------------------------------------------------
+    costs = np.random.default_rng(SEED).random((LAP_N, LAP_N)).astype(np.float32)
+    t0 = time.perf_counter()
+    with sub("lap"):
+        col_of, total = linear_assignment(costs, res=res)
+    lap_s = time.perf_counter() - t0
+    r_, c_ = scipy.optimize.linear_sum_assignment(costs)
+    opt = float(costs[r_, c_].sum())
+    eps = max(1e-7, 1e-4 * float(np.abs(costs).max()) / LAP_N)
+    perm = np.sort(col_of.cpu().numpy())
+    check(np.array_equal(perm, np.arange(LAP_N)) and abs(float(total) - opt) <= LAP_N * eps,
+          f"linear_assignment {LAP_N} x {LAP_N}: total {float(total):.6f} within n eps "
+          f"{LAP_N * eps:.2e} of scipy's {opt:.6f} ({lap_s:.2f} s)")
+
+    # -- find_k ------------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    with sub("find_k"):
+        xf, _, _ = trandom.make_blobs(gen(7), FK_ROWS, x.shape[1], n_clusters=FK_BLOBS, res=res)
+        k_found, fk_centers, fk_inertia = find_k(xf, FK_KMAX, res=res)
+    print(f"find_k over {FK_ROWS} x {x.shape[1]} blobs ({FK_BLOBS} blobs, kmax {FK_KMAX}): "
+          f"k = {k_found}, inertia {float(fk_inertia):.1f}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(1 <= k_found <= FK_KMAX and tuple(fk_centers.shape) == (k_found, x.shape[1])
+          and bool(torch.isfinite(fk_centers).all()), f"find_k: k = {k_found} with finite centers")
+    del xf, fk_centers
+
+    # -- sparse kNN against the dense path --------------------------------------------------------
+    def random_csr(rows, seed):
+        """A canonical CSR (no repeated column in a row): one column drawn
+        in each of SP_PER_ROW equal bands of the columns."""
+        g = gen(seed)
+        band = SP_COLS // SP_PER_ROW
+        cols = (torch.arange(SP_PER_ROW, device=dev, dtype=torch.int32) * band
+                + torch.randint(0, band, (rows, SP_PER_ROW), generator=g, device=dev,
+                                dtype=torch.int32))
+        vals = torch.rand((rows, SP_PER_ROW), generator=g, device=dev)
+        ptr = torch.arange(rows + 1, dtype=torch.int32, device=dev) * SP_PER_ROW
+        return CSR(ptr, cols.reshape(-1), vals.reshape(-1), (rows, SP_COLS))
+
+    data_sp, q_sp = random_csr(SP_ROWS, 8), random_csr(SP_QUERIES, 9)
+    sparse_out = {}
+    t0 = time.perf_counter()
+    with sub("sparse_knn"):
+        for metric in ("sqeuclidean", "cosine"):
+            sparse_out[metric] = sneighbors.brute_force_knn(data_sp, q_sp, SP_K, metric=metric,
+                                                            res=res)
+            pd = sdist.pairwise_distance_sparse(q_sp, data_sp, metric=metric, res=res)
+            check(tuple(pd.shape) == (SP_QUERIES, SP_ROWS) and bool(torch.isfinite(pd).all()),
+                  f"pairwise_distance_sparse {metric} [{SP_QUERIES}, {SP_ROWS}] finite")
+            del pd
+    print(f"sparse kNN and pairwise distances over {SP_ROWS} x {SP_COLS} CSR "
+          f"({SP_PER_ROW} slots a row), {SP_QUERIES} queries: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(phase_launches["graphs_sparse_knn"]["select_k"] > 0,
+          "sparse brute_force_knn launched select_k")
+    head = sop.slice_rows(data_sp, 0, SP_SLICE)
+    dense_head, dense_q = head.to_dense(), q_sp.to_dense()
+    for metric in ("sqeuclidean", "cosine"):
+        sv, si = sneighbors.brute_force_knn(head, q_sp, SP_K, metric=metric, res=res)
+        dv, di = brute_force.knn(dense_head, dense_q, SP_K, metric=metric, res=res)
+        same = si == di
+        tied = torch.isclose(sv, dv, rtol=1e-5, atol=1e-6)
+        check(torch.allclose(sv, dv, rtol=1e-4, atol=1e-4) and bool((same | tied).all()),
+              f"sparse brute_force_knn {metric} on the first {SP_SLICE} rows: values within "
+              f"rtol 1e-4 of the dense path, ids equal except at {int((~same).sum())} value ties")
+        pd_s = sdist.pairwise_distance_sparse(q_sp, head, metric=metric, res=res)
+        pd_d = pairwise_distance(dense_q, dense_head, metric=metric, res=res)
+        check(torch.allclose(pd_s, pd_d, rtol=1e-4, atol=1e-4),
+              f"pairwise_distance_sparse {metric} on the first {SP_SLICE} rows within rtol 1e-4 "
+              f"of the dense pairwise_distance (max abs diff {float((pd_s - pd_d).abs().max()):.2e})")
+    del dense_head, dense_q
+
+    # -- Gram matrices ----------------------------------------------------------------------------
+    xg = x[:GRAM_ROWS]
+    for kp in (KernelParams("rbf", gamma=1e-3),
+               KernelParams("polynomial", degree=3, gamma=1.0 / x.shape[1], coef0=1.0)):
+        with sub(f"gram_{kp.kernel}"):
+            g_card = gram_matrix(xg, xg, kp, res=res)
+        g_cpu = gram_matrix(xg.cpu(), xg.cpu(), kp, res=cpu)
+        err = float(((g_card.cpu() - g_cpu).abs() / g_cpu.abs().clamp(min=1e-30)).max())
+        check(torch.allclose(g_card.cpu(), g_cpu, rtol=1e-4, atol=1e-6 * float(g_cpu.abs().max())),
+              f"gram_matrix {kp.kernel} {GRAM_ROWS} x {GRAM_ROWS} x {x.shape[1]} within rtol 1e-4 "
+              f"of the CPU (max relative diff {err:.2e})")
+
+    # -- the record of csr_spmm -----------------------------------------------------------------
+    total = {k_: sum(phase_launches[f"graphs_{s_}"][k_] for s_ in subs)
+             for k_ in kernels.KERNELS}
+    print(f"phase 26 launches: { {k_: c_ for k_, c_ in total.items() if c_} }", flush=True)
+    for name in ("csr_spmm", "fused_knn", "select_k", "fused_argmin"):
+        check(total[name] > 0, f"phase 26 launched {name} ({total[name]})")
+    main_launches["csr_spmm"] = total["csr_spmm"]
+    record("csr_spmm", "raft_tpu_torch/csrc/csr_spmm.cu",
+           "none (raft_tpu/sparse/linalg.py:134, XLA segment_sum)", 0.0 if knn_bitwise else
+           float((got - want).abs().max()), knn_ms, plain_ms,
+           cost.csr_spmm_work(n, lap.nnz, n, 1), cost.csr_spmm_work(n, lap.nnz, n, 1), lib_ms,
+           f"SpMV of the normalized Laplacian of the kNN graph ({n} rows, {lap.nnz} slots, "
+           f"max degree {int(deg.max()) + 1})",
+           also=[{"shape": f"SpMV of R-MAT scale {RMAT_SCALE} symmetrized ({n_rmat} rows, "
+                           f"{adj.nnz} slots, max degree {int(rdeg.max())})",
+                  "ms": rmat_ms, "plain_ms": rmat_plain_ms, "library_ms": rmat_lib_ms,
+                  "bound_ms": cost.bound_ms(cost.csr_spmm_work(n_rmat, adj.nnz, n_rmat, 1))[0],
+                  "max_abs_err": 0.0}])
 
 
 if __name__ == "__main__":

@@ -213,7 +213,7 @@ def translate(conf: Dict[str, Any], *, algo_filter: Optional[set] = None
             elif algo == "hnswlib":
                 skipped.append(f"{ename}: no hnswlib where the card is; the native "
                                "engine that benches exported indexes (hnsw_native) is not "
-                               "ported yet (ROADMAP Queue 1 item 6)")
+                               "ported yet (ROADMAP Queue 1 item 6b)")
             else:
                 skipped.append(f"{ename}: unknown algo {algo!r}")
         except KeyError as e:  # a param the mapper requires is missing

@@ -11,8 +11,8 @@ jit): build times exclude the kernels' ``nvcc`` build.
 
 Wrappers of modules the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item: ``HnswNativeANN``
-(``hnsw.load_native``, Queue 1 item 6), ``BallCoverANN`` (item 6), the
-``cpp/`` engines (``_NativeANN``: a C binding, item 6) and ``SklearnANN``
+(``hnsw.load_native``, Queue 1 item 6b), ``BallCoverANN`` (item 6b), the
+``cpp/`` engines (``_NativeANN``: a C binding, item 6b) and ``SklearnANN``
 (no scikit-learn where the card is).
 """
 
@@ -234,7 +234,7 @@ class _NotPortedANN(ANN):
 
 class BallCoverANN(_NotPortedANN):
     name = "raft_tpu_ball_cover"
-    why = "neighbors.ball_cover is not ported yet (ROADMAP Queue 1 item 6)"
+    why = "neighbors.ball_cover is not ported yet (ROADMAP Queue 1 item 6b)"
 
 
 class NumpyExactANN(ANN):
@@ -327,13 +327,13 @@ class HnswANN(ANN):
 
 class HnswNativeANN(_NotPortedANN):
     name = "hnsw_native"
-    why = "neighbors.hnsw.load_native: the native C++ core is not ported yet (ROADMAP Queue 1 item 6)"
+    why = "neighbors.hnsw.load_native: the native C++ core is not ported yet (ROADMAP Queue 1 item 6b)"
 
 
 class _NativeANN(_NotPortedANN):
     """The ``cpp/`` engines (a C binding, ``core.native``)."""
 
-    why = "core.native (the cpp/ engines) is not ported yet (ROADMAP Queue 1 item 6)"
+    why = "core.native (the cpp/ engines) is not ported yet (ROADMAP Queue 1 item 6b)"
 
 
 class NativeIvfFlatANN(_NativeANN):

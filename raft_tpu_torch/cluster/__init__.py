@@ -1,8 +1,9 @@
-"""Clustering: flat and balanced k-means (counterpart of
-``raft_tpu.cluster``; ``fit_sharded``, single-linkage, spectral and
-``find_k`` are not ported yet)."""
+"""Clustering: flat and balanced k-means, single linkage, spectral
+partitioning and ``find_k`` (counterpart of ``raft_tpu.cluster``;
+``fit_sharded`` is ROADMAP Queue 1 item 7)."""
 
-from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.cluster import kmeans_balanced, spectral
+from raft_tpu_torch.cluster.auto_find_k import find_k
 from raft_tpu_torch.cluster.kmeans import (
     KMeansParams,
     cluster_cost,
@@ -13,8 +14,13 @@ from raft_tpu_torch.cluster.kmeans import (
     predict,
     transform,
 )
+from raft_tpu_torch.cluster.single_linkage import SingleLinkageOutput, single_linkage
 
 __all__ = [
+    "spectral",
+    "find_k",
+    "SingleLinkageOutput",
+    "single_linkage",
     "KMeansParams",
     "fit",
     "predict",

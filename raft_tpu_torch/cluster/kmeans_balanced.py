@@ -204,3 +204,16 @@ def fit(params: KMeansBalancedParams, x, n_clusters: int, *,
         gen, x, centers, ones, max(2, params.n_iters // 10), n_clusters, metric, tile_rows
     )
     return centers
+
+
+@traced("kmeans_balanced.fit_predict")
+def fit_predict(
+    params: KMeansBalancedParams,
+    x,
+    n_clusters: int,
+    *,
+    res: Optional[Resources] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(centers, labels): :func:`fit`, then :func:`predict` of the same rows."""
+    centers = fit(params, x, n_clusters, res=res)
+    return centers, predict(centers, x, metric=params.metric, res=res)

@@ -25,7 +25,7 @@ def get_logger() -> logging.Logger:
 def bridge_native() -> bool:
     """raft_tpu routes the log records of its native C++ core
     (``core.native``, ``cpp/``) into its logger.  The port does not bind
-    that library yet (ROADMAP Queue 1 item 6), so there is nothing to
+    that library yet (ROADMAP Queue 1 item 6b), so there is nothing to
     bridge: returns False, as raft_tpu does where no native toolchain is
     available."""
     return False

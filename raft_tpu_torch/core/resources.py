@@ -23,9 +23,13 @@ class Resources:
         self,
         device: Union[str, torch.device] = "cuda",
         workspace_limit_bytes: int = 256 * 1024 * 1024,
+        seed: int = 0,
     ):
         self._device = torch.device(device)
         self.workspace_limit_bytes = int(workspace_limit_bytes)
+        self._seed = int(seed)
+        self._key_counter = 0
+        self._lock = threading.Lock()
 
     @property
     def device(self) -> torch.device:
@@ -41,6 +45,31 @@ class Resources:
         n = max(1, self.workspace_limit_bytes // max(1, row_bytes))
         return int(min(n, cap))
 
+    def prng_key(self) -> torch.Generator:
+        """A fresh ``torch.Generator`` on this device, seeded from (seed,
+        counter): the counterpart of raft_tpu's ``prng_key()`` stream, so
+        one Resources object gives the same sequence of generators on every
+        run (not raft_tpu's threefry numbers)."""
+        with self._lock:
+            c = self._key_counter
+            self._key_counter += 1
+        return stream_generator(self._seed, c, self.device)
+
+    def reseed(self, seed: int) -> None:
+        with self._lock:
+            self._seed = int(seed)
+            self._key_counter = 0
+
+
+#: raft's ``device_resources`` name for the same handle
+DeviceResources = Resources
+
+
+def stream_generator(seed: int, counter: int, device) -> torch.Generator:
+    """The generator of draw ``counter`` of the stream seeded by ``seed``."""
+    mixed = int(np.random.SeedSequence([int(seed), int(counter)]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(mixed)
+
 
 _default: Optional[Resources] = None
 _default_lock = threading.Lock()
@@ -55,9 +84,31 @@ def default_resources() -> Resources:
         return _default
 
 
+def set_default_resources(res: Resources) -> None:
+    """Replace the process-wide default Resources."""
+    global _default
+    with _default_lock:
+        _default = res
+
+
 def ensure(res: Optional[Resources]) -> Resources:
     """Resolve an optional resources argument."""
     return res if res is not None else default_resources()
+
+
+def resolve_device(res=None, *inputs) -> torch.device:
+    """Where a function whose raft_tpu counterpart takes no ``res`` runs:
+    ``res`` when given (a Resources, a device or its name); else the device
+    of the first tensor among ``inputs``; else the default Resources' (cuda,
+    which raises without a card)."""
+    if isinstance(res, Resources):
+        return res.device
+    if res is not None:
+        return Resources(device=res).device
+    for x in inputs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return default_resources().device
 
 
 def from_numpy(a: np.ndarray) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Pairwise distances and fused 1-NN (counterpart of ``raft_tpu.distance``;
-``gram_matrix`` / ``KernelParams`` are not ported yet)."""
+"""Pairwise distances, fused 1-NN and Gram-matrix kernels (counterpart of
+``raft_tpu.distance``)."""
 
 from raft_tpu_torch.distance.pairwise import (
     DISTANCE_TYPES,
     distance_matrix_tile,
     pairwise_distance,
 )
+from raft_tpu_torch.distance.kernels import KernelParams, gram_matrix
 from raft_tpu_torch.distance.fused_nn import (
     fused_distance_nn_argmin,
     fused_l2_nn,
@@ -21,4 +22,6 @@ __all__ = [
     "fused_distance_nn_argmin",
     "fused_l2_nn",
     "masked_l2_nn_argmin",
+    "KernelParams",
+    "gram_matrix",
 ]

@@ -86,6 +86,8 @@ KERNELS = (
     # a CAGRA tile's whole walk in one launch (dense rows, and rows through
     # a page table)
     "cagra_traverse", "cagra_traverse_paged",
+    # deterministic CSR x dense sums (no TPU kernel: raft_tpu's segment_sum)
+    "csr_spmm",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
@@ -118,6 +120,7 @@ TRACE_NAMES = (
     ("ivf_scan_query_major", "query_major_"),
     ("cagra_", "cagra_walk_kernel"),        # the hop and the walk
     ("fused_argmin", "fused_argmin_kernel"),
+    ("csr_spmm", "csr_spmm_kernel"),
 )
 
 
@@ -246,6 +249,8 @@ _SIGNATURES = {
     # x, centers, center norms, (n, n_centers, d, centers a part), part
     # pairs (null: one part), outputs and stream
     "rt_fused_argmin": [_P] * 3 + [_I] * 4 + [_P] * 5,
+    # indptr, indices, data, x, (n_rows, n_cols), output and stream
+    "rt_csr_spmm": [_P] * 4 + [_I] * 2 + [_P] * 2,
 }
 
 
@@ -323,5 +328,8 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-# raft_tpu's public name for kernel #7 (raft_tpu.kernels.fused_l2_argmin)
+# raft_tpu's public names for the kernels (raft_tpu.kernels)
 from raft_tpu_torch.kernels.fused_argmin import fused_l2_argmin  # noqa: E402
+from raft_tpu_torch.kernels.fused_knn import fused_l2_topk  # noqa: E402
+from raft_tpu_torch.kernels.ivf_scan import ivf_scan_probe_major  # noqa: E402
+from raft_tpu_torch.kernels.cagra_traverse import cagra_fused_hop  # noqa: E402

@@ -1,10 +1,13 @@
-"""Nearest-neighbour indexes of the port (counterpart of ``raft_tpu.neighbors``)."""
+"""Nearest-neighbour indexes of the port (counterpart of ``raft_tpu.neighbors``;
+sparse kNN and the kNN graph are ``raft_tpu_torch.sparse.neighbors``, as in
+raft_tpu).  Random ball cover, the extras and the helpers are ROADMAP Queue 1
+item 6b."""
 
 #: raft_tpu modules the port does not serve yet, and where ROADMAP lists them
 _NOT_PORTED = {
-    "ball_cover": "random ball cover (ROADMAP Queue 1 item 6)",
-    "extras": "epsilon neighbourhoods and masked L2 NN (ROADMAP Queue 1 item 6)",
-    "helpers": "index helpers (ROADMAP Queue 1 item 6)",
+    "ball_cover": "random ball cover (ROADMAP Queue 1 item 6b)",
+    "extras": "epsilon neighbourhoods and masked L2 NN (ROADMAP Queue 1 item 6b)",
+    "helpers": "index helpers (ROADMAP Queue 1 item 6b)",
 }
 
 

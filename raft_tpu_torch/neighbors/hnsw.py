@@ -23,7 +23,7 @@ and seeds with random rows only, which on clustered data leaves most of a
 large file's queries in the wrong cluster (recall@10 0.39 at ef 64 over 1M
 clustered rows on an NVIDIA H100, PERF.md).  A file without upper levels loads without the table,
 as in raft_tpu.  :func:`load_native`, raft_tpu's C++ engine over these
-files, needs ``core.native`` (ROADMAP Queue 1 item 6) and raises.
+files, needs ``core.native`` (ROADMAP Queue 1 item 6b) and raises.
 """
 
 from __future__ import annotations
@@ -228,7 +228,7 @@ def search(index: "cagra.Index", queries, k: int, *, ef: int = 64, sample_filter
 
 def load_native(filename: str, dim: int):
     """raft_tpu's native C++ engine over hnswlib files (``core.native``,
-    ``cpp/src/hnsw.cc``): not ported yet (ROADMAP Queue 1 item 6)."""
+    ``cpp/src/hnsw.cc``): not ported yet (ROADMAP Queue 1 item 6b)."""
     raise NotImplementedError(
         "hnsw.load_native: the native C++ core (core.native) is not ported yet "
-        "(ROADMAP Queue 1 item 6)")
+        "(ROADMAP Queue 1 item 6b)")

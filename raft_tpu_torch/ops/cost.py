@@ -212,6 +212,13 @@ def scan_paged_work(probes: torch.Tensor, list_rows: torch.Tensor, d: int, out_r
                                + 4 * int(blocks) * int(pages_per_list))
 
 
+def csr_spmm_work(n_rows: int, nnz: int, x_rows: int, cols: int) -> KernelCost:
+    """kernels/csr_spmm.py: indptr, the live slots' indices and values, x
+    and the output each once; a multiply and an add a (slot, column)."""
+    bytes_accessed = 4 * (n_rows + 1) + 8 * nnz + 4 * x_rows * cols + 4 * n_rows * cols
+    return KernelCost(int(2 * nnz * cols), int(bytes_accessed))
+
+
 def bound_ms(cost: KernelCost) -> tuple:
     """(least milliseconds on an H100, "bytes" or "operations")."""
     t_bytes = cost.bytes_accessed / H100_BYTES_PER_S * 1e3

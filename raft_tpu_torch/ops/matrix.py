@@ -247,3 +247,148 @@ def select_k_stable(
     if squeeze:
         return vals[0], ids[0]
     return vals, ids
+
+
+def merge_topk(
+    vals_a: torch.Tensor,
+    idx_a: torch.Tensor,
+    vals_b: torch.Tensor,
+    idx_b: torch.Tensor,
+    k: int,
+    *,
+    select_min: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two per-row top-k result sets into one (raft_tpu's
+    ``merge_topk``): rows sorted by value, ties resolved by the smallest id
+    whichever part held the candidate, so the result is a function of the
+    candidate set alone; sentinel ids (-1) lose every tie."""
+    vals = torch.cat([vals_a, vals_b], dim=-1)
+    idx = torch.cat([idx_a.to(torch.int32), idx_b.to(torch.int32)], dim=-1)
+    return select_k_stable(vals, k, select_min=select_min, input_indices=idx)
+
+
+def argmax(m: torch.Tensor) -> torch.Tensor:
+    """Per-row argmax, int32 (the first maximum)."""
+    return torch.argmax(torch.as_tensor(m), dim=-1).to(torch.int32)
+
+
+def argmin(m: torch.Tensor) -> torch.Tensor:
+    """Per-row argmin, int32 (the first minimum)."""
+    return torch.argmin(torch.as_tensor(m), dim=-1).to(torch.int32)
+
+
+def gather(m: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Row gather."""
+    m = torch.as_tensor(m)
+    return m[torch.as_tensor(rows, device=m.device).long()]
+
+
+def gather_if(m: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor, fill=0) -> torch.Tensor:
+    """Conditional row gather: rows whose ``mask`` is false are ``fill``."""
+    out = gather(m, rows)
+    mask = torch.as_tensor(mask, device=out.device).to(torch.bool)
+    return torch.where(mask[:, None], out, torch.full_like(out, fill))
+
+
+def scatter(m: torch.Tensor, rows: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
+    """A copy of ``m`` with ``updates`` written to ``rows``."""
+    out = torch.as_tensor(m).clone()
+    out[torch.as_tensor(rows, device=out.device).long()] = torch.as_tensor(
+        updates, device=out.device).to(out.dtype)
+    return out
+
+
+def sample_rows(gen: torch.Generator, m: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """``n_samples`` rows drawn uniformly without replacement; the draw
+    runs on ``gen``'s device (raft_tpu takes a threefry key here)."""
+    m = torch.as_tensor(m)
+    idx = torch.randperm(m.shape[0], generator=gen, device=gen.device)[:n_samples]
+    return m[idx.to(m.device)]
+
+
+def slice_matrix(m: torch.Tensor, row0: int, col0: int, row1: int, col1: int) -> torch.Tensor:
+    """Submatrix copy."""
+    return torch.as_tensor(m)[row0:row1, col0:col1].clone()
+
+
+def col_wise_sort(m: torch.Tensor, *, ascending: bool = True) -> torch.Tensor:
+    """Each column sorted on its own (descending: the ascending sort's rows
+    reversed, as raft_tpu does)."""
+    s = torch.sort(torch.as_tensor(m), dim=0).values
+    return s if ascending else s.flip(0)
+
+
+def linewise_op(m: torch.Tensor, vec: torch.Tensor, op, *, along_rows: bool) -> torch.Tensor:
+    """``op(m, vec)`` with ``vec`` broadcast along rows ([n_cols]) or
+    columns ([n_rows])."""
+    m = torch.as_tensor(m)
+    vec = torch.as_tensor(vec, device=m.device)
+    return op(m, vec[None, :]) if along_rows else op(m, vec[:, None])
+
+
+def threshold(m: torch.Tensor, value, *, below: bool = True, fill=0.0) -> torch.Tensor:
+    """Entries below (or above) ``value`` replaced by ``fill``."""
+    m = torch.as_tensor(m)
+    mask = m < value if below else m > value
+    return torch.where(mask, torch.full_like(m, fill), m)
+
+
+def ratio(m: torch.Tensor) -> torch.Tensor:
+    """Each element over the total (a zero total divides by 1)."""
+    m = torch.as_tensor(m)
+    total = m.sum()
+    return m / torch.where(total == 0, torch.ones_like(total), total)
+
+
+def reciprocal(m: torch.Tensor, *, scalar=1.0, setzero: bool = False,
+               thres: float = 1e-15) -> torch.Tensor:
+    """``scalar / m``; with ``setzero``, 0 where ``|m| <= thres``."""
+    m = torch.as_tensor(m)
+    out = torch.full_like(m, scalar) / m
+    if setzero:
+        out = torch.where(m.abs() <= thres, torch.zeros_like(out), out)
+    return out
+
+
+def sign_flip(m: torch.Tensor) -> torch.Tensor:
+    """Each column's sign flipped so that its largest-|value| entry is
+    positive (a column of zeros keeps its sign)."""
+    m = torch.as_tensor(m)
+    idx = torch.argmax(m.abs(), dim=0)
+    signs = torch.sign(m[idx, torch.arange(m.shape[1], device=m.device)])
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    return m * signs[None, :]
+
+
+def triangular(m: torch.Tensor, *, upper: bool = True, k: int = 0) -> torch.Tensor:
+    """Upper (or lower) triangular copy from diagonal ``k``."""
+    m = torch.as_tensor(m)
+    return torch.triu(m, k) if upper else torch.tril(m, k)
+
+
+def eye(n: int, m: Optional[int] = None, dtype=torch.float32, *, device=None) -> torch.Tensor:
+    """Identity, or a rectangular eye of ``n`` x ``m``."""
+    from raft_tpu_torch.core.resources import resolve_device
+
+    return torch.eye(n, n if m is None else m, dtype=dtype, device=resolve_device(device))
+
+
+def diagonal(m: torch.Tensor) -> torch.Tensor:
+    """The main diagonal (a copy)."""
+    return torch.diagonal(torch.as_tensor(m)).clone()
+
+
+def set_diagonal(m: torch.Tensor, value) -> torch.Tensor:
+    """A copy with the main diagonal set to ``value`` (a scalar or a
+    vector)."""
+    out = torch.as_tensor(m).clone()
+    n = min(out.shape[0], out.shape[1])
+    idx = torch.arange(n, device=out.device)
+    out[idx, idx] = torch.as_tensor(value, device=out.device).to(out.dtype)
+    return out
+
+
+def reverse(m: torch.Tensor, *, along_rows: bool = False) -> torch.Tensor:
+    """Row order reversed, or (``along_rows``) each row reversed."""
+    m = torch.as_tensor(m)
+    return m.flip(1) if along_rows else m.flip(0)

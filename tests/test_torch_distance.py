@@ -184,5 +184,5 @@ def test_masked_l2_nn_argmin_dense_and_grouped():
 
 
 def test_exports_match_raft_tpu():
-    assert set(tdist.__all__) == set(jdist.__all__) - {"gram_matrix", "KernelParams"}
+    assert set(tdist.__all__) == set(jdist.__all__)
     assert tdist.DISTANCE_TYPES == jdist.DISTANCE_TYPES

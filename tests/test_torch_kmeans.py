@@ -122,7 +122,10 @@ def test_fit_predict_and_the_checks():
 
 def test_exports_match_raft_tpu():
     ported = {"KMeansParams", "fit", "predict", "fit_predict", "transform", "cluster_cost",
-              "compute_new_centroids", "kmeans_plus_plus_init", "kmeans_balanced"}
-    assert set(tcluster.__all__) == ported and ported <= set(jcluster.__all__)
-    for name in ported - {"kmeans_balanced"}:
+              "compute_new_centroids", "kmeans_plus_plus_init", "kmeans_balanced",
+              "spectral", "find_k", "SingleLinkageOutput", "single_linkage"}
+    # every name of raft_tpu's but fit_sharded (multi-GPU: ROADMAP Queue 1 item 7)
+    assert set(tcluster.__all__) == ported == set(jcluster.__all__) - {"fit_sharded"}
+    for name in ported - {"kmeans_balanced", "spectral", "find_k", "SingleLinkageOutput",
+                          "single_linkage"}:
         assert getattr(tcluster, name) is getattr(tkm, name)

@@ -182,7 +182,8 @@ def test_launch_counts_reset_and_read():
                     assert suffix in name and name in kernels.KERNELS
                     kernels.count_launch(name)
     counts = kernels.launch_counts()
-    assert len(kernels.KERNELS) == 57 and "cagra_fused_hop_paged" in kernels.KERNELS
+    assert len(kernels.KERNELS) == 58 and "cagra_fused_hop_paged" in kernels.KERNELS
+    assert "csr_spmm" in kernels.KERNELS and kernels.trace_name("csr_spmm") == "csr_spmm_kernel"
     assert "cagra_traverse" in kernels.KERNELS and "cagra_traverse_paged" in kernels.KERNELS
     assert "fused_argmin" in kernels.KERNELS
     assert all(counts[n] == 1 for n in kernels.KERNELS if n.startswith("ivf_scan"))
@@ -1459,6 +1460,129 @@ def test_import_check_covers_the_bench():
     assert {p.name for p in bench} >= {"datasets.py", "device_time.py", "runner.py", "export.py",
                                        "conf.py", "ladder.py", "prims.py", "__main__.py"}
     assert not [m for p in bench for m in _imported_modules(p) if _forbidden(m)]
+
+
+def test_import_check_covers_the_graph_and_sparse_slice():
+    """The import walk reaches every module of the sparse / graph slice."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for mod in ("sparse/__init__", "sparse/formats", "sparse/convert", "sparse/op",
+                "sparse/linalg", "sparse/distance", "sparse/neighbors", "sparse/solver",
+                "ops/lanczos", "ops/linalg", "cluster/spectral", "cluster/single_linkage",
+                "cluster/auto_find_k", "label/classlabels", "label/merge_labels",
+                "solver/linear_assignment", "random/rng", "random/datagen", "distance/kernels",
+                "kernels/csr_spmm"):
+        assert f"raft_tpu_torch/{mod}.py" in names, mod
+
+
+def test_graph_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    from raft_tpu_torch import random as trandom
+    from raft_tpu_torch.cluster import find_k, single_linkage, spectral
+    from raft_tpu_torch.distance import gram_matrix
+    from raft_tpu_torch.ops.lanczos import eigsh_lanczos
+    from raft_tpu_torch.solver import linear_assignment
+    from raft_tpu_torch.sparse import COO, CSR, distance, neighbors, solver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((40, 4)).astype(np.float32)
+    cpu = Resources(device="cpu")
+    a = torch.eye(6)
+    calls = [
+        lambda **kw: neighbors.knn_graph(x, 3, **kw),
+        lambda **kw: single_linkage(x, n_clusters=2, c=3, **kw),
+        lambda **kw: find_k(x, 3, **kw),
+        lambda **kw: linear_assignment(x[:4, :4], **kw),
+        lambda **kw: gram_matrix(x, **kw),
+        lambda **kw: eigsh_lanczos(lambda v: a.to(v.device) @ v, 6, 2, m=6, **kw),
+        lambda **kw: trandom.make_blobs(torch.Generator().manual_seed(0), 10, 2, **kw),
+        lambda **kw: distance.pairwise_distance_sparse(CSR.from_dense(x, device="cpu"),
+                                                       CSR.from_dense(x, device="cpu"), **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(res=cpu)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        COO(np.zeros(1, np.int32), np.zeros(1, np.int32), np.ones(1, np.float32), (2, 2))
+    g = neighbors.knn_graph(x, 3, res=cpu)
+    for call in (lambda **kw: spectral.partition(g, 2, **kw),
+                 lambda **kw: spectral.modularity_maximization(g, 2, **kw),
+                 lambda **kw: solver.mst(g, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(res=cpu)
+
+
+def test_csr_spmm_work_counts_each_input_once():
+    from raft_tpu_torch.ops import cost
+
+    w = cost.csr_spmm_work(1000, 30000, 1000, 1)
+    assert w.flops == 2 * 30000
+    assert w.bytes_accessed == 4 * 1001 + 8 * 30000 + 4 * 1000 + 4 * 1000
+    ms, by = cost.bound_ms(w)
+    assert by == "bytes" and ms == pytest.approx(w.bytes_accessed / cost.H100_BYTES_PER_S * 1e3)
+
+
+def _graph_csr(n, seed, hub_degree=0, cols=1):
+    """A CSR of power-law row degrees (empty rows included; one hub row of
+    ``hub_degree`` slots) with signed values over several magnitudes."""
+    g = torch.Generator().manual_seed(seed)
+    deg = torch.clamp((torch.rand(n, generator=g) ** -1.5).long() - 1, max=400)
+    if hub_degree:
+        deg[n // 2] = hub_degree
+    indptr = torch.zeros(n + 1, dtype=torch.int32)
+    indptr[1:] = torch.cumsum(deg, 0).to(torch.int32)
+    nnz = int(indptr[-1])
+    idx = torch.randint(0, n, (nnz,), generator=g, dtype=torch.int32)
+    data = torch.randn(nnz, generator=g) * 10.0 ** torch.randint(-3, 4, (nnz,), generator=g)
+    x = torch.randn((n, cols), generator=g)
+    return indptr, idx, data, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hub,cols", [(1000, 0, 1), (5000, 30000, 1), (3000, 2000, 3),
+                                        (1, 0, 1)])
+def test_csr_spmm_kernel_matches_plain_bitwise(cuda, n, hub, cols):
+    from raft_tpu_torch.kernels import csr_spmm
+
+    indptr, idx, data, x = _graph_csr(n, n + hub, hub, cols)
+    want = csr_spmm.csr_spmm_torch(indptr, idx, data, x)
+    kernels.reset_launch_counts()
+    got = csr_spmm.csr_spmm(indptr.to(cuda), idx.to(cuda), data.to(cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["csr_spmm"] == 1
+    assert kernels.consume_kernel_path() == "cuda"
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    again = csr_spmm.csr_spmm(indptr.to(cuda), idx.to(cuda), data.to(cuda), x.to(cuda))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_spectral_partition_on_the_card_is_bitwise_its_plain_spmv(cuda, monkeypatch):
+    """Laplacian, Lanczos and k-means on the card: the csr_spmm kernel
+    launched, two runs bitwise equal, and equal to the same call with the
+    kernel replaced by its plain version."""
+    from raft_tpu_torch.cluster import spectral
+    from raft_tpu_torch.kernels import csr_spmm
+    from raft_tpu_torch.sparse import neighbors
+
+    rng = np.random.default_rng(4)
+    centers = rng.uniform(0, 10, (4, 6))
+    x = (centers[rng.integers(0, 4, 2000)] + 0.4 * rng.standard_normal((2000, 6))).astype(
+        np.float32)
+    g = neighbors.knn_graph(x, 10, res=Resources(device="cpu"))
+    g.data = 1.0 / (1.0 + g.data)
+    res = Resources(device="cuda")
+    kernels.reset_launch_counts()
+    l1, v1 = spectral.partition(g, 4, res=res)
+    assert kernels.launch_counts()["csr_spmm"] > 0
+    l2, v2 = spectral.partition(g, 4, res=res)
+    assert torch.equal(l1, l2) and torch.equal(v1, v2)
+    monkeypatch.setattr(csr_spmm, "csr_spmm", csr_spmm.csr_spmm_torch)
+    kernels.reset_launch_counts()
+    l3, v3 = spectral.partition(g, 4, res=res)
+    assert kernels.launch_counts()["csr_spmm"] == 0
+    assert torch.equal(l1, l3) and torch.equal(v1, v3)
 
 
 def _rows8(x: torch.Tensor, dtype) -> torch.Tensor:
