@@ -44,6 +44,10 @@ then drives the port's main paths at the scale of sift-128-euclidean
    the filtered CAGRA search's shapes on the device clock); times of kernel,
    plain version and (as a yardstick only) one PyTorch library call; the
    bound of each from the work its inputs need (``raft_tpu_torch.ops.cost``);
+   every float leg of probe-major (f32, bf16 with bf16 and f32 products,
+   uint8, int8 values) bitwise its plain version at kk 10, 128, 129, 258 and
+   1,000 on the first 1,000 queries, monolithic, paged, with pass10 and
+   both, and on synthetic lists at its tile's edges (``pm_tile_edges``);
 9. filtered search (numpy filters from seed 0 over the 1M ids: ``pass50``
    and ``pass10``, Bitsets passing 50 % / 10 %; ``tomb1``, 1 % tombstones;
    ``table8``, 8 filters passing 10-90 % with each serving query's filter
@@ -217,8 +221,12 @@ then drives the port's main paths at the scale of sift-128-euclidean
    at 8,192 x 8,192 x 128 within rtol 1e-4 of the CPU; and the csr_spmm
    kernel bitwise its plain version on the kNN graph's Laplacian and on
    R-MAT's hub rows and a seeded row sample, timed beside its plain version
-   and ``torch.sparse.mm``.  csr_spmm, fused_knn, select_k and fused_argmin
-   must launch in the phase.
+   and ``torch.sparse.mm``; csr_spmm bitwise its plain version at every
+   branch of its plan (``csr_plan_case``: empty windows, warp-round edges, a
+   long row, many rows a key; 1, 3, 32, 33 and 128 columns) and at
+   ``ops.linalg.reduce_rows_by_key`` of the main rows into phase 1's lists
+   (keys by kernel #7), timed beside ``index_add_``.  csr_spmm, fused_knn,
+   select_k and fused_argmin must launch in the phase.
 
 Q3.8's probe (``served_window_probe``, not checked) runs after phase 1,
 after each section of the main path through the plain versions' searches,
@@ -266,6 +274,9 @@ CAGRA_LOW = dict(itopk_size=16, max_iterations=4)
 CAPTURE_HOP = 3
 #: the k the CAGRA build asks of select_k (refine) and of the scans
 WIDE_K, WIDE_KK = 129, 258
+#: the probe-major float legs' sweep: queries of the main path's inputs and
+#: each kk it holds bitwise (the list fold to 128, the candidate fold past)
+PM_SWEEP_QUERIES, PM_SWEEP_KK = 1000, (10, 128, 129, 258, 1000)
 #: the IVF-PQ legs of the main path: (scan cache, lut_dtype)
 PQ_LEGS = (("bfloat16", "float32"), ("bfloat16", "bfloat16"), ("int8", "float32"))
 #: the leg refined and profiled (config 4 searches with bf16 products)
@@ -2020,6 +2031,30 @@ def main() -> int:
                  raw_kw, fid_of(planes8_), "table8, each query's plane", dense=dense)
         del args8, sets8, lf8, planes8_, dense
 
+    # the float legs of #3 / #4 (product and fold redesigned together),
+    # bitwise their plain versions at each fold's kk and its edges: the first
+    # PM_SWEEP_QUERIES queries of each leg's main-path inputs at kk in
+    # PM_SWEEP_KK, monolithic, through the pinned pool's page table, with the
+    # pass10 filter, and both; then synthetic lists at the tile's edges
+    t_sweep = time.perf_counter()
+    swept = pm_sweep(
+        [("float32", index, p_flat, ivf_flat, q, {}),
+         ("bfloat16, bfloat16 products", bf16, p_pq["bfloat16"], ivf_pq, q,
+          ivf_pq.scan_kwargs(bf16, "bfloat16")),
+         ("bfloat16, float32 products", bf16, p_pq["bfloat16"], ivf_pq, q,
+          ivf_pq.scan_kwargs(bf16, "float32")),
+         ("uint8", idx8["u8"], p8["u8"], ivf_flat, rows8["u8"][1], {"scan_scale": None}),
+         ("int8 values", idx8["s8"], p8["s8"], ivf_flat, rows8["s8"][1], {"scan_scale": None})],
+        lambda idx: filter_inputs(idx)[0], metric, res)
+    check(all(ok_ for _, ok_ in swept), f"probe-major float legs bitwise their plain versions "
+          f"at kk {PM_SWEEP_KK} on {PM_SWEEP_QUERIES} queries, monolithic, paged, pass10 and "
+          f"both ({len(swept)} launches, {time.perf_counter() - t_sweep:.1f} s; failed: "
+          f"{[n_ for n_, ok_ in swept if not ok_]})")
+    edge = pm_tile_edges(dev, scan)
+    check(all(ok_ for _, ok_ in edge), f"probe-major float legs bitwise their plain versions "
+          f"at the tile's edges ({len(edge)} launches; failed: "
+          f"{[n_ for n_, ok_ in edge if not ok_]})")
+
     # deep k: the IVF-Flat scans at k 1000 and fused_knn at k 2048, on the
     # deep main path's queries, bitwise, each recorded beside its kk=10 row
     def add_wide(name, entry):
@@ -2924,8 +2959,9 @@ def main() -> int:
 
     # -- phase 26: graphs and sparse ---------------------------------------------------
     t26 = time.perf_counter()
-    graphs_phase(x=x, res=res, check=check, phase=phase, phase_launches=phase_launches,
-                 record=record, main_launches=main_launches, cuda_ms=cuda_ms)
+    graphs_phase(x=x, list_centers=index.centers, res=res, check=check, phase=phase,
+                 phase_launches=phase_launches, record=record, main_launches=main_launches,
+                 cuda_ms=cuda_ms, smi=smi)
     t26 = time.perf_counter() - t26
     print(f"phase 26 (graphs and sparse): {t26:.1f} s", flush=True)
     check(t26 <= GRAPH_PHASE_S, f"phase 26 took {t26:.1f} s <= {GRAPH_PHASE_S:.0f} s")
@@ -3912,7 +3948,123 @@ def obs_layers_phase(*, x, q, index, sp, gt_i, res, check, phase, phase_launches
     print(f"obs layers cost: {json.dumps(cost, default=str)}", flush=True)
 
 
-def graphs_phase(*, x, res, check, phase, phase_launches, record, main_launches, cuda_ms):
+def csr_plan_case(case: str, seed: int):
+    """(indptr, indices, data) CPU tensors of a CSR shaped after a branch of
+    ``csrc/csr_spmm.cu``'s plan (as tests/test_torch_package.py):
+    "empty" (most rows empty, whole windows of them), "degrees" (rows of 1,
+    31, 32 and 33 slots), "long" (one row of 5,000 slots among short rows),
+    "keys" (k-means' centroid sums: 20,000 rows into 7 keys, one empty);
+    indices below 5,000, signed values over several magnitudes."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if case == "empty":
+        deg = np.where(rng.random(3000) < 0.1, rng.integers(1, 9, 3000), 0)
+        deg[256:2000] = 0
+    elif case == "degrees":
+        deg = np.tile([1, 31, 32, 33, 0], 600)
+    elif case == "long":
+        deg = rng.integers(0, 40, 3000)
+        deg[1370] = 5000
+    else:
+        deg = np.bincount(rng.choice([0, 1, 2, 3, 5, 6], 20000), minlength=7)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    return (torch.from_numpy(indptr), torch.from_numpy(rng.integers(0, 5000, nnz).astype(np.int32)),
+            torch.from_numpy((rng.standard_normal(nnz)
+                              * 10.0 ** rng.integers(-3, 4, nnz)).astype(np.float32)))
+
+
+def pm_sweep(legs, pass_filter, metric, res) -> list:
+    """(case, bitwise) of probe-major launches against the plain version on
+    the first PM_SWEEP_QUERIES queries of each leg's inputs at every kk of
+    PM_SWEEP_KK: monolithic, paged, filtered and both.  ``legs``: (tag,
+    index, the same index paginated, its module, queries, scan keywords);
+    ``pass_filter(index)``: its lists' pass words."""
+    import torch
+
+    from raft_tpu_torch.kernels import ivf_scan as scan
+    from raft_tpu_torch.neighbors import _common
+
+    out = []
+    for tag, idx, pidx, mod, qs_all, kw in legs:
+        qs = qs_all[:PM_SWEEP_QUERIES]
+        words, paged_words = pass_filter(idx), pass_filter(pidx)   # pages pad the capacity
+        for kk in PM_SWEEP_KK:
+            _, bucket, _, _ = _common.select_scan_strategy(
+                "probe_major", qs.shape[0], N_PROBES, idx.n_lists, idx.list_cap, qs.shape[1],
+                res.workspace_limit_bytes, k=kk)
+            mono = mod.probe_major_scan_inputs(idx, qs, N_PROBES, kk, bucket)[0]
+            paged = mod.probe_major_scan_inputs(pidx, qs, N_PROBES, kk, bucket)[0]
+            for variant, args, extra in (("", mono, {}), (", paged", paged, {}),
+                                         (", pass10", mono, {"list_filter": words}),
+                                         (", paged, pass10", paged,
+                                          {"list_filter": paged_words})):
+                got = scan.ivf_scan_probe_major(*args, metric=metric, **kw, **extra)
+                want = scan.ivf_scan_probe_major_torch(*args, metric=metric, **kw, **extra)
+                out.append((f"{tag} kk={kk}{variant}",
+                            torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))
+    return out
+
+
+def pm_tile_edges(dev, scan) -> list:
+    """(case, bitwise) of every float leg of the probe-major kernel on
+    synthetic lists at its tile's edges, against its plain version: a partial
+    last chunk of 32 dimensions (d 100), rows whose width in bytes is no
+    multiple of 16 (f32 at 97, bf16 at 97 and 100, 8-bit rows), G = 70 (a
+    second block of 6 queries), cap = 200 (a partial second tile), 8-row
+    pages, a filter, and kk in each fold (10, 40, 129)."""
+    import torch
+
+    from raft_tpu_torch.store import PagedLists
+
+    out = []
+    n_lists, cap, page_rows = 6, 200, 8
+    for dtype, scan_dtype, d in ((torch.float32, "float32", 100), (torch.float32, "bfloat16", 97),
+                                 (torch.bfloat16, "float32", 100),
+                                 (torch.bfloat16, "bfloat16", 97), (torch.uint8, "float32", 97),
+                                 (torch.int8, "float32", 100)):
+        g = torch.Generator().manual_seed(d)
+        if dtype in (torch.uint8, torch.int8):
+            lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+            data = torch.randint(lo, hi, (n_lists, cap, d), generator=g).to(dtype)
+        else:
+            data = torch.randn(n_lists, cap, d, generator=g).to(dtype)
+        ids = torch.arange(n_lists * cap, dtype=torch.int32).reshape(n_lists, cap)
+        ids[1, 150:] = -1
+        ids[4, 60:] = -1
+        vals = data.float()
+        y2 = torch.where(ids >= 0, (vals * vals).sum(-1), torch.zeros(())).to(dev)
+        qg = torch.randn(5, 70, d, generator=g) * (20.0 if dtype == torch.uint8 else 1.0)
+        q2g = (qg * qg).sum(-1)
+        q2g[:, 67:] = float("inf")
+        args = [torch.randint(0, n_lists, (5,), generator=g, dtype=torch.int32).to(dev),
+                qg.to(dev), q2g.to(dev)]
+        bits = (torch.rand(n_lists, cap, generator=g) < 0.6) & (ids >= 0)
+        bits = torch.nn.functional.pad(bits, (0, -cap % 32)).reshape(n_lists, -1, 32)
+        words = (bits.long() << torch.arange(32)).sum(-1).to(torch.int32).to(dev)
+        perm = torch.randperm(n_lists * cap // page_rows, generator=g)
+        pool = torch.empty((perm.numel(), page_rows, d), dtype=dtype)
+        pool[perm] = data.reshape(-1, page_rows, d)
+        paged = PagedLists(pool.to(dev), perm.to(torch.int32).to(dev), cap // page_rows)
+        kw = dict(scan_dtype=scan_dtype,
+                  scan_scale=None if dtype in (torch.uint8, torch.int8) else 1.0)
+        mono = data.to(dev)
+        for kk in (10, 40, 129):
+            for rows, extra, tag in ((mono, {}, ""), (paged, {}, " paged"),
+                                     (mono, {"list_filter": words}, " filtered"),
+                                     (paged, {"list_filter": words}, " paged filtered")):
+                got = scan.ivf_scan_probe_major(*args, rows, y2, ids.to(dev), kk, **kw, **extra)
+                want = scan.ivf_scan_probe_major_torch(*args, mono, y2, ids.to(dev), kk, **kw,
+                                                       **extra)
+                out.append((f"{dtype} {scan_dtype} d={d} kk={kk}{tag}",
+                            torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))
+    return out
+
+
+def graphs_phase(*, x, list_centers, res, check, phase, phase_launches, record, main_launches,
+                 cuda_ms, smi):
     """Phase 26: the graph and sparse path on the card.  A kNN graph over
     the main rows (fused_knn) partitioned spectrally (csr_spmm in every
     Laplacian matvec, k-means, kernel #7 holding its assignment); R-MAT at
@@ -3933,6 +4085,7 @@ def graphs_phase(*, x, res, check, phase, phase_launches, record, main_launches,
     from raft_tpu_torch.kernels import csr_spmm as csr_k
     from raft_tpu_torch.neighbors import brute_force
     from raft_tpu_torch.ops import cost
+    from raft_tpu_torch.ops import linalg as olinalg
     from raft_tpu_torch.solver import linear_assignment
     from raft_tpu_torch.sparse import COO, CSR
     from raft_tpu_torch.sparse import distance as sdist
@@ -4053,7 +4206,7 @@ def graphs_phase(*, x, res, check, phase, phase_launches, record, main_launches,
     lib_err = float((torch.sparse.mm(lib, xv) - got).abs().max())
     print(f"csr_spmm kNN Laplacian SpMV: {knn_ms:.4f} ms, plain {plain_ms:.2f} ms, "
           f"torch.sparse.mm {lib_ms:.4f} ms (max abs diff {lib_err:.3e}), bound "
-          f"{cost.bound_ms(cost.csr_spmm_work(n, lap.nnz, n, 1))[0]:.4f} ms", flush=True)
+          f"{cost.bound_ms(cost.csr_spmm_work(n, lap.nnz, n, 1))[0]:.4f} ms; {smi}", flush=True)
 
     # -- R-MAT by modularity ------------------------------------------------------------
     n_rmat = 1 << RMAT_SCALE
@@ -4105,8 +4258,43 @@ def graphs_phase(*, x, res, check, phase, phase_launches, record, main_launches,
           f"hubs, degree up to {int(cnt.max())}) and equal to the full graph's rows")
     print(f"csr_spmm R-MAT SpMV: {rmat_ms:.4f} ms, plain {rmat_plain_ms:.2f} ms, "
           f"torch.sparse.mm {rmat_lib_ms:.4f} ms, bound "
-          f"{cost.bound_ms(cost.csr_spmm_work(n_rmat, adj.nnz, n_rmat, 1))[0]:.4f} ms",
+          f"{cost.bound_ms(cost.csr_spmm_work(n_rmat, adj.nnz, n_rmat, 1))[0]:.4f} ms; {smi}",
           flush=True)
+
+    # -- csr_spmm at the branches of its plan, and at k-means' centroid sums ---------------------
+    edges = []
+    for case in ("empty", "degrees", "long", "keys"):
+        for cols in (1, 3, 32, 33, 128):
+            ip_e, ix_e, d_e = (t.to(dev) for t in csr_plan_case(case, cols))
+            x_e = torch.randn((5000, cols), generator=gen(20 + cols), device=dev)
+            edges.append((f"{case}, {cols} columns", torch.equal(
+                csr_k.csr_spmm(ip_e, ix_e, d_e, x_e), csr_k.csr_spmm_torch(ip_e, ix_e, d_e, x_e))))
+    check(all(ok_ for _, ok_ in edges), f"csr_spmm bitwise its plain version at every branch "
+          f"of its plan ({len(edges)} cases; failed: {[n_ for n_, ok_ in edges if not ok_]})")
+    # reduce_rows_by_key of the main rows into phase 1's lists (each row's
+    # nearest center by #7), as ops.linalg sorts them: the kernel's own inputs
+    keys = kernels.fused_l2_argmin(x, list_centers, (list_centers * list_centers).sum(dim=1))[1]
+    n_keys, width = list_centers.shape[0], x.shape[1]
+    order = torch.argsort(keys.long(), stable=True)
+    kp = torch.zeros(n_keys + 1, dtype=torch.int32, device=dev)
+    kp[1:] = torch.cumsum(torch.bincount(keys.long(), minlength=n_keys), 0).to(torch.int32)
+    ko, kw_ = order.to(torch.int32), torch.ones(n, device=dev)
+    red = csr_k.csr_spmm(kp, ko, kw_, x)
+    red_plain_ms, red_want = once_ms(lambda: csr_k.csr_spmm_torch(kp, ko, kw_, x))
+    red_err = float((red - red_want).abs().max())
+    check(torch.equal(red, red_want)
+          and torch.equal(red, olinalg.reduce_rows_by_key(x, keys, n_keys)),
+          f"csr_spmm bitwise its plain version at reduce_rows_by_key [{n}, {width}] into "
+          f"{n_keys} keys (largest {int((kp[1:] - kp[:-1]).max())} rows), and equal to "
+          f"ops.linalg.reduce_rows_by_key")
+    red_ms = cuda_ms(lambda: csr_k.csr_spmm(kp, ko, kw_, x), 20)
+    red_lib_ms = cuda_ms(lambda: torch.zeros((n_keys, width), device=dev).index_add_(
+        0, keys.long(), x), 20)
+    red_bound = cost.bound_ms(cost.csr_spmm_work(n_keys, n, n, width))[0]
+    print(f"csr_spmm reduce_rows_by_key [{n}, {width}] into {n_keys} keys: {red_ms:.4f} ms, "
+          f"plain {red_plain_ms:.2f} ms, index_add_ {red_lib_ms:.4f} ms, bound {red_bound:.4f} ms "
+          f"(bytes); {smi}", flush=True)
+    del red, red_want, order, ko, kw_
 
     # -- single linkage over blobs ------------------------------------------------------------
     rounds = []
@@ -4238,7 +4426,11 @@ def graphs_phase(*, x, res, check, phase, phase_launches, record, main_launches,
                            f"{adj.nnz} slots, max degree {int(rdeg.max())})",
                   "ms": rmat_ms, "plain_ms": rmat_plain_ms, "library_ms": rmat_lib_ms,
                   "bound_ms": cost.bound_ms(cost.csr_spmm_work(n_rmat, adj.nnz, n_rmat, 1))[0],
-                  "max_abs_err": 0.0}])
+                  "max_abs_err": 0.0},
+                 {"shape": f"reduce_rows_by_key [{n}, {width}] into {n_keys} keys (k-means' "
+                           f"centroid sums; library: index_add_)",
+                  "ms": red_ms, "plain_ms": red_plain_ms, "library_ms": red_lib_ms,
+                  "bound_ms": red_bound, "max_abs_err": red_err}])
 
 
 if __name__ == "__main__":

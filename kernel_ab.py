@@ -3,9 +3,10 @@
 card, at the shapes PERF.md holds them to, beside the PyTorch library call
 that computes the same function where there is one: select_k (#1),
 fused_knn (#2), the fused L2 argmin (#7), the probe-major scan (#3), the
-query-major scan (#5) and the CAGRA search whose walk is #8.
+query-major scan (#5), the CAGRA search whose walk is #8, and csr_spmm
+(no TPU kernel).
 
-    python3 kernel_ab.py [--tree DIR] [--only select_k,fused_knn,fused_argmin,scan,qm,cagra]
+    python3 kernel_ab.py [--tree DIR] [--only select_k,fused_knn,fused_argmin,scan,qm,cagra,spmm]
     python3 kernel_ab.py --tree DIR --only host64 --index-dir DIR2
 
 ``--tree`` names the directory that holds the ``raft_tpu_torch`` package to
@@ -17,8 +18,9 @@ sift-128-euclidean rows, seed 0) for fused_knn, #7 (8,192 and all 1M rows
 against 1,024 rows sampled with seed 0, as ``chip_smoke.py``'s k-means
 centers) and the scans (probe-major inputs of the IVF-Flat index and of
 the IVF-PQ index's bf16 scan cache with f32 products, as ``chip_smoke.py``
-builds them: all 10,000 queries at kk = 10 and 258, the first 1,000 at kk =
-1,000), seeded normal rows for select_k.  ``qm``: the query-major scan on
+builds them: all 10,000 queries at kk = 10, 40 (the refined IVF-PQ
+search's k') and 258, the first 1,000 at kk = 1,000), seeded normal rows
+for select_k.  ``qm``: the query-major scan on
 the main path's serving batch (the first 64 queries, 20 probes, kk = 10)
 over the IVF-Flat lists (f32), the IVF-PQ bf16 cache (bf16 and f32
 products) and IVF-Flat over the rows x 16 rounded to uint8, and at kk =
@@ -34,8 +36,15 @@ serving batch, the first 64 queries through ``cagra.search`` (itopk 64) and
 of the synchronised wall and of the time until the call returns; on a
 tree with ``obs`` also both with its spans disabled.  With ``--index-dir``
 the first run saves its two indexes there and every later run loads them,
-so that runs of two trees in turns search the same indexes.  Prints the
-card's name and power limit, then one JSON line per shape: the kernel's
+so that runs of two trees in turns search the same indexes.  ``spmm``:
+csr_spmm at PERF.md's three shapes, each beside its byte bound and one
+PyTorch call: the SpMV of the kNN graph's normalized Laplacian (the main
+rows at k = 15, weights 1 / (1 + d)) and of R-MAT at scale 20, edge factor
+16, symmetrized (both beside ``torch.sparse.mm`` on the same CSR), and
+``ops.linalg.reduce_rows_by_key`` of the main rows into the IVF-Flat
+index's 1,024 lists (keys: each row's nearest center by #7), the kernel on
+the sorted keys beside ``index_add_`` and beside the whole entry point.
+Prints the card's name and power limit, then one JSON line per shape: the kernel's
 and the library call's mean ms over CUDA events (for select_k and the
 query-major scan also their device time per call, and for fused_knn each
 of its kernels' device time, from the profiler).  Exits non-zero
@@ -66,7 +75,7 @@ def _device_work(e) -> bool:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
-    ap.add_argument("--only", default="select_k,fused_knn,fused_argmin,scan,qm,cagra",
+    ap.add_argument("--only", default="select_k,fused_knn,fused_argmin,scan,qm,cagra,spmm",
                     help="comma-separated kernels to time (and host64)")
     ap.add_argument("--index-dir", default=None,
                     help="host64: where its indexes are saved by the first run and loaded")
@@ -217,8 +226,8 @@ def main() -> int:
                                   ("bfloat16", pq, ivf_pq, ivf_pq.scan_kwargs(pq, "float32"))):
             # (queries, kk, the k the buckets are sized for, reps): the main
             # path's buckets at kk 10 and 258, the deep-k phase's at 1,000
-            for n_q, kk, k, reps in ((q.shape[0], 10, 10, 10), (q.shape[0], 258, 10, 5),
-                                     (1000, 1000, 1000, 5)):
+            for n_q, kk, k, reps in ((q.shape[0], 10, 10, 10), (q.shape[0], 40, 40, 5),
+                                     (q.shape[0], 258, 10, 5), (1000, 1000, 1000, 5)):
                 qs = q[:n_q]
                 _, bucket, _, _ = _common.select_scan_strategy(
                     "probe_major", n_q, 20, idx.n_lists, idx.list_cap, x.shape[1],
@@ -252,6 +261,59 @@ def main() -> int:
                     kernels.grid_splits = grid_splits
                 emit("ivf_scan_query_major", f"{tag}, Q={n_q} P=20 kk={kk}",
                      cuda_ms(fn, reps), None, None, device_ms=device_ms(fn, reps=20), **extra)
+
+    if "spmm" in only:
+        from raft_tpu_torch import random as trandom
+        from raft_tpu_torch.kernels import csr_spmm as csr_k
+        from raft_tpu_torch.ops import cost, linalg
+        from raft_tpu_torch.sparse import COO
+        from raft_tpu_torch.sparse import linalg as slinalg
+        from raft_tpu_torch.sparse import neighbors as sneighbors
+
+        def gen(seed):
+            return torch.Generator(device=dev).manual_seed(seed)
+
+        def spmv(name, mat):
+            ip, ci, cd = mat.row_view()
+            n = ip.shape[0] - 1
+            xv = torch.randn((n, 1), generator=gen(1), device=dev)
+            lib = torch.sparse_csr_tensor(ip.long(), ci.long(), cd, size=(n, n))
+            emit("csr_spmm", f"{name} SpMV: {n} rows, {mat.nnz} slots, max degree "
+                 f"{int((ip[1:] - ip[:-1]).max())}",
+                 cuda_ms(lambda: csr_k.csr_spmm(ip, ci, cd, xv), 20), "torch.sparse.mm (CSR)",
+                 cuda_ms(lambda: torch.sparse.mm(lib, xv), 20),
+                 bound_ms=cost.bound_ms(cost.csr_spmm_work(n, mat.nnz, n, 1))[0])
+
+        # the kNN graph's normalized Laplacian and R-MAT at Graph500's scale
+        # 20, edge factor 16, as chip_smoke.py's phase 26 makes them
+        knn = sneighbors.knn_graph(x, 15, res=res)
+        sim = COO(knn.rows, knn.cols, torch.where(knn.valid, 1.0 / (1.0 + knn.data),
+                                                  torch.zeros_like(knn.data)), knn.shape, knn.nnz)
+        spmv("kNN Laplacian", slinalg.laplacian(sim, normalized=True))
+        del knn, sim
+        e = trandom.rmat(gen(2), 20, 20, 16 << 20, res=res)
+        spmv("R-MAT scale 20", slinalg.symmetrize(
+            COO(e[:, 0], e[:, 1], torch.ones(e.shape[0], device=dev), (1 << 20, 1 << 20)),
+            op="max"))
+        del e
+        # k-means' centroid sums: the rows by their nearest IVF-Flat center
+        centers = index("flat").centers
+        keys = kernels.fused_l2_argmin(x, centers, (centers * centers).sum(dim=1))[1]
+        n_keys = centers.shape[0]
+        order = torch.argsort(keys.long(), stable=True)
+        indptr = torch.zeros(n_keys + 1, dtype=torch.int32, device=dev)
+        indptr[1:] = torch.cumsum(torch.bincount(keys.long(), minlength=n_keys), 0).to(torch.int32)
+        w = torch.ones(x.shape[0], device=dev)
+        o32 = order.to(torch.int32)
+        emit("csr_spmm", f"reduce_rows_by_key [{x.shape[0]}, {x.shape[1]}] into {n_keys} keys "
+             f"(largest {int((indptr[1:] - indptr[:-1]).max())} rows)",
+             cuda_ms(lambda: csr_k.csr_spmm(indptr, o32, w, x), 10),
+             "torch.zeros(keys, cols).index_add_(0, keys, rows)",
+             cuda_ms(lambda: torch.zeros((n_keys, x.shape[1]), device=dev).index_add_(
+                 0, keys.long(), x), 10),
+             bound_ms=cost.bound_ms(cost.csr_spmm_work(n_keys, x.shape[0], x.shape[0],
+                                                       x.shape[1]))[0],
+             entry_ms=cuda_ms(lambda: linalg.reduce_rows_by_key(x, keys, n_keys), 10))
 
     if "cagra" in only:
         from torch.profiler import ProfilerActivity, profile

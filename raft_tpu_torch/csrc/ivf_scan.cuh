@@ -56,9 +56,10 @@
 // walk, the fmaf order and the list insert are the monolithic leg's, so the
 // result is bitwise the monolithic scan's on the same rows.  A tile may
 // straddle pages (page_rows need only be a multiple of 8), so each row's
-// index is translated on its own, once a tile: one row a thread, passed
-// across the warp by shuffle to the lanes that load it (rt::lane_value),
-// or, in query-major, kept in the tile's ring slot for the copies.  The
+// index is translated on its own, once a tile: one row a thread, kept in
+// shared memory for the copies of every chunk (probe-major's float legs),
+// passed across the warp by shuffle to the lanes that load it (the int8
+// leg, rt::lane_value), or kept in the tile's ring slot (query-major).  The
 // paged loaders are a template flag (kPaged) of each kernel, so that the
 // monolithic instantiations compile as before: kernels whose monolithic
 // lists went through the translated loaders (on a null table) ran up to
@@ -67,17 +68,20 @@
 // What bounds them on the H100.  Probe-major reuses each streamed list
 // across the bucket's queries (G ~ 256 at 10^4 queries), so it is bound by
 // arithmetic: f32 FMA for f32 compute, the bf16 or int8 tensor-core rate
-// for the other legs, which these simple kernels do not use (CUDA-core
-// fmaf / __dp4a on a 64 x 64 register tile, tile_gemm.cuh); tiles whose
-// slots are all padding are skipped, and blocks whose queries are all
-// padding exit at once.  Past kk = 128 its fold was the bound (a list
-// insert costs O(kk); the CAGRA build's kk = 258 scan ran at 0.8 % of the
-// FMA bound): candidate arrays and a radix select replace the lists there
-// (pm_walk_select).  Query-major reads P * cap rows for each query with
-// no reuse, so it is bound by device memory bytes: rows stream through a
-// two-stage cp.async ring at their stored width, one thread scores one row
-// with a single accumulator, and the whole block folds each tile into a
-// candidate array (block_select.cuh; see the query-major section).  A small
+// for the other legs, which these kernels do not use (CUDA-core fmaf on a
+// 64 x 128 tile over cp.async stages for the float legs, __dp4a on a
+// 64 x 64 tile for the int8 leg); tiles whose slots are all padding are
+// skipped, and blocks whose queries are all padding exit at once.  The
+// fold of the scores into each query's kk best was the larger cost (a list
+// insert is a chain of dependent shared-memory round trips; past kk = 128
+// it costs O(kk), and the CAGRA build's kk = 258 scan ran at 0.8 % of the
+// FMA bound): lists in registers up to kk = 32, candidate arrays and a
+// radix select past kk = 128 (see the probe-major section).  Query-major
+// reads P * cap rows for each query with no reuse, so it is bound by
+// device memory bytes: rows stream through a two-stage cp.async ring at
+// their stored width, one thread scores one row with a single
+// accumulator, and the whole block folds each tile into a candidate array
+// (block_select.cuh; see the query-major section).  A small
 // batch splits each query's probes over several blocks and merges their
 // parts (merge_parts).
 #pragma once
@@ -210,19 +214,51 @@ __device__ __forceinline__ float quantize_row(const float* qrow, int d, int* wor
 }
 
 // -- probe-major ----------------------------------------------------------
-// Block (blockIdx.x, blockIdx.y) scans bucket blockIdx.x's list for the
-// bucket's queries kBM blockIdx.y .. + kBM - 1 (q_rows of them), in
-// kBN-slot tiles.  Each query keeps its kk smallest (score, slot).  Up to
-// kk = 128 each query folds its tiles into a sorted list in shared memory
-// (topk.cuh's register shifts, pm_walk_lists).  Past it a list insert
-// costs O(kk) and a survivor of a ~900-row list at kk = 258 is most of the
-// rows (kk (1 + ln(n / kk))), so each query appends what beats its
-// threshold to a candidate array instead (pm_walk_select): the
-// block_select.cuh scheme of fused_knn, O(1) amortised per survivor.
+// A block scans one bucket's list for up to kBM of the bucket's queries (a
+// PmBlock: the bucket b, its first query g0 and q_rows queries), a tile of
+// slots at a time.  Each query keeps its kk smallest (score, slot).  The
+// fold of a tile's scores into them (PERF.md times it apart from the
+// product; in the first kernel it took 4.2 of 5.6 ms at kk = 10; its cost
+// follows the inserts, kk (1 + ln(n / kk)) a query of an n-row list, each
+// a chain of warp-wide steps, and the shuffle unit, one warp instruction a
+// cycle an SM, bounds it):
+//  - up to kk = 32 (kRegLists) each query's list stays in registers for the
+//    whole walk, one entry a lane of the warp that owns the query
+//    (pm_walk_reglists): an insert is two ballots and three shuffles, the
+//    candidate read from shared memory by every lane.  (Tried and dropped:
+//    four threads a query, each with a list of its own, made the fold five
+//    times slower, their inserts diverging within a warp; two queries'
+//    inserts interleaved a step at a time, 15 % slower);
+//  - up to kk = 128 the lists sit in shared memory between tiles
+//    (pm_walk_lists); the owning warp loads a query's list into registers
+//    (up to four entries a lane), offers the tile's scores there
+//    (reg_insert) and stores it back: topk.cuh's list_insert in shared
+//    memory, the same list, made the kk = 40 scan 5 % slower (PERF.md);
+//  - past it a list insert costs O(kk) and a survivor of a ~900-row list at
+//    kk = 258 is most of the rows, so each query appends what beats its
+//    threshold to a candidate array instead (pm_walk_select): the
+//    block_select.cuh scheme of fused_knn, O(1) amortised per survivor.
+// Each fold receives a tile's scores as s[m * stride + c] (query m of the
+// block, slot c < kN of the tile) and the slots' ids sid[c], and is called
+// by every thread.
 constexpr int kWarps = rt::kGemmThreads / 32;
 
+// How a leg folds lists of kk entries (pm_fold).
+enum PmFold { kRegLists = 0, kLists = 1, kWideFold = 2 };
+
+__host__ __device__ inline int pm_fold(int kk) {
+  return kk > rt::kRegK ? kWideFold : kk > 32 ? kLists : kRegLists;
+}
+
+// The bucket and queries of a block.
+struct PmBlock {
+  int b;        // bucket
+  int g0;       // its first query's index in the bucket
+  int q_rows;   // queries (the rest of the block's kBM rows are padding)
+};
+
 // The outputs of a probe-major launch [B][G][kk] and, past kk = 128
-// (kWide), its workspace: each output row is the head of its query's
+// (kWideFold), its workspace: each output row is the head of its query's
 // candidate array, and ws row [B][G][extra] its tail (extra <= kk, so the
 // workspace is no larger than the outputs); the array's kk smallest are
 // sorted in shared memory, sort_rows queries at a time.
@@ -235,27 +271,31 @@ struct PmOut {
   int sort_rows;
 };
 
-// Bytes of dynamic shared memory the fold of kk entries takes: the lists
-// [kBM][kk] of (value, id), or past kk = 128 the sort of sort_rows arrays
-// (keys [sort_rows][pow2 >= kk], then values and ids [sort_rows][kk]).
-__host__ __device__ inline size_t fold_smem(bool wide, int kk, int sort_rows) {
-  if (!wide) return (size_t)rt::kBM * kk * (sizeof(float) + sizeof(int));
+// Bytes of dynamic shared memory the fold of kk entries takes (fold, a
+// PmFold): none in registers, the lists [kBM][kk] of (value, id), or past
+// kk = 128 the sort of sort_rows arrays (keys [sort_rows][pow2 >= kk], then
+// values and ids [sort_rows][kk]).
+__host__ __device__ inline size_t fold_smem(int fold, int kk, int sort_rows) {
+  if (fold == kRegLists) return 0;
+  if (fold == kLists) return (size_t)rt::kBM * kk * (sizeof(float) + sizeof(int));
   return (size_t)sort_rows * ((size_t)rt::pow2_at_least(kk) * sizeof(unsigned long long) +
                               (size_t)kk * (sizeof(float) + sizeof(int)));
 }
 
-// The score tiles of the block's list walk: for each tile of slots with a
-// real (passing) row, `tile_ip(l, c0, c_rows, ip)` sets ip[i][j] to the dot
+__host__ __device__ inline size_t align16(size_t bytes) { return (bytes + 15) & ~(size_t)15; }
+
+// The int8 leg's score tiles: for each tile of kBN slots with a real
+// (passing) row, `tile_ip(l, c0, c_rows, ip)` sets ip[i][j] to the dot
 // product of the block's query ty + 16 i with slot c0 + tx + 16 j of list
 // l, the scores go to s[m][c] (+inf for a padding or failing slot, or a
-// padding query), and `fold(s, sid)` folds them (sid[c]: the slots' ids).
-// A block whose queries are all padding skips the walk, and a tile whose
-// slots are all padding (or all fail the filter) is skipped.
+// padding query), and `fold(s, kBN + 1, sid)` folds them (sid[c]: the
+// slots' ids).  A block whose queries are all padding skips the walk, and a
+// tile whose slots are all padding (or all fail the filter) is skipped.
 // `prologue()` runs once before the walk of a live block.  Every thread
 // calls all three.  kFilt: the list's words are staged into `sfilt`
 // (cap_w ints of dynamic shared memory) before the walk.
 template <bool kFilt, typename Prologue, typename TileIp, typename Fold>
-__device__ __forceinline__ void pm_scores(const int* __restrict__ bucket_list,
+__device__ __forceinline__ void pm_scores(const PmBlock& pb, const int* __restrict__ bucket_list,
                                           const float* __restrict__ q2g,
                                           const float* __restrict__ y2,
                                           const int* __restrict__ ids, int G, int cap,
@@ -269,13 +309,11 @@ __device__ __forceinline__ void pm_scores(const int* __restrict__ bucket_list,
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int b = blockIdx.x;
-  const int g0 = blockIdx.y * rt::kBM;
-  const int q_rows = min(rt::kBM, G - g0);
+  const int b = pb.b;
 
   bool live = false;
   if (tid < rt::kBM) {
-    const float v = tid < q_rows ? q2g[(size_t)b * G + g0 + tid] : CUDART_INF_F;
+    const float v = tid < pb.q_rows ? q2g[(size_t)b * G + pb.g0 + tid] : CUDART_INF_F;
     sq2[tid] = v;
     live = !isinf(v);
   }
@@ -314,40 +352,185 @@ __device__ __forceinline__ void pm_scores(const int* __restrict__ bucket_list,
       }
     }
     __syncthreads();
-    fold(s, sid);
+    fold(&s[0][0], rt::kBN + 1, sid);
     __syncthreads();
   }
 }
 
-// Up to kk = 128: the queries' lists lv / li ([kBM][kk], shared), written
-// out at the end.
-template <bool kFilt, typename Prologue, typename TileIp>
-__device__ __forceinline__ void pm_walk_lists(const int* __restrict__ bucket_list,
-                                              const float* __restrict__ q2g,
-                                              const float* __restrict__ y2,
-                                              const int* __restrict__ ids, int G, int cap,
-                                              int kk, int metric, Filt filt, int* sfilt,
-                                              void* fold_mem, PmOut out, Prologue&& prologue,
-                                              TileIp&& tile_ip) {
+// Up to kk = 32: warp w owns queries w + 8 j (j < 8), and lane e holds
+// entry e of each of their lists in registers for the whole walk (sorted by
+// value; lanes past kk hold nothing read); the rules of the lists.
+template <int kN, typename Walk>
+__device__ __forceinline__ void pm_walk_reglists(const PmBlock& pb, int G, int kk, PmOut out,
+                                                 Walk&& walk) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const size_t out_base = ((size_t)pb.b * G + pb.g0) * kk;
+  constexpr int kPerWarp = rt::kBM / kWarps;
+  const unsigned in_list = kk >= 32 ? rt::kFull : (1u << kk) - 1u;
+  float rv[kPerWarp];
+  int ri[kPerWarp];
+#pragma unroll
+  for (int j = 0; j < kPerWarp; ++j) {
+    rv[j] = CUDART_INF_F;
+    ri[j] = -1;
+  }
+  walk([&](const float* s, int stride, const int* sid) {
+#pragma unroll
+    for (int j = 0; j < kPerWarp; ++j) {
+      const int m = warp + kWarps * j;
+      if (m >= pb.q_rows) break;   // uniform across the warp
+      const float* row = s + m * stride;
+      float thr = __shfl_sync(rt::kFull, rv[j], kk - 1);
+#pragma unroll
+      for (int cc = 0; cc < kN; cc += 32) {
+        unsigned mask = __ballot_sync(rt::kFull, row[cc + lane] < thr);
+        while (mask) {
+          const int src = cc + __ffs(mask) - 1;
+          mask &= mask - 1;
+          const float cv = row[src];   // every lane reads it
+          if (cv < thr) {              // uniform: thr is the warp's
+            const int ci = sid[src];
+            const int pos = __popc(__ballot_sync(rt::kFull, rv[j] <= cv) & in_list);
+            const float uv = __shfl_up_sync(rt::kFull, rv[j], 1);
+            const int ui = __shfl_up_sync(rt::kFull, ri[j], 1);
+            if (lane > pos) {
+              rv[j] = uv;
+              ri[j] = ui;
+            } else if (lane == pos) {
+              rv[j] = cv;
+              ri[j] = ci;
+            }
+            thr = __shfl_sync(rt::kFull, rv[j], kk - 1);
+          }
+        }
+      }
+    }
+  });
+#pragma unroll
+  for (int j = 0; j < kPerWarp; ++j) {
+    const int m = warp + kWarps * j;
+    if (m < pb.q_rows && lane < kk) {
+      out.v[out_base + (size_t)m * kk + lane] = rv[j];
+      out.i[out_base + (size_t)m * kk + lane] = ri[j];
+    }
+  }
+}
+
+constexpr int kListRegs = rt::kRegK / 32;   // list entries a lane: kk <= 128
+
+// The kk-th entry's value of a list held kListRegs entries a lane (entry e
+// in register e / 32 of lane e % 32), on every lane.
+__device__ __forceinline__ float reg_kth(const float (&rv)[kListRegs], int kk) {
+  const int r = (kk - 1) >> 5;
+  float t = rv[0];
+#pragma unroll
+  for (int j = 1; j < kListRegs; ++j)
+    if (r == j) t = rv[j];
+  return __shfl_sync(rt::kFull, t, (kk - 1) & 31);
+}
+
+// topk.cuh's list_insert on a list held in registers: (cv, ci), below the
+// kk-th value, lands after every resident of value <= cv, and the entries
+// past it move up one (the kk-th drops out).  Every lane calls it with the
+// same (cv, ci).
+__device__ __forceinline__ void reg_insert(float (&rv)[kListRegs], int (&ri)[kListRegs],
+                                           float cv, int ci, int kk, int lane) {
+  int pos = 0;
+#pragma unroll
+  for (int j = 0; j < kListRegs; ++j)
+    if (32 * j < kk) pos += __popc(__ballot_sync(rt::kFull, 32 * j + lane < kk && rv[j] <= cv));
+  float tv[kListRegs];
+  int ti[kListRegs];
+#pragma unroll
+  for (int j = 0; j < kListRegs; ++j) {   // entry e - 1, read before any write
+    if (32 * j < kk) {
+      tv[j] = __shfl_up_sync(rt::kFull, rv[j], 1);
+      ti[j] = __shfl_up_sync(rt::kFull, ri[j], 1);
+      if (j > 0) {   // lane 0 takes the entry before: lane 31 of register j - 1
+        const float last = __shfl_sync(rt::kFull, rv[j > 0 ? j - 1 : 0], 31);
+        const int lasti = __shfl_sync(rt::kFull, ri[j > 0 ? j - 1 : 0], 31);
+        if (lane == 0) {
+          tv[j] = last;
+          ti[j] = lasti;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kListRegs; ++j) {
+    const int e = 32 * j + lane;
+    if (32 * j < kk) {
+      if (e > pos) {
+        rv[j] = tv[j];
+        ri[j] = ti[j];
+      } else if (e == pos) {
+        rv[j] = cv;
+        ri[j] = ci;
+      }
+    }
+  }
+}
+
+// Up to kk = 128: the queries' lists lv / li ([kBM][kk], shared), sorted by
+// value, written out at the end.  Warp w folds queries w, w + 8, ... of a
+// tile: it loads a query's list into registers, offers the tile's scores in
+// slot order (a score enters only when strictly below the kk-th value), and
+// stores the list back if it changed.
+template <int kN, typename Walk>
+__device__ __forceinline__ void pm_walk_lists(const PmBlock& pb, int G, int kk, void* fold_mem,
+                                              PmOut out, Walk&& walk) {
   float* lv = static_cast<float*>(fold_mem);
   int* li = reinterpret_cast<int*>(lv + rt::kBM * kk);
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int q_rows = min(rt::kBM, G - (int)blockIdx.y * rt::kBM);
-  const size_t out_base = ((size_t)blockIdx.x * G + blockIdx.y * rt::kBM) * kk;
+  const size_t out_base = ((size_t)pb.b * G + pb.g0) * kk;
 
-  for (int m = warp; m < q_rows; m += kWarps) rt::list_init(lv + m * kk, li + m * kk, kk, lane);
-  pm_scores<kFilt>(bucket_list, q2g, y2, ids, G, cap, metric, filt, sfilt, prologue, tile_ip,
-                   [&](const float (*s)[rt::kBN + 1], const int* sid) {
-                     for (int m = warp; m < q_rows; m += kWarps) {
-                       for (int cc = 0; cc < rt::kBN; cc += 32) {
-                         const int c = cc + lane;
-                         rt::list_offer32<false>(s[m][c], sid[c], lv + m * kk, li + m * kk, kk,
-                                                 lane);
-                       }
-                     }
-                   });
-  for (int m = warp; m < q_rows; m += kWarps) {
+  for (int m = warp; m < pb.q_rows; m += kWarps)
+    rt::list_init(lv + m * kk, li + m * kk, kk, lane);
+  walk([&](const float* s, int stride, const int* sid) {
+    for (int m = warp; m < pb.q_rows; m += kWarps) {
+      float* qv = lv + m * kk;
+      int* qi = li + m * kk;
+      float rv[kListRegs];
+      int ri[kListRegs];
+#pragma unroll
+      for (int j = 0; j < kListRegs; ++j) {
+        const int e = 32 * j + lane;
+        rv[j] = e < kk ? qv[e] : CUDART_INF_F;
+        ri[j] = e < kk ? qi[e] : -1;
+      }
+      float thr = reg_kth(rv, kk);
+      bool changed = false;
+      const float* row = s + m * stride;
+#pragma unroll
+      for (int cc = 0; cc < kN; cc += 32) {
+        unsigned mask = __ballot_sync(rt::kFull, row[cc + lane] < thr);
+        while (mask) {
+          const int src = cc + __ffs(mask) - 1;
+          mask &= mask - 1;
+          const float cv = row[src];   // every lane reads it
+          if (cv < thr) {              // uniform: thr is the warp's
+            reg_insert(rv, ri, cv, sid[src], kk, lane);
+            thr = reg_kth(rv, kk);
+            changed = true;
+          }
+        }
+      }
+      if (changed) {
+#pragma unroll
+        for (int j = 0; j < kListRegs; ++j) {
+          const int e = 32 * j + lane;
+          if (e < kk) {
+            qv[e] = rv[j];
+            qi[e] = ri[j];
+          }
+        }
+      }
+    }
+  });
+  __syncwarp();
+  for (int m = warp; m < pb.q_rows; m += kWarps) {
     for (int p = lane; p < kk; p += 32) {
       out.v[out_base + (size_t)m * kk + p] = lv[m * kk + p];
       out.i[out_base + (size_t)m * kk + p] = li[m * kk + p];
@@ -367,14 +550,9 @@ __device__ __forceinline__ void pm_walk_lists(const int* __restrict__ bucket_lis
 // (bitonic) by (okey, array position) = (score, slot), the key carrying
 // the position, so that each value comes out as stored (a -0.0 score as
 // -0.0); slots past the count are (+inf, -1).
-template <bool kFilt, typename Prologue, typename TileIp>
-__device__ __forceinline__ void pm_walk_select(const int* __restrict__ bucket_list,
-                                               const float* __restrict__ q2g,
-                                               const float* __restrict__ y2,
-                                               const int* __restrict__ ids, int G, int cap,
-                                               int kk, int metric, Filt filt, int* sfilt,
-                                               void* fold_mem, PmOut out, Prologue&& prologue,
-                                               TileIp&& tile_ip) {
+template <int kN, typename Walk>
+__device__ __forceinline__ void pm_walk_select(const PmBlock& pb, int G, int kk, void* fold_mem,
+                                               PmOut out, Walk&& walk) {
   __shared__ float sthr[rt::kBM];
   __shared__ int scnt[rt::kBM];
   __shared__ int shist[kWarps][258];
@@ -382,8 +560,8 @@ __device__ __forceinline__ void pm_walk_select(const int* __restrict__ bucket_li
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int q_rows = min(rt::kBM, G - (int)blockIdx.y * rt::kBM);
-  const size_t row0 = (size_t)blockIdx.x * G + blockIdx.y * rt::kBM;   // of query 0
+  const int q_rows = pb.q_rows;
+  const size_t row0 = (size_t)pb.b * G + pb.g0;   // of query 0
   const int entries = kk + out.extra;
   auto slots = [&](int m) {
     float* ov = out.v + (row0 + m) * kk;
@@ -399,34 +577,32 @@ __device__ __forceinline__ void pm_walk_select(const int* __restrict__ bucket_li
     sthr[tid] = CUDART_INF_F;
     scnt[tid] = 0;
   }
-  pm_scores<kFilt>(
-      bucket_list, q2g, y2, ids, G, cap, metric, filt, sfilt, prologue, tile_ip,
-      [&](const float (*s)[rt::kBN + 1], const int* sid) {
-        for (int m = warp; m < q_rows; m += kWarps) {
-          const float thr = sthr[m];
-          int cnt = scnt[m];
-          const auto at = slots(m);
-          for (int cc = 0; cc < rt::kBN; cc += 32) {
-            const int c = cc + lane;
-            const float v = s[m][c];
-            const bool keep = v < thr;
-            const unsigned km = __ballot_sync(rt::kFull, keep);
-            if (keep) {
-              const rt::Slot sl = at(cnt + __popc(km & rt::lanemask_lt(lane)));
-              *sl.v = v;
-              *sl.i = sid[c];
-            }
-            cnt += __popc(km);
-          }
-          if (cnt > entries - rt::kBN) {   // the next tile might not fit
-            __syncwarp();
-            const float t = rt::warp_compact(at, cnt, kk, shist[warp], lane);
-            cnt = kk;
-            if (lane == 0) sthr[m] = t;
-          }
-          if (lane == 0) scnt[m] = cnt;
+  walk([&](const float* s, int stride, const int* sid) {
+    for (int m = warp; m < q_rows; m += kWarps) {
+      const float thr = sthr[m];
+      int cnt = scnt[m];
+      const auto at = slots(m);
+      for (int cc = 0; cc < kN; cc += 32) {
+        const int c = cc + lane;
+        const float v = s[m * stride + c];
+        const bool keep = v < thr;
+        const unsigned km = __ballot_sync(rt::kFull, keep);
+        if (keep) {
+          const rt::Slot sl = at(cnt + __popc(km & rt::lanemask_lt(lane)));
+          *sl.v = v;
+          *sl.i = sid[c];
         }
-      });
+        cnt += __popc(km);
+      }
+      if (cnt > entries - kN) {   // the next tile might not fit
+        __syncwarp();
+        const float t = rt::warp_compact(at, cnt, kk, shist[warp], lane);
+        cnt = kk;
+        if (lane == 0) sthr[m] = t;
+      }
+      if (lane == 0) scnt[m] = cnt;
+    }
+  });
   for (int m = warp; m < q_rows; m += kWarps) {
     if (scnt[m] > kk) {
       __syncwarp();
@@ -477,61 +653,313 @@ __device__ __forceinline__ void pm_walk_select(const int* __restrict__ bucket_li
   }
 }
 
-// The fold of a leg: pm_walk_select past kk = 128 (kWide), else the lists.
-template <bool kWide, bool kFilt, typename Prologue, typename TileIp>
-__device__ __forceinline__ void pm_walk(const int* __restrict__ bucket_list,
-                                        const float* __restrict__ q2g,
-                                        const float* __restrict__ y2,
-                                        const int* __restrict__ ids, int G, int cap, int kk,
-                                        int metric, Filt filt, int* sfilt, void* fold_mem,
-                                        PmOut out, Prologue&& prologue, TileIp&& tile_ip) {
-  if constexpr (kWide)
-    pm_walk_select<kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, metric, filt, sfilt, fold_mem,
-                          out, prologue, tile_ip);
+// The fold of a leg (kFold, a PmFold) over tiles of kN slots.
+template <int kFold, int kN, typename Walk>
+__device__ __forceinline__ void pm_walk(const PmBlock& pb, int G, int kk, void* fold_mem,
+                                        PmOut out, Walk&& walk) {
+  if constexpr (kFold == kWideFold)
+    pm_walk_select<kN>(pb, G, kk, fold_mem, out, walk);
+  else if constexpr (kFold == kLists)
+    pm_walk_lists<kN>(pb, G, kk, fold_mem, out, walk);
   else
-    pm_walk_lists<kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, metric, filt, sfilt, fold_mem,
-                         out, prologue, tile_ip);
+    pm_walk_reglists<kN>(pb, G, kk, out, walk);
 }
 
-// Float legs: T = float or __nv_bfloat16 rows; kBf16 = lut_dtype bfloat16;
-// kWide = kk > rt::kRegK; kFilt = filter words; kPaged = rows through the
-// page table `pg` (the tile's rows translated by lanes 0-7 of each warp,
-// rt::load_chunk_rows).  Dynamic shared memory: the fold (fold_smem), then
-// the filter words.
-template <typename T, bool kBf16, bool kWide, bool kFilt, bool kPaged>
-__global__ void __launch_bounds__(rt::kGemmThreads)
+// Value e of a 16-byte word of T values, as f32 (exact: a bf16 is the high
+// half of its f32, as __bfloat162float makes it).
+template <typename T>
+__device__ __forceinline__ float qm_elem(const uint4& w, int e) {
+  const int byte = e * (int)sizeof(T);
+  const unsigned word = byte < 4 ? w.x : byte < 8 ? w.y : byte < 12 ? w.z : w.w;
+  const int sh = (byte & 3) * 8;
+  if constexpr (std::is_same<T, float>::value) return __uint_as_float(word);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __uint_as_float(((word >> sh) & 0xffffu) << 16);
+  else if constexpr (std::is_same<T, uint8_t>::value) return (float)((word >> sh) & 0xffu);
+  else return (float)(int8_t)((word >> sh) & 0xffu);
+}
+
+// -- the float legs' product ----------------------------------------------
+// T = f32, bf16, uint8 or int8 rows (the 8-bit ones raw values, converted
+// exactly).  The old product (a 64 x 64 tile, a 4 x 4 register tile a
+// thread reading transposed operands one float at a time, each 32-dimension
+// chunk loaded synchronously, the block's queries loaded again for every
+// tile) ran at ~13 % of the FMA bound.  This one is #7's scheme
+// (fused_argmin.cu) with the queries staged once:
+//  - a tile is 64 queries x kPN = 128 slots; thread (qy, sx) owns queries
+//    qy + 16 i (i < 4) and slots sx + 16 j (j < 8), a 4 x 8 register tile
+//    (a warp covers 4 query rows and 8 slot rows, so each float4 read is
+//    conflict-free: one wavefront for the queries, one for the rows).  64
+//    queries, not 128, keep the kk <= 128 lists and two blocks on an SM;
+//  - the block's queries are staged once, row-major and rounded to bf16
+//    where kBf16, for the whole list walk (`sq`, rows padded to a multiple
+//    of 32 floats plus 4), up to d = kMaxStagedD; wider queries
+//    are staged a chunk at a time beside the rows;
+//  - each chunk of 32 dimensions of the tile's rows is copied by cp.async
+//    into one of two raw stages, the next chunk in flight while this one is
+//    multiplied (rt::stage16: 16-byte copies, narrower ones for rows whose
+//    width in bytes is not a multiple of 16); f32 rows are read from the
+//    stage as float4, other rows (and f32 rows under kBf16) are first
+//    converted once into an f32 stage (exactly, as rt::as_f32, then bf16
+//    rounding where kBf16);
+//  - a paged tile translates each slot's row once (row_index) into
+//    `srow`, read by the copies of every chunk;
+//  - the scores go to a [64][kSStride] tile in the stages' memory, which
+//    is free once the tile's last chunk is multiplied.
+// Every dot product is one f32 accumulator updated by fmaf in dimension
+// order, as before, and the score is score()'s _rn epilogue: bitwise the
+// plain version.
+constexpr int kPN = 128;                 // slots a tile
+constexpr int kPRow = rt::kBK + 4;       // floats a row of an f32 stage (16-byte aligned)
+constexpr int kSStride = kPN + 8;        // floats a row of the score tile
+constexpr int kMaxStagedD = 256;         // widest queries staged once
+constexpr size_t kPmSortSmem = 28 * 1024;   // the wide fold's sort: two blocks an SM
+
+// Bytes of a row's chunk in a raw stage (16 more than the chunk: 16-byte
+// copies; f32: kPRow floats).
+template <typename T>
+__host__ __device__ constexpr int pm_raw_row() {
+  return rt::kBK * (int)sizeof(T) + 16;
+}
+
+// Rows first converted to an f32 stage (all but plain f32 products).
+template <typename T, bool kBf16>
+__host__ __device__ constexpr bool pm_converts() {
+  return kBf16 || !std::is_same<T, float>::value;
+}
+
+// Floats a staged query row: d rounded up to 32, plus 4 (rows 16-byte
+// aligned and 4 banks apart); past kMaxStagedD one chunk (kPRow).
+__host__ __device__ inline int pm_q_stride(int d) {
+  return d <= kMaxStagedD ? (d + rt::kBK - 1) / rt::kBK * rt::kBK + 4 : kPRow;
+}
+
+// Bytes of the stages (and the f32 stage) or of the score tile, which
+// share memory.
+template <typename T, bool kBf16>
+__host__ __device__ inline size_t pm_union_bytes() {
+  const size_t stages = 2 * (size_t)kPN * pm_raw_row<T>() +
+                        (pm_converts<T, kBf16>() ? (size_t)kPN * kPRow * sizeof(float) : 0);
+  const size_t scores = (size_t)rt::kBM * kSStride * sizeof(float);
+  return stages > scores ? stages : scores;
+}
+
+// Bytes of a float leg's dynamic shared memory past the fold: the filter
+// words, the queries, then the stages / score tile.
+template <typename T, bool kBf16>
+__host__ __device__ inline size_t pm_leg_smem(int d, int cap_w) {
+  return align16((size_t)cap_w * sizeof(int)) +
+         align16((size_t)rt::kBM * pm_q_stride(d) * sizeof(float)) +
+         pm_union_bytes<T, kBf16>();
+}
+
+// Float legs: kBf16 = lut_dtype bfloat16; kFold = pm_fold(kk); kFilt =
+// filter words; kPaged = rows through the page table `pg`.  Block i scans
+// bucket i / groups for its query group i % groups (groups = G / kBM
+// rounded up): a bucket's groups run side by side and share its list's
+// reads in L2.  Dynamic shared memory: the fold (fold_smem), the filter
+// words, the queries, then the stages / score tile (pm_leg_smem).
+template <typename T, bool kBf16, int kFold, bool kFilt, bool kPaged>
+__global__ void __launch_bounds__(rt::kGemmThreads, 2)
 probe_major_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
                    const float* __restrict__ q2g, const T* __restrict__ data,
                    const float* __restrict__ y2, const int* __restrict__ ids,
                    int G, int cap, int d, int kk, int metric, Filt filt, Pages pg, PmOut out) {
-  extern __shared__ unsigned long long pm_dyn[];   // 8-byte aligned: the sort's keys
-  int* sfilt = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(pm_dyn) +
-                                      fold_smem(kWide, kk, out.sort_rows));   // [cap_w] (kFilt)
-  __shared__ rt::GemmSmem gsm;
+  extern __shared__ float4 pm_dyn16[];
+  __shared__ float sq2[rt::kBM];
+  __shared__ float sy2[kPN];
+  __shared__ int sid[kPN];
+  __shared__ long long srow[kPaged ? kPN : 1];
+  constexpr int kRaw = pm_raw_row<T>();
+  constexpr bool kConv = pm_converts<T, kBf16>();
 
-  const int g0 = blockIdx.y * rt::kBM;
+  unsigned char* base = reinterpret_cast<unsigned char*>(pm_dyn16);
+  void* fold_mem = base;
+  base += align16(fold_smem(kFold, kk, out.sort_rows));
+  int* sfilt = reinterpret_cast<int*>(base);   // [cap_w] (kFilt)
+  base += align16((size_t)filt.cap_w * sizeof(int));
+  const int qs = pm_q_stride(d);
+  const bool staged = d <= kMaxStagedD;
+  float* sq = reinterpret_cast<float*>(base);   // [kBM][qs]
+  base += align16((size_t)rt::kBM * qs * sizeof(float));
+  unsigned char* stages = base;                                   // [2][kPN][kRaw] bytes
+  auto stage = [&](int ch) { return stages + (ch & 1) * (kPN * kRaw); };
+  float* sb = reinterpret_cast<float*>(base + 2 * kPN * kRaw);   // f32 stage (kConv)
+  float* ss = reinterpret_cast<float*>(base);                    // score tile [kBM][kSStride]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int qy = (warp >> 1) * 4 + (lane >> 3);
+  const int sx = (warp & 1) * 8 + (lane & 7);
+  const int groups = (G + rt::kBM - 1) / rt::kBM;
+  const int b = blockIdx.x / groups;
+  const int g0 = (blockIdx.x - b * groups) * rt::kBM;
   const int q_rows = min(rt::kBM, G - g0);
-  const float* qa = qg + ((size_t)blockIdx.x * G + g0) * d;
-  pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, metric, filt, sfilt, pm_dyn,
-                        out, [] {},
-          [&](int l, int c0, int c_rows, float (&ip)[4][4]) {
-            if constexpr (kPaged) {
-              const int r = 8 * (threadIdx.x / 32) + (threadIdx.x & 7);
-              const size_t mine = r < c_rows ? row_index(pg, l, cap, c0 + r) : 0;
-              rt::tile_gemm_rows<T, kBf16>(qa, q_rows, d, data, mine, c_rows, d, gsm, ip);
-            } else {
-              const T* rows = data + ((size_t)l * cap + c0) * d;
-              rt::tile_gemm<T, kBf16>(qa, q_rows, d, rows, c_rows, d, d, gsm, ip);
+  const PmBlock pb{b, g0, q_rows};
+  const float* qa = qg + ((size_t)b * G + g0) * d;
+  const int nch = (d + rt::kBK - 1) / rt::kBK;
+  const int rb = d * (int)sizeof(T);
+  const int vec = rt::stage_vec(data, (size_t)rb);
+  const unsigned char* bytes = reinterpret_cast<const unsigned char*>(data);
+
+  const int l = bucket_list[b];
+  pm_walk<kFold, kPN>(pb, G, kk, fold_mem, out, [&](auto&& fold) {
+    bool live = false;
+    if (tid < rt::kBM) {
+      const float v = tid < q_rows ? q2g[(size_t)b * G + g0 + tid] : CUDART_INF_F;
+      sq2[tid] = v;
+      live = !isinf(v);
+    }
+    if (!__syncthreads_or(live)) return;
+    if constexpr (kFilt) {
+      for (int w = tid; w < filt.cap_w; w += rt::kGemmThreads)
+        sfilt[w] = filt.words[(size_t)l * filt.cap_w + w];
+    }
+    if (staged) {
+      for (int e = tid; e < rt::kBM * qs; e += rt::kGemmThreads) {
+        const int m = e / qs;
+        const int k = e - m * qs;
+        const float v = (m < q_rows && k < d) ? qa[(size_t)m * d + k] : 0.0f;
+        sq[e] = kBf16 ? rt::round_bf16(v) : v;
+      }
+    }
+    __syncthreads();
+    // chunk ch of the tile at c0 into stage ch & 1, one commit group
+    auto issue = [&](int c0, int ch) {
+      constexpr int kSegs = rt::kBK * (int)sizeof(T) / 16;   // 16-byte copies a row
+      unsigned char* st = stage(ch);
+#pragma unroll
+      for (int s = 0; s < kPN * kSegs / rt::kGemmThreads; ++s) {
+        const int idx = tid + s * rt::kGemmThreads;
+        const int r = idx / kSegs;
+        const int seg = idx - r * kSegs;
+        const unsigned char* row = nullptr;
+        if (sid[r] >= 0) {
+          if constexpr (kPaged) row = bytes + (size_t)srow[r] * rb;
+          else row = bytes + ((size_t)l * cap + c0 + r) * rb;
+        }
+        rt::stage16(st + r * kRaw + 16 * seg, row, ch * rt::kBK * (int)sizeof(T) + 16 * seg, rb,
+                    vec, data);
+      }
+      rt::cp_async_commit();
+    };
+    for (int c0 = 0; c0 < cap; c0 += kPN) {
+      const int c_rows = min(kPN, cap - c0);
+      bool valid = false;
+      if (tid < kPN) {
+        int id = tid < c_rows ? ids[(size_t)l * cap + c0 + tid] : -1;
+        if constexpr (kFilt) {
+          if (id >= 0 && !passes(sfilt, c0 + tid)) id = -1;
+        }
+        sid[tid] = id;
+        sy2[tid] = tid < c_rows ? y2[(size_t)l * cap + c0 + tid] : 0.0f;
+        if constexpr (kPaged) srow[tid] = id >= 0 ? (long long)row_index(pg, l, cap, c0 + tid) : 0;
+        valid = id >= 0;
+      }
+      if (!__syncthreads_or(valid)) continue;
+      float acc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      issue(c0, 0);
+      for (int ch = 0; ch < nch; ++ch) {
+        if (ch + 1 < nch) {
+          issue(c0, ch + 1);
+          rt::cp_async_wait<1>();
+        } else {
+          rt::cp_async_wait<0>();
+        }
+        __syncthreads();
+        const int k0 = ch * rt::kBK;
+        const float* bs = reinterpret_cast<const float*>(stage(ch));
+        if constexpr (kConv) {   // row r, dimensions 16 h .. 16 h + 15
+          const int r = tid >> 1;
+          const int h = tid & 1;
+          const uint4* src =
+              reinterpret_cast<const uint4*>(stage(ch) + r * kRaw + h * 16 * (int)sizeof(T));
+          float* dst = sb + r * kPRow + 16 * h;
+          constexpr int kPerWord = 16 / (int)sizeof(T);
+#pragma unroll
+          for (int w = 0; w < (int)sizeof(T); ++w) {
+            const uint4 word = src[w];
+#pragma unroll
+            for (int e = 0; e < kPerWord; ++e) {
+              const float v = qm_elem<T>(word, e);
+              dst[w * kPerWord + e] = kBf16 ? rt::round_bf16(v) : v;
             }
-          });
+          }
+          bs = sb;
+        }
+        if (!staged) {   // the queries' chunk: row m, dimensions 8 p .. 8 p + 7
+          const int m = tid >> 2;
+          const int p = tid & 3;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int k = k0 + 8 * p + e;
+            const float v = (m < q_rows && k < d) ? qa[(size_t)m * d + k] : 0.0f;
+            sq[m * kPRow + 8 * p + e] = kBf16 ? rt::round_bf16(v) : v;
+          }
+        }
+        if (kConv || !staged) __syncthreads();
+        const float* as = staged ? sq + k0 : sq;
+        const int kn = min(rt::kBK, d - k0);
+        int kq = 0;
+        for (; kq + 4 <= kn; kq += 4) {   // four dimensions, in order, per pair
+          float4 av[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            av[i] = *reinterpret_cast<const float4*>(&as[(qy + 16 * i) * qs + kq]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 bv = *reinterpret_cast<const float4*>(&bs[(sx + 16 * j) * kPRow + kq]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
+              acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
+              acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
+              acc[i][j] = fmaf(av[i].w, bv.w, acc[i][j]);
+            }
+          }
+        }
+        for (; kq < kn; ++kq) {
+          float av[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) av[i] = as[(qy + 16 * i) * qs + kq];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float bv = bs[(sx + 16 * j) * kPRow + kq];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(av[i], bv, acc[i][j]);
+          }
+        }
+        __syncthreads();   // the stages are read before the next copies land
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = qy + 16 * i;
+        const float q2 = sq2[m];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = sx + 16 * j;
+          const bool bad = sid[c] < 0 || isinf(q2);
+          ss[m * kSStride + c] = bad ? CUDART_INF_F : score(metric, acc[i][j], q2, sy2[c]);
+        }
+      }
+      __syncthreads();
+      fold(ss, kSStride, sid);
+      __syncthreads();
+    }
+  });
 }
 
 constexpr int kWords = rt::kBK / 4;   // int8 words (4 dimensions) per chunk
 
 // int8 leg: the block's queries are quantised once into shared memory as a
-// transposed [d4][kBM + 1] word array; rows stage kWords words at a time.
-// Dynamic shared memory: the fold (fold_smem), the query words, then the
-// filter words.
+// transposed [d4][kBM + 1] word array; rows stage kWords words at a time,
+// 64 x 64 tiles (pm_scores).  Dynamic shared memory: the fold (fold_smem),
+// the query words, then the filter words.
 template <bool kWide, bool kFilt, bool kPaged>
 __global__ void __launch_bounds__(rt::kGemmThreads)
 probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restrict__ qg,
@@ -540,8 +968,9 @@ probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restri
                       int G, int cap, int d, int kk, int metric, float scan_scale,
                       Filt filt, Pages pg, PmOut out) {
   extern __shared__ unsigned long long pm_dyn[];   // 8-byte aligned: the sort's keys
+  constexpr int kFold = kWide ? kWideFold : kLists;
   int* qw = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(pm_dyn) +
-                                   fold_smem(kWide, kk, out.sort_rows));   // [d4][kBM + 1]
+                                   fold_smem(kFold, kk, out.sort_rows));   // [d4][kBM + 1]
   int* sfilt = qw + ((d + 3) / 4) * (rt::kBM + 1);                        // [cap_w] (kFilt)
   __shared__ int sb[kWords][rt::kBN + 1];
   __shared__ float srescale[rt::kBM];
@@ -556,66 +985,68 @@ probe_major_i8_kernel(const int* __restrict__ bucket_list, const float* __restri
   const int d4 = (d + 3) / 4;
   constexpr int kStride = rt::kBM + 1;
 
-  pm_walk<kWide, kFilt>(bucket_list, q2g, y2, ids, G, cap, kk, metric, filt, sfilt, pm_dyn,
-                        out, [&] {
-            for (int m = warp; m < rt::kBM; m += rt::kGemmThreads / 32) {
-              const float* qrow =
-                  m < q_rows ? qg + ((size_t)blockIdx.x * G + g0 + m) * d : nullptr;
-              const float sq = quantize_row(qrow, d, qw, kStride, m, lane);
-              if (lane == 0) srescale[m] = __fmul_rn(sq, scan_scale);
-            }
-          },
-          [&](int l, int c0, int c_rows, float (&ip)[4][4]) {
-            const int8_t* rows = data + ((size_t)l * cap + c0) * d;
-            size_t mine = 0;   // kPaged: the index of tile row 8 warp + (lane & 7)
-            if constexpr (kPaged) {
-              const int r = 8 * warp + (lane & 7);
-              if (r < c_rows) mine = row_index(pg, l, cap, c0 + r);
-            }
-            int acc[4][4];
+  auto prologue = [&] {
+    for (int m = warp; m < rt::kBM; m += rt::kGemmThreads / 32) {
+      const float* qrow = m < q_rows ? qg + ((size_t)blockIdx.x * G + g0 + m) * d : nullptr;
+      const float sq = quantize_row(qrow, d, qw, kStride, m, lane);
+      if (lane == 0) srescale[m] = __fmul_rn(sq, scan_scale);
+    }
+  };
+  auto tile_ip = [&](int l, int c0, int c_rows, float (&ip)[4][4]) {
+    const int8_t* rows = data + ((size_t)l * cap + c0) * d;
+    size_t mine = 0;   // kPaged: the index of tile row 8 warp + (lane & 7)
+    if constexpr (kPaged) {
+      const int r = 8 * warp + (lane & 7);
+      if (r < c_rows) mine = row_index(pg, l, cap, c0 + r);
+    }
+    int acc[4][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-            for (int w0 = 0; w0 < d4; w0 += kWords) {
-              __syncthreads();
-              if constexpr (kPaged) {   // rows 8 warp + 4 t + lane / 8, word lane % 8
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    for (int w0 = 0; w0 < d4; w0 += kWords) {
+      __syncthreads();
+      if constexpr (kPaged) {   // rows 8 warp + 4 t + lane / 8, word lane % 8
 #pragma unroll
-                for (int t = 0; t < (rt::kBN * kWords) / rt::kGemmThreads; ++t) {
-                  const int j = 4 * t + lane / 8;
-                  const int w = lane % 8;
-                  sb[w][8 * warp + j] = load_word(data + rt::lane_value(mine, j) * d,
-                                                  8 * warp + j < c_rows, d, w0 + w);
-                }
-              } else {
+        for (int t = 0; t < (rt::kBN * kWords) / rt::kGemmThreads; ++t) {
+          const int j = 4 * t + lane / 8;
+          const int w = lane % 8;
+          sb[w][8 * warp + j] = load_word(data + rt::lane_value(mine, j) * d,
+                                          8 * warp + j < c_rows, d, w0 + w);
+        }
+      } else {
 #pragma unroll
-                for (int t = 0; t < (rt::kBN * kWords) / rt::kGemmThreads; ++t) {
-                  const int idx = tid + t * rt::kGemmThreads;
-                  const int r = idx / kWords;
-                  const int w = idx % kWords;
-                  sb[w][r] = load_word(rows + (size_t)r * d, r < c_rows, d, w0 + w);
-                }
-              }
-              __syncthreads();
-              const int wn = min(kWords, d4 - w0);
-              for (int w = 0; w < wn; ++w) {
-                int av[4], bv[4];
+        for (int t = 0; t < (rt::kBN * kWords) / rt::kGemmThreads; ++t) {
+          const int idx = tid + t * rt::kGemmThreads;
+          const int r = idx / kWords;
+          const int w = idx % kWords;
+          sb[w][r] = load_word(rows + (size_t)r * d, r < c_rows, d, w0 + w);
+        }
+      }
+      __syncthreads();
+      const int wn = min(kWords, d4 - w0);
+      for (int w = 0; w < wn; ++w) {
+        int av[4], bv[4];
 #pragma unroll
-                for (int i = 0; i < 4; ++i) av[i] = qw[(w0 + w) * kStride + ty + 16 * i];
+        for (int i = 0; i < 4; ++i) av[i] = qw[(w0 + w) * kStride + ty + 16 * i];
 #pragma unroll
-                for (int j = 0; j < 4; ++j) bv[j] = sb[w][tx + 16 * j];
+        for (int j = 0; j < 4; ++j) bv[j] = sb[w][tx + 16 * j];
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-                  for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-              }
-            }
+          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+      }
+    }
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-              for (int j = 0; j < 4; ++j)
-                ip[i][j] = __fmul_rn((float)acc[i][j], srescale[ty + 16 * i]);
-          });
+      for (int j = 0; j < 4; ++j) ip[i][j] = __fmul_rn((float)acc[i][j], srescale[ty + 16 * i]);
+  };
+  const PmBlock pb{(int)blockIdx.x, g0, q_rows};
+  pm_walk<kFold, rt::kBN>(pb, G, kk, pm_dyn, out, [&](auto&& fold) {
+    pm_scores<kFilt>(pb, bucket_list, q2g, y2, ids, G, cap, metric, filt, sfilt, prologue,
+                     tile_ip, fold);
+  });
 }
 
 // -- query-major ----------------------------------------------------------
@@ -669,20 +1100,6 @@ __host__ __device__ inline size_t qm_smem(int kk, int d, bool i8) {
   return (size_t)kQmStages * kQmStageBytes + kQmStages * sizeof(QmMeta) +
          (size_t)(kk + qm_extra(kk)) * (sizeof(float) + sizeof(int)) +
          (size_t)(i8 ? (d + 3) / 4 : d) * 4;
-}
-
-// Value e of a 16-byte word of T values, as f32 (exact: a bf16 is the high
-// half of its f32, as __bfloat162float makes it).
-template <typename T>
-__device__ __forceinline__ float qm_elem(const uint4& w, int e) {
-  const int byte = e * (int)sizeof(T);
-  const unsigned word = byte < 4 ? w.x : byte < 8 ? w.y : byte < 12 ? w.z : w.w;
-  const int sh = (byte & 3) * 8;
-  if constexpr (std::is_same<T, float>::value) return __uint_as_float(word);
-  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return __uint_as_float(((word >> sh) & 0xffffu) << 16);
-  else if constexpr (std::is_same<T, uint8_t>::value) return (float)((word >> sh) & 0xffu);
-  else return (float)(int8_t)((word >> sh) & 0xffu);
 }
 
 // A float leg's dot product: T = f32, bf16, uint8 or int8 rows, converted
@@ -981,31 +1398,49 @@ inline Filt make_filt(const int* words, const int* fid, int n_lists, int cap_w) 
 // filter words in (0 unfiltered).
 inline size_t filt_smem(const Filt& f) { return (size_t)f.cap_w * sizeof(int); }
 
-// Bytes of shared memory the final sort of a wide fold may take: with the
-// kernels' ~43 KB of static tiles, two blocks an SM.
+// Bytes of shared memory the final sort of the int8 leg's wide fold may
+// take: with that kernel's ~43 KB of static tiles, two blocks an SM.
 constexpr size_t kSortSmem = 48 * 1024;
 
-// The probe-major launch of a leg's kernel: grid (B, G / kBM), the fold's
-// dynamic shared memory then `leg_smem` bytes of the leg's own.  Past kk =
-// 128 (kWide) `out` carries the candidate workspace (extra >= one tile);
-// `args` are the kernel's arguments up to its PmOut.
+// The probe-major launch of a leg's kernel: B buckets of G / kBM query
+// groups, as a grid (B, groups) or, `flat`, one dimension bucket-major
+// (the float legs); the fold's (`fold`, a PmFold) dynamic shared memory
+// (the wide fold's sort within `sort_budget` bytes) then `leg_smem` bytes
+// of the leg's own.  Past kk = 128 `out` carries the candidate workspace
+// (extra >= one tile of `tile_n` slots); `args` are the kernel's arguments
+// up to its PmOut.
 template <typename Kernel, typename... Args>
-int launch_pm(Kernel kernel, int B, int G, int kk, size_t leg_smem, PmOut out,
-              cudaStream_t stream, Args... args) {
-  const bool wide = kk > rt::kRegK;
-  if (wide) {
-    const size_t per_row = fold_smem(true, kk, 1);
-    out.sort_rows = (int)(kSortSmem / per_row < 1 ? 1 : kSortSmem / per_row);
+int launch_pm(Kernel kernel, int B, int G, int kk, int fold, size_t sort_budget, int tile_n,
+              size_t leg_smem, bool flat, PmOut out, cudaStream_t stream, Args... args) {
+  if (fold == kWideFold) {
+    const size_t per_row = fold_smem(kWideFold, kk, 1);
+    out.sort_rows = (int)(sort_budget / per_row < 1 ? 1 : sort_budget / per_row);
     if (out.sort_rows > rt::kBM) out.sort_rows = rt::kBM;
-    if (out.ws_v == nullptr || out.ws_i == nullptr || out.extra < rt::kBN || out.extra > kk)
+    if (out.ws_v == nullptr || out.ws_i == nullptr || out.extra < tile_n || out.extra > kk)
       return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = fold_smem(wide, kk, out.sort_rows) + leg_smem;
+  const size_t smem = align16(fold_smem(fold, kk, out.sort_rows)) + leg_smem;
   if (smem > rt::kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(B, (G + rt::kBM - 1) / rt::kBM), rt::kGemmThreads, smem, stream>>>(args..., out);
+  const int groups = (G + rt::kBM - 1) / rt::kBM;
+  if (flat && (long)B * groups > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const dim3 grid = flat ? dim3(B * groups) : dim3(B, groups);
+  kernel<<<grid, rt::kGemmThreads, smem, stream>>>(args..., out);
   return (int)cudaGetLastError();
+}
+
+// The float legs' kernel for lists of kk entries: `pick(fold, f, p)` with
+// kFold = decltype(fold)::value (pm_fold(kk)), kFilt and kPaged as pick_fp.
+template <typename Pick>
+static inline auto pick_pm(int kk, bool filtered, bool paged, Pick pick) {
+  auto with = [&](auto fold) {
+    return pick_fp(filtered, paged, [&](auto f, auto p) { return pick(fold, f, p); });
+  };
+  const int fold = pm_fold(kk);
+  return fold == kWideFold ? with(std::integral_constant<int, kWideFold>{})
+         : fold == kLists  ? with(std::integral_constant<int, kLists>{})
+                           : with(std::integral_constant<int, kRegLists>{});
 }
 
 template <typename T, bool kBf16>
@@ -1015,13 +1450,14 @@ int launch_probe_major(const int* bl, const float* qg, const float* q2g, const T
                        cudaStream_t stream) {
   if (bad_shape(kk, d, cap, G) || bad_pages(pg, cap)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  auto kernel =
-      pick_leg(kk, filt.words != nullptr, pg.slot != nullptr, [](auto w, auto f, auto p) {
-        return probe_major_kernel<T, kBf16, decltype(w)::value, decltype(f)::value,
-                                  decltype(p)::value>;
-      });
-  return launch_pm(kernel, B, G, kk, filt_smem(filt), out, stream, bl, qg, q2g, data, y2, ids, G,
-                   cap, d, kk, metric, filt, pg);
+  auto kernel = pick_pm(kk, filt.words != nullptr, pg.slot != nullptr,
+                        [](auto fold, auto f, auto p) {
+                          return probe_major_kernel<T, kBf16, decltype(fold)::value,
+                                                    decltype(f)::value, decltype(p)::value>;
+                        });
+  return launch_pm(kernel, B, G, kk, pm_fold(kk), kPmSortSmem, kPN,
+                   pm_leg_smem<T, kBf16>(d, filt.cap_w), true, out, stream, bl, qg, q2g, data,
+                   y2, ids, G, cap, d, kk, metric, filt, pg);
 }
 
 // splits > 1 cuts each query's probes into that many contiguous parts, one

@@ -28,7 +28,8 @@ extern "C" int rt_ivf_scan_probe_major_int8(const int* bucket_list, const float*
                            return probe_major_i8_kernel<decltype(w)::value, decltype(fl)::value,
                                                         decltype(p)::value>;
                          });
-  return launch_pm(kernel, B, G, kk, leg, PmOut{out_v, out_i, ws_v, ws_i, ws_extra, 0},
+  return launch_pm(kernel, B, G, kk, kk > rt::kRegK ? kWideFold : kLists, kSortSmem, rt::kBN,
+                   leg, false, PmOut{out_v, out_i, ws_v, ws_i, ws_extra, 0},
                    (cudaStream_t)stream, bucket_list, qg, q2g, static_cast<const int8_t*>(data),
                    y2, ids, G, cap, d, kk, metric, scan_scale, f, pg);
 }

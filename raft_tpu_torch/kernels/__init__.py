@@ -249,8 +249,9 @@ _SIGNATURES = {
     # x, centers, center norms, (n, n_centers, d, centers a part), part
     # pairs (null: one part), outputs and stream
     "rt_fused_argmin": [_P] * 3 + [_I] * 4 + [_P] * 5,
-    # indptr, indices, data, x, (n_rows, n_cols), output and stream
-    "rt_csr_spmm": [_P] * 4 + [_I] * 2 + [_P] * 2,
+    # indptr, indices, data, x, (n_rows, n_cols, slots of indices), the plan
+    # (scratch), output and stream
+    "rt_csr_spmm": [_P] * 4 + [_I] * 3 + [_P] * 3,
 }
 
 

@@ -19,6 +19,9 @@ import torch
 from raft_tpu_torch import kernels as _k
 from raft_tpu_torch.ops import cost as _cost
 
+#: slots a window (and a round) of the one-column kernel (csrc/csr_spmm.cu kChunk)
+WINDOW_SLOTS = 1024
+
 
 def _check(indptr, indices, data, x):
     if indptr.ndim != 1 or indptr.numel() < 1 or indices.ndim != 1 or data.ndim != 1:
@@ -66,7 +69,12 @@ def csr_spmm(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
     """[n_rows, cols] f32 sums through ``csrc/csr_spmm.cu`` (stamps
     ``kernel_path`` "cuda"); CPU tensors take :func:`csr_spmm_torch`
     ("torch").  ``indices`` must lie within x's rows (callers
-    build them so; the kernel does not check)."""
+    build them so; the kernel does not check).  One column: a block takes
+    the rows that start in a window of 1,024 slots, one thread summing each
+    row from the block's shared products; a row of more than 1,024 slots
+    gets a block of its own, in the first wave.  More columns: a warp a
+    (row, 32 columns), a lane a column; rows of more than 256 slots stream
+    through a cp.async ring, a block a (row, 128 columns), first."""
     _check(indptr, indices, data, x)
     if x.device.type == "cpu":
         _k.stamp_kernel_path("torch")
@@ -79,9 +87,15 @@ def csr_spmm(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
         return out.zero_()
     _cost.note("csr_spmm", lambda: _cost.csr_spmm_work(n, int(indptr[-1]), x.shape[0], c))
     lib = _k.library()
+    # the plan the card builds from indptr (csrc/csr_spmm.cu): each window's
+    # rows, then the long rows and their counts
+    cap = indices.shape[0]
+    plan = torch.empty(4 * (cap // WINDOW_SLOTS + 1) + 4 if c == 1 else n + 2,
+                       dtype=torch.int32, device=x.device)
     _k.count_launch("csr_spmm")
     code = lib.rt_csr_spmm(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
-                           x.data_ptr(), n, c, out.data_ptr(), _k.stream_of(x))
+                           x.data_ptr(), n, c, cap, plan.data_ptr(), out.data_ptr(),
+                           _k.stream_of(x))
     _k.check("csr_spmm", code)
     return out
 

@@ -15,7 +15,7 @@ from raft_tpu.kernels.ivf_scan import (
 from raft_tpu_torch.kernels import ivf_scan as tscan
 from raft_tpu_torch.ops import cost
 
-from _torch_parity import assert_topk_match
+from _torch_parity import assert_topk_match, paged_lists
 
 # six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
 if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -182,6 +182,56 @@ def test_query_major_storage_legs_match_pallas(storage, scan_dtype, metric):
         torch.from_numpy(y2), torch.from_numpy(ids), kk, metric=metric,
         scan_dtype=scan_dtype, scan_scale=scale)
     assert_topk_match(*got, np.asarray(ref[0])[:Q], np.asarray(ref[1])[:Q], atol=1e-4)
+
+
+# The float legs' kernel scores 64 queries x 128 slots a tile over chunks of
+# 32 dimensions: widths that leave a partial chunk (100) and rows whose
+# width in bytes is no multiple of 16 (f32 at 97: 388 bytes; bf16 at 100:
+# 200, at 97: 194), G = 70 (a second block of 6 queries), cap = 200 (a
+# partial second tile), 8-row pages, a filter, and kk in each fold class
+# (lists in registers to 32, in shared memory to 128, candidate arrays past).
+TILE_EDGES = [("float32", 100, False, False, 10), ("float32", 97, True, False, 40),
+              ("bfloat16", 100, False, True, 10), ("bfloat16", 97, True, False, 129),
+              ("float32", 97, True, True, 129)]
+
+
+@pytest.mark.parametrize("storage,d,paged,filtered,kk", TILE_EDGES)
+def test_probe_major_tile_edges_match_pallas(storage, d, paged, filtered, kk):
+    rng = np.random.default_rng(d + kk)
+    n_lists, cap, B, G = 4, 200, 5, 70
+    data = rng.standard_normal((n_lists, cap, d)).astype(np.float32)
+    ids = np.arange(n_lists * cap, dtype=np.int32).reshape(n_lists, cap)
+    ids[1, 150:] = -1
+    ids[3, 60:] = -1
+    data[ids < 0] = 0.0
+    t_data = torch.from_numpy(data).to(getattr(torch, storage))
+    vals = t_data.to(torch.float32).numpy()
+    y2 = np.where(ids >= 0, (vals * vals).sum(-1), 0.0).astype(np.float32)
+    bl = rng.integers(0, n_lists, B).astype(np.int32)
+    qg = (rng.standard_normal((B, G, d)) * 0.5).astype(np.float32)
+    q2g = (qg * qg).sum(-1).astype(np.float32)
+    q2g[:, 67:] = np.inf
+    q2g[2] = np.inf
+    words = None
+    if filtered:   # bit j of word w: slot 32 w + j passes; padding slots fail
+        bits = (rng.random((n_lists, cap)) < 0.6) & (ids >= 0)
+        bits = np.pad(bits, ((0, 0), (0, -cap % 32))).reshape(n_lists, -1, 32)
+        words = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1).astype(
+            np.uint32)
+    kw = dict(metric="sqeuclidean", scan_dtype="float32" if storage == "bfloat16" else "highest")
+    ref = j_probe_major(jnp.asarray(bl), jnp.asarray(qg), jnp.asarray(q2g),
+                        jnp.asarray(data).astype(getattr(jnp, storage)), jnp.asarray(y2),
+                        jnp.asarray(ids), kk, interpret=True,
+                        list_filter=None if words is None else jnp.asarray(words), **kw)
+    args = (torch.from_numpy(bl), torch.from_numpy(qg), torch.from_numpy(q2g))
+    lists = (torch.from_numpy(y2), torch.from_numpy(ids), kk)
+    t_kw = dict(kw, list_filter=None if words is None else torch.from_numpy(words.view(np.int32)))
+    got = tscan.ivf_scan_probe_major(*args, t_data, *lists, **t_kw)
+    assert got[0].shape == (B, G, kk)
+    assert_topk_match(*got, *ref, atol=1e-4)
+    if paged:   # bitwise the monolithic plain scan on the same rows
+        pv, pi = tscan.ivf_scan_probe_major(*args, paged_lists(t_data, 8, d), *lists, **t_kw)
+        assert torch.equal(pv, got[0]) and torch.equal(pi, got[1])
 
 
 def test_quantize_queries_i8_bitwise_with_raft():

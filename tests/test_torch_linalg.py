@@ -76,6 +76,21 @@ def test_reduce_rows_by_key_bitwise(weighted):
     _eq(tl.reduce_cols_by_key(T(m), T(keys_c), 4), jl.reduce_cols_by_key(m, keys_c, 4))
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_reduce_rows_by_key_few_keys_many_rows_bitwise(weighted):
+    """k-means' centroid-sum shape: many rows into few keys, so each key's
+    sum runs over thousands of rows (past the csr_spmm kernel's 1,024-slot
+    round), one key empty, 40 columns (a warp's 32 and a partial second)."""
+    rng = np.random.default_rng(11)
+    m = (rng.standard_normal((12000, 40)) * 10.0 ** rng.integers(-2, 3, (12000, 1))).astype(
+        np.float32)
+    keys = rng.choice([0, 1, 2, 4], 12000, p=[0.5, 0.3, 0.15, 0.05]).astype(np.int32)
+    w = rng.random(12000).astype(np.float32) if weighted else None
+    got = tl.reduce_rows_by_key(T(m), T(keys), 5, weights=None if w is None else T(w))
+    _eq(got, jl.reduce_rows_by_key(m, keys, 5, weights=w))
+    assert not got[3].any()
+
+
 def test_solvers():
     s = A.T @ A
     w, v = tl.eig_dc(T(s))

@@ -20,7 +20,7 @@ from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.kernels import cagra_traverse, fused_knn, ivf_scan, select_k
 from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq, refine
 
-from _torch_parity import hop_inputs
+from _torch_parity import hop_inputs, paged_lists
 
 # six xdist workers each opening an all-core intra-op pool oversubscribe the CPU
 if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -405,6 +405,62 @@ def test_storage_legs_match_plain_bitwise(cuda, schedule, dtype, scan_dtype, d, 
     got = kernel(*on_card, **kw)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[ivf_scan.kernel_name(schedule, data)] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [10, 40, 129])
+@pytest.mark.parametrize("paged,filtered", [(False, False), (True, False), (False, True),
+                                            (True, True)])
+@pytest.mark.parametrize("dtype,scan_dtype,d", [
+    (torch.float32, "float32", 100), (torch.float32, "bfloat16", 97),
+    (torch.bfloat16, "float32", 100), (torch.bfloat16, "bfloat16", 97),
+    (torch.uint8, "float32", 97), (torch.int8, "float32", 100),
+])
+def test_probe_major_float_legs_at_tile_edges_bitwise(cuda, dtype, scan_dtype, d, paged,
+                                                      filtered, kk):
+    """The float legs' 64 x 128 tile at its edges, bitwise the plain scan:
+    a partial last chunk of 32 dimensions (100), rows whose width in bytes
+    is no multiple of 16 (f32 at 97, bf16 at 97 and 100, 8-bit rows), G =
+    70 (a second block of 6 queries), cap = 200 (a partial second tile),
+    8-row pages, a filter, and kk in each fold class."""
+    g = torch.Generator().manual_seed(d + kk)
+    n_lists, cap = 6, 200
+    if dtype in (torch.uint8, torch.int8):
+        lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+        data = torch.randint(lo, hi, (n_lists, cap, d), generator=g).to(dtype)
+    else:
+        data = torch.randn(n_lists, cap, d, generator=g).to(dtype)
+    ids = torch.arange(n_lists * cap, dtype=torch.int32).reshape(n_lists, cap)
+    ids[1, 150:] = -1
+    ids[4, 60:] = -1
+    vals = data.float()
+    y2 = torch.where(ids >= 0, (vals * vals).sum(-1), torch.zeros(()))
+    qg = torch.randn(5, 70, d, generator=g) * (20.0 if dtype == torch.uint8 else 1.0)
+    q2g = (qg * qg).sum(-1)
+    q2g[:, 67:] = float("inf")
+    bl = torch.randint(0, n_lists, (5,), generator=g, dtype=torch.int32)
+    kw = dict(scan_dtype=scan_dtype,
+              scan_scale=None if dtype in (torch.uint8, torch.int8) else 1.0)
+    if filtered:
+        bits = (torch.rand(n_lists, cap, generator=g) < 0.6) & (ids >= 0)
+        bits = torch.nn.functional.pad(bits, (0, -cap % 32)).reshape(n_lists, -1, 32)
+        kw["list_filter"] = (bits.long() << torch.arange(32)).sum(-1).to(torch.int32).to(cuda)
+    rows = data.to(cuda)
+    if paged:
+        from raft_tpu_torch.store import PagedLists
+
+        p = paged_lists(data, 8, d)
+        rows = PagedLists(p.pool.to(cuda), p.page_slot.to(cuda), p.pages_per_list)
+    args = [t.to(cuda) for t in (bl, qg, q2g)]
+    lists = (y2.to(cuda), ids.to(cuda), kk)
+    want = ivf_scan.ivf_scan_probe_major_torch(*args, data.to(cuda), *lists, **kw)
+    kernels.reset_launch_counts()
+    got = ivf_scan.ivf_scan_probe_major(*args, rows, *lists, **kw)
+    torch.cuda.synchronize()
+    name = ivf_scan.kernel_name("probe_major", rows, kw.get("list_filter"),
+                                scan_scale=kw["scan_scale"])
+    assert kernels.launch_counts()[name] == 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -1541,7 +1597,8 @@ def _graph_csr(n, seed, hub_degree=0, cols=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,hub,cols", [(1000, 0, 1), (5000, 30000, 1), (3000, 2000, 3),
-                                        (1, 0, 1)])
+                                        (1, 0, 1), (20000, 70000, 1), (3000, 300, 32),
+                                        (2000, 3000, 33), (4000, 0, 128)])
 def test_csr_spmm_kernel_matches_plain_bitwise(cuda, n, hub, cols):
     from raft_tpu_torch.kernels import csr_spmm
 
@@ -1555,6 +1612,47 @@ def test_csr_spmm_kernel_matches_plain_bitwise(cuda, n, hub, cols):
     assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
     again = csr_spmm.csr_spmm(indptr.to(cuda), idx.to(cuda), data.to(cuda), x.to(cuda))
     assert torch.equal(got, again)
+
+
+def _schedule_csr(case, seed):
+    """A CSR shaped after a branch of ``csrc/csr_spmm.cu``'s plan: "empty"
+    (most rows empty, whole windows of them), "degrees" (rows of 1, 31, 32
+    and 33 slots), "long" (one row of 5,000 slots among short rows),
+    "keys" (k-means' centroid sums: 20,000 rows into 7 keys, one empty)."""
+    rng = np.random.default_rng(seed)
+    if case == "empty":
+        deg = np.where(rng.random(3000) < 0.1, rng.integers(1, 9, 3000), 0)
+        deg[256:2000] = 0
+    elif case == "degrees":
+        deg = np.tile([1, 31, 32, 33, 0], 600)
+    elif case == "long":
+        deg = rng.integers(0, 40, 3000)
+        deg[1370] = 5000
+    else:
+        deg = np.bincount(rng.choice([0, 1, 2, 3, 5, 6], 20000), minlength=7)
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
+    nnz = int(indptr[-1])
+    idx = torch.from_numpy(rng.integers(0, 5000, nnz).astype(np.int32))
+    data = torch.from_numpy(
+        (rng.standard_normal(nnz) * 10.0 ** rng.integers(-3, 4, nnz)).astype(np.float32))
+    return indptr, idx, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 3, 32, 33, 128])
+@pytest.mark.parametrize("case", ["empty", "degrees", "long", "keys"])
+def test_csr_spmm_kernel_plan_cases_bitwise(cuda, case, cols):
+    """The kernel bitwise its plain version on every branch of its plan:
+    windows of empty rows, warp-round edges, a long row in a block of its
+    own (one column) or the ring (more columns), and many rows a key."""
+    from raft_tpu_torch.kernels import csr_spmm
+
+    indptr, idx, data = _schedule_csr(case, cols)
+    x = torch.from_numpy(np.random.default_rng(cols).standard_normal((5000, cols)).astype(
+        np.float32))
+    want = csr_spmm.csr_spmm_torch(indptr, idx, data, x)
+    got = csr_spmm.csr_spmm(*(t.to(cuda) for t in (indptr, idx, data, x)))
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
 
 
 @pytest.mark.cuda

@@ -232,6 +232,46 @@ def test_csr_spmm_plain_version_sums_in_slot_order():
     assert kernels.consume_kernel_path() == "torch"
 
 
+def _schedule_csr(case, seed):
+    """(indptr, indices, data) of a CSR shaped after a branch of
+    ``csrc/csr_spmm.cu``'s plan: "empty" (most rows empty, whole windows of
+    them), "degrees" (rows of 1, 31, 32 and 33 slots: a warp's round of 32
+    and its edges), "long" (one row of 5,000 slots, past a 1,024-slot
+    window, so in a block of its own, among short rows).  Signed values over
+    several magnitudes, so that the order of each sum shows in its bits."""
+    rng = np.random.default_rng(seed)
+    if case == "empty":
+        deg = np.where(rng.random(700) < 0.1, rng.integers(1, 9, 700), 0)
+        deg[256:512] = 0
+    elif case == "degrees":
+        deg = np.tile([1, 31, 32, 33, 0], 60)
+    else:
+        deg = rng.integers(0, 40, 300)
+        deg[137] = 5000
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    idx = rng.integers(0, 90, nnz).astype(np.int32)
+    data = (rng.standard_normal(nnz) * 10.0 ** rng.integers(-3, 4, nnz)).astype(np.float32)
+    return indptr, idx, data
+
+
+@pytest.mark.parametrize("cols", [1, 3, 32, 33, 128])
+@pytest.mark.parametrize("case", ["empty", "degrees", "long"])
+def test_csr_spmm_schedule_cases_bitwise_raft_tpu(case, cols):
+    """The plain csr_spmm (and ``sparse.linalg.spmm`` over it) bitwise
+    raft_tpu's ``segment_sum`` SpMM at every branch of the kernel's
+    schedule and column layout (one column; a warp's 32 columns and its
+    edges; 128)."""
+    indptr, idx, data = _schedule_csr(case, cols)
+    x = np.random.default_rng(cols + 1).standard_normal((90, cols)).astype(np.float32)
+    shape = (indptr.size - 1, 90)
+    want = _np(js.linalg.spmm(js.CSR(indptr, idx, data, shape), x))
+    got = csr_k.csr_spmm_torch(*(torch.from_numpy(a) for a in (indptr, idx, data, x)))
+    assert got.numpy().tobytes() == want.tobytes()
+    tc = ts.CSR(indptr, idx, data, shape, device="cpu")
+    assert ts.linalg.spmm(tc, torch.from_numpy(x)).numpy().tobytes() == want.tobytes()
+
+
 @pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "inner_product", "cosine",
                                     "correlation", "hellinger", "l1", "chebyshev", "canberra",
                                     "braycurtis", "minkowski", "jensenshannon", "kl_divergence"])
