@@ -226,7 +226,33 @@ then drives the port's main paths at the scale of sift-128-euclidean
    long row, many rows a key; 1, 3, 32, 33 and 128 columns) and at
    ``ops.linalg.reduce_rows_by_key`` of the main rows into phase 1's lists
    (keys by kernel #7), timed beside ``index_add_``.  csr_spmm, fused_knn,
-   select_k and fused_argmin must launch in the phase.
+   select_k and fused_argmin must launch in the phase;
+27. random ball cover, the pylibraft surface and the rest of core
+   (``compat_rbc_phase``, at most 150 s): ``ball_cover.build`` over the main
+   rows (sqeuclidean, 1,000 landmarks, seed 0; kernel #7 assigns), its build
+   seconds, largest ball and padding share; ``knn_query`` of the 10,000
+   queries at the default probes (recall@10 >= 0.9; wall and device busy),
+   1,000 queries at n_probes = L equal to the oracle but at value ties, 256
+   queries bitwise the same search on the plain versions, and the scan leg
+   at that shape timed beside its plain version and bound; a haversine RBC
+   over 1,000,000 seeded (lat, lon) points (half uniform, half clustered):
+   recall@10 >= 0.9 against haversine brute force, exact at n_probes = L;
+   ``eps_nn`` of 1,000 queries equal to ``extras.epsilon_neighborhood`` at
+   eps² the median 32nd-neighbour distance; ``all_knn_query`` of a
+   100,000-row RBC bitwise ``knn_query`` of its rows; ``masked_l2_nn`` of
+   100,000 rows against phase 1's list centres in 64 groups at 50 %
+   adjacency against float64 numpy; ``extras.BatchKQuery`` bitwise
+   ``brute_force.knn`` at its horizon; the IVF helpers on phase 1's and the
+   IVF-PQ index; ``compat.pylibraft`` (pairwise distance, fused 1-NN,
+   select_k, k-means, IVF-Flat / IVF-PQ / CAGRA build, search, save, load,
+   refine, rbc, eps_neighborhood, rmat) bitwise the direct calls, with
+   ``set_output_as`` and a ``__cuda_array_interface__`` input taken without
+   a copy; ``async_fanout``, ``prefetch_to_device`` (16 pinned chunks of the
+   rows, timed beside blocking copies), a thread on ``Resources.sync``
+   cancelled from another, ``manager``, ``hnsw.load_native`` over phase
+   22's file; and ``python -m raft_tpu_torch.bench.get_dataset --synthetic
+   --scale 0.01`` with the runner's ``raft_tpu_ball_cover`` and
+   ``native_ivf_flat`` over its directory.
 
 Q3.8's probe (``served_window_probe``, not checked) runs after phase 1,
 after each section of the main path through the plain versions' searches,
@@ -239,6 +265,7 @@ when there is no card or any check fails.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -363,6 +390,39 @@ SP_ROWS, SP_COLS, SP_PER_ROW, SP_QUERIES, SP_K, SP_SLICE = 100_000, 20_000, 100,
 GRAM_ROWS = 8192
 RMAT_HUB_ROWS, RMAT_SAMPLE_ROWS = 16, 4096
 GRAPH_PHASE_S = 150.0
+#: phase 27 (random ball cover, the pylibraft surface, the rest of core): the
+#: landmarks of the 1M-row RBC (√n), its recall floor at the default probes,
+#: the queries held to the oracle at n_probes = L and bitwise to the plain
+#: versions; the haversine points (half uniform on the sphere, half in
+#: clusters of this spread in radians), their clusters and queries; eps_nn's
+#: queries and the neighbour whose median distance is eps²; all_knn_query's
+#: rows; masked_l2_nn's rows, groups, rows with no group and rows held to
+#: numpy; the batch-k query's queries, batch and batches read; the compat
+#: sequence's rows, queries, k-means clusters and pairwise rows; the fan-out's
+#: batches; the prefetch's chunks; the cancelled thread's loop bound; the
+#: native hnsw engine's queries and layer-0 starts (the kNN graph of 250
+#: separated blobs has no edges between them: one greedy descent stays in
+#: its blob, so the starts must reach every blob); get_dataset's scale; the
+#: time limit
+RBC_LANDMARKS, RBC_RECALL, RBC_EXACT_QUERIES, RBC_PLAIN_QUERIES = 1000, 0.9, 1000, 256
+HAV_ROWS, HAV_CLUSTERS, HAV_SPREAD, HAV_QUERIES = 1_000_000, 64, 0.02, 10_000
+#: the haversine queries whose search is traced for its device busy time (a
+#: window of the 10,000-q search holds ~14,000 launches, and in this long
+#: process such windows are retaken, ROADMAP Q3.8)
+HAV_BUSY_QUERIES = 1000
+EPS_QUERIES, EPS_NEIGHBOUR = 1000, 32
+ALL_KNN_ROWS = 100_000
+MASKED_ROWS, MASKED_GROUPS, MASKED_EMPTY, MASKED_SAMPLE = 100_000, 64, 16, 2000
+BKQ_QUERIES, BKQ_BATCH, BKQ_STEPS = 1000, 10, 5
+COMPAT_ROWS, COMPAT_QUERIES, COMPAT_CLUSTERS = 100_000, 1000, 256
+FANOUT_BATCHES, FANOUT_BATCH = 8, 256
+PREFETCH_CHUNKS = 16
+CANCEL_LOOPS = 1_000_000
+NATIVE_QUERIES, NATIVE_SEEDS = 1000, 2048
+GET_DATASET_SCALE = 0.01
+RBC_PHASE_S = 150.0
+#: the whole script's time limit, the kernels' build included
+SCRIPT_LIMIT_S = 1200.0
 
 
 def main() -> int:
@@ -404,7 +464,11 @@ def main() -> int:
         torch.cuda.synchronize()
 
     def cuda_ms(fn, reps):
-        fn()
+        """Mean ms of ``reps`` back-to-back calls of ``fn`` by CUDA events,
+        after one warm-up call; a single timed call (reps = 1: the plain
+        versions, which load nothing and take up to seconds) has none."""
+        if reps > 1:
+            fn()
         sync()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -480,7 +544,8 @@ def main() -> int:
         yield
         sync()
         phase_launches[name] = kernels.launch_counts()
-        print(f"{name}: {time.perf_counter() - t0:.3f} s, launches "
+        now = time.perf_counter()
+        print(f"{name}: {now - t0:.3f} s (ends at {now - t_start:.1f} s of the script), launches "
               f"{ {n: c for n, c in phase_launches[name].items() if c} }", flush=True)
 
     def batches(search_fn, k, kw_of=lambda b: {}, queries=None):
@@ -2842,19 +2907,18 @@ def main() -> int:
 
     # -- phase 22: hnswlib export, load and search of phase 5's index ----------
     hdir = tempfile.mkdtemp(prefix="raft_tpu_torch_hnsw_")
-    try:
-        hpath = os.path.join(hdir, "cagra.hnsw")
-        t0 = time.perf_counter()
-        with phase("hnsw_export"):
-            hnsw.serialize_to_hnswlib(hpath, cg, res=res)
-        h_write = time.perf_counter() - t0
-        h_size = os.path.getsize(hpath)
-        t0 = time.perf_counter()
-        with phase("hnsw_load"):
-            h_idx = hnsw.load(hpath, cg.dim, res=res)
-        h_read = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(hdir, ignore_errors=True)
+    # phase 27 loads the file again into the native engine
+    atexit.register(shutil.rmtree, hdir, True)
+    hpath = os.path.join(hdir, "cagra.hnsw")
+    t0 = time.perf_counter()
+    with phase("hnsw_export"):
+        hnsw.serialize_to_hnswlib(hpath, cg, res=res)
+    h_write = time.perf_counter() - t0
+    h_size = os.path.getsize(hpath)
+    t0 = time.perf_counter()
+    with phase("hnsw_load"):
+        h_idx = hnsw.load(hpath, cg.dim, res=res)
+    h_read = time.perf_counter() - t0
     check(phase_launches["hnsw_export"]["fused_knn"] > 0,
           "hnsw export: the upper levels' kNN launched fused_knn")
     check(torch.equal(h_idx.graph, cg.graph) and torch.equal(h_idx.dataset, cg.dataset),
@@ -2966,13 +3030,25 @@ def main() -> int:
     print(f"phase 26 (graphs and sparse): {t26:.1f} s", flush=True)
     check(t26 <= GRAPH_PHASE_S, f"phase 26 took {t26:.1f} s <= {GRAPH_PHASE_S:.0f} s")
 
+    # -- phase 27: random ball cover, the pylibraft surface, the rest of core ---------
+    t27 = time.perf_counter()
+    compat_rbc_phase(x=x, q=q, gt_i=gt_i, index=index, pq_index=pq_index, hpath=hpath, res=res,
+                     check=check, phase=phase, phase_launches=phase_launches, results=results,
+                     cuda_ms=cuda_ms, smi=smi)
+    t27 = time.perf_counter() - t27
+    print(f"phase 27 (random ball cover, pylibraft surface, core): {t27:.1f} s", flush=True)
+    check(t27 <= RBC_PHASE_S, f"phase 27 took {t27:.1f} s <= {RBC_PHASE_S:.0f} s")
+
     for name in kernels.KERNELS:
         check(main_launches[name] > 0, f"{name} launched {main_launches[name]} times on the main path")
     print(f"phase launches (nonzero): "
           f"{json.dumps({ph: {n: c for n, c in d.items() if c} for ph, d in phase_launches.items()})}",
           flush=True)
 
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+    total_s = time.perf_counter() - t_start
+    print(f"chip_smoke: {total_s:.1f} s in all", flush=True)
+    check(total_s <= SCRIPT_LIMIT_S, f"the script took {total_s:.1f} s <= {SCRIPT_LIMIT_S:.0f} s, "
+          "its time limit, kernel builds included")
     nums = [v for r in results for e in [r] + r.get("also", []) for v in e.values()
             if isinstance(v, float)]
     check(all(np.isfinite(v) for v in nums), f"every number of the kernels line is finite "
@@ -4431,6 +4507,546 @@ def graphs_phase(*, x, list_centers, res, check, phase, phase_launches, record, 
                            f"centroid sums; library: index_add_)",
                   "ms": red_ms, "plain_ms": red_plain_ms, "library_ms": red_lib_ms,
                   "bound_ms": red_bound, "max_abs_err": red_err}])
+
+
+def compat_rbc_phase(*, x, q, gt_i, index, pq_index, hpath, res, check, phase, phase_launches,
+                     results, cuda_ms, smi):
+    """Phase 27: random ball cover over the main rows (build by kernel #7,
+    probes by select_k, balls scanned by #3 / #5), haversine RBC, eps_nn
+    against epsilon_neighborhood, all_knn_query, masked_l2_nn, the batch-k
+    query, the IVF helpers, the pylibraft surface bitwise the direct calls,
+    the rest of core (fan-out, prefetch, cancellation, manager, the native
+    hnsw engine) and get_dataset with the runner."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.bench import datasets, runner
+    from raft_tpu_torch.bench.device_time import measure_device_time
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.compat.pylibraft import cluster as pcluster
+    from raft_tpu_torch.compat.pylibraft import common as pcommon
+    from raft_tpu_torch.compat.pylibraft import config as pconfig
+    from raft_tpu_torch.compat.pylibraft import distance as pdistance
+    from raft_tpu_torch.compat.pylibraft import matrix as pmatrix
+    from raft_tpu_torch.compat.pylibraft import neighbors as pneighbors
+    from raft_tpu_torch.compat.pylibraft import random as prandom
+    from raft_tpu_torch.core import async_fanout, interruptible, manager, prefetch_to_device
+    from raft_tpu_torch.distance import fused_nn, pairwise
+    from raft_tpu_torch.kernels import ivf_scan as scan
+    from raft_tpu_torch.kernels import select_k as sk
+    from raft_tpu_torch.neighbors import (_common, ball_cover, brute_force, cagra, extras, helpers,
+                                          hnsw, ivf_flat, ivf_pq)
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops import cost, matrix
+    from raft_tpu_torch.random import datagen
+    from raft_tpu_torch.stats.metrics import recall_at_k
+
+    dev = x.device
+    subs = []
+    t_phase = time.perf_counter()
+
+    def sub(name):
+        """A sub-phase whose launch counts join phase 27's."""
+        subs.append(name)
+        return phase(f"rbc_{name}")
+
+    def section(name):
+        print(f"phase 27 at {time.perf_counter() - t_phase:.1f} s: {name}", flush=True)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def wall_s(fn, reps=3):
+        """Median warm wall seconds of ``fn`` (one warm-up call)."""
+        fn()
+        sync()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls))
+
+    @contextlib.contextmanager
+    def plain_versions():
+        saved = (sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major)
+        sk.select_k_kernel = lambda *a, **kw: sk.select_k_torch(*a, **kw)
+        scan.ivf_scan_probe_major = scan.ivf_scan_probe_major_torch
+        scan.ivf_scan_query_major = scan.ivf_scan_query_major_torch
+        try:
+            yield
+        finally:
+            sk.select_k_kernel, scan.ivf_scan_probe_major, scan.ivf_scan_query_major = saved
+
+    def tied_equal(v, i, gv, gi):
+        """ids equal except where the two values tie (isclose at rtol 1e-5 /
+        atol 1e-4): (ok, slots that differ)."""
+        same = i == gi
+        tied = torch.isclose(v, gv, rtol=RTOL, atol=ATOL)
+        return bool((same | tied).all()) and torch.allclose(v, gv, rtol=RTOL, atol=ATOL), \
+            int((~same).sum())
+
+    print(f"phase 27 on {smi}", flush=True)
+
+    # -- RBC over the main rows ------------------------------------------------------------
+    t0 = time.perf_counter()
+    with sub("build"):
+        rbc = ball_cover.build(x, n_landmarks=RBC_LANDMARKS, seed=SEED, res=res)
+    build_s = time.perf_counter() - t0
+    sizes = rbc.list_sizes
+    pad = 1.0 - x.shape[0] / (rbc.n_landmarks * rbc.list_cap)
+    print(f"rbc build over {tuple(x.shape)}, L={rbc.n_landmarks}: {build_s:.3f} s; largest ball "
+          f"{int(sizes.max())} rows (mean {x.shape[0] / rbc.n_landmarks:.0f}, cap "
+          f"{rbc.list_cap}), padding {pad:.4f} of L x cap ({smi})", flush=True)
+    check(phase_launches["rbc_build"]["fused_argmin"] > 0, "rbc build launched fused_argmin")
+    check(int(sizes.sum()) == x.shape[0] and float(rbc.radii.min()) >= 0.0,
+          "rbc build: every row in one ball, radii non-negative")
+    # a second build, each stage synchronised: its stage times, and one seed
+    # must give one index
+    stage_s, saved = {}, {}
+
+    def timed(mod, attr):
+        fn = saved.setdefault((mod, attr), getattr(mod, attr))
+
+        def wrapper(*a, **kw):
+            sync()
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            stage_s[attr] = stage_s.get(attr, 0.0) + time.perf_counter() - t1
+            return out
+        setattr(mod, attr, wrapper)
+
+    for mod, attr in ((_common, "subsample_trainset"), (ball_cover, "_assign"),
+                      (_common, "compute_list_layout")):
+        timed(mod, attr)
+    try:
+        t0 = time.perf_counter()
+        again = ball_cover.build(x, n_landmarks=RBC_LANDMARKS, seed=SEED, res=res)
+        sync()
+        whole = time.perf_counter() - t0
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+    stage_s["scatter_and_radii"] = whole - sum(stage_s.values())
+    check(all(torch.equal(getattr(again, a), getattr(rbc, a))
+              for a in ("landmarks", "list_vecs", "list_index", "list_sizes", "radii")),
+          "rbc build twice with seed 0: the same landmarks, balls and radii")
+    print(f"rbc build stages (s, second build, synchronised; _assign is kernel #7 and the "
+          f"member distances, compute_list_layout the host layout after the labels' copy): "
+          f"{json.dumps(stage_s)} ({smi})", flush=True)
+    del again
+    n_probes = min(4 * int(np.sqrt(rbc.n_landmarks)), rbc.n_landmarks)
+    with sub("search"):
+        rv, ri = ball_cover.knn_query(rbc, q, K, res=res)
+    launched = phase_launches["rbc_search"]
+    scan_name = max(("ivf_scan_probe_major", "ivf_scan_query_major"), key=launched.get)
+    check(launched[scan_name] > 0 and launched["select_k"] > 0,
+          f"rbc knn_query of {q.shape[0]} queries launched select_k and a scan ({launched})")
+    rec = recall_at_k(ri, gt_i, K)
+    check(rec >= RBC_RECALL, f"rbc recall@{K} at the default n_probes={n_probes}: {rec:.5f} >= "
+          f"{RBC_RECALL}")
+    search = lambda: ball_cover.knn_query(rbc, q, K, res=res)  # noqa: E731
+    wall = wall_s(search)
+    busy = measure_device_time(search) or math.nan
+    print(f"rbc knn_query {q.shape[0]} q, k={K}, n_probes={n_probes}: wall {wall * 1e3:.3f} ms, "
+          f"device busy {busy * 1e3:.3f} ms (share {busy / wall:.3f}) ({smi})", flush=True)
+    q_exact = q[:RBC_EXACT_QUERIES]
+    with sub("exact"):
+        ev, ei = ball_cover.knn_query(rbc, q_exact, K, n_probes=rbc.n_landmarks, res=res)
+    bv, bi = brute_force.knn(x, q_exact, K, res=res)
+    ok, diff = tied_equal(ev, ei, bv, bi)
+    check(ok, f"rbc at n_probes = L on {q_exact.shape[0]} queries: ids equal the oracle but "
+          f"{diff} slots, each at a value tie")
+    q_plain = q[:RBC_PLAIN_QUERIES]
+    kv, ki = ball_cover.knn_query(rbc, q_plain, K, res=res)
+    kernels.reset_launch_counts()
+    with plain_versions():
+        pv, pi = ball_cover.knn_query(rbc, q_plain, K, res=res)
+    plain_launches = sum(kernels.launch_counts().values())
+    check(torch.equal(kv, pv) and torch.equal(ki, pi) and plain_launches == 0,
+          f"rbc knn_query of {q_plain.shape[0]} queries bitwise the same search on the plain "
+          f"versions ({plain_launches} kernel launches in the plain run)")
+    # the scan leg at RBC's shape (256 queries), timed and bounded
+    strategy, bucket, _, _ = _common.select_scan_strategy(
+        "auto", q_plain.shape[0], n_probes, rbc.n_landmarks, rbc.list_cap, rbc.dim,
+        res.workspace_limit_bytes, k=K)
+    probes = matrix.select_k_untraced(pairwise.distance_matrix_tile(
+        q_plain, rbc.landmarks, "sqeuclidean"), n_probes)[1]
+    lists = (rbc.list_vecs, rbc.scan_norms, rbc.list_index)
+    if strategy == "probe_major":
+        args, _ = _common.probe_major_scan_inputs(probes, q_plain, lists, K, bucket)
+        leg, leg_plain = scan.ivf_scan_probe_major, scan.ivf_scan_probe_major_torch
+    else:
+        args = _common.query_major_scan_inputs(probes, q_plain, lists, K)
+        leg, leg_plain = scan.ivf_scan_query_major, scan.ivf_scan_query_major_torch
+    leg_name = f"ivf_scan_{strategy}"
+    with cost.capture() as notes:
+        lv, li = leg(*args, metric="sqeuclidean", scan_scale=None)
+    lpv, lpi = leg_plain(*args, metric="sqeuclidean", scan_scale=None)
+    check(torch.equal(lv, lpv) and torch.equal(li, lpi),
+          f"{leg_name} at RBC's shape bitwise its plain version")
+    leg_ms = cuda_ms(lambda: leg(*args, metric="sqeuclidean", scan_scale=None), 10)
+    leg_plain_ms = cuda_ms(lambda: leg_plain(*args, metric="sqeuclidean", scan_scale=None), 1)
+    leg_bound, leg_by = cost.bound_ms(notes[0][1]) if notes else (math.nan, "")
+    print(f"{leg_name} at RBC's shape ({q_plain.shape[0]} q x {n_probes} probes, cap "
+          f"{rbc.list_cap}): {leg_ms:.4f} ms, plain {leg_plain_ms:.3f} ms, bound {leg_bound:.4f} "
+          f"ms ({leg_by}), launches in the 10,000-q search {launched[scan_name]} ({smi})",
+          flush=True)
+    entry = next((r for r in results if r["name"] == leg_name), None)
+    if entry is not None:
+        entry.setdefault("also", []).append({
+            "shape": f"random ball cover over the 1M rows: {q_plain.shape[0]} q x {n_probes} "
+                     f"probes, L={rbc.n_landmarks}, cap {rbc.list_cap} (largest ball), padding "
+                     f"{pad:.3f}; {launched[scan_name]} launches of {scan_name} in the "
+                     f"{q.shape[0]}-q search",
+            "ms": leg_ms, "plain_ms": leg_plain_ms, "bound_ms": leg_bound, "bound_by": leg_by,
+            "library_ms": None, "max_abs_err": 0.0 if torch.equal(lv, lpv) else
+            float((lv - lpv).abs().max())})
+    del ev, ei, bv, bi, args, lv, li, lpv, lpi
+
+    # -- haversine RBC -------------------------------------------------------------------------
+    section("haversine RBC")
+    rng = np.random.default_rng(SEED)
+    half = HAV_ROWS // 2
+    uni = np.stack([np.arcsin(rng.uniform(-1, 1, half)), rng.uniform(-np.pi, np.pi, half)], 1)
+    centres = np.stack([np.arcsin(rng.uniform(-0.95, 0.95, HAV_CLUSTERS)),
+                        rng.uniform(-np.pi, np.pi, HAV_CLUSTERS)], 1)
+    clu = centres[rng.integers(0, HAV_CLUSTERS, HAV_ROWS - half)] + rng.normal(
+        0, HAV_SPREAD, (HAV_ROWS - half, 2))
+    pts = torch.from_numpy(np.concatenate([uni, clu]).astype(np.float32)).to(dev)
+    hq = pts[torch.from_numpy(rng.choice(HAV_ROWS, HAV_QUERIES, replace=False)).to(dev)] \
+        + torch.from_numpy(rng.normal(0, 1e-3, (HAV_QUERIES, 2)).astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    with sub("hav_build"):
+        hrbc = ball_cover.build(pts, metric="haversine", n_landmarks=RBC_LANDMARKS, seed=SEED,
+                                res=res)
+    hbuild = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with sub("hav_search"):
+        hv, hi = ball_cover.knn_query(hrbc, hq, K, res=res)
+    hwall = time.perf_counter() - t0
+    hgv, hgi = brute_force.knn(pts, hq, K, metric="haversine", res=res)
+    hrec = recall_at_k(hi, hgi, K)
+    hq_busy = hq[:HAV_BUSY_QUERIES]
+    hsmall = lambda: ball_cover.knn_query(hrbc, hq_busy, K, res=res)  # noqa: E731
+    hsmall_wall = wall_s(hsmall)
+    hbusy = measure_device_time(hsmall) or math.nan
+    print(f"haversine rbc over {HAV_ROWS} points, L={hrbc.n_landmarks}: build {hbuild:.3f} s, "
+          f"largest ball {int(hrbc.list_sizes.max())} (cap {hrbc.list_cap}); {HAV_QUERIES} q "
+          f"at the default probes: wall {hwall * 1e3:.3f} ms (one call), recall@{K} {hrec:.5f}; "
+          f"{HAV_BUSY_QUERIES} q: wall {hsmall_wall * 1e3:.3f} ms, device busy "
+          f"{hbusy * 1e3:.3f} ms (share {hbusy / hsmall_wall:.3f}) ({smi})", flush=True)
+    check(hrec >= RBC_RECALL, f"haversine rbc recall@{K} {hrec:.5f} >= {RBC_RECALL}")
+    check(phase_launches["rbc_hav_search"]["select_k"] > 0, "haversine rbc launched select_k")
+    hx = hq[:RBC_EXACT_QUERIES]
+    with sub("hav_exact"):
+        xv, xi = ball_cover.knn_query(hrbc, hx, K, n_probes=hrbc.n_landmarks, res=res)
+    ok, diff = tied_equal(xv, xi, hgv[:RBC_EXACT_QUERIES], hgi[:RBC_EXACT_QUERIES])
+    check(ok, f"haversine rbc at n_probes = L on {hx.shape[0]} queries: ids equal haversine "
+          f"brute force but {diff} slots, each at a value tie")
+    del pts, hq, hrbc, hv, hi, hgv, hgi, xv, xi
+
+    # -- eps_nn against epsilon_neighborhood -----------------------------------------------
+    section("eps_nn")
+    qe = q[:EPS_QUERIES]
+    d32 = brute_force.knn(x, qe, EPS_NEIGHBOUR, res=res)[0][:, EPS_NEIGHBOUR - 1]
+    eps_sq = float(torch.median(d32))
+    t0 = time.perf_counter()
+    with sub("eps_nn"):
+        adj, deg = ball_cover.eps_nn(rbc, qe, eps_sq, res=res)
+    sync()
+    eps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with sub("eps_dense"):
+        eadj, edeg = extras.epsilon_neighborhood(qe, x, eps_sq, res=res)
+    sync()
+    dense_s = time.perf_counter() - t0
+    print(f"eps_nn of {qe.shape[0]} q over {x.shape[0]} rows at eps^2 {eps_sq:.3f} (median "
+          f"{EPS_NEIGHBOUR}th-neighbour distance): {eps_s:.3f} s, epsilon_neighborhood "
+          f"{dense_s:.3f} s; degrees mean {float(deg.float().mean()):.1f} max {int(deg.max())} "
+          f"({smi})", flush=True)
+    check(torch.equal(adj, eadj) and torch.equal(deg, edeg),
+          f"eps_nn adjacency and degrees equal epsilon_neighborhood's ({int(deg.sum())} pairs)")
+    del adj, eadj, deg, edeg
+
+    # -- all_knn_query on 100,000 rows ------------------------------------------------------
+    section("all_knn_query")
+    xs = x[:ALL_KNN_ROWS]
+    small = ball_cover.build(xs, seed=SEED, res=res)
+    with sub("all_knn"):
+        av, ai = ball_cover.all_knn_query(small, K, res=res)
+    sv, si = ball_cover.knn_query(small, xs, K, res=res)
+    check(torch.equal(av, sv) and torch.equal(ai, si),
+          f"all_knn_query on {ALL_KNN_ROWS} rows bitwise knn_query of those rows in dataset order")
+    check(bool((ai[:, 0] == torch.arange(ALL_KNN_ROWS, device=dev)).float().mean() >= 0.999),
+          "all_knn_query: each row its own nearest neighbour")
+    del small, av, ai, sv, si
+
+    # -- masked_l2_nn -------------------------------------------------------------------------
+    section("masked_l2_nn")
+    xm = x[:MASKED_ROWS]
+    centers = index.centers
+    n_c = centers.shape[0]
+    ends = torch.from_numpy(np.linspace(0, n_c, MASKED_GROUPS + 1)[1:].round().astype(np.int64))
+    madj = torch.from_numpy(rng.random((MASKED_ROWS, MASKED_GROUPS)) < 0.5)
+    madj[:MASKED_EMPTY] = False
+    with sub("masked"):
+        mv, mi = extras.masked_l2_nn(xm, centers, madj, ends, res=res)
+    rows = np.sort(np.concatenate([np.arange(MASKED_EMPTY), rng.choice(
+        np.arange(MASKED_EMPTY, MASKED_ROWS), MASKED_SAMPLE - MASKED_EMPTY, replace=False)]))
+    xr = xm[torch.from_numpy(rows).to(dev)].double().cpu().numpy()
+    c64 = centers.double().cpu().numpy()
+    gid = np.minimum(np.searchsorted(ends.numpy(), np.arange(n_c), side="right"),
+                     MASKED_GROUPS - 1)
+    allowed = madj.numpy()[rows][:, gid]
+    d = ((xr[:, None, :] - c64[None]) ** 2).sum(-1)
+    d = np.where(allowed, d, np.inf)
+    want_i = np.where(allowed.any(1), d.argmin(1), -1)
+    got_v, got_i = mv.cpu().numpy()[rows], mi.cpu().numpy()[rows]
+    dmin = d.min(1)
+    fin = np.isfinite(dmin)
+    close_v = np.allclose(got_v[fin], dmin[fin], rtol=1e-4, atol=1e-2)
+    gap = np.abs(d[np.arange(len(rows)), np.maximum(got_i, 0)][fin] - dmin[fin])
+    same_i = got_i == want_i
+    same_i[fin] |= gap <= 1e-3 * np.maximum(dmin[fin], 1)
+    check(close_v and bool(same_i.all()) and bool((got_i[:MASKED_EMPTY] == -1).all())
+          and bool(np.isinf(got_v[:MASKED_EMPTY]).all()),
+          f"masked_l2_nn of {MASKED_ROWS} rows against {n_c} list centres in {MASKED_GROUPS} "
+          f"groups: {MASKED_SAMPLE} sampled rows equal float64 numpy (near-ties aside), the "
+          f"{MASKED_EMPTY} empty rows (inf, -1)")
+    del xm, mv, mi
+
+    # -- the batch-k query --------------------------------------------------------------------
+    section("the batch-k query")
+    qb = q[:BKQ_QUERIES]
+    bkq = extras.BatchKQuery(x, qb, BKQ_BATCH, res=res)
+    with sub("batch_k"):
+        got = [b for _, b in zip(range(BKQ_STEPS), bkq)]
+    horizon = bkq._vals.shape[1]
+    hv_, hi_ = brute_force.knn(x, qb, horizon, res=res)
+    ok = all(torch.equal(v_, hv_[:, s * BKQ_BATCH:(s + 1) * BKQ_BATCH])
+             and torch.equal(i_, hi_[:, s * BKQ_BATCH:(s + 1) * BKQ_BATCH])
+             for s, (v_, i_) in enumerate(got))
+    check(ok, f"extras.BatchKQuery over {x.shape[0]} rows, batch {BKQ_BATCH}: {BKQ_STEPS} "
+          f"batches bitwise brute_force.knn at the horizon k={horizon}")
+    check(phase_launches["rbc_batch_k"]["fused_knn"] > 0, "extras.BatchKQuery ran on fused_knn")
+    del bkq, got, hv_, hi_
+
+    # -- helpers --------------------------------------------------------------------------------
+    section("helpers")
+    vecs, ids = helpers.ivf_flat_unpack_list(index, 0)
+    ok_flat = np.array_equal(vecs, x[torch.from_numpy(ids).long().to(dev)].cpu().numpy())
+    codes, pids = helpers.ivf_pq_unpack_list(pq_index, 0)
+    packed = helpers.ivf_pq_pack_codes(codes, pq_index.pq_bits)
+    ok_codes = np.array_equal(helpers.ivf_pq_unpack_codes(packed, pq_index.pq_dim,
+                                                          pq_index.pq_bits), codes)
+    recon, rids = helpers.ivf_pq_reconstruct_list(pq_index, 0)
+    orig = x[torch.from_numpy(rids).long().to(dev)]
+    rel = float(torch.median(torch.linalg.vector_norm(recon - orig, dim=1)
+                             / torch.linalg.vector_norm(orig, dim=1).clamp(min=1e-9)))
+    fp_flat = helpers.index_memory_footprint(index)["total"]
+    fp_pq = helpers.index_memory_footprint(pq_index)["total"]
+    check(ok_flat and ok_codes and rel < 0.5 and len(ids) == int(index.list_sizes[0]),
+          f"helpers: IVF-Flat list 0 ({len(ids)} rows) equals its rows; IVF-PQ list 0 codes "
+          f"pack / unpack round trip ({codes.shape}), reconstruction median relative error "
+          f"{rel:.4f} < 0.5; footprints IVF-Flat {fp_flat / 2**30:.3f} GiB, IVF-PQ "
+          f"{fp_pq / 2**30:.3f} GiB")
+
+    # -- the pylibraft surface on the card, bitwise the direct calls ------------------------
+    section("compat")
+    handle = pcommon.DeviceResources()
+    xc, qc = x[:COMPAT_ROWS], q[:COMPAT_QUERIES]
+    same = {}
+
+    def eq(a, b):
+        return all(torch.equal(u, w) for u, w in zip(a, b)) if isinstance(a, tuple) \
+            else torch.equal(a, b)
+
+    with sub("compat"):
+        xd = x[:DIST_ROWS]
+        same["pairwise_distance"] = eq(pdistance.pairwise_distance(xd, xd, handle=handle),
+                                       pairwise.pairwise_distance(xd, metric="euclidean", res=res))
+        same["fused_l2_nn_argmin"] = eq(pdistance.fused_l2_nn_argmin(qc, xc, handle=handle),
+                                        fused_nn.fused_l2_nn_argmin(qc, xc, res=res))
+        scores = pairwise.pairwise_distance(qc, xd, metric="sqeuclidean", res=res)
+        same["select_k"] = eq(pmatrix.select_k(scores, K, handle=handle),
+                              matrix.select_k(scores, K))
+        kp = kmeans.KMeansParams(n_clusters=COMPAT_CLUSTERS, max_iter=10, seed=SEED)
+        fit_c = pcluster.kmeans.fit(kp, xc, handle=handle)
+        fit_d = kmeans.fit(kp, xc, res=res)
+        same["kmeans.fit"] = torch.equal(fit_c[0], fit_d[0]) and fit_c[1] == float(fit_d[1])
+        tmp = tempfile.mkdtemp(prefix="raft_tpu_torch_compat_")
+        try:
+            for name, mod, pmod, ip, spar in (
+                    ("ivf_flat", ivf_flat, pneighbors.ivf_flat,
+                     ivf_flat.IndexParams(n_lists=256), ivf_flat.SearchParams(n_probes=20)),
+                    ("ivf_pq", ivf_pq, pneighbors.ivf_pq,
+                     ivf_pq.IndexParams(n_lists=256, pq_dim=64),
+                     ivf_pq.SearchParams(n_probes=20)),
+                    ("cagra", cagra, pneighbors.cagra, cagra.IndexParams(),
+                     cagra.SearchParams())):
+                built = pmod.build(ip, xc, handle=handle)
+                direct = mod.build(ip, xc, res=res)
+                key = "graph" if name == "cagra" else "list_index"
+                got_c = pmod.search(spar, built, qc, K, handle=handle)
+                got_d = mod.search(spar, direct, qc, K, res=res)
+                path = os.path.join(tmp, name)
+                pmod.save(path, built)
+                loaded = pmod.load(path, handle=handle)
+                same[name] = (torch.equal(getattr(built, key), getattr(direct, key))
+                              and eq(got_c, got_d)
+                              and eq(pmod.search(spar, loaded, qc, K, handle=handle), got_d))
+                if name == "ivf_pq":
+                    cand = mod.search(spar, direct, qc, 4 * K, res=res)[1]
+                    same["refine"] = eq(pneighbors.refine(xc, qc, cand, K, handle=handle),
+                                        refine(xc, qc, cand, K, res=res))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        prbc = pneighbors.rbc.build(xc, handle=handle)
+        drbc = ball_cover.build(xc, res=res)
+        same["rbc"] = (torch.equal(prbc.list_index, drbc.list_index)
+                       and eq(pneighbors.rbc.query(prbc, qc, K, handle=handle),
+                              ball_cover.knn_query(drbc, qc, K, res=res))
+                       and eq(pneighbors.rbc.eps_query(prbc, qc[:100], eps_sq, handle=handle),
+                              ball_cover.eps_nn(drbc, qc[:100], eps_sq, res=res)))
+        same["eps_neighborhood"] = eq(
+            pneighbors.eps_neighborhood(qc[:100], xc, eps_sq, handle=handle),
+            extras.epsilon_neighborhood(qc[:100], xc, eps_sq, res=res))
+        same["rmat"] = eq(prandom.rmat(16, 16, 100_000, seed=3, handle=handle),
+                          datagen.rmat(torch.Generator(device=dev).manual_seed(3), 16, 16,
+                                       100_000, res=res))
+    bad = [k_ for k_, v_ in same.items() if not v_]
+    check(not bad, f"pylibraft surface on the card bitwise the direct calls for {sorted(same)}"
+          f"{f' (not: {bad})' if bad else ''}")
+    handle.sync()
+    try:
+        pconfig.set_output_as("numpy")
+        out_np = pdistance.fused_l2_nn_argmin(qc, xc, handle=handle)
+        seen = []
+        pconfig.set_output_as(lambda t: (seen.append(t.device.type), t.cpu())[1])
+        out_fn = pdistance.fused_l2_nn_argmin(qc, xc, handle=handle)
+    finally:
+        pconfig.set_output_as("torch")
+    want = fused_nn.fused_l2_nn_argmin(qc, xc, res=res).cpu()
+    check(isinstance(out_np, np.ndarray) and np.array_equal(out_np, want.numpy())
+          and seen == ["cuda"] and torch.equal(out_fn, want),
+          "set_output_as('numpy') and a callable convert the card's outputs")
+
+    class CudaArray:
+        def __init__(self, t):
+            self._t = t
+            self.__cuda_array_interface__ = t.__cuda_array_interface__
+
+    taken = pcommon.to_device_array(CudaArray(xc))
+    dnd = pcommon.device_ndarray(np.ones((4, 4), np.float32))
+    check(taken.data_ptr() == xc.data_ptr() and taken.device.type == "cuda"
+          and pcommon.to_device_array(dnd).data_ptr()
+          == dnd.__cuda_array_interface__["data"][0],
+          "a __cuda_array_interface__ input is taken with no copy (same data_ptr)")
+
+    # -- the rest of core -------------------------------------------------------------------
+    section("the rest of core")
+    batches = [(q[b * FANOUT_BATCH:(b + 1) * FANOUT_BATCH],) for b in range(FANOUT_BATCHES)]
+    with sub("fanout"):
+        fanned = async_fanout(lambda qq: brute_force.knn(x, qq, K, res=res), batches)
+    seq = [brute_force.knn(x, qq, K, res=res) for (qq,) in batches]
+    check(all(eq(a_, b_) for a_, b_ in zip(fanned, seq)),
+          f"async_fanout of {FANOUT_BATCHES} brute-force batches bitwise the sequential calls")
+    host = x.cpu()
+    chunks = list(torch.chunk(host, PREFETCH_CHUNKS))
+    pinned = [c_.pin_memory() for c_ in chunks]
+    t0 = time.perf_counter()
+    moved = list(prefetch_to_device(pinned, device=dev))
+    sync()
+    pre_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocking = [c_.to(dev) for c_ in chunks]
+    sync()
+    block_s = time.perf_counter() - t0
+    check(torch.equal(torch.cat(moved), x),
+          f"prefetch_to_device of the {x.shape[0]} rows in {PREFETCH_CHUNKS} pinned chunks "
+          "equals the rows")
+    print(f"prefetch_to_device {PREFETCH_CHUNKS} pinned chunks of {x.shape[0]} x {x.shape[1]} "
+          f"f32: {pre_s * 1e3:.1f} ms ({x.numel() * 4 / pre_s / 1e9:.2f} GB/s); blocking "
+          f"pageable copies {block_s * 1e3:.1f} ms ({x.numel() * 4 / block_s / 1e9:.2f} GB/s) "
+          f"({smi})", flush=True)
+    del host, chunks, pinned, moved, blocking
+    started, outcome = threading.Event(), []
+
+    def looping():
+        started.set()
+        try:
+            for _ in range(CANCEL_LOOPS):
+                res.sync()
+            outcome.append("never cancelled")
+        except InterruptedError:
+            outcome.append("cancelled")
+
+    worker = threading.Thread(target=looping)
+    worker.start()
+    started.wait()
+    interruptible.cancel(worker.ident)
+    worker.join(timeout=120)
+    check(outcome == ["cancelled"], f"a thread looping on Resources.sync, cancelled from "
+          f"another thread, raised InterruptedError ({outcome})")
+    manager.reset()
+    check(manager.get_device_resources(0).device == torch.device("cuda:0"),
+          "manager.get_device_resources(0) is cuda:0")
+    manager.reset()
+    section("native hnsw")
+    t0 = time.perf_counter()
+    nat = hnsw.load_native(hpath, x.shape[1])
+    load_s = time.perf_counter() - t0
+    qn = q[:NATIVE_QUERIES].cpu().numpy()
+    gt_n = gt_i[:NATIVE_QUERIES].cpu()
+    t0 = time.perf_counter()
+    _, nids = nat.search(qn, K, ef=HNSW_EF, n_seeds=NATIVE_SEEDS)
+    nat_s = time.perf_counter() - t0
+    nrec = recall_at_k(torch.from_numpy(nids.astype(np.int64)), gt_n, K)
+    one = recall_at_k(torch.from_numpy(nat.search(qn, K, ef=HNSW_EF)[1].astype(np.int64)), gt_n, K)
+    print(f"hnsw.load_native of phase 22's file: load {load_s:.2f} s, {NATIVE_QUERIES} q at ef "
+          f"{HNSW_EF} with {NATIVE_SEEDS} layer-0 starts on the host {nat_s:.3f} s, recall@{K} "
+          f"{nrec:.5f} (one start, hnswlib's search: {one:.5f})", flush=True)
+    check(nrec >= HNSW_RECALL, f"hnsw.load_native recall@{K} {nrec:.5f} >= {HNSW_RECALL}")
+    del nat
+
+    # -- get_dataset and the runner ---------------------------------------------------------
+    section("get_dataset")
+    tmp = tempfile.mkdtemp(prefix="raft_tpu_torch_data_")
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "raft_tpu_torch.bench.get_dataset", "--synthetic",
+             "--scale", str(GET_DATASET_SCALE), "--out-dir", tmp],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")])})
+        dest = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+        check(out.returncode == 0 and os.path.isdir(dest),
+              f"python -m raft_tpu_torch.bench.get_dataset --synthetic --scale "
+              f"{GET_DATASET_SCALE}: exit {out.returncode} in {time.perf_counter() - t0:.1f} s "
+              f"{out.stderr[-500:] if out.returncode else ''}")
+        if out.returncode == 0:
+            ds = datasets.load(dest)
+            for algo, bp, sps in (("raft_tpu_ball_cover", {"seed": SEED}, [{"n_probes": 0}]),
+                                  ("native_ivf_flat", {"n_lists": 100}, [{"n_probes": 10}])):
+                row = runner.run_case(ds, algo, bp, sps, k=K, warmup=0, iters=1, res=res)[0]
+                print(f"runner {algo} over {ds.base.shape}: recall {row.recall:.4f} qps "
+                      f"{row.qps:.1f} build {row.build_time_s:.3f} s ({smi})", flush=True)
+                check(row.recall > 0.5, f"runner {algo} on get_dataset's directory: recall "
+                      f"{row.recall:.4f} > 0.5")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    total = {k_: sum(phase_launches[f"rbc_{s_}"][k_] for s_ in subs) for k_ in kernels.KERNELS}
+    print(f"phase 27 launches: { {k_: c_ for k_, c_ in total.items() if c_} }", flush=True)
+    for name in ("fused_argmin", "select_k", "fused_knn"):
+        check(total[name] > 0, f"phase 27 launched {name} ({total[name]})")
+    check(total["ivf_scan_probe_major"] + total["ivf_scan_query_major"] > 0,
+          "phase 27 launched a scan kernel")
 
 
 if __name__ == "__main__":

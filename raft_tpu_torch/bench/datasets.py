@@ -7,8 +7,8 @@ dim, then the row-major payload) and ``.fvecs`` / ``.ivecs`` / ``.bvecs``
 (every row [dim:int32][payload]); ann-benchmarks HDF5 files through
 ``h5py``, imported when called.  The synthetic generators draw the same
 numpy numbers as raft_tpu's, so one seed gives the same rows in both
-packages.  No download step: neither this package nor its tests reach a
-network.
+packages.  Downloads are ``bench.get_dataset``'s alone (its tests serve
+local bytes in place of the network).
 """
 
 from __future__ import annotations

@@ -9,11 +9,10 @@ counts finished work, not enqueued launches.  The kernel library is built
 and loaded before any timer starts (raft_tpu's counterpart is a warmed
 jit): build times exclude the kernels' ``nvcc`` build.
 
-Wrappers of modules the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item: ``HnswNativeANN``
-(``hnsw.load_native``, Queue 1 item 6b), ``BallCoverANN`` (item 6b), the
-``cpp/`` engines (``_NativeANN``: a C binding, item 6b) and ``SklearnANN``
-(no scikit-learn where the card is).
+``HnswNativeANN`` and the ``cpp/`` engines (``_NativeANN``) run the
+native C++ core (``core.native``) on the host, off the card, as the
+reference's harness runs its CPU libraries.  ``SklearnANN`` raises
+``NotImplementedError``: scikit-learn is not installed where the card is.
 """
 
 from __future__ import annotations
@@ -232,9 +231,26 @@ class _NotPortedANN(ANN):
         raise NotImplementedError(f"{self.name}: {self.why}")
 
 
-class BallCoverANN(_NotPortedANN):
+class BallCoverANN(ANN):
+    """Random ball cover: ``build_param`` passes to ``ball_cover.build``
+    (``n_landmarks``, ``seed``), ``n_probes`` is the search parameter."""
+
     name = "raft_tpu_ball_cover"
-    why = "neighbors.ball_cover is not ported yet (ROADMAP Queue 1 item 6b)"
+
+    def build(self, dataset):
+        from raft_tpu_torch.neighbors import ball_cover
+
+        self._mod = ball_cover
+        self._index = ball_cover.build(dataset, metric=self.metric, **self.build_param,
+                                       res=self.res)
+        self._n_probes = 0
+
+    def set_search_param(self, param):
+        self._n_probes = int(param.get("n_probes", 0))
+
+    def search(self, queries, k):
+        return self._mod.knn_query(self._index, queries, k, n_probes=self._n_probes,
+                                   res=self.res)
 
 
 class NumpyExactANN(ANN):
@@ -325,27 +341,117 @@ class HnswANN(ANN):
         shutil.copy(self._path, path)
 
 
-class HnswNativeANN(_NotPortedANN):
+class HnswNativeANN(HnswANN):
+    """``hnswlib_format``'s exported file searched by the native C++ HNSW
+    engine (``cpp/src/hnsw.cc``: greedy upper-level descent, then an
+    ef-bounded best-first search at layer 0, threaded over queries) on the
+    host: the role hnswlib's C++ plays in the reference's harness."""
+
     name = "hnsw_native"
-    why = "neighbors.hnsw.load_native: the native C++ core is not ported yet (ROADMAP Queue 1 item 6b)"
+
+    def build(self, dataset):
+        self._export(dataset)   # the graph and its file only: no walk index to discard
+        from raft_tpu_torch.neighbors import hnsw
+
+        self._native = hnsw.load_native(self._path, self._dim)
+        self._threads = 0
+        self._ef = 64
+        self._n_seeds = 1
+
+    def set_search_param(self, param):
+        super().set_search_param(param)
+        self._threads = int(param.get("n_threads", 0))
+        self._n_seeds = int(param.get("n_seeds", 1))
+
+    def search(self, queries, k):
+        d, ids = self._native.search(_host_f32(queries), k, ef=self._ef, metric=self.metric,
+                                     n_seeds=self._n_seeds, n_threads=self._threads)
+        return d, ids.astype(np.int32)
 
 
-class _NativeANN(_NotPortedANN):
-    """The ``cpp/`` engines (a C binding, ``core.native``)."""
+def _host_f32(x) -> np.ndarray:
+    return np.ascontiguousarray(x.cpu().numpy() if isinstance(x, torch.Tensor) else x,
+                                np.float32)
 
-    why = "core.native (the cpp/ engines) is not ported yet (ROADMAP Queue 1 item 6b)"
+
+class _NativeANN(ANN):
+    """The C ABI's host engines (``cpp/src/ann_index.cc`` through
+    ``core.native``): threaded C++ with no torch in build or search, the
+    role faiss-CPU plays in the reference's harness."""
+
+    def set_search_param(self, param):
+        self._n_probes = int(param.get("n_probes", 32))
+        self._itopk = int(param.get("itopk_size", 64))
+
+    def search(self, queries, k):
+        return self._index.search(_host_f32(queries), k, n_probes=self._n_probes,
+                                  itopk=self._itopk)
+
+    def save(self, path):
+        self._index.save(path)
 
 
 class NativeIvfFlatANN(_NativeANN):
     name = "native_ivf_flat"
 
+    def build(self, dataset):
+        from raft_tpu_torch.core import native
+
+        self._index = native.NativeAnnIndex.ivf_flat(
+            _host_f32(dataset), n_lists=int(self.build_param.get("n_lists", 256)),
+            metric=self.metric, kmeans_iters=int(self.build_param.get("kmeans_n_iters", 10)))
+        self.set_search_param({})
+
+
+def _divisor_pq_dim(dim: int, want: int) -> int:
+    """The largest divisor of ``dim`` that is <= max(1, want): the native
+    engine needs dim % pq_dim == 0 (the port's IVF-PQ pads instead)."""
+    want = max(1, min(want, dim))
+    for cand in range(want, 0, -1):
+        if dim % cand == 0:
+            return cand
+    return 1
+
 
 class NativeIvfPqANN(_NativeANN):
+    """The C ABI's IVF-PQ (ADC LUT scan) and a threaded exact host refine:
+    the reference's classic CPU recipe."""
+
     name = "native_ivf_pq"
+
+    def build(self, dataset):
+        from raft_tpu_torch.core import native
+
+        self._x = _host_f32(dataset)
+        dim = self._x.shape[1]
+        self._index = native.NativeAnnIndex.ivf_pq(
+            self._x, n_lists=int(self.build_param.get("n_lists", 256)),
+            pq_dim=_divisor_pq_dim(dim, int(self.build_param.get("pq_dim", dim // 4))),
+            metric=self.metric, kmeans_iters=int(self.build_param.get("kmeans_n_iters", 10)))
+        self.set_search_param({})
+
+    def set_search_param(self, param):
+        super().set_search_param(param)
+        self._refine_ratio = int(param.get("refine_ratio", 4))
+
+    def search(self, queries, k):
+        from raft_tpu_torch.core import native
+
+        q = _host_f32(queries)
+        _, cand = self._index.search(q, k * self._refine_ratio, n_probes=self._n_probes)
+        return native.refine_host(self._x, q, cand, k, metric=self.metric)
 
 
 class NativeCagraANN(_NativeANN):
     name = "native_cagra"
+
+    def build(self, dataset):
+        from raft_tpu_torch.core import native
+
+        self._index = native.NativeAnnIndex.cagra(
+            _host_f32(dataset), graph_degree=int(self.build_param.get("graph_degree", 32)),
+            metric=self.metric)
+        self.set_search_param({})
 
 
 ALGORITHMS = {

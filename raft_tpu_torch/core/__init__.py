@@ -1,8 +1,9 @@
-"""Core: resources, validation, serialization and the bitset (counterpart
-of ``raft_tpu.core``; ``core.fanout`` is ROADMAP Queue 1 item 6b)."""
+"""Core: resources, validation, serialization, the bitset and the batch
+fan-out (counterpart of ``raft_tpu.core``)."""
 
 from raft_tpu_torch.core import serialize
 from raft_tpu_torch.core.bitset import Bitset
+from raft_tpu_torch.core.fanout import async_fanout, prefetch_to_device, row_batches
 from raft_tpu_torch.core.resources import (
     DeviceResources,
     Resources,
@@ -22,4 +23,7 @@ __all__ = [
     "LogicError",
     "expects",
     "fail",
+    "async_fanout",
+    "prefetch_to_device",
+    "row_batches",
 ]

@@ -60,6 +60,36 @@ class Resources:
             self._seed = int(seed)
             self._key_counter = 0
 
+    @property
+    def native(self):
+        """The native core's resources handle (``core.native``) with this
+        object's workspace byte limit, made on first use; None where the
+        native core is unavailable.  The two arenas account
+        independently: native scratch is bounded by the same figure, not
+        pooled with device memory."""
+        with self._lock:
+            if not hasattr(self, "_native"):
+                from raft_tpu_torch.core import native as _native
+
+                self._native = (_native.NativeResources(self.workspace_limit_bytes)
+                                if _native.available() else None)
+            return self._native
+
+    def sync(self, *tensors) -> None:
+        """Block until the work queued on the devices of ``tensors`` (none
+        given: on this object's device) has finished.  A cancellation
+        point: another thread's ``core.interruptible.cancel`` of this
+        thread raises ``InterruptedError`` here, checked before and after
+        the wait."""
+        from raft_tpu_torch.core import interruptible as _intr
+
+        _intr.check()
+        devices = {t.device for t in tensors if isinstance(t, torch.Tensor)} or {self.device}
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        _intr.check()
+
 
 #: raft's ``device_resources`` name for the same handle
 DeviceResources = Resources

@@ -1,17 +1,41 @@
 """Nearest-neighbour indexes of the port (counterpart of ``raft_tpu.neighbors``;
 sparse kNN and the kNN graph are ``raft_tpu_torch.sparse.neighbors``, as in
-raft_tpu).  Random ball cover, the extras and the helpers are ROADMAP Queue 1
-item 6b."""
+raft_tpu).  ``refine`` stays the module (raft_tpu's package rebinds the
+name to its function; the port's modules import the module by this
+name)."""
 
-#: raft_tpu modules the port does not serve yet, and where ROADMAP lists them
-_NOT_PORTED = {
-    "ball_cover": "random ball cover (ROADMAP Queue 1 item 6b)",
-    "extras": "epsilon neighbourhoods and masked L2 NN (ROADMAP Queue 1 item 6b)",
-    "helpers": "index helpers (ROADMAP Queue 1 item 6b)",
-}
+from raft_tpu_torch.neighbors import (
+    ball_cover,
+    brute_force,
+    cagra,
+    effort,
+    extras,
+    hnsw,
+    ivf_flat,
+    ivf_pq,
+    nn_descent,
+    refine,
+    vpq_dataset,
+)
+from raft_tpu_torch.neighbors.extras import (
+    BatchKQuery,
+    epsilon_neighborhood,
+    masked_l2_nn,
+)
 
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"neighbors.{name}: {_NOT_PORTED[name]} is not ported yet")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = [
+    "ball_cover",
+    "brute_force",
+    "cagra",
+    "effort",
+    "extras",
+    "hnsw",
+    "ivf_flat",
+    "ivf_pq",
+    "nn_descent",
+    "vpq_dataset",
+    "refine",
+    "BatchKQuery",
+    "epsilon_neighborhood",
+    "masked_l2_nn",
+]

@@ -312,27 +312,23 @@ def merge_probe_major_partials(vs, is_, bucket_pair, q, n_probes, kk, k):
     return select_k(pair_v, k, select_min=True, input_indices=pair_i)
 
 
-def probe_major_scan_inputs(queries, q_scan, centers, lists, metric: str,
-                            n_probes: int, k: int, bucket: int):
-    """Coarse select on the raw ``queries``, probe inversion, and the
-    [B, G, d] gather of the scanned query rows ``q_scan`` (the queries
-    themselves for IVF-Flat, rotated for IVF-PQ).  ``lists`` is
-    (list_data, list_y2, list_index).  Returns (the positional arguments
-    of ``ivf_scan_probe_major``, bucket_pair)."""
-    probes = coarse_select(queries, centers, metric, n_probes)
+def probe_major_scan_inputs(probes, q_scan, lists, k: int, bucket: int):
+    """Probe inversion of ``probes`` [q, n_probes] and the [B, G, d] gather
+    of the scanned query rows ``q_scan`` (the queries themselves for
+    IVF-Flat, rotated for IVF-PQ).  ``lists`` is (list_data, list_y2,
+    list_index).  Returns (the positional arguments of
+    ``ivf_scan_probe_major``, bucket_pair)."""
     q2 = (q_scan * q_scan).sum(dim=1)
-    bucket_list, bucket_query, bucket_pair, _ = invert_probes(probes, centers.shape[0], bucket)
+    bucket_list, bucket_query, bucket_pair, _ = invert_probes(probes, lists[2].shape[0], bucket)
     bq = bucket_query.long().clamp(min=0)
     q2g = torch.where(bucket_query >= 0, q2[bq], torch.full_like(q2[bq], float("inf")))
     kk = min(int(k), lists[0].shape[1])
     return (bucket_list, q_scan[bq], q2g, *lists, kk), bucket_pair
 
 
-def query_major_scan_inputs(queries, q_scan, centers, lists, metric: str,
-                            n_probes: int, k: int):
-    """Coarse select on the raw ``queries``: the positional arguments of
-    ``ivf_scan_query_major`` for the scanned rows ``q_scan``."""
-    probes = coarse_select(queries, centers, metric, n_probes)
+def query_major_scan_inputs(probes, q_scan, lists, k: int):
+    """The positional arguments of ``ivf_scan_query_major`` for the scanned
+    rows ``q_scan`` over their ``probes``."""
     return (probes, q_scan, (q_scan * q_scan).sum(dim=1), *lists, int(k))
 
 
@@ -352,13 +348,16 @@ def identity_fid_tile(n_lists: int, list_cap: int, workspace_bytes: int, n_probe
 
 def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
                 metric: str, q_scan_fn, scan_kw: dict, workspace_bytes: int,
-                pass_filter=None):
+                pass_filter=None, probes_fn=None):
     """Coarse select → list scan → merge, the search both IVF indexes run,
     on the schedule raft_tpu's rule picks (:func:`select_scan_strategy`):
     probe-major for large batches, query-major for serving-sized ones.
     ``lists`` is (list_data, list_y2, list_index); ``q_scan_fn`` maps a
     block of raw queries to the rows the lists are scored against;
-    ``scan_kw`` carries the scan's storage-leg arguments.
+    ``scan_kw`` carries the scan's storage-leg arguments.  ``probes_fn``
+    maps a block of raw queries to the lists it probes ([q, n_probes]
+    int32, closest first); by default :func:`coarse_select` ranks the
+    ``centers`` (random ball cover ranks its landmarks itself).
 
     ``pass_filter`` (from :func:`resolve_pass_filter`) picks the scan's
     filter leg, packed once per call as raft_tpu packs it:
@@ -385,6 +384,8 @@ def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
 
     data, _, list_index = lists
     dev = data.device  # a PagedLists' pool device
+    if probes_fn is None:
+        probes_fn = lambda qt: coarse_select(qt, centers, metric, n_probes)  # noqa: E731
     per_row = isinstance(pass_filter, RowFilter)
     if per_row:
         validation.expects(
@@ -407,8 +408,8 @@ def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
         scan = scan_mod.ivf_scan_probe_major if on_card else scan_mod.ivf_scan_probe_major_torch
 
         def run_pm(qt):
-            args, bucket_pair = probe_major_scan_inputs(
-                qt, q_scan_fn(qt), centers, lists, metric, n_probes, k, bucket)
+            args, bucket_pair = probe_major_scan_inputs(probes_fn(qt), q_scan_fn(qt), lists, k,
+                                                        bucket)
             vals, ids = scan(*args, metric=metric, list_filter=lf, **scan_kw)
             return merge_probe_major_partials(
                 vals.reshape(-1, kk), ids.reshape(-1, kk), bucket_pair,
@@ -419,7 +420,7 @@ def scan_search(queries, k: int, n_probes: int, strategy: str, centers, lists,
     scan = scan_mod.ivf_scan_query_major if on_card else scan_mod.ivf_scan_query_major_torch
 
     def run_qm(qt, planes=None, fid=None):
-        args = query_major_scan_inputs(qt, q_scan_fn(qt), centers, lists, metric, n_probes, k)
+        args = query_major_scan_inputs(probes_fn(qt), q_scan_fn(qt), lists, k)
         return scan(*args, metric=metric, list_filter=lf if planes is None else planes,
                     query_fid=fid, **scan_kw)
 

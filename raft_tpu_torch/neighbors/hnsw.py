@@ -22,8 +22,8 @@ nearest upper-level elements.  raft_tpu's ``load`` drops the upper levels
 and seeds with random rows only, which on clustered data leaves most of a
 large file's queries in the wrong cluster (recall@10 0.39 at ef 64 over 1M
 clustered rows on an NVIDIA H100, PERF.md).  A file without upper levels loads without the table,
-as in raft_tpu.  :func:`load_native`, raft_tpu's C++ engine over these
-files, needs ``core.native`` (ROADMAP Queue 1 item 6b) and raises.
+as in raft_tpu.  :func:`load_native` loads a file into the native C++
+engine (``core.native``), a host search off the card.
 """
 
 from __future__ import annotations
@@ -227,8 +227,14 @@ def search(index: "cagra.Index", queries, k: int, *, ef: int = 64, sample_filter
 
 
 def load_native(filename: str, dim: int):
-    """raft_tpu's native C++ engine over hnswlib files (``core.native``,
-    ``cpp/src/hnsw.cc``): not ported yet (ROADMAP Queue 1 item 6b)."""
-    raise NotImplementedError(
-        "hnsw.load_native: the native C++ core (core.native) is not ported yet "
-        "(ROADMAP Queue 1 item 6b)")
+    """Load an hnswlib index file into the native C++ engine
+    (``core.native``, ``cpp/src/hnsw.cc``: an independent parser and a
+    hierarchical HNSW search on the host).  Returns a handle with
+    ``.search(queries, k, ef=, metric=)`` → (distances, labels) numpy, and
+    ``.info`` / ``.element(i)``.  Raises RuntimeError where the native
+    core is unavailable or the file disagrees with ``dim``."""
+    from raft_tpu_torch.core import native
+
+    if not native.available():
+        raise RuntimeError("native core unavailable (no C++ compiler?)")
+    return native.HnswNativeIndex(filename, dim)

@@ -299,18 +299,17 @@ def probe_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
                             k: int, bucket: int):
     """Coarse select + probe inversion for one probe-major block: returns
     (the positional arguments of ``ivf_scan_probe_major``, bucket_pair)."""
-    return _common.probe_major_scan_inputs(
-        queries, queries, index.centers, _lists(index, queries, n_probes),
-        DISTANCE_TYPES[index.metric], n_probes, k, bucket)
+    probes = _common.coarse_select(queries, index.centers, DISTANCE_TYPES[index.metric], n_probes)
+    return _common.probe_major_scan_inputs(probes, queries, _lists(index, queries, n_probes), k,
+                                           bucket)
 
 
 def query_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int,
                             k: int):
     """Coarse select for one query-major block: the positional arguments
     of ``ivf_scan_query_major``."""
-    return _common.query_major_scan_inputs(
-        queries, queries, index.centers, _lists(index, queries, n_probes),
-        DISTANCE_TYPES[index.metric], n_probes, k)
+    probes = _common.coarse_select(queries, index.centers, DISTANCE_TYPES[index.metric], n_probes)
+    return _common.query_major_scan_inputs(probes, queries, _lists(index, queries, n_probes), k)
 
 
 @traced("ivf_flat.search")

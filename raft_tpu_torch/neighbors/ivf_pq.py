@@ -649,17 +649,17 @@ def probe_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int, 
                             bucket: int):
     """(the positional arguments of ``ivf_scan_probe_major`` for one
     probe-major block, bucket_pair); add :func:`scan_kwargs`."""
-    return _common.probe_major_scan_inputs(
-        queries, _rotate(index, queries), index.centers, _lists(index, queries, n_probes),
-        DISTANCE_TYPES[index.metric], n_probes, k, bucket)
+    probes = _common.coarse_select(queries, index.centers, DISTANCE_TYPES[index.metric], n_probes)
+    return _common.probe_major_scan_inputs(probes, _rotate(index, queries),
+                                           _lists(index, queries, n_probes), k, bucket)
 
 
 def query_major_scan_inputs(index: Index, queries: torch.Tensor, n_probes: int, k: int):
     """The positional arguments of ``ivf_scan_query_major`` for one
     query-major block; add :func:`scan_kwargs`."""
-    return _common.query_major_scan_inputs(
-        queries, _rotate(index, queries), index.centers, _lists(index, queries, n_probes),
-        DISTANCE_TYPES[index.metric], n_probes, k)
+    probes = _common.coarse_select(queries, index.centers, DISTANCE_TYPES[index.metric], n_probes)
+    return _common.query_major_scan_inputs(probes, _rotate(index, queries),
+                                           _lists(index, queries, n_probes), k)
 
 
 @traced("ivf_pq.search")

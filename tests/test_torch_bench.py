@@ -308,11 +308,23 @@ def test_run_case_ivf_flat_on_a_saved_and_loaded_index(bench_ds, tmp_path, monke
 def test_runner_algorithms_and_not_ported_wrappers(bench_ds):
     assert set(trunner.ALGORITHMS) == set(jrunner.ALGORITHMS)
     # raft_tpu_cagra_vpq and hnswlib_format are served since slice 11
-    # (test_run_case_cagra_vpq_and_hnswlib_format_rows)
-    for name in ("raft_tpu_ball_cover", "sklearn", "hnsw_native", "native_ivf_flat",
-                 "native_ivf_pq", "native_cagra"):
-        with pytest.raises(NotImplementedError):
-            trunner.ALGORITHMS[name]("sqeuclidean", {}, res=CPU).build(bench_ds.base)
+    # (test_run_case_cagra_vpq_and_hnswlib_format_rows); random ball cover,
+    # hnsw_native and the cpp/ engines (core.native, on the host) since
+    # slice 16; scikit-learn is not installed where the card is
+    with pytest.raises(NotImplementedError):
+        trunner.ALGORITHMS["sklearn"]("sqeuclidean", {}, res=CPU).build(bench_ds.base)
+    from raft_tpu_torch.core import native
+
+    cases = [("raft_tpu_ball_cover", {}, {"n_probes": 0})]
+    if native.available():
+        graph = {"graph_degree": 16, "intermediate_graph_degree": 32, "build_algo": "brute_force"}
+        cases += [("hnsw_native", graph, {"ef": 32, "n_seeds": 16}),
+                  ("native_ivf_flat", {"n_lists": 8}, {"n_probes": 8}),
+                  ("native_ivf_pq", {"n_lists": 8, "pq_dim": 32}, {"n_probes": 8}),
+                  ("native_cagra", {"graph_degree": 16}, {"itopk_size": 32})]
+    for name, bp, sp in cases:
+        rows = trunner.run_case(bench_ds, name, bp, [sp], k=10, warmup=0, iters=1, res=CPU)
+        assert rows[0].algo == name and rows[0].recall > 0.5, (name, rows[0].recall)
     with pytest.raises(ValueError, match="groundtruth"):
         trunner.run_case(tds.Dataset("x", bench_ds.base, bench_ds.queries),
                          "raft_tpu_brute_force", {}, [{}], res=CPU)

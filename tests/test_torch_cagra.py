@@ -225,8 +225,10 @@ def test_not_in_slice_options_raise(raft_index, data, tmp_path):
     from raft_tpu_torch.neighbors import hnsw  # noqa: F401
 
     assert callable(tcagra.compress)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        from raft_tpu_torch.neighbors import ball_cover  # noqa: F401
+    # random ball cover is served since slice 16 (tests/test_torch_ball_cover.py)
+    from raft_tpu_torch.neighbors import ball_cover
+
+    assert callable(ball_cover.build) and callable(ball_cover.knn_query)
     # paged datasets are served since slice 5 (tests/test_torch_paged_search.py)
     paged = copy.copy(tidx)
     paginate_index(paged, page_rows=8, budget=None)

@@ -5,7 +5,8 @@ raft_tpu's ``load`` (the port also keeps the upper levels' elements as its
 entry points), search recall within 0.005 of raft_tpu's walk from the same
 seeds (random rows on a base-layer-only file; the upper levels' elements,
 given to raft_tpu's loaded index as its entry-point table, on a file with
-them), and ``load_native`` refused."""
+them), and ``load_native``: the native engine reads the port's file back
+and searches it."""
 
 import os
 import numpy as np
@@ -103,6 +104,30 @@ def test_search_recall_within_0005_of_raft(indexes, data, tmp_path, hierarchy):
     assert r_t >= 0.9 and abs(r_t - r_j) <= 0.005, (r_t, r_j)
 
 
-def test_load_native_raises_naming_queue_1_item_6(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        thnsw.load_native(str(tmp_path / "x.hnsw"), 16)
+def test_load_native_raises_naming_queue_1_item_6(data, indexes, tmp_path):
+    """``load_native`` raised, naming ROADMAP Queue 1 item 6, until the
+    native core was ported: now the C++ engine (``core.native``) parses the
+    port's file on its own (rows and base-layer links equal the index's)
+    and searches it on the host; a wrong ``dim`` still raises, and without
+    a C++ compiler it raises RuntimeError."""
+    from raft_tpu_torch.core import native
+
+    x, q = data
+    path = str(tmp_path / "x.hnsw")
+    thnsw.serialize_to_hnswlib(path, indexes[1], seed=5, res=CPU)
+    if not native.available():
+        with pytest.raises(RuntimeError, match="unavailable"):
+            thnsw.load_native(path, 16)
+        return
+    nat = thnsw.load_native(path, 16)
+    assert nat.info["n"] == x.shape[0] and nat.info["dim"] == 16
+    graph = indexes[1].graph.numpy()
+    for i in (0, 7, 999):
+        vec, label, links = nat.element(i)
+        np.testing.assert_array_equal(vec, indexes[1].dataset[label].numpy())
+        np.testing.assert_array_equal(np.sort(links[links >= 0]), np.sort(graph[label]))
+    _, ids = nat.search(q, 10, ef=32, n_seeds=32)
+    _, gt = tbf.knn(x, q, 10, res=CPU)
+    assert recall_at_k(ids.astype(np.int64), gt.numpy()) >= 0.9
+    with pytest.raises(RuntimeError):
+        thnsw.load_native(path, 8)

@@ -67,6 +67,19 @@ def test_import_check_covers_the_serving_layer_and_its_observability():
         assert f"raft_tpu_torch/{mod}.py" in names
 
 
+def test_import_check_covers_the_pylibraft_surface_and_the_rest_of_core():
+    """The import walk reaches every module of ``compat/`` and each module
+    ported with it."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for mod in ("compat/__init__", "compat/pylibraft/__init__", "compat/pylibraft/cluster",
+                "compat/pylibraft/common", "compat/pylibraft/config",
+                "compat/pylibraft/distance", "compat/pylibraft/matrix",
+                "compat/pylibraft/neighbors", "compat/pylibraft/random",
+                "neighbors/ball_cover", "neighbors/extras", "neighbors/helpers", "core/fanout",
+                "core/interruptible", "core/manager", "core/native", "bench/get_dataset"):
+        assert f"raft_tpu_torch/{mod}.py" in names, mod
+
+
 def test_forbidden_import_check_is_not_vacuous():
     assert _forbidden("jax.numpy") and _forbidden("raft_tpu.kernels")
     assert not _forbidden("raft_tpu_torch.kernels") and not _forbidden("torch")
@@ -92,6 +105,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ivf_flat.search(ivf_flat.SearchParams(n_probes=4), idx, x[:4], 3)
     _, i = ivf_flat.search(ivf_flat.SearchParams(n_probes=4), idx, x[:4], 3, res=cpu)
+    assert (i[:, 0].numpy() == np.arange(4)).all()
+    from raft_tpu_torch.compat.pylibraft import common, neighbors as compat_neighbors
+    from raft_tpu_torch.neighbors import ball_cover
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ball_cover.build(x, n_landmarks=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compat_neighbors.rbc.build(x, n_landmarks=8)
+    rbc = compat_neighbors.rbc.build(x, n_landmarks=8,
+                                     handle=common.DeviceResources(device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ball_cover.knn_query(rbc, x[:4], 3)
+    _, i = ball_cover.knn_query(rbc, x[:4], 3, n_probes=8, res=cpu)
     assert (i[:, 0].numpy() == np.arange(4)).all()
 
 
