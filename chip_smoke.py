@@ -252,7 +252,33 @@ then drives the port's main paths at the scale of sift-128-euclidean
    cancelled from another, ``manager``, ``hnsw.load_native`` over phase
    22's file; and ``python -m raft_tpu_torch.bench.get_dataset --synthetic
    --scale 0.01`` with the runner's ``raft_tpu_ball_cover`` and
-   ``native_ivf_flat`` over its directory.
+   ``native_ivf_flat`` over its directory;
+28. the multi-GPU substrate and the analyzer (``multigpu_phase``, at most 150
+   s), on a mesh of four shards of the card (``comms.local_comms(devices=
+   ["cuda:0"] * 4)``; shards of one card search in turn): every collective
+   self-test and ``comm_split``; two gloo CPU processes (a ``CommsCluster``
+   of 2 x 2 shards, a child process each with a hard timeout, beside the card
+   work: NCCL needs one GPU a rank, and this machine has one card) pass them
+   too, their allgather and int8 psum bitwise one process of four, their f32
+   allreduce the two processes' partial sums (within 1e-6 of one process of
+   four); ``sharded_knn`` of 1,000 queries equal to the oracle but at value
+   ties; ``ShardedIndex`` over phase 1's IVF-Flat index, brute force and the
+   IVF-PQ index: at n_probes = n_lists equal to the single index (IVF-PQ
+   recall >= 0.99 against it), at the main n_probes recall and wall on the
+   10,000 queries, the bf16 merge's recall >= 0.95 of the f32 merge's, 1 %
+   tombstones never returned, table8's per-query filters honoured (the
+   ``_fid`` leg); ``sharded_cagra_search`` and the brute-mode
+   ``ShardedIndex`` over phase 5's CAGRA index at recall@10 >= 0.9;
+   ``kmeans_balanced.fit_sharded`` over the 1M rows into 1,024 clusters twice
+   bitwise, its cost within 1.05 x the single-device
+   ``kmeans_balanced.fit``'s, inertia falling from seeded rows, and one
+   sharded Lloyd update (``kmeans_step``) within 1e-6 of a float64 update
+   from the same centres; a ``SearchService`` hot-swapping a brute-force
+   ``ShardedIndex`` for the IVF-Flat one, 1,000 served queries equal to
+   ``ShardedIndex.search`` of each alone; select_k, fused_knn, the scans, the
+   ``_fid`` leg, fused_argmin and the CAGRA walk launched by the sharded
+   paths; and ``python -m raft_tpu_torch.analysis`` exiting 0 (a child
+   process beside the card work), with its HOSTSYNC findings printed.
 
 Q3.8's probe (``served_window_probe``, not checked) runs after phase 1,
 after each section of the main path through the plain versions' searches,
@@ -421,6 +447,28 @@ CANCEL_LOOPS = 1_000_000
 NATIVE_QUERIES, NATIVE_SEEDS = 1000, 2048
 GET_DATASET_SCALE = 0.01
 RBC_PHASE_S = 150.0
+#: phase 28: a mesh of MG_SHARDS shards of the card, the sharded checks on
+#: MG_QUERIES queries, MG_SERVED served requests, the sharded balanced k-means
+#: into MG_KMEANS_K clusters (MG_KMEANS_ITERS balancing iterations; its cost
+#: at most MG_KMEANS_COST_RATIO times the single-device fit's), one sharded
+#: Lloyd update held to a float64 update from the same centres (each centre
+#: and the inertia within MG_STEP_RTOL relative; a label that differs from
+#: the float64 argmin only at a near tie, its distance within MG_TIE_RTOL of
+#: |x|^2 + |c|^2 of the best), the hard timeouts of the gloo processes and
+#: of the analyzer's CLI (child processes that run beside the card work),
+#: and the phase's limit
+MG_SHARDS = 4
+MG_QUERIES = 1000
+MG_SERVED = 1000
+MG_KMEANS_K = 1024
+MG_KMEANS_ITERS = 10
+MG_KMEANS_COST_RATIO = 1.05
+MG_STEP_RTOL = 1e-6
+MG_TIE_RTOL = 1e-5
+COMMS_WORKER_FLAG = "--comms-worker"
+COMMS_WORKER_TIMEOUT_S = 90
+ANALYZER_TIMEOUT_S = 300
+MULTI_PHASE_S = 150.0
 #: the whole script's time limit, the kernels' build included
 SCRIPT_LIMIT_S = 1200.0
 
@@ -3039,6 +3087,15 @@ def main() -> int:
     print(f"phase 27 (random ball cover, pylibraft surface, core): {t27:.1f} s", flush=True)
     check(t27 <= RBC_PHASE_S, f"phase 27 took {t27:.1f} s <= {RBC_PHASE_S:.0f} s")
 
+    # -- phase 28: the multi-GPU substrate and the analyzer ------------------------------
+    t28 = time.perf_counter()
+    multigpu_phase(x=x, q=q, gt_v=gt_v, gt_i=gt_i, index=index, pq_index=pq_index, cg=cg,
+                   cagra_sp=cagra_sp, sp=sp, row_filter=table_batches[0]["sample_filter"],
+                   check=check, phase=phase, phase_launches=phase_launches, smi=smi)
+    t28 = time.perf_counter() - t28
+    print(f"phase 28 (multi-GPU substrate, analyzer): {t28:.1f} s", flush=True)
+    check(t28 <= MULTI_PHASE_S, f"phase 28 took {t28:.1f} s <= {MULTI_PHASE_S:.0f} s")
+
     for name in kernels.KERNELS:
         check(main_launches[name] > 0, f"{name} launched {main_launches[name]} times on the main path")
     print(f"phase launches (nonzero): "
@@ -5049,8 +5106,404 @@ def compat_rbc_phase(*, x, q, gt_i, index, pq_index, hpath, res, check, phase, p
           "phase 27 launched a scan kernel")
 
 
+def comms_worker(rank: int, port: int) -> int:
+    """One of the two gloo CPU processes of phase 28: a ``CommsCluster``
+    of two shards a process (axes data x model, process axis outermost),
+    every self-test and ``comm_split``, and the 2 x 2 verbs against a
+    one-process mesh of four: the allgather and the int8 psum bitwise, the
+    f32 allreduce bitwise the per-process partials' sum and within 1e-6 of
+    the one process's, relative to the sum of the terms' magnitudes.  Prints ``COMMS_WORKER_OK <rank>``."""
+    import torch
+
+    from raft_tpu_torch import comms as rc
+
+    cl = rc.CommsCluster(coordinator_address=f"localhost:{port}", num_processes=2,
+                         process_id=rank, axis_names=("data", "model"), mesh_shape=(2, 2),
+                         device="cpu", local_devices=["cpu", "cpu"])
+    cl.init()
+    c = cl.comms
+    res = {n: getattr(rc, n)(c) for n in rc.__all__ if n.startswith("perform_test_comms")}
+    res["comm_split"] = rc.perform_test_comm_split(c, "model")
+    flat = rc.Comms(rc.global_mesh(("data",), None, ["cpu", "cpu"]), "data")
+    g = torch.Generator().manual_seed(SEED)
+    xs = [torch.randn(64, 129, generator=g) * 1e3 for _ in range(4)]
+    mine = [xs[p] for p in flat.mesh.local_positions]
+    one = rc.Comms(rc.make_mesh(devices=["cpu"] * 4), "data")
+    # each process sums its own shards in rank order, then the process
+    # group's all_reduce sums the two partials
+    got = flat.allreduce(mine)[0]
+    res["allreduce_bitwise_per_process_partials"] = torch.equal(
+        got, (xs[0] + xs[1]) + (xs[2] + xs[3]))
+    res["allreduce_one_process_within_1e-6"] = bool(
+        ((got - one.allreduce(xs)[0]).abs() <= 1e-6 * sum(x_.abs() for x_ in xs)).all())
+    res["allgather_bitwise_one_process"] = torch.equal(flat.allgather(mine)[0],
+                                                       one.allgather(xs)[0])
+    res["quantized_int8_bitwise_one_process"] = torch.equal(
+        rc.quantized_psum(flat, mine, "int8")[0], rc.quantized_psum(one, xs, "int8")[0])
+    cl.destroy()
+    rc.shutdown()
+    print(json.dumps(res), flush=True)
+    failed = [k_ for k_, v in res.items() if not v]
+    if failed:
+        print(f"comms worker {rank} failed: {failed}", file=sys.stderr, flush=True)
+        return 1
+    print(f"COMMS_WORKER_OK {rank}", flush=True)
+    return 0
+
+
+def multigpu_phase(*, x, q, gt_v, gt_i, index, pq_index, cg, cagra_sp, sp, row_filter, check,
+                   phase, phase_launches, smi):
+    """Phase 28: the multi-GPU substrate on a mesh of four shards of the
+    card (``comms.local_comms(devices=["cuda:0"] * 4)``) and the analyzer.
+    The collectives' self-tests, two gloo CPU processes (the card's machine
+    has one GPU, and NCCL refuses two ranks on one), ``sharded_knn``,
+    ``ShardedIndex`` over phase 1's IVF-Flat index, brute force and the
+    IVF-PQ index (exact at n_probes = n_lists; recall and wall at the main
+    path's n_probes; the bf16 merge; tombstones; per-query filters), CAGRA
+    with its queries sharded and in brute mode, the sharded balanced
+    k-means (two runs bitwise, its cost beside the single-device fit's,
+    inertia falling, one update held to float64), a ``SearchService`` hot-swapping a ``ShardedIndex``, each
+    kernel's launches, and ``python -m raft_tpu_torch.analysis``."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import comms as tc
+    from raft_tpu_torch import kernels, serve
+    from raft_tpu_torch.analysis import run_analysis
+    from raft_tpu_torch.cluster import kmeans, kmeans_balanced
+    from raft_tpu_torch.comms import distributed as td
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+    from raft_tpu_torch.serve.shard import ShardedIndex
+    from raft_tpu_torch.stats.metrics import recall_at_k
+
+    t_phase = time.perf_counter()
+    subs = []
+
+    def sub(name):
+        subs.append(name)
+        return phase(f"mg_{name}")
+
+    def section(name):
+        print(f"phase 28 at {time.perf_counter() - t_phase:.1f} s: {name}", flush=True)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def wall_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def tie_equal(v, i, v_ref, i_ref, gap=1e-3):
+        """Ids equal wherever the reference value is separated from both
+        neighbours in its row by more than ``gap`` (value ties may swap)."""
+        v_ref = v_ref.double()
+        pad = torch.full((v_ref.shape[0], 1), float("inf"), dtype=v_ref.dtype,
+                         device=v_ref.device)
+        pv = torch.cat([pad, v_ref, pad], dim=1)
+        sep = ((pv[:, 1:-1] - pv[:, :-2]).abs() > gap) & ((pv[:, 2:] - pv[:, 1:-1]).abs() > gap)
+        return bool((i[sep] == i_ref[sep]).all()), float((i == i_ref).float().mean())
+
+    dev = x.device
+    n_sub = MG_QUERIES
+    mesh = tc.local_comms(devices=[str(dev)] * MG_SHARDS)
+
+    # the phase's CPU side runs beside its card work: the two gloo
+    # processes and the analyzer's CLI start now, in child processes with
+    # hard timeouts, and are read after the launches (killed at exit if
+    # still running)
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    t_cpu = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), COMMS_WORKER_FLAG,
+                               str(r), str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env) for r in range(2)]
+    ana = subprocess.Popen([sys.executable, "-m", "raft_tpu_torch.analysis"],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+    children = procs + [ana]
+
+    def reap():
+        for p_ in children:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+
+    atexit.register(reap)
+
+    def collect(p_, limit_s):
+        """(stdout, stderr) of a child, waiting at most until ``limit_s``
+        after the children started; ("", "timed out") past it."""
+        try:
+            return p_.communicate(timeout=max(1.0, t_cpu + limit_s - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            p_.kill()
+            p_.wait()
+            return "", "timed out"
+
+    # -- 1. collectives ----------------------------------------------------
+    section("collectives")
+    res = {n: getattr(tc, n)(mesh) for n in tc.__all__ if n.startswith("perform_test_comms")}
+    two_d = tc.Comms(tc.make_mesh(devices=[str(dev)] * MG_SHARDS, axis_names=("data", "model"),
+                                  shape=(2, 2)), "data")
+    res["comm_split"] = tc.perform_test_comm_split(two_d, "model")
+    check(all(res.values()), f"every collective self-test on {MG_SHARDS} shards of "
+          f"{torch.cuda.get_device_name(0)}: {res}")
+
+    # -- 2. sharded_knn ----------------------------------------------------
+    section("sharded_knn")
+    with sub("knn"):
+        (kv, ki), knn_ms = wall_ms(lambda: td.sharded_knn(mesh, x, q[:n_sub], K))
+    same, agree = tie_equal(kv, ki, gt_v[:n_sub], gt_i[:n_sub])
+    check(same and torch.allclose(kv, gt_v[:n_sub], rtol=1e-5, atol=1e-3),
+          f"sharded_knn over {MG_SHARDS} shards of {x.shape[0]} rows, {n_sub} queries, k={K}: "
+          f"ids equal brute_force's but at value ties ({agree:.5f} of slots equal), values "
+          f"within rtol 1e-5 atol 1e-3; {knn_ms:.1f} ms wall ({smi})")
+    check(phase_launches["mg_knn"]["fused_knn"] >= MG_SHARDS,
+          f"sharded_knn launched fused_knn on each shard ({phase_launches['mg_knn']['fused_knn']})")
+
+    # -- 3. ShardedIndex over IVF-Flat, brute force and IVF-PQ --------------
+    section("ShardedIndex")
+    full_flat = ivf_flat.SearchParams(n_probes=index.n_lists)
+    full_pq = ivf_pq.SearchParams(n_probes=pq_index.n_lists)
+    with sub("shard_build"):
+        sh_flat_full = ShardedIndex.from_index(index, mesh, search_params=full_flat,
+                                               merge_dtype=None, label="mg_flat_full")
+        sh_bf = ShardedIndex.from_index(brute_force.build(x), mesh, merge_dtype=None,
+                                        label="mg_bf")
+        sh_pq_full = ShardedIndex.from_index(pq_index, mesh, search_params=full_pq,
+                                             merge_dtype=None, label="mg_pq_full")
+    qs = q[:n_sub]
+    with sub("exact"):
+        fv, fi = sh_flat_full.search(qs, K)
+        sv, si = ivf_flat.search(full_flat, index, qs, K)
+        bv, bi = sh_bf.search(qs, K)
+        pv, pi_ = sh_pq_full.search(qs, K)
+        spv, spi = ivf_pq.search(full_pq, pq_index, qs, K)
+    same_f, agree_f = tie_equal(fv, fi, sv, si)
+    same_b, agree_b = tie_equal(bv, bi, gt_v[:n_sub], gt_i[:n_sub])
+    check(same_f and float((fv - sv).abs().max()) <= 1e-4 * max(1.0, float(sv.abs().max())),
+          f"ShardedIndex IVF-Flat at n_probes = n_lists ({index.n_lists}), {n_sub} queries: ids "
+          f"equal the single index's ({agree_f:.5f} of slots; ties aside), values within 1e-4 "
+          f"relative (max abs diff {float((fv - sv).abs().max()):.3e})")
+    check(same_b and float((bv - gt_v[:n_sub]).abs().max()) <= 1e-4 * max(
+        1.0, float(gt_v.abs().max())),
+          f"ShardedIndex brute force: ids equal brute_force.search ({agree_b:.5f} of slots; ties "
+          f"aside), values within 1e-4 relative")
+    pq_r = recall_at_k(pi_, spi, K)
+    check(pq_r >= 0.99, f"ShardedIndex IVF-PQ at n_probes = n_lists: recall against the single "
+          f"search {pq_r:.5f} >= 0.99")
+    sh_flat = ShardedIndex.from_index(index, mesh, search_params=sp, merge_dtype=None,
+                                      label="mg_flat")
+    sh_flat16 = ShardedIndex.from_index(index, mesh, search_params=sp,
+                                        merge_dtype=torch.bfloat16, label="mg_flat_bf16")
+    sh_pq = ShardedIndex.from_index(pq_index, mesh,
+                                    search_params=ivf_pq.SearchParams(n_probes=sp.n_probes),
+                                    merge_dtype=None, label="mg_pq")
+    walls = {}
+    for name, shx in (("ivf_flat", sh_flat), ("ivf_flat_bf16_merge", sh_flat16),
+                      ("ivf_pq", sh_pq), ("brute_force", sh_bf)):
+        shx.search(q[:QM_BATCH], K)
+        with sub(f"main_{name}"):
+            (_, ids), ms = wall_ms(lambda: shx.search(q, K))
+        walls[name] = (recall_at_k(ids, gt_i, K), ms)
+    single_r = recall_at_k(ivf_flat.search(sp, index, q, K)[1], gt_i, K)
+    print(f"ShardedIndex at n_probes {sp.n_probes} a shard, {q.shape[0]} queries, "
+          f"{MG_SHARDS} shards of one card: "
+          f"{json.dumps({n_: {'recall': r_, 'wall_ms': w_} for n_, (r_, w_) in walls.items()})}; "
+          f"the single IVF-Flat index at n_probes {sp.n_probes}: recall {single_r:.5f} ({smi})",
+          flush=True)
+    check(walls["ivf_flat"][0] >= single_r,
+          f"ShardedIndex IVF-Flat recall {walls['ivf_flat'][0]:.5f} >= the single index's "
+          f"{single_r:.5f} (each shard probes its own lists)")
+    check(walls["ivf_flat_bf16_merge"][0] >= 0.95 * walls["ivf_flat"][0],
+          f"bf16 merge recall {walls['ivf_flat_bf16_merge'][0]:.5f} >= 0.95 x the f32 merge's")
+    mi = serve.MutableIndex(index, search_params=sp)
+    dead = np.random.default_rng(SEED).choice(index.size, index.size // 100, replace=False)
+    mi.delete(dead)
+    with sub("tombstones"):
+        sh_dead = ShardedIndex.from_index(mi, mesh, merge_dtype=None, label="mg_dead")
+        _, di = sh_dead.search(qs, K)
+    hit = np.isin(di.cpu().numpy(), dead).sum()
+    check(hit == 0, f"ShardedIndex over a MutableIndex with {dead.size} tombstones: "
+          f"{hit} deleted ids returned on {n_sub} queries")
+    # per-query filters: table8's filters over global ids (the _fid leg)
+    fq = q[:QM_BATCH]
+    rf = row_filter
+    with sub("filtered"):
+        _, fids = sh_flat.search(fq, K, sample_filter=rf)
+    ids_np = fids.cpu().numpy()
+    ok_ids = ids_np >= 0
+    passes = rf.test_rows(fids.clamp(min=0)).cpu().numpy()
+    check(bool(passes[ok_ids].all()) and ok_ids.mean() > 0.9,
+          f"ShardedIndex IVF-Flat with table8's per-query filters on {QM_BATCH} queries: every "
+          f"returned id passes its query's filter ({ok_ids.mean():.4f} of slots filled)")
+    fl = phase_launches["mg_filtered"]
+    check(sum(c_ for n_, c_ in fl.items() if n_.endswith("_fid")) >= MG_SHARDS,
+          f"the filtered sharded search ran the query-major _fid leg on every shard "
+          f"({ {n_: c_ for n_, c_ in fl.items() if c_} })")
+
+    # -- 4. CAGRA ------------------------------------------------------------
+    section("CAGRA")
+    with sub("cagra"):
+        (_, ci), c_ms = wall_ms(lambda: td.sharded_cagra_search(mesh, cg, q, K, params=cagra_sp))
+    c_r = recall_at_k(ci, gt_i, K)
+    with sub("cagra_brute"):
+        sh_cg = ShardedIndex.from_index(cg, mesh, merge_dtype=None, cagra_mode="brute",
+                                        label="mg_cagra")
+        _, cbi = sh_cg.search(qs, K)
+    cb_r = recall_at_k(cbi, gt_i[:n_sub], K)
+    print(f"sharded_cagra_search of {q.shape[0]} queries over {MG_SHARDS} shards: recall "
+          f"{c_r:.5f}, {c_ms:.1f} ms wall; brute-mode ShardedIndex over CAGRA's rows: recall "
+          f"{cb_r:.5f} ({smi})", flush=True)
+    check(c_r >= CAGRA_RECALL and cb_r >= CAGRA_RECALL,
+          f"CAGRA sharded recall@{K}: queries sharded {c_r:.5f}, brute mode {cb_r:.5f} "
+          f">= {CAGRA_RECALL}")
+
+    # -- 5. sharded balanced k-means ----------------------------------------
+    section("sharded k-means")
+    kp = kmeans_balanced.KMeansBalancedParams(n_iters=MG_KMEANS_ITERS, seed=SEED)
+    with sub("kmeans"):
+        (ca, _), ka_ms = wall_ms(lambda: kmeans_balanced.fit_sharded(
+            mesh, kp, x, MG_KMEANS_K, reduce_dtype="float32"))
+        cb_, _ = kmeans_balanced.fit_sharded(mesh, kp, x, MG_KMEANS_K, reduce_dtype="float32")
+    check(torch.equal(ca, cb_), f"kmeans_balanced.fit_sharded over {x.shape[0]} rows into "
+          f"{MG_KMEANS_K} clusters on {MG_SHARDS} shards, one seed, twice: bitwise equal "
+          f"({ka_ms:.0f} ms a fit)")
+    # the fit against the single-device kmeans_balanced.fit of the same
+    # rows: neither takes the other's start (fit seeds itself), so the two
+    # are held by their cost
+    c_one, one_ms = wall_ms(lambda: kmeans_balanced.fit(kp, x, MG_KMEANS_K,
+                                                        res=Resources(device=dev)))
+    cost_sh, cost_one = float(kmeans.cluster_cost(x, ca)), float(kmeans.cluster_cost(x, c_one))
+    check(cost_sh <= MG_KMEANS_COST_RATIO * cost_one,
+          f"sharded k-means cost {cost_sh:.6e} <= {MG_KMEANS_COST_RATIO} x the single-device "
+          f"kmeans_balanced.fit's {cost_one:.6e} ({one_ms:.0f} ms a fit)")
+    # from seeded rows the inertia falls
+    c0 = x[torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+        x.shape[0], MG_KMEANS_K, replace=False))).to(dev)]
+    c_rows, _ = kmeans_balanced.fit_sharded(mesh, kp, x, MG_KMEANS_K, init_centers=c0,
+                                            reduce_dtype="float32")
+    cost0 = float(kmeans.cluster_cost(x, c0))
+    cost4 = float(kmeans.cluster_cost(x, c_rows))
+    check(cost4 < cost0, f"sharded k-means from {MG_KMEANS_K} seeded rows: inertia falls "
+          f"{cost0:.6e} -> {cost4:.6e}")
+    # one Lloyd update on the shards (lloyd_stats: #7's labels, the packed
+    # sums | counts | inertia, one allreduce; every sharded k-means update
+    # goes through it) against a float64 update from the same centres on
+    # one device: labels by a float64 argmin but at near ties, sums, counts
+    # and the inertia in float64 by those labels
+    with sub("kmeans_step"):
+        step_c, step_in = td.kmeans_step(mesh, x, c0)
+    lab = td.assign_l2(x, c0)[1]
+    c64 = c0.double()
+    c64n = (c64 * c64).sum(dim=1)
+    best64 = torch.empty(x.shape[0], dtype=torch.float64, device=dev)
+    n_flip, worst_tie = 0, 0.0
+    for s0 in range(0, x.shape[0], 1 << 16):
+        xt = x[s0:s0 + (1 << 16)].double()
+        xn = (xt * xt).sum(dim=1)
+        d64 = xn[:, None] - 2.0 * (xt @ c64.T) + c64n[None, :]
+        lt = lab[s0:s0 + xt.shape[0]]
+        mine, top = d64.gather(1, lt[:, None])[:, 0], d64.min(dim=1)
+        best64[s0:s0 + xt.shape[0]] = mine.clamp(min=0.0)
+        flip = lt != top.indices
+        n_flip += int(flip.sum())
+        if bool(flip.any()):
+            gap = (mine - top.values) / (xn + c64n[top.indices])
+            worst_tie = max(worst_tie, float(gap[flip].max()))
+    cnt64 = torch.bincount(lab, minlength=MG_KMEANS_K).double()
+    ref_c = torch.zeros_like(c64).index_add_(0, lab, x.double())
+    ref_c = torch.where(cnt64[:, None] > 0, ref_c / cnt64.clamp(min=1.0)[:, None], c64)
+    step_rel = (step_c.double() - ref_c).norm(dim=1) / ref_c.norm(dim=1).clamp(min=1e-30)
+    in64 = float(best64.sum())
+    in_rel = abs(float(step_in) - in64) / in64
+    print(f"kmeans_step on {MG_SHARDS} shards against a float64 update from {MG_KMEANS_K} "
+          f"seeded rows: centre relative difference max {float(step_rel.max()):.3e} median "
+          f"{float(step_rel.median()):.3e}, inertia {float(step_in):.6e} vs {in64:.6e} "
+          f"({in_rel:.3e}); {n_flip} labels differ from the float64 argmin, the widest "
+          f"tie {worst_tie:.3e} of |x|^2 + |c|^2", flush=True)
+    check(float(step_rel.max()) <= MG_STEP_RTOL and in_rel <= MG_STEP_RTOL
+          and worst_tie <= MG_TIE_RTOL,
+          f"one sharded Lloyd update against float64 from the same centres: every centre "
+          f"within {MG_STEP_RTOL} relative ({float(step_rel.max()):.3e}), the inertia "
+          f"({in_rel:.3e}), labels the float64 argmin's but at near ties ({n_flip}, widest "
+          f"{worst_tie:.3e} <= {MG_TIE_RTOL})")
+    del step_c, lab, best64, ref_c, c_one
+
+    # -- 6. serving a ShardedIndex -----------------------------------------
+    section("serving")
+    os.environ.setdefault("RAFT_TPU_PERF_CAPTURE_S", "0")
+    svc = serve.SearchService(k=K, max_batch=QM_BATCH, max_delay_ms=2.0)
+    try:
+        svc.add_index("mg", sh_bf, warmup=True)
+        v_swap = svc.swap("mg", sh_flat)
+        with sub("serve"):
+            got, serve_s = _drive(svc, "mg", q[:MG_SERVED].cpu().numpy(), check)
+        bad = 0
+        for r, (_, gi) in enumerate(got):
+            _, ri = sh_flat.search(q[r:r + 1], K)
+            bad += not np.array_equal(np.asarray(gi).reshape(-1), ri.cpu().numpy()[0])
+        st = svc.stats("mg")
+    finally:
+        svc.stop()
+    print(f"SearchService over the ShardedIndex (version {v_swap} after the hot swap): "
+          f"{MG_SERVED} single-query requests in {serve_s:.2f} s, p50 {st.get('p50_ms')} ms p99 "
+          f"{st.get('p99_ms')} ms ({smi})", flush=True)
+    check(v_swap == 2 and bad == 0,
+          f"the registry hot-swapped a ShardedIndex behind a SearchService; {MG_SERVED} served "
+          f"queries equal ShardedIndex.search of each query alone ({bad} differ)")
+
+    # -- 7. launches -------------------------------------------------------
+    total = {k_: sum(phase_launches[f"mg_{s_}"][k_] for s_ in subs) for k_ in kernels.KERNELS}
+    groups = {
+        "#1 select_k": total["select_k"],
+        "#2 fused_knn": total["fused_knn"],
+        "#3/#5 ivf scans": sum(c_ for n_, c_ in total.items() if n_.startswith("ivf_scan")
+                               and not n_.endswith(("_fid", "_filt"))),
+        "#6 query-major _fid": sum(c_ for n_, c_ in total.items() if n_.endswith("_fid")),
+        "#7 fused_argmin": total["fused_argmin"],
+        "#8 cagra walk": total["cagra_traverse"] + total["cagra_fused_hop"],
+    }
+    print(f"phase 28 launches: {json.dumps(groups)}; by kernel "
+          f"{ {k_: c_ for k_, c_ in total.items() if c_} }", flush=True)
+    for name, n_ in groups.items():
+        check(n_ > 0, f"phase 28's sharded paths launched {name} ({n_})")
+
+    # -- 8. the CPU side: the gloo processes and the analyzer ------------------
+    section("gloo processes and the analyzer")
+    outs = [collect(p_, COMMS_WORKER_TIMEOUT_S) for p_ in procs]
+    ok = all(p_.returncode == 0 and f"COMMS_WORKER_OK {r}" in o[0]
+             for r, (p_, o) in enumerate(zip(procs, outs)))
+    print(f"two gloo CPU processes (torch.distributed, 2 shards each; NCCL needs one GPU a "
+          f"rank, and this machine has one card): done {time.perf_counter() - t_cpu:.1f} s "
+          f"after they started beside the card work, "
+          f"{[o[0].strip().splitlines()[:1] for o in outs]}", flush=True)
+    check(ok, "two gloo CPU processes pass every self-test and comm_split; their 2 x 2 "
+          "allgather and int8 psum equal one process of 4 bitwise, the f32 allreduce is the "
+          "per-process partials' sum bitwise and within 1e-6 of one process's "
+          f"{'' if ok else [o[1][-800:] for o in outs]}")
+    a_out, a_err = collect(ana, ANALYZER_TIMEOUT_S)
+    check(ana.returncode == 0, f"python -m raft_tpu_torch.analysis exits {ana.returncode}: "
+          f"{a_out.strip().splitlines()[-1:] if a_out.strip() else a_err[-300:]}")
+    result = run_analysis(rules=["HOSTSYNC"])
+    for f in result.findings + result.suppressed:
+        print(f"HOSTSYNC{' (suppressed)' if f in result.suppressed else ''}: {f.render()}",
+              flush=True)
+    print(f"HOSTSYNC: {result.stats}", flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == [SERVED_BUSY_FLAG]:
         print(json.dumps(served_busy_share(sys.argv[2], int(sys.argv[3]))), flush=True)
         sys.exit(0)
+    if sys.argv[1:2] == [COMMS_WORKER_FLAG]:
+        sys.exit(comms_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

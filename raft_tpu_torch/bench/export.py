@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from raft_tpu_torch.bench.runner import RunResult
+from raft_tpu_torch.core import env as _env
 
 _FIELDS = [
     "algo", "dataset", "k", "build_param", "search_param",
@@ -74,7 +75,7 @@ def write_bench_record(payload: Dict[str, object], path: Optional[str] = None) -
     path is ``$RAFT_TPU_BENCH_RECORD`` (``-`` or empty: no write), else
     ``BENCH_last.json`` in the working directory."""
     if path is None:
-        path = os.environ.get(RECORD_PATH_ENV, DEFAULT_RECORD_PATH)
+        path = _env.env_str(RECORD_PATH_ENV, DEFAULT_RECORD_PATH)
     if not path or path == "-":
         return ""
     d = os.path.dirname(path)

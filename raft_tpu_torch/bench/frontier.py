@@ -19,7 +19,7 @@ Runs on the card unless ``--platform cpu``.  Writes
 matplotlib is installed) and ``--out`` (default
 ``bench_results/frontier_model_<platform>.json``, the model), under the
 working directory.  ``--sharded`` (raft_tpu's shard-parallel build) is
-multi-GPU work: ROADMAP Queue 1 item 7.
+multi-GPU work: ROADMAP Queue 1 item 7b.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from raft_tpu_torch.core import env as _env
 from raft_tpu_torch.obs.autotune import FrontierModel, FrontierPoint
 
 #: bench-harness algo name → serve backend tag: the FrontierModel key the
@@ -237,7 +238,7 @@ def frontier_main(argv: Optional[Sequence[str]] = None) -> int:
                     help="serve backends only (the autotuner's model leg)")
     ap.add_argument("--sharded", type=int, default=0, metavar="N",
                     help="shard-parallel builds over N cards (not ported: ROADMAP Queue 1 "
-                    "item 7)")
+                    "item 7b)")
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--sweep-out", default="",
@@ -250,7 +251,7 @@ def frontier_main(argv: Optional[Sequence[str]] = None) -> int:
     if args.sharded:
         raise NotImplementedError(
             "bench frontier --sharded (shard-parallel builds over several cards) is not "
-            "ported yet (ROADMAP Queue 1 item 7)")
+            "ported yet (ROADMAP Queue 1 item 7b)")
 
     from raft_tpu_torch.bench import device_time, export, plot
     from raft_tpu_torch.core.resources import Resources
@@ -329,7 +330,7 @@ def frontier_main(argv: Optional[Sequence[str]] = None) -> int:
             "algo": head.algo,
             "search_param": head.search_param,
             "frontier": model.to_dict(),
-        }, os.environ.get(export.RECORD_PATH_ENV) or sweep_out.replace(".json", "_record.json"))
+        }, _env.env_str(export.RECORD_PATH_ENV) or sweep_out.replace(".json", "_record.json"))
         if path:
             print("wrote", path)
 

@@ -1,6 +1,6 @@
-"""Clustering: flat and balanced k-means, single linkage, spectral
-partitioning and ``find_k`` (counterpart of ``raft_tpu.cluster``;
-``fit_sharded`` is ROADMAP Queue 1 item 7)."""
+"""Clustering: flat and balanced k-means (each with ``fit_sharded`` over
+a ``comms`` mesh), single linkage, spectral partitioning and ``find_k``
+(counterpart of ``raft_tpu.cluster``)."""
 
 from raft_tpu_torch.cluster import kmeans_balanced, spectral
 from raft_tpu_torch.cluster.auto_find_k import find_k
@@ -10,6 +10,7 @@ from raft_tpu_torch.cluster.kmeans import (
     compute_new_centroids,
     fit,
     fit_predict,
+    fit_sharded,
     kmeans_plus_plus_init,
     predict,
     transform,
@@ -25,6 +26,7 @@ __all__ = [
     "fit",
     "predict",
     "fit_predict",
+    "fit_sharded",
     "transform",
     "cluster_cost",
     "compute_new_centroids",

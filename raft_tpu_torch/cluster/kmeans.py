@@ -1,6 +1,5 @@
 """Lloyd's k-means with kmeans++ init (counterpart of
-``raft_tpu.cluster.kmeans``; ``fit_sharded`` waits for the multi-GPU
-slice).
+``raft_tpu.cluster.kmeans``).
 
 The assignment step is the distance layer's fused 1-NN: the sqeuclidean
 tile (``distance.pairwise.distance_matrix_tile``: ``max(|x|^2 + |c|^2 -
@@ -8,6 +7,8 @@ tile (``distance.pairwise.distance_matrix_tile``: ``max(|x|^2 + |c|^2 -
 by ``batch_samples``, as raft_tpu's ``_assign``.  The fused argmin kernel
 (#7) is not used: its score has no |x|^2 term and no clamp, and routing it
 here would move labels away from raft_tpu's (``kernels.fused_argmin``).
+:func:`fit_sharded` (row-sharded data over a ``comms`` mesh) assigns by
+kernel #7 instead, through ``comms.distributed.assign_l2``.
 The update is balanced k-means' (``kmeans_balanced._update``): rows and
 weights summed by ``ops.matrix.segment_sum``, in a fixed order, so one
 input gives one set of centers on the card run after run; an empty cluster
@@ -38,6 +39,7 @@ from raft_tpu_torch.core.resources import Resources, as_f32, ensure, to_device
 from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.distance.fused_nn import _fused_nn
 from raft_tpu_torch.distance.pairwise import distance_matrix_tile
+from raft_tpu_torch.ops.matrix import segment_sum
 
 _METRICS = ("sqeuclidean", "euclidean", "l2", "cosine")
 
@@ -161,6 +163,96 @@ def fit(params: KMeansParams, x, sample_weights=None, *, init_centers=None,
             best, best_run = (centers, inertia, n_iter), run
     if history is not None:
         history.extend(best_run)
+    return best
+
+
+def _lloyd_sharded(comms, shards, weights, centers, max_iter: int, tol: float,
+                   spherical: bool, reduce_dtype: str):
+    """:func:`_lloyd` with row-sharded data: each shard assigns its rows by
+    the fused L2 argmin (kernel #7 on the card) and sums them by label;
+    the partials merge in ONE packed (optionally quantized) allreduce per
+    iteration (``comms.distributed.lloyd_stats``): [k, d] sums | counts |
+    the inertia at [0, d + 1].  The final inertia is a plain allreduce
+    against the final centers."""
+    from raft_tpu_torch.comms.distributed import assign_l2, lloyd_stats
+
+    d = centers.shape[1]
+    it, prev, cur = 0, float("inf"), float("inf")
+    while it < max_iter and not abs(prev - cur) <= tol * max(cur, 1e-30):
+        packed, _ = lloyd_stats(comms, shards, weights, centers, reduce_dtype)
+        g_sums, g_counts, inertia = packed[:, :d], packed[:, d], float(packed[0, d + 1])
+        centers = torch.where(g_counts[:, None] > 0,
+                              g_sums / torch.clamp(g_counts[:, None], min=1e-30),
+                              centers.to(packed.device))
+        if spherical:
+            centers = _normalize_rows(centers)
+        prev, cur = cur, inertia
+        it += 1
+    final = comms.run(lambda rank, x, w, c: (w * assign_l2(x, c)[0]).sum(), shards, weights,
+                      replicated=(centers,))
+    return centers, comms.allreduce(final)[0], it
+
+
+@traced("kmeans.fit_sharded")
+def fit_sharded(comms, params: KMeansParams, data_sharded, sample_weights=None, *,
+                init_centers=None, reduce_dtype: Optional[str] = None,
+                res: Optional[Resources] = None) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`fit` over data row-sharded across ``comms``' axis (a list of
+    per-shard row blocks in rank order, or one tensor that the axis size
+    divides; ``sample_weights`` shards alongside).
+
+    Each Lloyd iteration assigns every shard's rows by the fused L2 argmin
+    (kernel #7 on the card; the single-device :func:`fit` keeps the
+    distance tile, so labels may differ at near ties) and merges the
+    partial sums in one packed allreduce, optionally quantized
+    (``reduce_dtype``, default ``RAFT_TPU_BUILD_REDUCE_DTYPE``).  Only
+    [k, d + 2] statistics travel; the init draws a with-replacement
+    subsample of rows (``comms.distributed.take_rows``) unless
+    ``init_centers`` is given, which makes a run comparable 1:1 with
+    :func:`fit` from the same init.  Returns (centroids, inertia, n_iter)
+    on the mesh's first device."""
+    from raft_tpu_torch.comms.distributed import _shards, take_rows
+    from raft_tpu_torch.comms.quantized import reduce_dtype_from_env
+
+    ensure(res)
+    if params.metric not in _METRICS:
+        raise ValueError(f"kmeans supports sqeuclidean/cosine, got {params.metric}")
+    spherical = params.metric == "cosine"
+    if reduce_dtype is None:
+        reduce_dtype = reduce_dtype_from_env()
+    shards = [s.to(torch.float32) for s in _shards(comms, data_sharded)]
+    if spherical:
+        shards = [_normalize_rows(s) for s in shards]
+    weights = ([torch.ones(s.shape[0], dtype=torch.float32, device=s.device) for s in shards]
+               if sample_weights is None
+               else [w.to(torch.float32) for w in _shards(comms, sample_weights)])
+    if params.init == "array" and init_centers is None:
+        raise ValueError("init='array' requires init_centers")
+    root = comms.devices[0]
+    gen = torch.Generator().manual_seed(int(params.seed))
+    subsample = w_sub = None
+    if init_centers is None:
+        # replicated init subsample: rows travel once.  A with-replacement
+        # draw is O(n_sub), no permutation of the sharded rows
+        n = int(comms.allreduce([torch.tensor(s.shape[0]) for s in shards])[0])
+        idx = torch.randint(0, n, (min(n, max(4 * params.n_clusters, 4096)),), generator=gen)
+        subsample = take_rows(comms, shards, idx)
+        w_sub = take_rows(comms, [w[:, None] for w in weights], idx)[:, 0]
+    n_init = 1 if init_centers is not None else max(params.n_init, 1)
+    best = None
+    for _ in range(n_init):
+        if init_centers is not None:
+            c0 = as_f32(init_centers, root)
+            if spherical:
+                c0 = _normalize_rows(c0)
+        elif params.init == "random":
+            c0 = subsample[draw_rows(gen, w_sub[None, :], params.n_clusters)[0].to(root)]
+        else:
+            c0 = kmeans_plus_plus_init(gen, subsample, params.n_clusters, w_sub)
+        centers, inertia, n_iter = _lloyd_sharded(comms, shards, weights, c0, params.max_iter,
+                                                  params.tol, spherical, reduce_dtype)
+        if best is None or float(inertia) < float(best[1]):
+            best = (centers, inertia, n_iter)
     return best
 
 

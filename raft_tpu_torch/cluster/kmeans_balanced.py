@@ -206,6 +206,96 @@ def fit(params: KMeansBalancedParams, x, n_clusters: int, *,
     return centers
 
 
+def _assign_sharded(metric: str, tile_rows: int):
+    """The assignment of one shard's rows for ``lloyd_stats``: the fused
+    L2 argmin (kernel #7 on the card) for the L2 and (normalized) cosine
+    metrics, the matmul tile for inner products (labels only)."""
+    from raft_tpu_torch.comms.distributed import assign_l2
+
+    if metric != "inner_product":
+        return assign_l2
+    return lambda x, c: (None, tiled_argmin(x, c, "inner_product", tile_rows).to(torch.int64))
+
+
+@traced("kmeans_balanced.fit_sharded")
+def fit_sharded(comms, params: KMeansBalancedParams, data_sharded, n_clusters: int,
+                sample_weights=None, *, init_centers=None, reduce_dtype: Optional[str] = None,
+                res: Optional[Resources] = None):
+    """:func:`fit` over data row-sharded across ``comms``' axis (a list of
+    per-shard row blocks in rank order, or one tensor the axis size
+    divides; ``sample_weights`` shards alongside).
+
+    Seeding (the hierarchical / flat :func:`fit`) runs on a replicated
+    weight-aware subsample (rows travel once, a bounded number), unless
+    ``init_centers`` is given; then ``params.n_iters`` balancing
+    iterations run over the full sharded rows: each shard assigns its rows
+    (kernel #7 on the card for L2 and cosine) and sums them by label, and
+    the partials merge in one packed allreduce an iteration, optionally
+    quantized (``reduce_dtype``, default ``RAFT_TPU_BUILD_REDUCE_DTYPE``).
+    Starved clusters teleport to rows of the subsample, drawn up front from
+    a ``torch.Generator`` seeded by ``params.seed`` (one seed, one result).
+    Returns (centers [k, d] on the mesh's first device, labels: a
+    rank-ordered list of each shard's int32 labels, against the centers of
+    the last balancing iteration, as raft_tpu's)."""
+    from raft_tpu_torch.comms.distributed import _shards, lloyd_stats, take_rows
+    from raft_tpu_torch.comms.quantized import reduce_dtype_from_env
+
+    res = ensure(res)
+    metric = params.metric
+    if reduce_dtype is None:
+        reduce_dtype = reduce_dtype_from_env()
+    shards = [_maybe_normalize(s.to(torch.float32), metric)
+              for s in _shards(comms, data_sharded)]
+    weights = ([torch.ones(s.shape[0], dtype=torch.float32, device=s.device) for s in shards]
+               if sample_weights is None
+               else [w.to(torch.float32) for w in _shards(comms, sample_weights)])
+    n = int(comms.allreduce([torch.tensor(s.shape[0]) for s in shards])[0])
+    gen = torch.Generator().manual_seed(int(params.seed))
+    # replicated pool: seeds the hierarchy and feeds the teleport draws.
+    # With-replacement draw; zero-weight (padding) rows never seed
+    idx = torch.randint(0, n, (min(n, max(8 * n_clusters, 8192)),), generator=gen)
+    w_pool = take_rows(comms, [w[:, None] for w in weights], idx)[:, 0]
+    keep = (w_pool > 0).cpu()
+    if not bool(keep.any()):
+        raise ValueError("all sample weights are zero; nothing to cluster")
+    idx = idx[keep]
+    pool = _maybe_normalize(take_rows(comms, shards, idx), metric)
+    pool_w = w_pool[keep.to(w_pool.device)]
+    root = pool.device
+    if init_centers is None:
+        c0 = fit(params, pool, n_clusters, res=Resources(device=root,
+                 workspace_limit_bytes=res.workspace_limit_bytes))
+    else:
+        c0 = _maybe_normalize(torch.as_tensor(init_centers).to(root, torch.float32), metric)
+    tile_rows = argmin_tile_rows(n_clusters, res)
+    d = c0.shape[1]
+    m = pool.shape[0]
+    n_iters = max(1, params.n_iters)
+    cum = torch.cumsum((pool_w > 0).to(torch.int32), dim=0)
+    draws = torch.randint(1, int(cum[-1]) + 1, (n_iters, n_clusters), generator=gen)
+    draws = draws.to(device=root, dtype=torch.int32)
+
+    assign = _assign_sharded(metric, tile_rows)
+
+    def update(centers):
+        packed, labels = lloyd_stats(comms, shards, weights, centers, reduce_dtype, assign)
+        g_sums, g_counts = packed[:, :d], packed[:, d]
+        centers = torch.where(g_counts[:, None] > 0,
+                              g_sums / torch.clamp(g_counts[:, None], min=1e-30), centers)
+        if metric == "cosine":
+            centers = _maybe_normalize(centers, "cosine")
+        return centers, [lab.to(torch.int32) for lab in labels], g_counts
+
+    centers = c0
+    for it in range(n_iters):
+        centers, _, g_counts = update(centers)
+        starved = g_counts < g_counts.sum() / n_clusters / 8.0
+        picks = torch.clamp(torch.searchsorted(cum, draws[it]), 0, m - 1)
+        centers = torch.where(starved[:, None], pool[picks], centers)
+    centers, labels, _ = update(centers)   # a final clean update
+    return centers, labels
+
+
 @traced("kmeans_balanced.fit_predict")
 def fit_predict(
     params: KMeansBalancedParams,

@@ -75,6 +75,23 @@ class Resources:
                                 if _native.available() else None)
             return self._native
 
+    # -- mesh and comms (ref: core/resource/comms.hpp, the COMMUNICATOR
+    # resource): set by comms.CommsCluster.init, read by sharded callers
+    @property
+    def mesh(self):
+        return getattr(self, "_mesh", None)
+
+    def set_mesh(self, mesh) -> None:
+        self._mesh = mesh
+
+    @property
+    def comms(self):
+        return getattr(self, "_comms", None)
+
+    def set_comms(self, comms) -> None:
+        """Inject a communicator (``raft_tpu_torch.comms.Comms``)."""
+        self._comms = comms
+
     def sync(self, *tensors) -> None:
         """Block until the work queued on the devices of ``tensors`` (none
         given: on this object's device) has finished.  A cancellation

@@ -61,7 +61,7 @@ walk (:func:`cagra_traverse_steps_torch` over decoded rows) and stamps
 
 ``EffortSpec`` holds the search's effort knobs (``itopk_size``,
 ``search_width``).  hnswlib export and search are ``neighbors.hnsw``; the
-sharded graph mode is not ported (ROADMAP Queue 1 item 7).
+sharded graph mode is not ported (ROADMAP Queue 1 item 7b).
 """
 
 from __future__ import annotations

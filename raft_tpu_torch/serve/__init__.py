@@ -24,9 +24,13 @@
 with the optional obs layers that watch and steer a served index: the
 recall auditor (``auditor=``), the SLO engine (``slo=``), the autotuner
 (``autotune=``) and the operational HTTP gateway (``gateway=``).
-Multi-GPU serving (``ShardedIndex``, ``ReplicaGroup``, ``build_sharded``,
-``HedgedDispatcher``'s replicas) is ROADMAP Queue 1 item 7: those names
-raise ``NotImplementedError``.
+- :mod:`~raft_tpu_torch.serve.shard` — ``ShardedIndex``: the index itself
+  partitioned across a ``comms`` mesh axis, each shard running the
+  existing local search, one tie-stable cross-shard merge.
+
+The rest of multi-GPU serving (``ReplicaGroup``, ``build_sharded``,
+``knn_graph_sharded``, ``HedgedDispatcher``'s replicas) is ROADMAP Queue 1
+item 7b: those names raise ``NotImplementedError``.
 """
 
 from raft_tpu_torch.serve.batcher import MicroBatcher
@@ -49,18 +53,20 @@ from raft_tpu_torch.serve.overload import (
 from raft_tpu_torch.serve.ragged import FilterRegistry, RaggedSearcher, RaggedSpec
 from raft_tpu_torch.serve.registry import IndexRegistry
 from raft_tpu_torch.serve.service import SearchService
+from raft_tpu_torch.serve.shard import ShardedIndex, shard_index
 
-#: raft_tpu.serve names of multi-GPU serving (ROADMAP Queue 1 item 7)
+#: raft_tpu.serve names of multi-GPU serving not ported yet (ROADMAP Queue 1
+#: item 7b)
 _MULTI_GPU = frozenset({
-    "ReplicaGroup", "ShardedIndex", "build_sharded", "knn_graph_sharded",
-    "make_replicated_search", "replicated_search", "shard_index",
+    "ReplicaGroup", "build_sharded", "knn_graph_sharded",
+    "make_replicated_search", "replicated_search",
 })
 
 
 def __getattr__(name):
     if name in _MULTI_GPU:
         raise NotImplementedError(
-            f"serve.{name} is multi-GPU serving, not ported yet (ROADMAP Queue 1 item 7)")
+            f"serve.{name} is multi-GPU serving, not ported yet (ROADMAP Queue 1 item 7b)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -81,7 +87,9 @@ __all__ = [
     "RaggedSpec",
     "SearchService",
     "ServingMetrics",
+    "ShardedIndex",
     "Shed",
     "compile_count",
     "install_compile_listener",
+    "shard_index",
 ]

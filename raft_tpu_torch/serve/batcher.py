@@ -164,7 +164,7 @@ class MicroBatcher:
     effort actuators) and ``perf_meta``), plus ``device``: where the
     queries go (the card unless the caller asks for the CPU; the service
     passes its index's device).  ``hedger`` needs replicas and raises
-    (ROADMAP Queue 1 item 7).
+    (ROADMAP Queue 1 item 7b).
     """
 
     def __init__(
@@ -191,7 +191,7 @@ class MicroBatcher:
         if hedger is not None:
             raise NotImplementedError(
                 "hedged dispatch races replica members; replicas are "
-                "multi-GPU serving (ROADMAP Queue 1 item 7)")
+                "multi-GPU serving (ROADMAP Queue 1 item 7b)")
         if dim <= 0:
             raise ValueError(f"dim must be positive, got {dim}")
         if min_bucket <= 0 or max_batch <= 0:
@@ -347,7 +347,7 @@ class MicroBatcher:
         back)."""
         if not self._cuda:
             dist, ids = self._invoke(slot.queries, batch)
-            return _Pending(dist.cpu(), ids.cpu(), None, None)
+            return _Pending(dist.cpu(), ids.cpu(), None, None)  # raft-tpu: ignore[HOSTSYNC] the CPU leg: results already on the host, nothing to wait for
         stream = self._stream
         # order this batch after everything queued on the default stream:
         # snapshot uploads of mutations, indexes built by rebuilds
@@ -388,7 +388,7 @@ class MicroBatcher:
     def _fill(self, slot: _Slot, batch: List[_Request], bucket: int) -> int:
         """Pad the batch into the slot's staging buffer (zeros past the
         real rows); returns the real row count."""
-        host = slot.queries.numpy()
+        host = slot.queries.numpy()  # raft-tpu: ignore[HOSTSYNC] a pinned host staging buffer: a view, no device copy
         off = 0
         for req in batch:
             m = req.rows.shape[0]
@@ -802,7 +802,7 @@ class MicroBatcher:
             return
         lats = self._resolve(batch, dist, ids)
         done = time.perf_counter()
-        self._observe(slot.queries.numpy()[:n].copy(), dist[:n], ids[:n])
+        self._observe(slot.queries.numpy()[:n].copy(), dist[:n], ids[:n])  # raft-tpu: ignore[HOSTSYNC] host staging buffer, after the copy-out
         self.metrics.record_queue_depth(self.queue_depth())
         self.metrics.record_batch(
             n, bucket, lats, compiles,
@@ -1001,7 +1001,7 @@ class MicroBatcher:
         lats = self._resolve(batch, dist, ids)
         done = time.perf_counter()
         # the observer keeps samples past this batch: hand it a copy
-        self._observe(rec.padded.numpy()[: rec.n].copy(), dist[: rec.n], ids[: rec.n])
+        self._observe(rec.padded.numpy()[: rec.n].copy(), dist[: rec.n], ids[: rec.n])  # raft-tpu: ignore[HOSTSYNC] host staging buffer, after the batch's event
         self.metrics.record_queue_depth(self.queue_depth())
         self.metrics.record_batch(
             rec.n, rec.bucket, lats, rec.compiles,

@@ -32,7 +32,7 @@ background shadow rebuilds with no serving gap.
 
 ``Compactor.rebuild_sharded`` (a distributed rebuild into a
 ``ShardedIndex``) is multi-GPU serving: it raises, naming ROADMAP Queue 1
-item 7.
+item 7b.
 """
 
 from __future__ import annotations
@@ -731,10 +731,10 @@ class Compactor:
     @traced("serve.compact.rebuild_sharded")
     def rebuild_sharded(self, name: str, comms=None, **kwargs) -> Dict[str, object]:
         """raft_tpu's distributed rebuild into a ``ShardedIndex``: multi-GPU
-        serving, which raises (ROADMAP Queue 1 item 7)."""
+        serving, which raises (ROADMAP Queue 1 item 7b)."""
         raise NotImplementedError(
             "Compactor.rebuild_sharded builds a ShardedIndex; that is "
-            "multi-GPU serving (ROADMAP Queue 1 item 7)")
+            "multi-GPU serving (ROADMAP Queue 1 item 7b)")
 
     @traced("serve.compact.abort")
     def abort(self, name: str, reason: str, detail: str = "") -> Dict[str, object]:

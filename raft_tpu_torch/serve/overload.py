@@ -22,7 +22,7 @@ kernel build).  Two actuators consume them:
   level with the bucket ladder.
 
 :class:`HedgedDispatcher` races replica members and needs replicas: it
-raises, naming ROADMAP Queue 1 item 7.  Thresholds live in
+raises, naming ROADMAP Queue 1 item 7b.  Thresholds live in
 :class:`OverloadConfig` (``RAFT_TPU_OVERLOAD_*``); the controllers take
 ``now=`` so tests drive synthetic time.
 """
@@ -480,15 +480,15 @@ class DegradedModeManager:
         return derived
 
 
-class HedgedDispatcher:
+class HedgedDispatcher:  # raft-tpu: ignore[TRACED] no dispatch until replicas are ported (ROADMAP Queue 1 item 7b)
     """raft_tpu's tail-latency hedge across two independently dispatched
     members (a replica-group collective against a direct search).  It
     needs replicas, which the port does not have yet: constructing one
-    raises ``NotImplementedError`` naming ROADMAP Queue 1 item 7."""
+    raises ``NotImplementedError`` naming ROADMAP Queue 1 item 7b."""
 
     def __init__(self, members: Sequence[Callable] = (),
                  config: Optional[OverloadConfig] = None, *,
                  name: str = "default", metrics=None):
         raise NotImplementedError(
             "serve.HedgedDispatcher races replica members; replicas are "
-            "multi-GPU serving (ROADMAP Queue 1 item 7)")
+            "multi-GPU serving (ROADMAP Queue 1 item 7b)")

@@ -18,8 +18,9 @@ Register filters before warmup.  Admission turns continuous with the
 pipeline enabled: the batcher claims the in-flight slot before cutting the
 batch, so requests keep packing while the device window is full.
 
-A ``ShardedIndex`` behind the searcher (raft_tpu's other branch) is
-multi-GPU serving: it raises, naming ROADMAP Queue 1 item 7.
+A ``ShardedIndex`` behind the searcher (raft_tpu's other branch) runs at
+``k_max`` with the batch's filters as one per-query ``RowFilter`` over
+global ids (each shard re-bases or folds it), then masks each row's k.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ import torch
 from raft_tpu_torch.core import env as _env
 from raft_tpu_torch.core.bitset import Bitset, RowFilter
 from raft_tpu_torch.core.trace import traced
+from raft_tpu_torch.distance.pairwise import DISTANCE_TYPES
 from raft_tpu_torch.obs import explain as _explain
+from raft_tpu_torch.ops.matrix import mask_row_k
 from raft_tpu_torch.serve.mutation import MutableIndex, _host
 
 
@@ -204,10 +207,6 @@ class RaggedSearcher:
         # resolve once per BATCH: the whole packed batch is answered by one
         # index version (hot-swap atomicity boundary)
         index, _version = self._service.registry.get_versioned(self._name)
-        if not isinstance(index, MutableIndex):
-            raise NotImplementedError(
-                "ragged serving of a sharded index is multi-GPU serving "
-                "(ROADMAP Queue 1 item 7)")
         sample_filter = None
         if self._filters is not None:
             table, min_pass = self._filters.snapshot()
@@ -216,6 +215,18 @@ class RaggedSearcher:
                 _host(row_fid).astype(np.int32), self._filters.n_bits,
                 pass_count=min_pass, device=index.device,
             )
+        if not isinstance(index, MutableIndex):
+            # ShardedIndex: run at k_max and mask each row's k after it;
+            # its search stamps kernel_path "sharded"
+            if _explain.enabled():
+                _explain.stamp_dispatch({
+                    "k_max": self._spec.k_max,
+                    "sharded": True,
+                    "filters": sample_filter is not None,
+                })
+            dist, ids = index.search(queries, self._spec.k_max, sample_filter=sample_filter)
+            return mask_row_k(dist, ids, torch.as_tensor(row_k).to(dist.device),
+                              select_min=DISTANCE_TYPES[index.metric] != "inner_product")
         search_params = None
         if self._effort is not None:
             # arbitrated effort level (overload clamp); every (bucket,

@@ -8,8 +8,9 @@ in-flight batches keep the old version alive by reference until they
 finish.  Snapshots write one file per index (``MutableIndex.save``) plus a
 manifest binding names to versions (``core.serialize``, raft_tpu's
 format), so restore round-trips tombstones and side buffers.
-A ``ShardedIndex`` is multi-GPU serving (ROADMAP Queue 1 item 7): the
-registry refuses anything but a ``MutableIndex``.
+A :class:`~raft_tpu_torch.serve.shard.ShardedIndex` registers and
+hot-swaps the same way (it is immutable: mutate the source and swap in a
+re-shard); the registry refuses anything else.
 """
 
 from __future__ import annotations
@@ -22,19 +23,18 @@ from typing import Dict, List, Optional, Tuple
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.obs import events as obs_events
 from raft_tpu_torch.serve.mutation import MutableIndex
+from raft_tpu_torch.serve.shard import ShardedIndex
 
 _MANIFEST_VERSION = 1
 _MANIFEST_NAME = "MANIFEST"
 
 
 def _check_index(index) -> None:
-    if type(index).__name__ == "ShardedIndex":
-        raise NotImplementedError(
-            "a ShardedIndex is multi-GPU serving (ROADMAP Queue 1 item 7)")
-    if not isinstance(index, MutableIndex):
+    if not isinstance(index, (MutableIndex, ShardedIndex)):
         raise TypeError(
-            f"registry holds MutableIndex, got {type(index)!r}; wrap built "
-            "indexes with MutableIndex(index)"
+            f"registry holds MutableIndex or ShardedIndex, got {type(index)!r}; "
+            "wrap built indexes with MutableIndex(index) or "
+            "ShardedIndex.from_index(index)"
         )
 
 

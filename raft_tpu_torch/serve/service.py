@@ -28,9 +28,11 @@ alerts, ``obs.slo``), ``autotune=`` (the closed-loop effort controller,
 ``obs.autotune``; ``RAFT_TPU_AUTOTUNE``) and ``gateway=`` (the operational
 HTTP server, ``obs.gateway``; ``RAFT_TPU_GATEWAY``).
 
-Not ported yet, and refused loudly (a flag that is asked for is never
-ignored): ``replicas=`` and a ``ShardedIndex`` (multi-GPU serving, ROADMAP
-Queue 1 item 7).
+A :class:`~raft_tpu_torch.serve.shard.ShardedIndex` is served as it is
+(its cross-shard merge is inside its ``search``), registered and
+hot-swapped like a ``MutableIndex``.  Not ported yet, and refused loudly
+(a flag that is asked for is never ignored): ``replicas=`` (multi-GPU
+replica serving, ROADMAP Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ from raft_tpu_torch.serve.overload import (
 )
 from raft_tpu_torch.serve.ragged import FilterRegistry, RaggedSearcher, RaggedSpec
 from raft_tpu_torch.serve.registry import IndexRegistry
+from raft_tpu_torch.serve.shard import ShardedIndex
 
-_ITEM_7 = "ROADMAP Queue 1 item 7"
+_ITEM_7 = "ROADMAP Queue 1 item 7b"
 
 
 def _refuse(option: str, what: str, item: str) -> None:
@@ -224,16 +227,17 @@ class SearchService:
     def add_index(
         self, name: str, index, *, warmup: bool = False, k: Optional[int] = None
     ) -> int:
-        """Register ``index`` (a built index, wrapped automatically, or a
-        :class:`MutableIndex`) under ``name`` and start its batcher on the
-        index's device.  With ``warmup`` the bucket ladder runs before this
-        returns, so the first real query finds the kernels built."""
-        if type(index).__name__ == "ShardedIndex":
-            _refuse("add_index", "serving a ShardedIndex", _ITEM_7)
-        if not isinstance(index, MutableIndex):
+        """Register ``index`` (a built index, wrapped automatically, a
+        :class:`MutableIndex`, or a :class:`ShardedIndex`, served as it is)
+        under ``name`` and start its batcher on the index's device (a
+        sharded index's: its mesh's first).  With ``warmup`` the bucket
+        ladder runs before this returns, so the first real query finds the
+        kernels built."""
+        if not isinstance(index, (MutableIndex, ShardedIndex)):
             index = MutableIndex(index)
         if (
             _env.env_bool("RAFT_TPU_PAGED", False)
+            and isinstance(index, MutableIndex)
             and getattr(index.index, "paged", None) is None
         ):
             # opt-in paged serving: the main payload moves behind the
@@ -272,8 +276,12 @@ class SearchService:
                 self._effort[name] = effort
             if self.ragged is not None:
                 # filter id space: the main index's global ids; side rows
-                # upserted later get ids past it and pass every filter
-                freg = FilterRegistry(max(1, index.main_size)) if self.ragged.filters else None
+                # upserted later get ids past it and pass every filter (a
+                # sharded layout's dense global ids: its size, as raft_tpu)
+                freg = None
+                if self.ragged.filters:
+                    freg = FilterRegistry(max(1, index.size if isinstance(index, ShardedIndex)
+                                              else index.main_size))
                 self._filter_regs[name] = freg
                 search_fn = RaggedSearcher(self, name, self.ragged, freg,
                                            degraded=degraded, effort=effort)
@@ -322,7 +330,7 @@ class SearchService:
             # resolve once per BATCH (hot-swap atomicity boundary)
             index, _version = self.registry.get_versioned(name)
             arb = self._effort.get(name)
-            if arb is not None:
+            if arb is not None and isinstance(index, MutableIndex):
                 params = arb.apply(index)
                 if params is not None:
                     return index.search(queries, k, search_params=params)
@@ -368,10 +376,9 @@ class SearchService:
     @traced("serve.swap")
     def swap(self, name: str, index) -> int:
         """Atomically replace the index behind ``name``; the batcher (and
-        its warmed ladder) is kept."""
-        if type(index).__name__ == "ShardedIndex":
-            _refuse("swap", "serving a ShardedIndex", _ITEM_7)
-        if not isinstance(index, MutableIndex):
+        its warmed ladder) is kept.  A :class:`ShardedIndex` swaps in as it
+        is: replicated → sharded layout changes are atomic the same way."""
+        if not isinstance(index, (MutableIndex, ShardedIndex)):
             index = MutableIndex(index)
         with self._lock:
             if name not in self._batchers:
@@ -548,6 +555,8 @@ class SearchService:
             if isinstance(prev, dict) and prev.get("params"):
                 info.setdefault("params", prev["params"])
             sections["probe"] = info
+        if isinstance(index, ShardedIndex) and result is not None:
+            sections["shards"] = index.explain_contributions(np.asarray(result[1]))
         auditor = self.auditor
         if auditor is not None:
             ewma = auditor.recall_ewma(name)

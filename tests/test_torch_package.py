@@ -80,6 +80,19 @@ def test_import_check_covers_the_pylibraft_surface_and_the_rest_of_core():
         assert f"raft_tpu_torch/{mod}.py" in names, mod
 
 
+def test_import_check_covers_the_analyzer_and_the_multi_gpu_substrate():
+    """The import walk reaches every module of ``analysis/`` and ``comms/``,
+    ``serve/shard.py`` and the modules holding ``fit_sharded``."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for mod in ("analysis/__init__", "analysis/__main__", "analysis/findings",
+                "analysis/model", "analysis/checkers/__init__", "analysis/checkers/envreg",
+                "analysis/checkers/hostsync", "analysis/checkers/lockorder",
+                "analysis/checkers/traced", "comms/__init__", "comms/bootstrap", "comms/comms",
+                "comms/distributed", "comms/quantized", "serve/shard", "cluster/kmeans",
+                "cluster/kmeans_balanced", "core/env"):
+        assert f"raft_tpu_torch/{mod}.py" in names, mod
+
+
 def test_forbidden_import_check_is_not_vacuous():
     assert _forbidden("jax.numpy") and _forbidden("raft_tpu.kernels")
     assert not _forbidden("raft_tpu_torch.kernels") and not _forbidden("torch")

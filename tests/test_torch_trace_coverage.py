@@ -60,7 +60,7 @@ def test_port_carries_raft_labels(mod):
     for qualname, label in labels:
         ported = _resolve(tmod, qualname)
         if ported is None or not callable(ported):
-            continue     # not ported (fit_sharded: ROADMAP Queue 1 item 7)
+            continue     # not ported (ROADMAP Queue 1 item 7b)
         assert getattr(ported, "__traced__", None) == label, (mod, qualname)
 
 
@@ -94,22 +94,21 @@ TPU_ONLY = {
     # XLA's compiled-program cost analysis and compile events
     "obs": {"analyze_compiled", "xla_events"},
     "obs.cost": {"analyze_compiled"},
+    # the RECOMPILE rule reasons about jax.jit tracing; the port has no jit
+    "analysis.checkers": {"recompile"},
 }
 
-#: multi-device names: ROADMAP Queue 1 item 7
+#: multi-device names not ported yet: ROADMAP Queue 1 item 7b
 ITEM_7 = {
-    "cluster": {"fit_sharded"},
-    "cluster.kmeans": {"fit_sharded"},
-    "cluster.kmeans_balanced": {"fit_sharded"},
     "bench.frontier": {"sweep_sharded"},
-    "serve": {"ReplicaGroup", "ShardedIndex", "build_sharded", "knn_graph_sharded",
-              "make_replicated_search", "replicated_search", "shard_index"},
+    "serve": {"ReplicaGroup", "build_sharded", "knn_graph_sharded",
+              "make_replicated_search", "replicated_search"},
 }
 
-#: raft_tpu modules not ported yet (ROADMAP Queue 1 item 6b), and names of
-#: ported modules that belong to them
-NOT_YET = {"analysis"}
-ITEM_6B = {"core.env": {"EnvVar", "KNOWN_VARS", "UnknownEnvVarError", "has", "known", "raw"}}
+#: raft_tpu modules not ported yet, and names of ported modules that belong
+#: to them (empty since ROADMAP Queue 1 item 6b closed)
+NOT_YET = set()
+ITEM_6B = {}
 
 
 def _defined_names(module):
